@@ -1,0 +1,146 @@
+"""Kernel-layout U-Net executor: the DoubleConv 'gcr' U-Net on the fused
+conv kernels (``ops/cuda/conv3d.py``).
+
+Port of ``keymorph_tpu/models/fast_unet.py:fast_unet_forward``. It re-runs
+the network of an :class:`~keymorph_tpu_torch.models.unet.AbstractUNet`
+from its parameters on flat (Z, C, Y*X) bf16 tensors, one sample at a time:
+
+  * every GroupNorm is folded into the next conv as a per-channel affine,
+    computed from per-channel fp32 (mean, E[x^2]) with
+    var = E[x^2] - mean^2 (not a two-pass variance);
+  * each DoubleConv's second GroupNorm takes its statistics from the first
+    conv's in-kernel output stats, so the intermediate is never re-read;
+  * a decoder's first conv reads the skip and the half-resolution deeper
+    tensor directly (``conv3x3_fused_flat_upconv``: no upsample, no concat),
+    with its GroupNorm statistics taken on the small pre-upsample tensors
+    (nearest x2 leaves per-channel mean and E[x^2] unchanged); where the
+    skip is not exactly twice the deeper size the upsample is materialized
+    and the concat-free ``conv3x3_fused_flat_parts`` runs instead;
+  * 2x max-pool is a reshape-and-max, and the final 1x1 conv is a matmul
+    of bf16 operands with fp32 accumulation.
+
+The heatmaps come back channel-last (B, Z', Y', X', K) in bf16, as
+keymorph_tpu's executor returns them. Inference only (no autograd).
+"""
+
+from __future__ import annotations
+
+from types import SimpleNamespace
+
+import torch
+
+from keymorph_tpu_torch.models.unet import AbstractUNet, gn_groups
+from keymorph_tpu_torch.ops.cuda import conv3d
+from keymorph_tpu_torch.ops.cuda.conv3d import channel_stats, upsample_nearest_flat
+
+_KERNEL_CONVS = SimpleNamespace(
+    flat=conv3d.conv3x3_fused_flat,
+    parts=conv3d.conv3x3_fused_flat_parts,
+    upconv=conv3d.conv3x3_fused_flat_upconv,
+)
+_PLAIN_CONVS = SimpleNamespace(
+    flat=conv3d.conv3x3_fused_flat_plain,
+    parts=conv3d.conv3x3_fused_flat_parts_plain,
+    upconv=conv3d.conv3x3_fused_flat_upconv_plain,
+)
+
+
+def gn_affine_from_stats(stats, gamma, beta, groups: int):
+    """Per-channel (scale, shift) equal to GroupNorm(eps 1e-5) given
+    per-channel (mean, mean-square): each equal-sized group aggregates its
+    channels' statistics."""
+    mean_c, msq_c = stats
+    C = mean_c.shape[0]
+    cg = C // groups
+    mean_g = mean_c.reshape(groups, cg).mean(dim=1)
+    var_g = msq_c.reshape(groups, cg).mean(dim=1) - mean_g * mean_g
+    inv_g = torch.rsqrt(var_g + 1e-5)
+    gamma = gamma.float()
+    scale = inv_g.repeat_interleave(cg) * gamma
+    shift = beta.float() - (mean_g * inv_g).repeat_interleave(cg) * gamma
+    return scale, shift
+
+
+def _single_conv_operands(sc, stats, num_groups):
+    """(w (3,3,3,Cin,Cout), scale, shift) of a 'gcr' SingleConv module."""
+    w = sc.conv.weight.permute(2, 3, 4, 1, 0)
+    cin = w.shape[3]
+    scale, shift = gn_affine_from_stats(
+        stats, sc.groupnorm.weight, sc.groupnorm.bias, gn_groups(cin, num_groups)
+    )
+    return w, scale, shift
+
+
+def _double_conv_flat(block, xf, spatial, num_groups, convs, stats0=None,
+                      xb=None, xb_lowres=False):
+    """DoubleConv on flat tensors. ``xb``: optional second input part (the
+    decoder's deeper tensor; at half resolution with ``xb_lowres``), in
+    which case ``stats0`` must cover the concatenated channels."""
+    if xb is not None and stats0 is None:
+        raise ValueError("a two-part DoubleConv needs the concatenated GN stats")
+    stats0 = stats0 if stats0 is not None else channel_stats(xf)
+    w0, sc0, sh0 = _single_conv_operands(block.SingleConv1, stats0, num_groups)
+    if xb is None:
+        y, s1 = convs.flat(xf, spatial, w0, sc0, sh0, emit_stats=True)
+    elif xb_lowres:
+        y, s1 = convs.upconv(xf, xb, spatial, w0, sc0, sh0, emit_stats=True)
+    else:
+        y, s1 = convs.parts(xf, xb, spatial, w0, sc0, sh0, emit_stats=True)
+    w1, sc1, sh1 = _single_conv_operands(block.SingleConv2, s1, num_groups)
+    return convs.flat(y, spatial, w1, sc1, sh1)
+
+
+def _maxpool2_flat(xf, spatial):
+    """2x max-pool (VALID, floor) of a flat (Z, C, Y*X) tensor."""
+    Z, Y, X = spatial
+    C = xf.shape[1]
+    Zh, Yh, Xh = Z // 2, Y // 2, X // 2
+    x4 = xf.reshape(Z, C, Y, X)[: 2 * Zh, :, : 2 * Yh, : 2 * Xh]
+    p = x4.reshape(Zh, 2, C, Yh, 2, Xh, 2).amax(dim=(1, 4, 6))
+    return p.reshape(Zh, C, Yh * Xh).contiguous(), (Zh, Yh, Xh)
+
+
+@torch.no_grad()
+def fast_unet_forward(unet: AbstractUNet, img: torch.Tensor, plain: bool = False):
+    """Run ``unet`` on the conv kernels.
+
+    Args:
+        unet: a bf16 'gcr' DoubleConv :class:`AbstractUNet` (parameters are
+            read from it; see ``unet.supports_fast_unet``).
+        img: (B, 1, Z, Y, X) channel-first volume.
+        plain: run every conv through its plain PyTorch version instead of
+            the kernel wrapper (the oracle route on a GPU; CPU tensors take
+            the plain versions either way).
+    Returns:
+        (B, Z', Y', X', K) bf16 channel-last heatmaps.
+    """
+    convs = _PLAIN_CONVS if plain else _KERNEL_CONVS
+    g = unet.num_groups
+    outs = []
+    for b in range(img.shape[0]):
+        x = img[b].transpose(0, 1).to(torch.bfloat16)  # (Z, 1, Y, X)
+        spatial = (int(x.shape[0]), int(x.shape[2]), int(x.shape[3]))
+        xf = x.reshape(spatial[0], 1, spatial[1] * spatial[2]).contiguous()
+        skips = []
+        for i, enc in enumerate(unet.encoders):
+            if i > 0:
+                xf, spatial = _maxpool2_flat(xf, spatial)
+            xf = _double_conv_flat(enc.basic_module, xf, spatial, g, convs)
+            skips.append((xf, spatial))
+        for dec, (skip, sk_sp) in zip(unet.decoders, skips[:-1][::-1]):
+            s_skip, s_low = channel_stats(skip), channel_stats(xf)
+            stats0 = (torch.cat([s_skip[0], s_low[0]]), torch.cat([s_skip[1], s_low[1]]))
+            if tuple(sk_sp) == tuple(2 * s for s in spatial):
+                xf = _double_conv_flat(dec.basic_module, skip, sk_sp, g, convs,
+                                       stats0=stats0, xb=xf, xb_lowres=True)
+            else:
+                xb = upsample_nearest_flat(xf, spatial, sk_sp).contiguous()
+                xf = _double_conv_flat(dec.basic_module, skip, sk_sp, g, convs,
+                                       stats0=stats0, xb=xb)
+            spatial = sk_sp
+        # final 1x1 conv: bf16 operands, fp32 products and sums, fp32 bias
+        hw = unet.final_conv.weight[:, :, 0, 0, 0].t().to(torch.bfloat16).float()
+        hb = unet.final_conv.bias.float()
+        out = torch.matmul(xf.float().transpose(1, 2), hw) + hb  # (Z, Y*X, K)
+        outs.append(out.reshape(*spatial, -1).to(torch.bfloat16))
+    return torch.stack(outs, dim=0)

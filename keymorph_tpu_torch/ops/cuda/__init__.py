@@ -1,0 +1,47 @@
+"""Hand-written CUDA kernels of the port and their wrappers.
+
+Each wrapper launches its kernel for CUDA tensors (or raises) and runs the
+plain PyTorch version beside it for CPU tensors. Every wrapper counts its
+kernel launches in ``fn.launches`` and every plain version its calls in
+``fn.calls``, so a run can show which path it took.
+"""
+
+from __future__ import annotations
+
+
+def _functions():
+    from keymorph_tpu_torch.ops.cuda import conv3d, resample3d, tpsflow
+
+    kernels = {
+        "conv3x3_fused_flat": conv3d.conv3x3_fused_flat,
+        "conv3x3_fused_flat_parts": conv3d.conv3x3_fused_flat_parts,
+        "conv3x3_fused_flat_upconv": conv3d.conv3x3_fused_flat_upconv,
+        "tps_planes": tpsflow.tps_planes,
+        "warp_planes": resample3d.warp_planes,
+    }
+    plains = {
+        "conv3x3_fused_flat": conv3d.conv3x3_fused_flat_plain,
+        "conv3x3_fused_flat_parts": conv3d.conv3x3_fused_flat_parts_plain,
+        "conv3x3_fused_flat_upconv": conv3d.conv3x3_fused_flat_upconv_plain,
+        "tps_planes": tpsflow.tps_planes_plain,
+        "warp_planes": resample3d.warp_planes_plain,
+    }
+    return kernels, plains
+
+
+def reset_counters() -> None:
+    """Set every launch and plain-call counter to 0."""
+    kernels, plains = _functions()
+    for f in kernels.values():
+        f.launches = 0
+    for f in plains.values():
+        f.calls = 0
+
+
+def counters() -> dict:
+    """{name: {"launches": kernel launches, "plain_calls": plain calls}}."""
+    kernels, plains = _functions()
+    return {
+        name: {"launches": kernels[name].launches, "plain_calls": plains[name].calls}
+        for name in kernels
+    }

@@ -38,8 +38,13 @@ setup(
     name="keymorph_tpu",
     version="0.1.0",
     description="TPU-native keypoint-based medical image registration (JAX/Flax/Pallas)",
-    packages=find_packages(include=["keymorph_tpu", "keymorph_tpu.*"]),
-    package_data={"keymorph_tpu.native": ["*.so", "*.cpp", "Makefile"]},
+    packages=find_packages(include=["keymorph_tpu", "keymorph_tpu.*",
+                                    "keymorph_tpu_torch", "keymorph_tpu_torch.*"]),
+    package_data={
+        "keymorph_tpu.native": ["*.so", "*.cpp", "Makefile"],
+        # CUDA sources of the PyTorch port, compiled with nvcc at first use
+        "keymorph_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"],
+    },
     python_requires=">=3.10",
     install_requires=[
         "jax",
