@@ -9,17 +9,39 @@ Phases (each prints its lines; any failure raises, so the exit code is not 0):
   0. device: ``nvidia-smi`` name and power limit, torch/CUDA versions, and
      the time to build the CUDA kernels from ``keymorph_tpu_torch/csrc``;
   1. each kernel against its plain PyTorch version on the card at the main
-     path's shapes (256^3 input): max abs error against the stated
-     tolerance, kernel and plain times (CUDA events);
+     paths' shapes (256^3 input for serving, 128^3 for training): max abs
+     error against the stated tolerance, kernel and plain times (CUDA
+     events), the time of one PyTorch library call that computes the same
+     function where there is one (``F.conv3d`` in bf16, ``F.grid_sample`` and
+     its backward; never called by the port), and the kernel's bound: the
+     least time the card could take, from the bytes moved and the operations
+     done;
   2. end to end: the flagship config (TruncatedUNet3D f_maps=32, 4 levels,
      1 truncated, bf16; 128 keypoints; TPS lmbda=1) at 256^3 with seeded
      random weights serves 3 pairs through the kernels: extract fixed and
-     moving -> align_pair("tps", compute_grid="planes") -> align_planes.
+     moving -> align_pair("tps", compute_grid="planes") -> align_planes,
+     under ``torch.no_grad()``; pair 0 is also served through the grid form
+     (``compute_grid=True`` -> ``align_img``: the TPS kernel's points mode).
      Every kernel of the path must have launched and no plain version run;
   3. the same 3 pairs through the plain versions on the card, compared with
      phase 2 (keypoints, planes, warped images) within stated tolerances;
   4. one steady pair through the kernels under ``torch.profiler``: the
-     device's busy time, its idle share and the device time by kernel name.
+     device's busy time, its idle share and the device time by kernel name;
+  5. training: the canonical step (the same net with 128 keypoints,
+     ``tps_loguniform``, MSE, 64-keypoint subsample, Adam 3e-6, batch 1) at
+     128^3, full width and depth, on synthetic seeded volumes: one first step
+     with injected lambda and keypoint subset, then ``run_train`` with
+     ``debug_mode`` takes its 3 steps. Every loss and gradient must be finite,
+     every parameter with a gradient must change, every kernel of the
+     training path must launch and no plain version may run;
+  6. the same first step with every kernel replaced by its plain version on
+     the card, compared with phase 5's: loss, grad_norm and every
+     parameter's gradient, within stated tolerances;
+  7. one training step at 256^3 on the serving net (again with block-level
+     gradient checkpointing if the first runs out of memory): wall time and
+     peak memory;
+  8. one steady 128^3 training step under ``torch.profiler``: idle share and
+     device time by kernel name.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA it raises before printing
@@ -50,6 +72,8 @@ CONV_FLOOR = 1e-6          # x max|out|: outputs that cancel to near zero
 STATS_REL = 1e-5           # x max|stat|: fp32 sums of the same bf16 outputs
 TPS_ABS = 1e-5             # fp32 sum over 128 control points in another order
 WARP_ABS = 0.0             # the kernel rounds every operation as the plain version
+TPS_BWD_REL = 1e-4         # x max|ref|: fp32 sums over 2.1e6 grid points in another order
+WARP_GRAD_REL = 1e-5       # x max|ref|: the same fp32 terms, FMA-contracted in the kernel
 # phase 3, plain path vs kernel path (bf16 conv outputs may differ by 1 ulp
 # and the differences propagate through the network and the TPS fit)
 KEYPOINT_ABS = 1e-3        # normalized units (0.13 voxel at 256)
@@ -57,11 +81,59 @@ PLANES_ABS = 1e-3
 # the warped image is held against the plain warp on the kernel path's own
 # planes, so it is WARP_ABS (exact)
 
+# phase 6, the plain training step vs the kernel step on the same inputs:
+# bf16 conv outputs may differ by one ulp between kernel and plain version, a
+# few ReLU masks then flip, and the difference spreads through the backward
+# (every cotangent is rounded to bf16 again at each conv)
+TRAIN_LOSS_REL = 1e-2
+TRAIN_GRAD_NORM_REL = 5e-2
+TRAIN_GRAD_WHOLE_REL_L2 = 3e-1  # all parameters' gradients as one vector
+TRAIN_GRAD_REL_L2 = 5e-2   # per parameter, |g_kernel - g_plain| / |g_plain|, or
+NOISE_FACTOR = 2.0         # x what the plain step itself shows when its input
+PERTURB = 2.0 ** -9        # volumes move by half a bf16 ulp (relative)
+
+TRAIN_SPATIAL = (128, 128, 128)
+TRAIN_KEYPOINTS = 64       # max_train_keypoints
+TRAIN_LR = 3e-6
+
 REPLACES = {
     "conv": "keymorph_tpu/ops/pallas/conv3d.py:337",
+    "conv_grad": "keymorph_tpu/ops/pallas/conv3d.py:159",
     "tps": "keymorph_tpu/ops/pallas/tpsflow.py:60",
+    "tps_bwd": "keymorph_tpu/ops/pallas/tpsflow.py:275",
     "warp": "keymorph_tpu/ops/pallas/resample3d.py:110",
+    "warp_grad": "keymorph_tpu/ops/pallas/resample3d.py:393",
 }
+
+# Published peaks of one H100 SXM (NVIDIA data sheet, dense): the bounds
+# below are the least time the card could take for a kernel's work.
+PEAK_BF16 = 989e12         # FLOP/s, tensor cores
+PEAK_FP32 = 67e12          # FLOP/s outside the tensor cores
+PEAK_BYTES = 3.35e12       # bytes/s of device memory
+# special functions (sqrt, log, reciprocal): 16 lanes per SM and clock on
+# 132 SMs at the 1.98 GHz boost clock (Hopper architecture white paper)
+PEAK_SFU = 132 * 16 * 1.98e9
+
+
+def _bound(nbytes, *op_times):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    the given operation times (seconds)."""
+    tb, to = nbytes / PEAK_BYTES, max(op_times)
+    return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
+
+
+def _conv_bound(cin, cout, spatial, in_bytes):
+    """A 3x3x3 conv: 2*27*Cin*Cout FLOPs per voxel on the bf16 tensor cores;
+    its inputs read once, bf16 weights, the bf16 output written once."""
+    n = spatial[0] * spatial[1] * spatial[2]
+    return _bound(in_bytes + 27 * cin * cout * 2 + n * cout * 2,
+                  2.0 * 27 * cin * cout * n / PEAK_BF16)
+
+
+def _tps_bound(n, t, nbytes, sfu_per_eval, flops_per_eval):
+    """T*N radial-basis evaluations: special-function and fp32 rates."""
+    return _bound(nbytes, n * t * sfu_per_eval / PEAK_SFU,
+                  n * t * flops_per_eval / PEAK_FP32)
 
 
 def _import_port():
@@ -98,19 +170,35 @@ def _cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def _conv_check(k, p):
-    """(max abs err, ok) of bf16 conv outputs and their stats."""
-    (ko, ks), (po, ps) = k, p
-    ko, po = ko.float(), po.float()
-    err = (ko - po).abs()
-    ok = bool((err <= CONV_REL_ULP * po.abs() + CONV_FLOOR * po.abs().max()).all())
-    for a, b in zip(ks, ps):
-        ok &= bool(((a - b).abs() <= STATS_REL * b.abs().max()).all())
+def _ulp_ok(k, p):
+    """(max abs err, ok): bf16 values within one bf16 ulp of the plain
+    version's (plus CONV_FLOOR of the range for values that cancel)."""
+    k, p = k.float(), p.float()
+    err = (k - p).abs()
+    ok = bool((err <= CONV_REL_ULP * p.abs() + CONV_FLOOR * p.abs().max()).all())
     return err.max().item(), ok
 
 
+def _conv_check(k, p):
+    """(max abs err, ok) of bf16 conv outputs and their stats."""
+    (ko, ks), (po, ps) = k, p
+    err, ok = _ulp_ok(ko, po)
+    for a, b in zip(ks, ps):
+        ok &= bool(((a - b).abs() <= STATS_REL * b.abs().max()).all())
+    return err, ok
+
+
+def _ncdhw(xf, spatial):
+    """Flat (Z, C, Y*X) -> contiguous (1, C, Z, Y, X), the library's layout."""
+    Z, Y, X = spatial
+    return xf.reshape(Z, -1, Y, X).permute(1, 0, 2, 3)[None].contiguous()
+
+
 def phase1(torch, rng, dev):
-    """Each kernel vs its plain version at the main path's shapes."""
+    """Each kernel vs its plain version at the main paths' shapes; returns
+    {kernel name: {max_abs_err, ms, plain_ms, library_ms, bound_ms, bound_by}}."""
+    import torch.nn.functional as F
+
     from keymorph_tpu_torch.models.fast_unet import gn_affine_from_stats
     from keymorph_tpu_torch.ops.cuda import conv3d, resample3d, tpsflow
     from keymorph_tpu_torch.ops.cuda.conv3d import channel_stats
@@ -130,8 +218,29 @@ def phase1(torch, rng, dev):
         beta = torch.tensor(rng.normal(size=c).astype(np.float32) * 0.2, device=dev)
         return gn_affine_from_stats(channel_stats(x), gamma, beta, groups)
 
+    def lib_conv(x_full, spatial, w, sc, sh, flip=False):
+        """ms of one bf16 F.conv3d on the materialized (affined) input."""
+        u = x_full.float()
+        if sc is not None:
+            u = u * sc[None, :, None] + sh[None, :, None]
+        lhs = _ncdhw(u.to(torch.bfloat16), spatial)
+        wb = w.to(torch.bfloat16)
+        rhs = (wb.flip(0, 1, 2).permute(3, 4, 0, 1, 2) if flip
+               else wb.permute(4, 3, 0, 1, 2)).contiguous()
+        return _cuda_ms(lambda: F.conv3d(lhs, rhs, padding=1), 3)
+
+    def record(name, err, ms, pms, lms, bound, what, tol, ok):
+        results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": pms, "library_ms": lms,
+                         "bound_ms": bound[0], "bound_by": bound[1]}
+        lib = "none" if lms is None else f"{lms:.3f} ms"
+        print(f"phase1 {what}: max_abs_err={err!r} ({tol}): {ok}; kernel {ms:.3f} ms, "
+              f"plain {pms:.3f} ms, library {lib}, bound {bound[0]:.4f} ms by {bound[1]}")
+        if not ok:
+            raise AssertionError(f"{name} kernel disagrees with its plain version ({what})")
+
     results = {}
     Z, Y, X = SPATIAL
+    conv_tol = (f"tol 1 bf16 ulp + {CONV_FLOOR}*max, stats rel {STATS_REL}")
     # e0 conv 1: 1 -> 16 at 256^3, GroupNorm affine (1 group) and stats
     img = torch.tensor(rng.random((Z, 1, Y * X), dtype=np.float32), device=dev).to(torch.bfloat16)
     w = weights(1, 16)
@@ -142,12 +251,9 @@ def phase1(torch, rng, dev):
     torch.cuda.synchronize()
     ms = _cuda_ms(lambda: conv3d.conv3x3_fused_flat(*args, emit_stats=True), 5)
     pms = _cuda_ms(lambda: conv3d.conv3x3_fused_flat_plain(*args, emit_stats=True), 3)
-    results["conv3x3_fused_flat"] = (err, ms, pms)
-    print(f"phase1 conv e0c1 1->16 @256^3 (+GN affine, stats): max_abs_err={err!r} "
-          f"within 1 bf16 ulp (+{CONV_FLOOR}*max) and stats rel {STATS_REL}: {ok}; "
-          f"kernel {ms:.3f} ms, plain {pms:.3f} ms")
-    if not ok:
-        raise AssertionError("conv e0c1 kernel disagrees with its plain version")
+    record("conv3x3_fused_flat", err, ms, pms, lib_conv(img, SPATIAL, w, sc, sh),
+           _conv_bound(1, 16, SPATIAL, img.numel() * 2),
+           "conv e0c1 1->16 @256^3 (+GN affine, stats)", conv_tol, ok)
     del img, args
 
     # d1 conv 1 (upconv): [64 skip @128^3 | up2(128 @64^3)] -> 64
@@ -167,28 +273,59 @@ def phase1(torch, rng, dev):
     torch.cuda.synchronize()
     ms = _cuda_ms(lambda: conv3d.conv3x3_fused_flat_upconv(*args, emit_stats=True), 3)
     pms = _cuda_ms(lambda: conv3d.conv3x3_fused_flat_upconv_plain(*args, emit_stats=True), 3)
-    results["conv3x3_fused_flat_upconv"] = (err, ms, pms)
-    print(f"phase1 conv d1c1 upconv [64@128^3 | up2(128@64^3)]->64: max_abs_err={err!r} "
-          f"within 1 bf16 ulp and stats rel {STATS_REL}: {ok}; kernel {ms:.3f} ms, "
-          f"plain {pms:.3f} ms")
-    if not ok:
-        raise AssertionError("conv d1c1 upconv kernel disagrees with its plain version")
+    up = conv3d.upsample_nearest_flat(low, lo, h).contiguous()
+    full = torch.cat([skip, up], dim=1)
+    lms = lib_conv(full, h, w, sc, sh)
+    record("conv3x3_fused_flat_upconv", err, ms, pms, lms,
+           _conv_bound(192, 64, h, (skip.numel() + low.numel()) * 2),
+           "conv d1c1 upconv [64@128^3 | up2(128@64^3)]->64", conv_tol, ok)
 
     # the same conv as parts (the decoder's fallback): upsample materialized
-    up = conv3d.upsample_nearest_flat(low, lo, h).contiguous()
     args = (skip, up, h, w, sc, sh)
     err, ok = _conv_check(conv3d.conv3x3_fused_flat_parts(*args, emit_stats=True),
                           conv3d.conv3x3_fused_flat_parts_plain(*args, emit_stats=True))
     torch.cuda.synchronize()
     ms = _cuda_ms(lambda: conv3d.conv3x3_fused_flat_parts(*args, emit_stats=True), 3)
     pms = _cuda_ms(lambda: conv3d.conv3x3_fused_flat_parts_plain(*args, emit_stats=True), 3)
-    results["conv3x3_fused_flat_parts"] = (err, ms, pms)
-    print(f"phase1 conv d1c1 parts [64@128^3 | 128@128^3]->64: max_abs_err={err!r} "
-          f"within 1 bf16 ulp and stats rel {STATS_REL}: {ok}; kernel {ms:.3f} ms, "
-          f"plain {pms:.3f} ms")
-    if not ok:
-        raise AssertionError("conv parts kernel disagrees with its plain version")
-    del skip, low, up, args
+    record("conv3x3_fused_flat_parts", err, ms, pms, lms,
+           _conv_bound(192, 64, h, (skip.numel() + up.numel()) * 2),
+           "conv d1c1 parts [64@128^3 | 128@128^3]->64", conv_tol, ok)
+    del skip, low, up, full, args
+
+    # conv input gradient at the training step's shapes (128^3 input): e0c2,
+    # its largest conv (cotangent 32 channels -> gradient 16 channels) ...
+    T3 = TRAIN_SPATIAL
+    grad_tol = f"tol 1 bf16 ulp + {CONV_FLOOR}*max"
+    g_v = bf16(T3[0], 32, T3[1] * T3[2])
+    w = weights(16, 32)
+    ka, _ = conv3d.conv3x3_input_grad(g_v, T3, w)
+    pa, _ = conv3d.conv3x3_input_grad_plain(g_v, T3, w)
+    torch.cuda.synchronize()
+    err, ok = _ulp_ok(ka, pa)
+    ms = _cuda_ms(lambda: conv3d.conv3x3_input_grad(g_v, T3, w), 5)
+    pms = _cuda_ms(lambda: conv3d.conv3x3_input_grad_plain(g_v, T3, w), 3)
+    record("conv3x3_input_grad", err, ms, pms, lib_conv(g_v, T3, w, None, None, flip=True),
+           _conv_bound(32, 16, T3, g_v.numel() * 2),
+           "conv input grad e0c2 32->16 @128^3", grad_tol, ok)
+    # ... and the d1c1 upconv at 64^3: cotangent 64 -> [64 | 128] (both halves
+    # at 64^3; the 2^3 block sum to 32^3 is the wrapper's plain reduction)
+    q = tuple(s // 2 for s in T3)
+    g_v = bf16(q[0], 64, q[1] * q[2])
+    w = weights(192, 64)
+    ka, kb = conv3d.conv3x3_input_grad(g_v, q, w, 64)
+    pa, pb = conv3d.conv3x3_input_grad_plain(g_v, q, w, 64)
+    torch.cuda.synchronize()
+    (ea, oka), (eb, okb) = _ulp_ok(ka, pa), _ulp_ok(kb, pb)
+    ms = _cuda_ms(lambda: conv3d.conv3x3_input_grad(g_v, q, w, 64), 5)
+    pms = _cuda_ms(lambda: conv3d.conv3x3_input_grad_plain(g_v, q, w, 64), 3)
+    lms = lib_conv(g_v, q, w, None, None, flip=True)
+    bound = _conv_bound(64, 192, q, g_v.numel() * 2)
+    print(f"phase1 conv input grad d1c1 64->[64 | 128] @64^3: max_abs_err={max(ea, eb)!r} "
+          f"({grad_tol}): {oka and okb}; kernel {ms:.3f} ms, plain {pms:.3f} ms, library "
+          f"{lms:.3f} ms, bound {bound[0]:.4f} ms by {bound[1]}")
+    if not (oka and okb):
+        raise AssertionError("conv input grad (two halves) disagrees with its plain version")
+    del g_v, ka, kb, pa, pb
 
     # TPS flow planes at 256^3, T = 128, from a real fit
     src = rng.uniform(-0.8, 0.8, (1, NUM_KEYPOINTS, 3)).astype(np.float32)
@@ -201,15 +338,14 @@ def phase1(torch, rng, dev):
     err = (planes - ref).abs().max().item()
     ms = _cuda_ms(lambda: tpsflow.tps_planes(theta, ctrl, SPATIAL), 5)
     pms = _cuda_ms(lambda: tpsflow.tps_planes_plain(theta, ctrl, SPATIAL), 2)
-    results["tps_planes"] = (err, ms, pms)
-    print(f"phase1 tps_planes 256^3 T=128: max_abs_err={err!r} (tol {TPS_ABS}); "
-          f"kernel {ms:.3f} ms, plain {pms:.3f} ms")
-    if not err <= TPS_ABS:
-        raise AssertionError("tps_planes kernel disagrees with its plain version")
+    n = Z * Y * X
+    record("tps_planes", err, ms, pms, None, _tps_bound(n, NUM_KEYPOINTS, 12 * n, 2, 20),
+           "tps_planes 256^3 T=128", f"tol {TPS_ABS}", err <= TPS_ABS)
     del ref
 
     # warp at 256^3 on those planes
     vol = torch.tensor(rng.random((1, 1, *SPATIAL), dtype=np.float32), device=dev)
+    grid = torch.flip(planes.movedim(1, -1), dims=(-1,)).contiguous()  # xy, for the library
     for mode in ("bilinear", "nearest"):
         out = resample3d.warp_planes(vol, planes, mode)
         ref = resample3d.warp_planes_plain(vol, planes, mode)
@@ -217,35 +353,99 @@ def phase1(torch, rng, dev):
         err = (out - ref).abs().max().item()
         ms = _cuda_ms(lambda: resample3d.warp_planes(vol, planes, mode), 5)
         pms = _cuda_ms(lambda: resample3d.warp_planes_plain(vol, planes, mode), 3)
+        lms = _cuda_ms(lambda: F.grid_sample(vol, grid, mode=mode, padding_mode="border",
+                                             align_corners=False), 5)
+        bound = _bound(4 * (vol.numel() + planes.numel() + n), 0.0)
+        what = f"warp_planes {mode} 256^3 C=1"
         if mode == "bilinear":
-            results["warp_planes"] = (err, ms, pms)
-        print(f"phase1 warp_planes {mode} 256^3 C=1: max_abs_err={err!r} (tol {WARP_ABS}); "
-              f"kernel {ms:.3f} ms, plain {pms:.3f} ms")
-        if not err <= WARP_ABS:
-            raise AssertionError(f"warp_planes {mode} kernel disagrees with its plain version")
+            record("warp_planes", err, ms, pms, lms, bound, what, f"tol {WARP_ABS}",
+                   err <= WARP_ABS)
+        else:
+            print(f"phase1 {what}: max_abs_err={err!r} (tol {WARP_ABS}); kernel {ms:.3f} ms, "
+                  f"plain {pms:.3f} ms, library {lms:.3f} ms")
+            if not err <= WARP_ABS:
+                raise AssertionError(f"warp_planes {mode} disagrees with its plain version")
+    del vol, grid, planes, out, ref
+
+    # the training path's TPS and warp kernels at 128^3, T = 64
+    T = TRAIN_KEYPOINTS
+    n = T3[0] * T3[1] * T3[2]
+    ctrl = torch.tensor(src[:, :T], device=dev).contiguous()
+    theta = solvers.fit_tps(ctrl, torch.tensor(dst[:, :T], device=dev), LMBDA).contiguous()
+    g = torch.tensor(rng.normal(size=(1, 3, *T3)).astype(np.float32), device=dev)
+    kt, kc = tpsflow.tps_planes_bwd(theta, ctrl, T3, g)
+    pt, pc = tpsflow.tps_planes_bwd_plain(theta, ctrl, T3, g)
+    torch.cuda.synchronize()
+    err = max((kt - pt).abs().max().item(), (kc - pc).abs().max().item())
+    ok = bool((kt - pt).abs().max() <= TPS_BWD_REL * pt.abs().max()
+              and (kc - pc).abs().max() <= TPS_BWD_REL * pc.abs().max())
+    ms = _cuda_ms(lambda: tpsflow.tps_planes_bwd(theta, ctrl, T3, g), 5)
+    pms = _cuda_ms(lambda: tpsflow.tps_planes_bwd_plain(theta, ctrl, T3, g), 2)
+    record("tps_planes_bwd", err, ms, pms, None, _tps_bound(n, T, 12 * n, 3, 36),
+           f"tps_planes backward 128^3 T={T}, random cotangent (max |g_theta| "
+           f"{pt.abs().max().item():.4g}, max |g_ctrl| {pc.abs().max().item():.4g})",
+           f"tol {TPS_BWD_REL} x max", ok)
+
+    pts = torch.tensor(rng.uniform(-1, 1, (1, n, 3)).astype(np.float32), device=dev)
+    out = tpsflow.tps_flow(theta, ctrl, pts)
+    ref = tpsflow.tps_flow_plain(theta, ctrl, pts)
+    torch.cuda.synchronize()
+    err = (out - ref).abs().max().item()
+    ms = _cuda_ms(lambda: tpsflow.tps_flow(theta, ctrl, pts), 5)
+    pms = _cuda_ms(lambda: tpsflow.tps_flow_plain(theta, ctrl, pts), 2)
+    record("tps_flow", err, ms, pms, None, _tps_bound(n, T, 24 * n, 2, 20),
+           f"tps_flow N=128^3 points T={T}", f"tol {TPS_ABS}", err <= TPS_ABS)
+    del pts, out, ref
+
+    planes = tpsflow.tps_planes(theta, ctrl, T3)
+    grid = torch.flip(planes.movedim(1, -1), dims=(-1,)).contiguous()
+    for C in (1, 4):
+        vol = torch.tensor(rng.random((1, C, *T3), dtype=np.float32), device=dev)
+        g = torch.tensor(rng.normal(size=(1, C, *T3)).astype(np.float32), device=dev)
+        out = resample3d.warp_planes_grad(vol, planes, g)
+        ref = resample3d.warp_planes_grad_plain(vol, planes, g)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        ok = err <= WARP_GRAD_REL * ref.abs().max().item()
+        ms = _cuda_ms(lambda: resample3d.warp_planes_grad(vol, planes, g), 5)
+        pms = _cuda_ms(lambda: resample3d.warp_planes_grad_plain(vol, planes, g), 3)
+        lms = _cuda_ms(lambda: torch.ops.aten.grid_sampler_3d_backward(
+            g, vol, grid, 0, 1, False, [False, True]), 5)
+        bound = _bound(4 * (2 * vol.numel() + 2 * planes.numel()), 0.0)
+        what = (f"warp_planes gradient 128^3 C={C} (max |ref| {ref.abs().max().item():.4g})")
+        if C == 1:
+            record("warp_planes_grad", err, ms, pms, lms, bound, what,
+                   f"tol {WARP_GRAD_REL} x max", ok)
+        else:
+            print(f"phase1 {what}: max_abs_err={err!r} (tol {WARP_GRAD_REL} x max): {ok}; "
+                  f"kernel {ms:.3f} ms, plain {pms:.3f} ms, library {lms:.3f} ms, "
+                  f"bound {bound[0]:.4f} ms by {bound[1]}")
+            if not ok:
+                raise AssertionError("warp_planes gradient C=4 disagrees with its plain version")
     return results
 
 
-def _make_pairs(torch, rng, dev):
-    """N_PAIRS (fixed, moving) volumes (1, 1, 256, 256, 256) in [0, ~1.2]:
-    Gaussian blobs plus noise; the moving blobs are displaced by a few
-    voxels each. Parameters and noise come from the numpy generator."""
-    axes = [torch.linspace(-1, 1, s, device=dev) for s in SPATIAL]
+def _make_pairs(torch, rng, dev, spatial=SPATIAL, n_pairs=N_PAIRS, noise_amp=0.2):
+    """``n_pairs`` (fixed, moving) volumes (1, 1, *spatial) in [0, ~1.2]:
+    Gaussian blobs plus ``noise_amp`` x white noise; the moving blobs are
+    displaced by a few voxels each. Parameters and noise come from the numpy
+    generator."""
+    axes = [torch.linspace(-1, 1, s, device=dev) for s in spatial]
     pairs = []
-    for _ in range(N_PAIRS):
+    for _ in range(n_pairs):
         c = rng.uniform(-0.6, 0.6, (8, 3))
         width = rng.uniform(0.05, 0.2, 8)
         amp = rng.uniform(0.3, 1.0, 8)
         shift = rng.normal(0, 0.03, (8, 3))
         vols = []
         for cs in (c, c + shift):
-            v = torch.zeros(SPATIAL, device=dev)
+            v = torch.zeros(spatial, device=dev)
             for (cz, cy, cx), wd, a in zip(cs, width, amp):
                 v += a * (torch.exp(-(axes[0] - cz) ** 2 / wd)[:, None, None]
                           * torch.exp(-(axes[1] - cy) ** 2 / wd)[None, :, None]
                           * torch.exp(-(axes[2] - cx) ** 2 / wd)[None, None, :])
-            noise = torch.tensor(rng.random(SPATIAL, dtype=np.float32), device=dev)
-            vols.append((v.clamp(max=1.0) + 0.2 * noise)[None, None].contiguous())
+            noise = torch.tensor(rng.random(spatial, dtype=np.float32), device=dev)
+            vols.append((v.clamp(max=1.0) + noise_amp * noise)[None, None].contiguous())
         pairs.append(tuple(vols))
     return pairs
 
@@ -254,7 +454,7 @@ def phase2(torch, net, pairs):
     """Serve the pairs through the kernels; return per-pair outputs."""
     from keymorph_tpu_torch.models.keymorph import align_pair
     from keymorph_tpu_torch.ops import cuda as kernels
-    from keymorph_tpu_torch.ops.resample import align_planes
+    from keymorph_tpu_torch.ops.resample import align_img, align_planes
 
     outs, times = [], []
     torch.cuda.synchronize()
@@ -273,14 +473,29 @@ def phase2(torch, net, pairs):
         t3 = time.perf_counter()
         outs.append((pf, pm, planes, warped))
         times.append((t1 - t0, t2 - t1, t3 - t2, t3 - t0))
+    # pair 0 once more through the grid form: the TPS kernel in points mode
+    pf, pm, planes, warped = outs[0]
+    t0 = time.perf_counter()
+    grid = align_pair(pf, pm, "tps", SPATIAL, lmbda=LMBDA, compute_grid=True)["grid"]
+    warped_g = align_img(grid, pairs[0][1])
+    torch.cuda.synchronize()
+    grid_ms = (time.perf_counter() - t0) * 1e3
     counts = kernels.counters()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    d_grid = (torch.flip(grid.movedim(-1, 1), dims=(1,)) - planes).abs().max().item()
+    d_warp = (warped_g - warped).abs().max().item()
+    del grid, warped_g
     for i, (e, s, w, t) in enumerate(times):
         print(f"phase2 pair {i}: extract {e * 1e3:.3f} ms, solve+flow {s * 1e3:.3f} ms, "
               f"warp {w * 1e3:.3f} ms, total {t * 1e3:.3f} ms")
+    print(f"phase2 pair 0 grid form (solve + tps_flow at 256^3 points + warp): {grid_ms:.3f} ms; "
+          f"grid vs planes {d_grid!r} (tol {TPS_ABS}: linspace grid vs idx*step-1), warped "
+          f"{d_warp!r} (not checked: it carries that difference)")
     print(f"phase2 peak device memory {peak:.3f} GiB; counters {json.dumps(counts)}")
+    if not d_grid <= TPS_ABS:
+        raise AssertionError("phase 2 grid form disagrees with the planes form")
     for name in ("conv3x3_fused_flat", "conv3x3_fused_flat_upconv", "tps_planes",
-                 "warp_planes"):
+                 "tps_flow", "warp_planes"):
         if counts[name]["launches"] <= 0:
             raise AssertionError(f"phase 2 never launched the {name} kernel")
     if any(c["plain_calls"] for c in counts.values()):
@@ -333,28 +548,22 @@ def phase3(torch, net, pairs, kernel_outs):
         raise AssertionError("kernel path and plain path disagree")
 
 
-def phase4(torch, net, pairs):
-    """One steady pair on the kernel path under torch.profiler: host wall,
+def _profile(torch, label, fn):
+    """Run ``fn`` under torch.profiler and print the host wall time, the
     device busy time (the union of the device's kernel and copy intervals),
     the device's idle share, and device time by kernel name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from keymorph_tpu_torch.models.keymorph import align_pair
-    from keymorph_tpu_torch.ops.resample import align_planes
-
-    img_f, img_m = pairs[1]  # served in phases 2 and 3 already: steady state
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        pf, pm, _ = net(img_f, img_m)
-        planes = align_pair(pf, pm, "tps", SPATIAL, lmbda=LMBDA, compute_grid="planes")["planes"]
-        align_planes(planes, img_m)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not events:  # a measurement gap, not a failure of the port
-        print(f"phase4 pair: host wall {wall_us / 1e3:.3f} ms; torch.profiler recorded "
+        print(f"{label}: host wall {wall_us / 1e3:.3f} ms; torch.profiler recorded "
               f"no device activity, device idle share not measured")
         return
     busy, end = 0.0, float("-inf")
@@ -365,10 +574,233 @@ def phase4(torch, net, pairs):
     for e in events:
         n, t = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (n + 1, t + e.time_range.end - e.time_range.start)
-    print(f"phase4 pair: host wall {wall_us / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms, "
+    print(f"{label}: host wall {wall_us / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms, "
           f"device idle share {1 - busy / wall_us:.4f}")
-    for name, (n, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]:
-        print(f"phase4 {t / 1e3:.3f} ms {n}x share_of_busy {t / busy:.4f} {name[:110]}")
+    tag = label.split()[0]
+    for name, (n, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:18]:
+        print(f"{tag} {t / 1e3:.3f} ms {n}x share_of_busy {t / busy:.4f} {name[:110]}")
+
+
+def phase4(torch, net, pairs):
+    """One steady pair on the kernel path under torch.profiler."""
+    from keymorph_tpu_torch.models.keymorph import align_pair
+    from keymorph_tpu_torch.ops.resample import align_planes
+
+    img_f, img_m = pairs[1]  # served in phases 2 and 3 already: steady state
+
+    def pair():
+        pf, pm, _ = net(img_f, img_m)
+        planes = align_pair(pf, pm, "tps", SPATIAL, lmbda=LMBDA, compute_grid="planes")["planes"]
+        align_planes(planes, img_m)
+
+    _profile(torch, "phase4 pair", pair)
+
+
+TRAIN_PATH_KERNELS = ("conv3x3_fused_flat", "conv3x3_fused_flat_upconv", "conv3x3_input_grad",
+                      "tps_planes", "tps_planes_bwd", "warp_planes", "warp_planes_grad")
+
+
+def _train_config(spatial):
+    from keymorph_tpu_torch.training.config import Config
+
+    return Config(num_keypoints=NUM_KEYPOINTS, transform_type="tps_loguniform",
+                  loss_fn="mse", max_train_keypoints=TRAIN_KEYPOINTS, lr=TRAIN_LR,
+                  batch_size=1, img_size=tuple(spatial), backbone="truncatedunet",
+                  use_amp=True, debug_mode=True)
+
+
+def _grads(net):
+    return {k: p.grad.detach().clone() for k, p in net.named_parameters() if p.grad is not None}
+
+
+def phase5(torch, rng, dev):
+    """The canonical training step at 128^3 through the kernels: a first
+    step with injected lambda and keypoint subset (kept for phase 6), then
+    run_train's 3 debug-mode steps. Returns what phases 6 and 8 need and the
+    launch counts of the 3 steps."""
+    from keymorph_tpu_torch.models.keymorph import KeyMorphNet
+    from keymorph_tpu_torch.ops import cuda as kernels
+    from keymorph_tpu_torch.training.config import build_backbone
+    from keymorph_tpu_torch.training.train import (
+        TrainState, make_optimizer, make_train_step, run_train)
+    from keymorph_tpu_torch.models.unet import init_weights
+
+    config = _train_config(TRAIN_SPATIAL)
+    gen = torch.Generator().manual_seed(SEED + 1)
+    net = KeyMorphNet(init_weights(build_backbone(config), gen), NUM_KEYPOINTS).to(dev)
+    init = {k: v.detach().clone() for k, v in net.state_dict().items()}
+    state = TrainState.create(net, make_optimizer(config, net))
+    step = make_train_step(net, config)
+    # smooth volumes: with white noise the warp's gradient to the planes is
+    # discontinuous at every voxel boundary, and phase 6 would compare chaos
+    pairs = _make_pairs(torch, rng, dev, TRAIN_SPATIAL, 3, noise_amp=0.0)
+    lmbda = torch.tensor([0.5], device=dev)
+    idx = torch.tensor(rng.permutation(NUM_KEYPOINTS)[:TRAIN_KEYPOINTS].copy(), device=dev)
+
+    log = []
+
+    def timed_step(st, g, img_f, img_m, seg_f, seg_m, aug_scale, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, m = step(st, g, img_f, img_m, seg_f, seg_m, aug_scale, **kw)
+        torch.cuda.synchronize()
+        log.append(((time.perf_counter() - t0) * 1e3, float(m["loss"]), float(m["grad_norm"])))
+        return st, m
+
+    # the first step (also the warm-up): fixed lambda and keypoint subset
+    torch.cuda.reset_peak_memory_stats()
+    state, _ = timed_step(state, gen, *pairs[0], None, None, 1.0, lmbda=lmbda, keypoint_idx=idx)
+    first = {"ms": log[0][0], "loss": log[0][1], "grad_norm": log[0][2], "grads": _grads(net),
+             "init": init, "pair": pairs[0], "lmbda": lmbda, "idx": idx, "config": config}
+    print(f"phase5 first step (lambda 0.5, fixed subset): {log[0][0]:.3f} ms, "
+          f"loss {log[0][1]!r}, grad_norm {log[0][2]!r}")
+
+    before = {k: p.detach().clone() for k, p in net.named_parameters()}
+    loader = [({"img": f}, {"img": m}) for f, m in pairs]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counters()
+    state, stats, gen = run_train(loader, state, timed_step, config, 1, gen)
+    counts = kernels.counters()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for i, (ms, loss, gn) in enumerate(log[1:]):
+        print(f"phase5 step {i}: {ms:.3f} ms, loss {loss!r}, grad_norm {gn!r}")
+    print(f"phase5 run_train stats {json.dumps(stats)}; peak device memory {peak:.3f} GiB; "
+          f"counters {json.dumps(counts)}")
+    if len(log) != 4 or state.step != 4:
+        raise AssertionError(f"phase 5 took {len(log)} steps, state.step {state.step}")
+    if not all(np.isfinite(v) for _, loss, gn in log for v in (loss, gn)):
+        raise AssertionError("phase 5: a loss or gradient norm is not finite")
+    stuck, n_grad = [], 0
+    for k, p in net.named_parameters():
+        if p.grad is None:
+            continue
+        if not bool(torch.isfinite(p.grad).all()):
+            raise AssertionError(f"phase 5: gradient of {k} is not finite")
+        n_grad += 1
+        if bool((p.grad != 0).any()) and not bool((p.detach() != before[k]).any()):
+            stuck.append(k)
+    print(f"phase5 {n_grad} of {len(before)} parameters have gradients; unchanged by 3 steps: "
+          f"{stuck}")
+    if stuck or n_grad != len(before):
+        raise AssertionError(f"phase 5: parameters without gradient or unchanged: {stuck}")
+    for name in TRAIN_PATH_KERNELS:
+        if counts[name]["launches"] <= 0:
+            raise AssertionError(f"phase 5 never launched the {name} kernel")
+    if any(c["plain_calls"] for c in counts.values()):
+        raise AssertionError(f"phase 5 ran a plain version: {counts}")
+    return first, (state, timed_step, gen, pairs), counts
+
+
+def phase6(torch, rng, dev, first):
+    """Phase 5's first step again with every kernel replaced by its plain
+    version on the card (same weights, volumes, lambda, keypoint subset), and
+    once more on volumes perturbed by half a bf16 ulp: the plain step's own
+    answer to rounding-level noise is the yardstick for the comparison."""
+    from keymorph_tpu_torch.models.keymorph import KeyMorphNet
+    from keymorph_tpu_torch.ops import cuda as kernels
+    from keymorph_tpu_torch.training.config import build_backbone
+    from keymorph_tpu_torch.training.train import TrainState, make_optimizer, make_train_step
+
+    config = first["config"]
+
+    def plain_step(pair):
+        net = KeyMorphNet(build_backbone(config), NUM_KEYPOINTS).to(dev)
+        net.load_state_dict(first["init"])
+        state = TrainState.create(net, make_optimizer(config, net))
+        step = make_train_step(net, config, plain=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, None, *pair, None, None, 1.0, lmbda=first["lmbda"],
+                        keypoint_idx=first["idx"])
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3, float(m["loss"]), float(m["grad_norm"]), _grads(net)
+
+    def rel_l2(ga, gb):
+        per = {k: ((ga[k] - g).norm() / g.norm().clamp_min(1e-30)).item() for k, g in gb.items()}
+        num = sum(((ga[k] - g) ** 2).sum().item() for k, g in gb.items())
+        den = sum((g ** 2).sum().item() for g in gb.values())
+        return per, (num / den) ** 0.5
+
+    kernels.reset_counters()
+    ms, loss, gn, grads = plain_step(first["pair"])
+    counts = kernels.counters()
+    if any(c["launches"] for c in counts.values()):
+        raise AssertionError(f"phase 6 launched a kernel: {counts}")
+    noisy = tuple(v * (1.0 + PERTURB * torch.tensor(
+        rng.choice([-1.0, 1.0], size=tuple(v.shape)).astype(np.float32), device=dev))
+        for v in first["pair"])
+    _, loss_n, gn_n, grads_n = plain_step(noisy)
+
+    d_loss = abs(first["loss"] - loss) / abs(loss)
+    d_gn = abs(first["grad_norm"] - gn) / abs(gn)
+    rel, whole = rel_l2(first["grads"], grads)
+    base, base_whole = rel_l2(grads_n, grads)
+    worst = max(rel, key=lambda k: rel[k] / max(TRAIN_GRAD_REL_L2, NOISE_FACTOR * base[k]))
+    print(f"phase6 plain step: {ms:.3f} ms (kernel step {first['ms']:.3f} ms incl. warm-up), "
+          f"loss {loss!r} vs {first['loss']!r}: rel {d_loss!r} (tol {TRAIN_LOSS_REL}); grad_norm "
+          f"{gn!r} vs {first['grad_norm']!r}: rel {d_gn!r} (tol {TRAIN_GRAD_NORM_REL}); whole "
+          f"gradient rel L2 {whole!r} (tol {TRAIN_GRAD_WHOLE_REL_L2})")
+    print(f"phase6 plain step on volumes perturbed by {PERTURB} relative: loss rel "
+          f"{abs(loss_n - loss) / abs(loss)!r}, grad_norm rel {abs(gn_n - gn) / abs(gn)!r}, whole "
+          f"gradient rel L2 {base_whole!r}")
+    print(f"phase6 per-parameter gradient rel L2, kernel vs plain: median "
+          f"{float(np.median(list(rel.values())))!r}, max {max(rel.values())!r}; perturbed plain "
+          f"vs plain: median {float(np.median(list(base.values())))!r}, max "
+          f"{max(base.values())!r}; tolerance per parameter max({TRAIN_GRAD_REL_L2}, "
+          f"{NOISE_FACTOR} x its perturbed-plain error); nearest to it: {worst} kernel "
+          f"{rel[worst]!r}, perturbed {base[worst]!r}")
+    for k in rel:
+        print(f"phase6   {k}: kernel {rel[k]:.4f} perturbed {base[k]:.4f}")
+    ok = all(rel[k] <= max(TRAIN_GRAD_REL_L2, NOISE_FACTOR * base[k]) for k in rel)
+    if not (d_loss <= TRAIN_LOSS_REL and d_gn <= TRAIN_GRAD_NORM_REL
+            and whole <= TRAIN_GRAD_WHOLE_REL_L2 and ok):
+        raise AssertionError("kernel training step and plain training step disagree")
+
+
+def phase7(torch, net, pairs):
+    """One training step at 256^3 on the serving net; with block-level
+    gradient checkpointing if it does not fit without."""
+    from keymorph_tpu_torch.ops import cuda as kernels
+    from keymorph_tpu_torch.training.train import TrainState, make_optimizer, make_train_step
+
+    config = _train_config(SPATIAL)
+    gen = torch.Generator().manual_seed(SEED + 2)
+    for ckpt in (False, True):
+        net.backbone.use_checkpoint = ckpt
+        state = TrainState.create(net, make_optimizer(config, net))
+        step = make_train_step(net, config)
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_counters()
+        t0 = time.perf_counter()
+        try:
+            state, m = step(state, gen, *pairs[0], None, None, 1.0)
+            torch.cuda.synchronize()
+        except torch.cuda.OutOfMemoryError:
+            net.zero_grad(set_to_none=True)
+            print(f"phase7 256^3 step, use_checkpoint={ckpt}: out of device memory")
+            continue
+        ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        loss, gn = float(m["loss"]), float(m["grad_norm"])
+        print(f"phase7 256^3 step, use_checkpoint={ckpt}: {ms:.3f} ms (first step at this "
+              f"size), loss {loss!r}, grad_norm {gn!r}, peak device memory {peak:.3f} GiB; "
+              f"counters {json.dumps(kernels.counters())}")
+        net.backbone.use_checkpoint = False
+        net.zero_grad(set_to_none=True)
+        if not (np.isfinite(loss) and np.isfinite(gn)):
+            raise AssertionError("phase 7: loss or gradient norm not finite")
+        return
+    raise AssertionError("phase 7: the 256^3 step does not fit even with checkpointing")
+
+
+def phase8(torch, train):
+    """One steady 128^3 training step under torch.profiler."""
+    state, step, gen, pairs = train
+    _profile(torch, "phase8 step",
+             lambda: step(state, gen, *pairs[1], None, None, 1.0))
 
 
 def main():
@@ -390,7 +822,8 @@ def main():
           f"kernel build {build_s:.3f} s")
 
     rng = np.random.default_rng(SEED)
-    k1 = phase1(torch, rng, dev)
+    with torch.no_grad():
+        k1 = phase1(torch, rng, dev)
     torch.cuda.empty_cache()
 
     from keymorph_tpu_torch.models.keymorph import KeyMorphNet
@@ -400,22 +833,42 @@ def main():
     net = KeyMorphNet(init_weights(TruncatedUNet3D(dtype=torch.bfloat16, **UNET), gen),
                       NUM_KEYPOINTS).to(dev).eval()
     pairs = _make_pairs(torch, rng, dev)
-    outs, counts, _ = phase2(torch, net, pairs)
-    phase3(torch, net, pairs, outs)
-    phase4(torch, net, pairs)
+    with torch.no_grad():  # serving keeps nothing for a backward
+        outs, serve_counts, _ = phase2(torch, net, pairs)
+        phase3(torch, net, pairs, outs)
+        phase4(torch, net, pairs)
+    del outs
+    torch.cuda.empty_cache()
+
+    first, train, train_counts = phase5(torch, rng, dev)
+    phase6(torch, rng, dev, first)
+    del first
+    torch.cuda.empty_cache()
+    phase8(torch, train)
+    del train
+    torch.cuda.empty_cache()
+    phase7(torch, net, pairs)
 
     def entry(name, key, source):
-        err, ms, pms = k1[name]
+        # launches: from the serving path (phase 2) where it runs the kernel,
+        # else from the training path (phase 5's three steps)
+        serve = serve_counts[name]["launches"]
+        train_n = train_counts[name]["launches"]
         return {"name": name, "route": "cuda", "source": f"keymorph_tpu_torch/csrc/{source}",
-                "replaces": REPLACES[key], "launches": counts[name]["launches"],
-                "max_abs_err": err, "ms": ms, "plain_ms": pms}
+                "replaces": REPLACES[key], "launches": serve or train_n,
+                "launches_served_3_pairs": serve, "launches_3_train_steps": train_n,
+                **k1[name]}
 
     print(smi)
     print(json.dumps({"kernels": [
         entry("conv3x3_fused_flat", "conv", "conv3d.cu"),
         entry("conv3x3_fused_flat_upconv", "conv", "conv3d.cu"),
+        entry("conv3x3_input_grad", "conv_grad", "conv3d.cu"),
         entry("tps_planes", "tps", "tpsflow.cu"),
+        entry("tps_flow", "tps", "tpsflow.cu"),
+        entry("tps_planes_bwd", "tps_bwd", "tpsflow.cu"),
         entry("warp_planes", "warp", "resample3d.cu"),
+        entry("warp_planes_grad", "warp_grad", "resample3d.cu"),
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -31,3 +31,18 @@ def disable_tf32():
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+def resolve_device(device=None):
+    """The device an entry point runs on: the CUDA card when ``device`` is
+    None (raising without one), else what the caller asked for. The CPU is
+    used only on request (``device="cpu"``), as the tests do."""
+    import torch
+
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "keymorph_tpu_torch runs on a CUDA device and none is available; "
+                'pass device="cpu" to run the plain PyTorch versions on the CPU')
+        return torch.device("cuda")
+    return torch.device(device)

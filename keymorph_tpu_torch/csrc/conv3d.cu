@@ -33,6 +33,23 @@
 // 32 consecutive x) and broadcast weights for 3 * 4 * 16 = 192 FMAs.
 // Tensor cores (wgmma), TMA staging and the TPU's 2^3 parity folding for
 // the upconv are later speed-ups.
+//
+// The conv's input gradient (conv3x3_input_grad) runs the same device code
+// in its GRAD instantiation. It replaces keymorph_tpu/ops/pallas/conv3d.py:
+// _kernel (reached through _conv_pallas_group <- _conv_pallas <- _conv_bwd),
+// which on the training path computes
+//
+//   g_u[z, ci, y, x] = sum_{co, taps} W[2-dz, 2-dy, 2-dx, ci, co] *
+//                      pad0(g_v)[z+dz-1, co, y+dy-1, x+dx-1]
+//
+// i.e. the same 3x3x3 SAME conv over the cotangent with the taps flipped and
+// the channel roles swapped (the wrapper repacks the weights so), bf16
+// operands, fp32 sums, bf16 result. The GRAD instantiation stages the
+// cotangent as it is (no affine, no rounding step), adds no bias, applies no
+// ReLU, emits no stats, and writes its channels to two tensors split at
+// channel Csplit: the two halves of a two-source conv's input gradient. The
+// same bound applies (fp32 FMA throughput); the work is that of the forward
+// conv.
 #include <cuda_bf16.h>
 
 #include "common.cuh"
@@ -53,11 +70,13 @@ struct ConvArgs {
   const float* shift;       // (Cin,)
   const float* w;           // (Cin, 27, CoutP) bf16-rounded values
   const float* bias;        // (Cout,)
-  __nv_bfloat16* out;       // (Z, Cout, Y*X)
+  __nv_bfloat16* out;       // (Z, Csplit, Y*X): output channels [0, Csplit)
+  __nv_bfloat16* out_b;     // (Z, Cout - Csplit, Y*X): the rest, or null
   float* stats;             // (n_tiles, Cout, 2) or null
-  int Z, Y, X, Ca, Cb, Cout, CoutP, b_lowres, relu;
+  int Z, Y, X, Ca, Cb, Cout, CoutP, Csplit, b_lowres, relu;
 };
 
+template <bool GRAD>
 __device__ __forceinline__ float load_in(const ConvArgs& p, int c, int z, int y, int x) {
   // pad0(bf16(a*x + b)): out-of-volume taps and padded channels are 0
   const int Cin = p.Ca + p.Cb;
@@ -67,6 +86,7 @@ __device__ __forceinline__ float load_in(const ConvArgs& p, int c, int z, int y,
     const long long off = (static_cast<long long>(z) * p.Ca + c) * p.Y * p.X +
                           static_cast<long long>(y) * p.X + x;
     v = __bfloat162float(p.xa[off]);
+    if (GRAD) return v;  // the cotangent as it is: one source, no affine
   } else if (p.b_lowres) {
     const int Yl = p.Y >> 1, Xl = p.X >> 1;
     const long long off = (static_cast<long long>(z >> 1) * p.Cb + (c - p.Ca)) * Yl * Xl +
@@ -81,6 +101,7 @@ __device__ __forceinline__ float load_in(const ConvArgs& p, int c, int z, int y,
   return __bfloat162float(__float2bfloat16_rn(u));
 }
 
+template <bool GRAD>
 __global__ void __launch_bounds__(THREADS, 2) conv3x3_kernel(ConvArgs p) {
   __shared__ __align__(16) float in_s[CI * HALO];
   __shared__ __align__(16) float w_s[CI * 27 * CO];
@@ -109,7 +130,7 @@ __global__ void __launch_bounds__(THREADS, 2) conv3x3_kernel(ConvArgs p) {
       r /= HY;
       const int lz = r % HZ;
       const int c = r / HZ;
-      in_s[i] = load_in(p, ci0 + c, z0 - 1 + lz, y0 - 1 + ly, x0 - 1 + lx);
+      in_s[i] = load_in<GRAD>(p, ci0 + c, z0 - 1 + lz, y0 - 1 + ly, x0 - 1 + lx);
     }
     for (int i = threadIdx.x; i < CI * 27 * CO; i += THREADS) {
       const int co = i % CO;
@@ -170,42 +191,53 @@ __global__ void __launch_bounds__(THREADS, 2) conv3x3_kernel(ConvArgs p) {
     for (int co = 0; co < CO; ++co) {
       const int cg = co0 + co;
       if (cg >= p.Cout) continue;
+      const long long yx = static_cast<long long>(y) * p.X + x;
+      if (GRAD) {
+        const __nv_bfloat16 h = __float2bfloat16_rn(acc[zo][co]);
+        if (cg < p.Csplit)
+          p.out[(static_cast<long long>(z) * p.Csplit + cg) * YX + yx] = h;
+        else
+          p.out_b[(static_cast<long long>(z) * (p.Cout - p.Csplit) + cg - p.Csplit) * YX + yx] = h;
+        continue;
+      }
       float v = acc[zo][co] + p.bias[cg];
       if (p.relu) v = fmaxf(v, 0.0f);
       const __nv_bfloat16 h = __float2bfloat16_rn(v);
-      p.out[(static_cast<long long>(z) * p.Cout + cg) * YX + static_cast<long long>(y) * p.X + x] = h;
+      p.out[(static_cast<long long>(z) * p.Cout + cg) * YX + yx] = h;
       const float f = __bfloat162float(h);
       s1[co] += f;
       s2[co] = fmaf(f, f, s2[co]);
     }
   }
-  if (p.stats == nullptr) return;
-  // block reduction: warp shuffles, then one value per warp in shared memory
-#pragma unroll
-  for (int co = 0; co < CO; ++co) {
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      s1[co] += __shfl_xor_sync(0xffffffffu, s1[co], o);
-      s2[co] += __shfl_xor_sync(0xffffffffu, s2[co], o);
-    }
-  }
-  __syncthreads();  // in_s is free: reuse it for the per-warp partials
-  float* red = in_s;  // (THREADS / 32, CO, 2)
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (lane == 0) {
+  if constexpr (!GRAD) {
+    if (p.stats == nullptr) return;
+    // block reduction: warp shuffles, then one value per warp in shared memory
 #pragma unroll
     for (int co = 0; co < CO; ++co) {
-      red[(warp * CO + co) * 2 + 0] = s1[co];
-      red[(warp * CO + co) * 2 + 1] = s2[co];
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+        s1[co] += __shfl_xor_sync(0xffffffffu, s1[co], o);
+        s2[co] += __shfl_xor_sync(0xffffffffu, s2[co], o);
+      }
     }
-  }
-  __syncthreads();
-  if (threadIdx.x < 2 * CO) {
-    const int co = threadIdx.x / 2, k = threadIdx.x % 2;
-    float s = 0.0f;
-    for (int w = 0; w < THREADS / 32; ++w) s += red[(w * CO + co) * 2 + k];
-    const int cg = co0 + co;
-    if (cg < p.Cout) p.stats[(static_cast<long long>(tile) * p.Cout + cg) * 2 + k] = s;
+    __syncthreads();  // in_s is free: reuse it for the per-warp partials
+    float* red = in_s;  // (THREADS / 32, CO, 2)
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    if (lane == 0) {
+#pragma unroll
+      for (int co = 0; co < CO; ++co) {
+        red[(warp * CO + co) * 2 + 0] = s1[co];
+        red[(warp * CO + co) * 2 + 1] = s2[co];
+      }
+    }
+    __syncthreads();
+    if (threadIdx.x < 2 * CO) {
+      const int co = threadIdx.x / 2, k = threadIdx.x % 2;
+      float s = 0.0f;
+      for (int w = 0; w < THREADS / 32; ++w) s += red[(w * CO + co) * 2 + k];
+      const int cg = co0 + co;
+      if (cg < p.Cout) p.stats[(static_cast<long long>(tile) * p.Cout + cg) * 2 + k] = s;
+    }
   }
 }
 
@@ -230,10 +262,35 @@ KM_EXPORT int km_conv3x3(const void* xa, const void* xb, const void* scale,
   p.w = static_cast<const float*>(w);
   p.bias = static_cast<const float*>(bias);
   p.out = static_cast<__nv_bfloat16*>(out);
+  p.out_b = nullptr;
   p.stats = static_cast<float*>(stats);
   p.Z = Z; p.Y = Y; p.X = X; p.Ca = Ca; p.Cb = Cb;
-  p.Cout = Cout; p.CoutP = CoutP; p.b_lowres = b_lowres; p.relu = relu;
+  p.Cout = Cout; p.CoutP = CoutP; p.Csplit = Cout; p.b_lowres = b_lowres; p.relu = relu;
   dim3 grid(km_conv3x3_tiles(Z, Y, X), (Cout + CO - 1) / CO);
-  conv3x3_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(p);
+  conv3x3_kernel<false><<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// g_v (Z, Cg, Y*X) bf16 -> g_u: channels [0, Ca) into out_a (Z, Ca, Y*X) and
+// [Ca, Ca + Cb) into out_b (Z, Cb, Y*X; null when Cb == 0). w is the repacked
+// (Cg, 27, CinP) fp32 tensor w[co, tap, ci] = W[26 - tap, ci, co], CinP being
+// Ca + Cb padded to the block's channel count.
+KM_EXPORT int km_conv3x3_input_grad(const void* gv, const void* w, void* out_a,
+                                    void* out_b, int Z, int Y, int X, int Cg,
+                                    int Ca, int Cb, int CinP, void* stream) {
+  ConvArgs p;
+  p.xa = static_cast<const __nv_bfloat16*>(gv);
+  p.xb = nullptr;
+  p.scale = nullptr;
+  p.shift = nullptr;
+  p.w = static_cast<const float*>(w);
+  p.bias = nullptr;
+  p.out = static_cast<__nv_bfloat16*>(out_a);
+  p.out_b = static_cast<__nv_bfloat16*>(out_b);
+  p.stats = nullptr;
+  p.Z = Z; p.Y = Y; p.X = X; p.Ca = Cg; p.Cb = 0;
+  p.Cout = Ca + Cb; p.CoutP = CinP; p.Csplit = Ca; p.b_lowres = 0; p.relu = 0;
+  dim3 grid(km_conv3x3_tiles(Z, Y, X), (p.Cout + CO - 1) / CO);
+  conv3x3_kernel<true><<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }

@@ -20,7 +20,17 @@ from its parameters on flat (Z, C, Y*X) bf16 tensors, one sample at a time:
     of bf16 operands with fp32 accumulation.
 
 The heatmaps come back channel-last (B, Z', Y', X', K) in bf16, as
-keymorph_tpu's executor returns them. Inference only (no autograd).
+keymorph_tpu's executor returns them.
+
+The executor is differentiable: the convs carry their own backward (the
+input-gradient kernel, ``ops/cuda/conv3d.py``); GroupNorm statistics, the
+affine fold, the max-pool and the final matmul are plain PyTorch under
+autograd. The reshape-and-``amax`` pool splits the gradient evenly among
+tied maxima, as keymorph_tpu's ``_maxpool2_rw_bwd`` does (every all-zero
+window after a ReLU is such a tie). With ``unet.use_checkpoint`` each
+DoubleConv is wrapped in ``torch.utils.checkpoint``: only block boundaries
+are kept and the block is replayed, kernels included, in the backward.
+Serving code calls it under ``torch.no_grad()``.
 """
 
 from __future__ import annotations
@@ -28,6 +38,7 @@ from __future__ import annotations
 from types import SimpleNamespace
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from keymorph_tpu_torch.models.unet import AbstractUNet, gn_groups
 from keymorph_tpu_torch.ops.cuda import conv3d
@@ -100,7 +111,6 @@ def _maxpool2_flat(xf, spatial):
     return p.reshape(Zh, C, Yh * Xh).contiguous(), (Zh, Yh, Xh)
 
 
-@torch.no_grad()
 def fast_unet_forward(unet: AbstractUNet, img: torch.Tensor, plain: bool = False):
     """Run ``unet`` on the conv kernels.
 
@@ -116,6 +126,13 @@ def fast_unet_forward(unet: AbstractUNet, img: torch.Tensor, plain: bool = False
     """
     convs = _PLAIN_CONVS if plain else _KERNEL_CONVS
     g = unet.num_groups
+
+    def block(module, xf, spatial, **kw):
+        if unet.use_checkpoint and torch.is_grad_enabled():
+            return checkpoint(_double_conv_flat, module, xf, spatial, g, convs,
+                              use_reentrant=False, **kw)
+        return _double_conv_flat(module, xf, spatial, g, convs, **kw)
+
     outs = []
     for b in range(img.shape[0]):
         x = img[b].transpose(0, 1).to(torch.bfloat16)  # (Z, 1, Y, X)
@@ -125,18 +142,17 @@ def fast_unet_forward(unet: AbstractUNet, img: torch.Tensor, plain: bool = False
         for i, enc in enumerate(unet.encoders):
             if i > 0:
                 xf, spatial = _maxpool2_flat(xf, spatial)
-            xf = _double_conv_flat(enc.basic_module, xf, spatial, g, convs)
+            xf = block(enc.basic_module, xf, spatial)
             skips.append((xf, spatial))
         for dec, (skip, sk_sp) in zip(unet.decoders, skips[:-1][::-1]):
             s_skip, s_low = channel_stats(skip), channel_stats(xf)
             stats0 = (torch.cat([s_skip[0], s_low[0]]), torch.cat([s_skip[1], s_low[1]]))
             if tuple(sk_sp) == tuple(2 * s for s in spatial):
-                xf = _double_conv_flat(dec.basic_module, skip, sk_sp, g, convs,
-                                       stats0=stats0, xb=xf, xb_lowres=True)
+                xf = block(dec.basic_module, skip, sk_sp, stats0=stats0, xb=xf,
+                           xb_lowres=True)
             else:
                 xb = upsample_nearest_flat(xf, spatial, sk_sp).contiguous()
-                xf = _double_conv_flat(dec.basic_module, skip, sk_sp, g, convs,
-                                       stats0=stats0, xb=xb)
+                xf = block(dec.basic_module, skip, sk_sp, stats0=stats0, xb=xb)
             spatial = sk_sp
         # final 1x1 conv: bf16 operands, fp32 products and sums, fp32 bias
         hw = unet.final_conv.weight[:, :, 0, 0, 0].t().to(torch.bfloat16).float()

@@ -6,18 +6,23 @@ Port of ``keymorph_tpu/models/keymorph.py`` for the pairwise TPS path:
     variance-weighting parameters); fixed and moving run as two passes;
   * :func:`align_pair` — the TPS fit and its dense flow, either as
     ``ij`` planes from the TPS-flow kernel (``compute_grid="planes"``) or
-    as the ``xy`` grid from the plain spline evaluation
-    (``compute_grid=True``).
+    as the ``xy`` grid from the same kernel in points mode
+    (``compute_grid=True``);
+  * the training helpers :func:`parse_transform_type`,
+    :func:`sample_tps_lmbda` and :func:`subsample_keypoints`.
 
-Keypoints are ``ij``-indexed in [-1, 1]; images are channel-first
-(B, 1, Z, Y, X). Affine/rigid alignment, real-world coordinates,
-approximate TPS and the ``KeyMorph`` orchestrator are not ported yet
-(ROADMAP A4).
+Everything is differentiable; serving code calls it under
+``torch.no_grad()``. Keypoints are ``ij``-indexed in [-1, 1]; images are
+channel-first (B, 1, Z, Y, X). Affine/rigid alignment, real-world
+coordinates, approximate TPS and the ``KeyMorph`` orchestrator are not
+ported yet (ROADMAP A4).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+import math
+import re
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
@@ -28,6 +33,59 @@ from keymorph_tpu_torch.models.unet import supports_fast_unet
 from keymorph_tpu_torch.ops import coords
 from keymorph_tpu_torch.ops.cuda import tpsflow
 from keymorph_tpu_torch.transforms import solvers
+
+
+_TPS_RE = re.compile(r"^tps_(.+)$")
+
+
+def is_supported_transform_type(s: str) -> bool:
+    return s in ("affine", "rigid") or bool(_TPS_RE.match(s))
+
+
+def parse_transform_type(s: str) -> Tuple[str, Optional[Union[float, str]]]:
+    """'tps_0.1' -> ('tps', 0.1); 'tps_loguniform' -> ('tps', 'loguniform');
+    'affine' / 'rigid' -> (s, None)."""
+    m = _TPS_RE.match(s)
+    if m:
+        v = m.group(1)
+        try:
+            return "tps", float(v)
+        except ValueError:
+            return "tps", v
+    if s not in ("affine", "rigid"):
+        raise ValueError(f"Invalid transform_type {s}")
+    return s, None
+
+
+def sample_tps_lmbda(generator: Optional[torch.Generator], num_samples: int, spec,
+                     max_rand_tps_lmbda: float = 10.0, device=None) -> torch.Tensor:
+    """Per-sample TPS lambdas (num_samples,): a constant, 'uniform' in
+    [0, max) or 'loguniform' in [1e-6, max). Draws come from ``generator``
+    (on its own device) and are moved to ``device``."""
+    if spec in ("uniform", "loguniform"):
+        gdev = generator.device if generator is not None else "cpu"
+        u = torch.rand((num_samples,), generator=generator, device=gdev).to(device)
+        if spec == "uniform":
+            return u * max_rand_tps_lmbda
+        a, b = 1e-6, max_rand_tps_lmbda
+        return torch.exp(u * (math.log(b) - math.log(a)) + math.log(a))
+    return torch.full((num_samples,), float(spec), dtype=torch.float32, device=device)
+
+
+def subsample_keypoints(generator: Optional[torch.Generator], points_f, points_m,
+                        weights, max_keypoints: int, idx=None):
+    """Random keypoint mini-batch for TPS training: the first
+    ``max_keypoints`` of a permutation drawn from ``generator``, or the given
+    ``idx`` (so a test can inject what another framework drew)."""
+    if idx is None:
+        gdev = generator.device if generator is not None else "cpu"
+        idx = torch.randperm(points_f.shape[1], generator=generator,
+                             device=gdev)[:max_keypoints]
+    idx = torch.as_tensor(idx, dtype=torch.long, device=points_f.device)
+    points_f, points_m = points_f[:, idx], points_m[:, idx]
+    if weights is not None:
+        weights = weights[:, idx]
+    return points_f, points_m, weights
 
 
 class KeyMorphNet(nn.Module):
@@ -46,23 +104,23 @@ class KeyMorphNet(nn.Module):
             self.scales = nn.Parameter(torch.ones(num_keypoints))
             self.biases = nn.Parameter(torch.zeros(num_keypoints))
 
-    @torch.no_grad()
-    def features(self, img: torch.Tensor) -> torch.Tensor:
+    def features(self, img: torch.Tensor, plain: bool = False) -> torch.Tensor:
         """img (B, 1, *spatial) -> heatmaps (B, *spatial', K), channel-last.
 
         The backbone runs on the conv kernels (``fast_unet_forward``), which
         take bf16 'gcr' U-Nets only: the backbone's ``dtype`` is the compute
-        dtype.
+        dtype. ``plain`` runs the convs' plain versions (the oracle route).
         """
         if not supports_fast_unet(self.backbone):
             raise NotImplementedError(
                 "only bf16 'gcr' U-Net backbones are ported (ROADMAP A3: fp32 "
                 "backbones, other layer orders; A9: other block families)"
             )
-        return fast_unet_forward(self.backbone, img)
+        return fast_unet_forward(self.backbone, img, plain=plain)
 
-    def get_keypoints(self, img: torch.Tensor, return_feat: bool = False):
-        feat = self.features(img)
+    def get_keypoints(self, img: torch.Tensor, return_feat: bool = False,
+                      plain: bool = False):
+        feat = self.features(img, plain=plain)
         points = center_of_mass(feat)
         return (points, feat) if return_feat else points
 
@@ -84,11 +142,11 @@ class KeyMorphNet(nn.Module):
         w = p1 * p2
         return w / w.sum(dim=-1, keepdim=True)
 
-    def forward(self, img_f: torch.Tensor, img_m: torch.Tensor):
+    def forward(self, img_f: torch.Tensor, img_m: torch.Tensor, plain: bool = False):
         """Keypoints (and weights) of a pair: (points_f, points_m, weights
         or None). Fixed and moving run as two separate backbone passes."""
-        points_f, feat_f = self.get_keypoints(img_f, return_feat=True)
-        points_m, feat_m = self.get_keypoints(img_m, return_feat=True)
+        points_f, feat_f = self.get_keypoints(img_f, return_feat=True, plain=plain)
+        points_m, feat_m = self.get_keypoints(img_m, return_feat=True, plain=plain)
         if self.weight_keypoints == "variance":
             weights = self.weight_by_variance(feat_f, feat_m)
         elif self.weight_keypoints == "power":
@@ -100,7 +158,8 @@ class KeyMorphNet(nn.Module):
 
 def align_pair(points_f: torch.Tensor, points_m: torch.Tensor, align_type: str,
                grid_shape: Sequence[int], lmbda=None, weights=None,
-               compute_grid=True, aff_f=None, aff_m=None, tps_centers=None):
+               compute_grid=True, aff_f=None, aff_m=None, tps_centers=None,
+               plain: bool = False):
     """Fit the fixed -> moving TPS and produce its dense flow.
 
     Args:
@@ -111,7 +170,10 @@ def align_pair(points_f: torch.Tensor, points_m: torch.Tensor, align_type: str,
         weights: optional (B, T) keypoint weights.
         compute_grid: "planes" -> ``out["planes"]``, ``ij`` (B, 3, D, H, W)
             from the TPS-flow kernel; True -> ``out["grid"]``, the ``xy``
-            (B, D, H, W, 3) grid from the plain spline evaluation.
+            (B, D, H, W, 3) grid from the spline at the flat identity grid
+            (``solvers.tps_eval_chunked``: the kernel's points mode on CUDA
+            tensors).
+        plain: run the plain versions of the TPS kernels (the oracle route).
     Returns:
         dict with "planes" or "grid".
     """
@@ -134,8 +196,10 @@ def align_pair(points_f: torch.Tensor, points_m: torch.Tensor, align_type: str,
     ctrl = points_f.float().contiguous()
     theta = solvers.fit_tps(ctrl, points_m, lmbda, weights).contiguous()
     if compute_grid == "planes":
-        return {"planes": tpsflow.tps_planes(theta, ctrl, spatial)}
+        flow = tpsflow.tps_planes_plain if plain else tpsflow.tps_planes
+        return {"planes": flow(theta, ctrl, spatial)}
     B = ctrl.shape[0]
     grid = coords.flat_norm_grid(spatial, device=ctrl.device)
-    moved = solvers.tps_eval_chunked(theta, ctrl, grid.expand(B, -1, 3))
+    evaluate = solvers.tps_eval_chunked_plain if plain else solvers.tps_eval_chunked
+    moved = evaluate(theta, ctrl, grid.expand(B, -1, 3))
     return {"grid": torch.flip(moved.reshape(B, *spatial, 3), dims=(-1,))}

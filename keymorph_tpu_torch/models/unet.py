@@ -107,8 +107,12 @@ class AbstractUNet(nn.Module):
 
     def __init__(self, out_channels: int, f_maps: Union[int, Sequence[int]] = 64,
                  num_groups: int = 8, num_levels: int = 4,
-                 num_truncated_layers: int = 0, dtype: torch.dtype = torch.float32):
+                 num_truncated_layers: int = 0, dtype: torch.dtype = torch.float32,
+                 use_checkpoint: bool = False):
         super().__init__()
+        # block-level gradient checkpointing in the kernel executor
+        # (models/fast_unet.py); this plain module ignores it
+        self.use_checkpoint = use_checkpoint
         if isinstance(f_maps, int):
             f_maps = number_of_features_per_level(f_maps, num_levels)
         self.f_maps = list(f_maps)

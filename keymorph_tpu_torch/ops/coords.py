@@ -46,3 +46,10 @@ def flat_norm_grid(spatial_shape: Sequence[int], device=None,
     """:func:`uniform_norm_grid` flattened to (1, prod(shape), dim)."""
     dim = len(spatial_shape)
     return uniform_norm_grid(spatial_shape, device, dtype).reshape(1, -1, dim)
+
+
+def apply_matrix(matrix: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
+    """Apply a (B, d or d+1, d+1) affine matrix to (B, N, d) points (fp32)."""
+    d = points.shape[-1]
+    m = matrix.float()
+    return points.float() @ m[..., :d, :d].transpose(-1, -2) + m[..., None, :d, d]

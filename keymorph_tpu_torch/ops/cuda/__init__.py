@@ -16,15 +16,23 @@ def _functions():
         "conv3x3_fused_flat": conv3d.conv3x3_fused_flat,
         "conv3x3_fused_flat_parts": conv3d.conv3x3_fused_flat_parts,
         "conv3x3_fused_flat_upconv": conv3d.conv3x3_fused_flat_upconv,
+        "conv3x3_input_grad": conv3d.conv3x3_input_grad,
         "tps_planes": tpsflow.tps_planes,
+        "tps_planes_bwd": tpsflow.tps_planes_bwd,
+        "tps_flow": tpsflow.tps_flow,
         "warp_planes": resample3d.warp_planes,
+        "warp_planes_grad": resample3d.warp_planes_grad,
     }
     plains = {
         "conv3x3_fused_flat": conv3d.conv3x3_fused_flat_plain,
         "conv3x3_fused_flat_parts": conv3d.conv3x3_fused_flat_parts_plain,
         "conv3x3_fused_flat_upconv": conv3d.conv3x3_fused_flat_upconv_plain,
+        "conv3x3_input_grad": conv3d.conv3x3_input_grad_plain,
         "tps_planes": tpsflow.tps_planes_plain,
+        "tps_planes_bwd": tpsflow.tps_planes_bwd_plain,
+        "tps_flow": tpsflow.tps_flow_plain,
         "warp_planes": resample3d.warp_planes_plain,
+        "warp_planes_grad": resample3d.warp_planes_grad_plain,
     }
     return kernels, plains
 

@@ -1,7 +1,8 @@
 """Fused affine + 3x3x3 SAME conv + bias + ReLU on the flat (Z, C, Y*X)
-layout: ``conv3x3_fused_flat`` and its ``_parts`` / ``_upconv`` forms.
+layout: ``conv3x3_fused_flat`` and its ``_parts`` / ``_upconv`` forms, the
+4-D entry ``conv3x3_fused``, and their gradient.
 
-Port of ``keymorph_tpu/ops/pallas/conv3d.py`` (kernels B1-B3). The three
+Port of ``keymorph_tpu/ops/pallas/conv3d.py`` (kernels B1-B3 and B6). The
 public functions keep the JAX package's signatures and layouts:
 
   * ``xf`` / ``xa`` / ``xb``: flat (Z, C, Y*X) bf16 volumes (one sample);
@@ -16,6 +17,25 @@ One CUDA kernel (``csrc/conv3d.cu``) serves all three. The plain versions
 compute keymorph_tpu's ``_conv_xla`` arithmetic: operands rounded to bf16,
 lifted to fp32, an fp32 ``conv3d`` (TF32 must be off), output rounded to
 bf16. CPU tensors run them; CUDA tensors launch the kernel.
+
+All forms are differentiable through one ``torch.autograd.Function`` whose
+backward follows keymorph_tpu's ``_conv_bwd``: with u = a*x + b,
+v = conv_W(pad0(bf16(u))) + bias, y = relu(v),
+
+  * ``y`` is recomputed with the forward kernel where the ReLU mask or the
+    stats cotangents need it (the forward saves only its inputs);
+  * the stats cotangents fold into the output cotangent as
+    ``(g_mean + 2 y g_msq) / n``, the ReLU masks it, and it is rounded to
+    bf16 (``g_v``);
+  * the input gradient ``g_u`` is :func:`conv3x3_input_grad`: the same conv
+    over ``g_v`` with flipped taps and swapped channels, a kernel of its own
+    entry (B6), bf16 out; ``g_x = bf16(g_u * a)``;
+  * ``g_a``, ``g_b``, ``g_bias`` are plain reductions, and the weight
+    gradient is 27 tap-sliced products of bf16-valued operands with fp32
+    sums over views of one padded copy of ``bf16(u)``.
+
+For the upconv form the half-resolution source's gradient is the 2x2x2
+block sum of the full-resolution ``g_u`` (the transpose of nearest x2).
 """
 
 from __future__ import annotations
@@ -34,10 +54,27 @@ from keymorph_tpu_torch import _build
 # ---------------------------------------------------------------------------
 
 
+class _ChannelStats(torch.autograd.Function):
+    """(mean, mean-square) per channel; the backward keeps only the input in
+    its own dtype (no fp32 copy is saved)."""
+
+    @staticmethod
+    def forward(ctx, xf):
+        ctx.save_for_backward(xf)
+        x = xf.float()
+        return x.mean(dim=(0, 2)), (x * x).mean(dim=(0, 2))
+
+    @staticmethod
+    def backward(ctx, g_m, g_m2):
+        (xf,) = ctx.saved_tensors
+        n = float(xf.shape[0] * xf.shape[2])
+        g = (g_m[None, :, None] + 2.0 * xf.float() * g_m2[None, :, None]) / n
+        return g.to(xf.dtype)
+
+
 def channel_stats(xf: torch.Tensor):
     """Per-channel fp32 (mean, mean-square) of a flat (Z, C, N) tensor."""
-    x = xf.float()
-    return x.mean(dim=(0, 2)), (x * x).mean(dim=(0, 2))
+    return _ChannelStats.apply(xf)
 
 
 def upsample_nearest_flat(xf: torch.Tensor, spatial: Sequence[int],
@@ -73,34 +110,65 @@ def _conv_plain(xf, spatial, w, scale, shift, bias, relu, emit_stats):
     return (out, channel_stats(out)) if emit_stats else out
 
 
+def _full_input(xa, xb, b_lowres, spatial):
+    """The conv's whole input [xa, xb] at ``spatial`` (concat and upsample
+    materialized)."""
+    if xb is None:
+        return xa
+    if b_lowres:
+        Z, Y, X = spatial
+        xb = upsample_nearest_flat(xb, (Z // 2, Y // 2, X // 2), spatial)
+    return torch.cat([xa, xb], dim=1)
+
+
 def conv3x3_fused_flat_plain(xf, spatial, w, scale=None, shift=None, bias=None,
                              relu=True, emit_stats=False):
-    """Plain PyTorch :func:`conv3x3_fused_flat`."""
-    conv3x3_fused_flat_plain.calls += 1
-    return _conv_plain(xf, spatial, w, scale, shift, bias, relu, emit_stats)
+    """Plain PyTorch :func:`conv3x3_fused_flat` (differentiable, with the
+    plain input gradient)."""
+    return _apply("flat", True, xf, None, spatial, w, scale, shift, bias, relu,
+                  emit_stats)
 
 
 def conv3x3_fused_flat_parts_plain(xa, xb, spatial, w, scale=None, shift=None,
                                    bias=None, relu=True, emit_stats=False):
     """Plain PyTorch :func:`conv3x3_fused_flat_parts` (materializes the concat)."""
-    conv3x3_fused_flat_parts_plain.calls += 1
-    return _conv_plain(torch.cat([xa, xb], dim=1), spatial, w, scale, shift,
-                       bias, relu, emit_stats)
+    return _apply("parts", True, xa, xb, spatial, w, scale, shift, bias, relu,
+                  emit_stats)
 
 
 def conv3x3_fused_flat_upconv_plain(xa, xb_lo, spatial, w, scale=None, shift=None,
                                     bias=None, relu=True, emit_stats=False):
     """Plain PyTorch :func:`conv3x3_fused_flat_upconv` (materializes the
     upsample and the concat)."""
-    conv3x3_fused_flat_upconv_plain.calls += 1
+    return _apply("upconv", True, xa, xb_lo, spatial, w, scale, shift, bias, relu,
+                  emit_stats)
+
+
+def conv3x3_input_grad_plain(g_v, spatial, w, ca=None):
+    """Plain PyTorch :func:`conv3x3_input_grad`: an fp32 ``conv3d`` of the
+    bf16 cotangent with the flipped, channel-swapped bf16-rounded weights,
+    rounded to bf16."""
+    conv3x3_input_grad_plain.calls += 1
     Z, Y, X = spatial
-    xb = upsample_nearest_flat(xb_lo, (Z // 2, Y // 2, X // 2), spatial)
-    return _conv_plain(torch.cat([xa, xb], dim=1), spatial, w, scale, shift,
-                       bias, relu, emit_stats)
+    if g_v.is_cuda and torch.backends.cudnn.allow_tf32:
+        raise RuntimeError("plain conv oracle needs TF32 off: call "
+                           "keymorph_tpu_torch.disable_tf32() first")
+    lhs = g_v.float().reshape(Z, -1, Y, X).permute(1, 0, 2, 3)
+    # OIDHW with O = Cin, I = Cout, taps flipped
+    rhs = w.to(torch.bfloat16).float().flip(0, 1, 2).permute(3, 4, 0, 1, 2)
+    out = F.conv3d(lhs[None], rhs, padding=1)[0]  # (Cin, Z, Y, X)
+    out = out.permute(1, 0, 2, 3).to(torch.bfloat16).reshape(Z, -1, Y * X)
+    return _split(out, ca)
+
+
+def _split(g_u, ca):
+    if ca is None or ca == g_u.shape[1]:
+        return g_u, None
+    return g_u[:, :ca].contiguous(), g_u[:, ca:].contiguous()
 
 
 for _f in (conv3x3_fused_flat_plain, conv3x3_fused_flat_parts_plain,
-           conv3x3_fused_flat_upconv_plain):
+           conv3x3_fused_flat_upconv_plain, conv3x3_input_grad_plain):
     _f.calls = 0
 
 
@@ -120,6 +188,8 @@ def _fn():
         lib.km_conv3x3_tiles.restype = ctypes.c_int
         lib.km_conv3x3_cout_block.argtypes = []
         lib.km_conv3x3_cout_block.restype = ctypes.c_int
+        lib.km_conv3x3_input_grad.argtypes = [vp] * 4 + [i] * 7 + [vp]
+        lib.km_conv3x3_input_grad.restype = ctypes.c_int
     return lib
 
 
@@ -190,6 +260,202 @@ def _launch(xa, xb, b_lowres, spatial, w, scale, shift, bias, relu, emit_stats):
 
 
 # ---------------------------------------------------------------------------
+# the input gradient (kernel B6)
+# ---------------------------------------------------------------------------
+
+
+def conv3x3_input_grad(g_v, spatial, w, ca=None):
+    """Input gradient of the 3x3x3 SAME conv with weights ``w``
+    (3, 3, 3, Cin, Cout): ``g_u = conv(pad0(g_v); flip(w) with Cin/Cout
+    swapped)``, bf16 operands, fp32 sums, bf16 result.
+
+    Args:
+        g_v: flat (Z, Cout, Y*X) bf16 cotangent of the conv's pre-ReLU output.
+        spatial: (Z, Y, X).
+        ca: split the Cin gradient channels at ``ca`` into two tensors (the
+            two sources of a parts / upconv conv); None keeps one tensor.
+    Returns:
+        (g_ua, g_ub): flat bf16 (Z, ca, Y*X) and (Z, Cin - ca, Y*X), both at
+        ``spatial``; ``g_ub`` is None without a split.
+
+    CPU tensors run :func:`conv3x3_input_grad_plain`; CUDA tensors launch the
+    kernel.
+    """
+    if g_v.device.type == "cpu":
+        return conv3x3_input_grad_plain(g_v, spatial, w, ca)
+    Z, Y, X = (int(s) for s in spatial)
+    dev = g_v.device
+    if dev.type != "cuda" or g_v.dtype != torch.bfloat16:
+        raise TypeError(f"conv3x3_input_grad: g_v must be a CUDA bfloat16 tensor, "
+                        f"got {g_v.dtype} on {dev}")
+    if g_v.dim() != 3 or not g_v.is_contiguous() or g_v.shape[0] != Z \
+            or g_v.shape[2] != Y * X:
+        raise ValueError(f"conv3x3_input_grad: g_v {tuple(g_v.shape)} is not a "
+                         f"contiguous flat (Z, Cout, Y*X) tensor at {spatial}")
+    Cg = int(g_v.shape[1])
+    if w.dim() != 5 or tuple(w.shape[:3]) != (3, 3, 3) or w.shape[4] != Cg:
+        raise ValueError(f"conv3x3_input_grad: w {tuple(w.shape)} is not "
+                         f"(3, 3, 3, Cin, {Cg})")
+    Cin = int(w.shape[3])
+    ca = Cin if ca is None else int(ca)
+    if not 0 < ca <= Cin:
+        raise ValueError(f"conv3x3_input_grad: split {ca} outside (0, {Cin}]")
+    cb_ = Cin - ca
+    lib = _fn()
+    blk = lib.km_conv3x3_cout_block()
+    cinp = -(-Cin // blk) * blk
+    # wk[co, tap, ci] = W[26 - tap, ci, co]: flipped taps, swapped channels
+    wk = w.to(device=dev).to(torch.bfloat16).float().reshape(27, Cin, Cg).flip(0)
+    wk = F.pad(wk.permute(2, 0, 1), (0, cinp - Cin)).contiguous()
+    out_a = torch.empty((Z, ca, Y * X), dtype=torch.bfloat16, device=dev)
+    out_b = (torch.empty((Z, cb_, Y * X), dtype=torch.bfloat16, device=dev)
+             if cb_ else None)
+    err = lib.km_conv3x3_input_grad(
+        g_v.data_ptr(), wk.data_ptr(), out_a.data_ptr(),
+        out_b.data_ptr() if out_b is not None else None,
+        Z, Y, X, Cg, ca, cb_, cinp, _build.stream_ptr(dev))
+    _build.check(err, "km_conv3x3_input_grad")
+    conv3x3_input_grad.launches += 1
+    return out_a, out_b
+
+
+conv3x3_input_grad.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# autograd
+# ---------------------------------------------------------------------------
+
+
+def _forward(mode, plain, xa, xb, spatial, w, scale, shift, bias, relu, emit_stats):
+    """Run one conv form forward and count it: the plain version (asked for,
+    or a CPU tensor), else the kernel."""
+    if plain or xa.device.type == "cpu":
+        _PLAINS[mode].calls += 1
+        return _conv_plain(_full_input(xa, xb, mode == "upconv", spatial), spatial,
+                           w, scale, shift, bias, relu, emit_stats)
+    r = _launch(xa, xb, mode == "upconv", spatial, w, scale, shift, bias, relu,
+                emit_stats)
+    _KERNELS[mode].launches += 1
+    return r
+
+
+def _block_sum2(x, spatial):
+    """2x2x2 block sums of a flat (Z, C, Y*X) tensor, in fp32: the transpose
+    of the nearest x2 upsample. Returns (Z/2, C, Y/2*X/2) fp32."""
+    Z, Y, X = spatial
+    C = x.shape[1]
+    x7 = x.reshape(Z // 2, 2, C, Y // 2, 2, X // 2, 2)
+    return x7.sum(dim=(1, 4, 6), dtype=torch.float32).reshape(Z // 2, C, -1)
+
+
+def _weight_grad(u, g_v, spatial):
+    """dW[dz, dy, dx, ci, co] = sum_{z,y,x} u[z+dz-1, ci, y+dy-1, x+dx-1] *
+    g_v[z, co, y, x] (zero outside): 27 z-batched fp32 matmuls of bf16-valued
+    operands over views of one padded copy of ``u``. Returns (3, 3, 3, Cin,
+    Cout) fp32."""
+    Z, Y, X = spatial
+    C = u.shape[1]
+    up = F.pad(u.reshape(Z, C, Y, X), (1, 1, 1, 1, 0, 0, 1, 1))
+    gf = g_v.float().transpose(1, 2)  # (Z, N, Cout)
+    taps = []
+    for dz in range(3):
+        for dy in range(3):
+            for dx in range(3):
+                usl = up[dz:dz + Z, :, dy:dy + Y, dx:dx + X].float().reshape(Z, C, Y * X)
+                taps.append(torch.bmm(usl, gf).sum(dim=0))
+    return torch.stack(taps).reshape(3, 3, 3, C, -1)
+
+
+class _FusedConv(torch.autograd.Function):
+    """relu?(conv(pad0(bf16(a*x + b))) + bias) with optional output stats,
+    over one or two sources; see the module docstring for the backward."""
+
+    @staticmethod
+    def forward(ctx, mode, plain, spatial, relu, emit_stats, xa, xb, w, scale,
+                shift, bias):
+        spatial = tuple(int(s) for s in spatial)
+        ctx.cfg = (mode, plain, spatial, bool(relu), bool(emit_stats))
+        ctx.save_for_backward(xa, xb, w, scale, shift, bias)
+        r = _forward(mode, plain, xa, xb, spatial, w, scale, shift, bias, relu,
+                     emit_stats)
+        if emit_stats:
+            return r[0], r[1][0], r[1][1]
+        return r
+
+    @staticmethod
+    def backward(ctx, g_y, g_m=None, g_m2=None):
+        mode, plain, spatial, relu, emit_stats = ctx.cfg
+        xa, xb, w, scale, shift, bias = ctx.saved_tensors
+        Z, Y, X = spatial
+        ca = int(xa.shape[1])
+        lowres = mode == "upconv"
+
+        y = None
+        if relu or emit_stats:
+            y = _forward(mode, plain, xa, xb, spatial, w, scale, shift, bias, relu,
+                         False)
+        g = g_y.float()
+        if emit_stats:
+            n = float(Z * Y * X)
+            g = g + (g_m.float()[None, :, None]
+                     + 2.0 * y.float() * g_m2.float()[None, :, None]) / n
+        if relu:
+            g = torch.where(y > 0, g, torch.zeros((), dtype=g.dtype, device=g.device))
+        g_v = g.to(torch.bfloat16).contiguous()
+        del g, y
+
+        if plain or g_v.device.type == "cpu":
+            g_ua, g_ub = conv3x3_input_grad_plain(g_v, spatial, w, ca)
+        else:
+            g_ua, g_ub = conv3x3_input_grad(g_v, spatial, w, ca)
+
+        # the half-resolution source sees the 2x2x2 block sums of g_u
+        gb = None
+        if xb is not None:
+            gb = _block_sum2(g_ub, spatial) if lowres else g_ub.float()
+        ga = g_ua.float()
+
+        need = ctx.needs_input_grad  # mode, plain, spatial, relu, stats, xa, xb, w, a, b, bias
+        sa = scale.float() if scale is not None else None
+        g_xa = g_xb = None
+        if need[5]:
+            g_xa = (ga if sa is None else ga * sa[None, :ca, None]).to(xa.dtype)
+        if xb is not None and need[6]:
+            g_xb = (gb if sa is None else gb * sa[None, ca:, None]).to(xb.dtype)
+
+        def cat(a, b):
+            return a if b is None else torch.cat([a, b])
+
+        g_scale = g_shift = g_bias = g_w = None
+        if scale is not None and need[8]:
+            g_scale = cat((ga * xa.float()).sum(dim=(0, 2)),
+                          None if xb is None else (gb * xb.float()).sum(dim=(0, 2)))
+            g_scale = g_scale.to(scale.dtype)
+        if shift is not None and need[9]:
+            g_shift = cat(ga.sum(dim=(0, 2)),
+                          None if xb is None else gb.sum(dim=(0, 2))).to(shift.dtype)
+        if bias is not None and need[10]:
+            g_bias = g_v.sum(dim=(0, 2), dtype=torch.float32).to(bias.dtype)
+        del ga, gb
+        if need[7]:
+            u = _full_input(xa, xb, lowres, spatial).float()
+            if scale is not None:
+                u = u * scale.float()[None, :, None]
+            if shift is not None:
+                u = u + shift.float()[None, :, None]
+            g_w = _weight_grad(u.to(torch.bfloat16), g_v, spatial).to(w.dtype)
+        return (None, None, None, None, None, g_xa, g_xb, g_w, g_scale, g_shift,
+                g_bias)
+
+
+def _apply(mode, plain, xa, xb, spatial, w, scale, shift, bias, relu, emit_stats):
+    r = _FusedConv.apply(mode, plain, spatial, relu, emit_stats, xa, xb, w, scale,
+                         shift, bias)
+    return (r[0], (r[1], r[2])) if emit_stats else r
+
+
+# ---------------------------------------------------------------------------
 # public wrappers
 # ---------------------------------------------------------------------------
 
@@ -198,25 +464,18 @@ def conv3x3_fused_flat(xf, spatial, w, scale=None, shift=None, bias=None,
                        relu=True, emit_stats=False):
     """relu?(conv3^3_SAME(pad0(scale*x + shift); w) + bias) on flat
     (Z, Cin, Y*X) bf16 ``xf``; ``spatial`` is (Z, Y, X). Returns flat
-    (Z, Cout, Y*X) bf16, and with ``emit_stats`` also (mean, msq) per Cout."""
-    if xf.device.type == "cpu":
-        return conv3x3_fused_flat_plain(xf, spatial, w, scale, shift, bias, relu,
-                                        emit_stats)
-    r = _launch(xf, None, False, spatial, w, scale, shift, bias, relu, emit_stats)
-    conv3x3_fused_flat.launches += 1
-    return r
+    (Z, Cout, Y*X) bf16, and with ``emit_stats`` also (mean, msq) per Cout.
+    CPU tensors run the plain version; CUDA tensors launch the kernel."""
+    return _apply("flat", False, xf, None, spatial, w, scale, shift, bias, relu,
+                  emit_stats)
 
 
 def conv3x3_fused_flat_parts(xa, xb, spatial, w, scale=None, shift=None,
                              bias=None, relu=True, emit_stats=False):
     """:func:`conv3x3_fused_flat` over the channel concat [xa, xb] of two
     same-resolution flat volumes, without materializing the concat."""
-    if xa.device.type == "cpu":
-        return conv3x3_fused_flat_parts_plain(xa, xb, spatial, w, scale, shift,
-                                              bias, relu, emit_stats)
-    r = _launch(xa, xb, False, spatial, w, scale, shift, bias, relu, emit_stats)
-    conv3x3_fused_flat_parts.launches += 1
-    return r
+    return _apply("parts", False, xa, xb, spatial, w, scale, shift, bias, relu,
+                  emit_stats)
 
 
 def conv3x3_fused_flat_upconv(xa, xb_lo, spatial, w, scale=None, shift=None,
@@ -225,14 +484,28 @@ def conv3x3_fused_flat_upconv(xa, xb_lo, spatial, w, scale=None, shift=None,
     over [xa, nearest_x2(xb_lo)] at ``spatial``, reading the half-resolution
     ``xb_lo`` (Z/2, Cb, Y/2*X/2) directly (neither the upsample nor the
     concat is materialized)."""
-    if xa.device.type == "cpu":
-        return conv3x3_fused_flat_upconv_plain(xa, xb_lo, spatial, w, scale, shift,
-                                               bias, relu, emit_stats)
-    r = _launch(xa, xb_lo, True, spatial, w, scale, shift, bias, relu, emit_stats)
-    conv3x3_fused_flat_upconv.launches += 1
-    return r
+    return _apply("upconv", False, xa, xb_lo, spatial, w, scale, shift, bias, relu,
+                  emit_stats)
+
+
+def conv3x3_fused(x, w, scale=None, shift=None, bias=None, relu=True,
+                  emit_stats=False):
+    """:func:`conv3x3_fused_flat` on a 4-D (Z, Cin, Y, X) volume; returns
+    (Z, Cout, Y, X) bf16 (and the stats). A contiguous 4-D tensor is the
+    flat tensor, so this is a view onto the same kernel."""
+    Z, C, Y, X = (int(s) for s in x.shape)
+    r = conv3x3_fused_flat(x.to(torch.bfloat16).reshape(Z, C, Y * X), (Z, Y, X), w,
+                           scale, shift, bias, relu, emit_stats)
+    if emit_stats:
+        return r[0].reshape(Z, -1, Y, X), r[1]
+    return r.reshape(Z, -1, Y, X)
 
 
 for _f in (conv3x3_fused_flat, conv3x3_fused_flat_parts, conv3x3_fused_flat_upconv):
     _f.launches = 0
 del _f
+
+_KERNELS = {"flat": conv3x3_fused_flat, "parts": conv3x3_fused_flat_parts,
+            "upconv": conv3x3_fused_flat_upconv}
+_PLAINS = {"flat": conv3x3_fused_flat_plain, "parts": conv3x3_fused_flat_parts_plain,
+           "upconv": conv3x3_fused_flat_upconv_plain}

@@ -11,6 +11,10 @@ becomes the reference unet3d ``state_dict`` the port's modules use
 (``encoders.i.basic_module.SingleConv{1,2}.{conv.weight (O, I, 3, 3, 3),
 groupnorm.{weight, bias}}``, ``decoders.j...``, ``final_conv.*``).
 
+:func:`load_adam_state` carries an ``optax.adam`` state (``mu``, ``nu``,
+``count``) into a ``torch.optim.Adam`` the same way, so that both packages
+take the same next step from the same point.
+
 Input leaves are numpy arrays (or anything ``np.asarray`` takes), so this
 module needs neither JAX nor flax.
 """
@@ -83,3 +87,25 @@ def state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
         if name in p:
             sd[name] = torch.tensor(np.asarray(p[name], dtype=np.float32))
     return sd
+
+
+def load_adam_state(optimizer: torch.optim.Optimizer, net: torch.nn.Module,
+                    mu: Mapping, nu: Mapping, count) -> None:
+    """Set ``optimizer``'s Adam moments from an ``optax.adam`` state.
+
+    Args:
+        optimizer: a ``torch.optim.Adam`` over ``net``'s parameters.
+        net: the port's ``KeyMorphNet``.
+        mu, nu: optax's first and second moments, numpy trees shaped like the
+            flax parameters (``ScaleByAdamState.mu`` / ``.nu``).
+        count: optax's step count (``ScaleByAdamState.count``).
+    """
+    first, second = state_dict_from_flax(mu), state_dict_from_flax(nu)
+    for name, p in net.named_parameters():
+        if name not in first:
+            raise KeyError(f"no Adam moments for parameter {name!r}")
+        optimizer.state[p] = {
+            "step": torch.tensor(float(np.asarray(count))),
+            "exp_avg": first[name].to(device=p.device, dtype=p.dtype).reshape(p.shape),
+            "exp_avg_sq": second[name].to(device=p.device, dtype=p.dtype).reshape(p.shape),
+        }

@@ -103,6 +103,16 @@ CHUNK_POINTS = 1 << 20  # bounds the RBF matrix at (B, T, 2^20) fp32
 
 
 def tps_eval_chunked(theta, ctrl, points):
+    """The spline at dense points (B, N, 3), through
+    ``ops.cuda.tpsflow.tps_flow``: CUDA tensors run the TPS-flow kernel in
+    points mode, CPU tensors :func:`tps_eval_chunked_plain`."""
+    from keymorph_tpu_torch.ops.cuda import tpsflow  # it imports this module
+
+    return tpsflow.tps_flow(theta.float().contiguous(), ctrl.float().contiguous(),
+                            points.float().contiguous())
+
+
+def tps_eval_chunked_plain(theta, ctrl, points):
     """:func:`tps_eval` over sequential chunks of ``CHUNK_POINTS`` points,
     so the RBF matrix never exceeds (B, T, CHUNK_POINTS)."""
     outs = [

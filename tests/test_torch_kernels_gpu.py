@@ -110,11 +110,213 @@ def test_warp_kernel_matches_plain(rng, dev, mode):
     torch.testing.assert_close(got, want, atol=0, rtol=0)
 
 
+@pytest.mark.parametrize("shape", [((6, 12, 40), 24, 8, 0), ((6, 12, 40), 24, 8, 16),
+                                   ((5, 7, 9), 3, 3, 0)])
+def test_conv_input_grad_kernel_matches_plain(rng, dev, shape):
+    """The input-gradient kernel (one tensor, and split into the two halves
+    of a two-source conv) within one bf16 ulp of its plain version, on shapes
+    ragged against the 4 x 8 x 32 tile and the 16-channel block; C = 3."""
+    from keymorph_tpu_torch.ops.cuda import conv3d
+
+    (Z, Y, X), cg, ca, cb = shape
+    g_v = _bf16(rng, Z, cg, Y * X).to(dev)
+    w = torch.tensor(rng.normal(size=(3, 3, 3, ca + cb, cg)).astype(np.float32) * 0.2, device=dev)
+    n0 = conv3d.conv3x3_input_grad.launches
+    got = conv3d.conv3x3_input_grad(g_v, (Z, Y, X), w, ca if cb else None)
+    want = conv3d.conv3x3_input_grad_plain(g_v, (Z, Y, X), w, ca if cb else None)
+    torch.cuda.synchronize()
+    assert conv3d.conv3x3_input_grad.launches == n0 + 1
+    assert (got[1] is None) == (cb == 0)
+    for k, p in zip(got, want):
+        if k is None:
+            continue
+        assert k.shape == p.shape and k.dtype == torch.bfloat16
+        k, p = k.float(), p.float()
+        bound = torch.maximum(_ulp(p), _ulp(k)) + 1e-6 * p.abs().max()
+        assert bool(((k - p).abs() <= bound).all()), (k - p).abs().max().item()
+
+
+@pytest.mark.parametrize("mode", ["flat", "upconv"])
+def test_conv_backward_through_the_kernels_matches_plain(rng, dev, mode):
+    """backward() of the fused conv on the card (forward recompute and input
+    gradient on the kernels, the reductions in PyTorch) against the same
+    Function on the plain versions: every gradient within 2e-2 of its
+    largest value (bf16 cotangents and outputs may differ by one ulp)."""
+    from keymorph_tpu_torch.ops.cuda import conv3d
+
+    Z, Y, X, ca, cb, cout = 6, 12, 40, 8, (0 if mode == "flat" else 16), 24
+    xs = [_bf16(rng, Z, ca, Y * X).to(dev)]
+    if cb:
+        xs.append(_bf16(rng, Z // 2, cb, (Y // 2) * (X // 2)).to(dev))
+    cin = ca + cb
+    w = torch.tensor(rng.normal(size=(3, 3, 3, cin, cout)).astype(np.float32) * 0.2, device=dev)
+    sc = torch.tensor(rng.uniform(0.5, 1.5, cin).astype(np.float32), device=dev)
+    sh = torch.tensor(rng.normal(size=cin).astype(np.float32) * 0.3, device=dev)
+    kern, plain = ((conv3d.conv3x3_fused_flat, conv3d.conv3x3_fused_flat_plain) if mode == "flat"
+                   else (conv3d.conv3x3_fused_flat_upconv, conv3d.conv3x3_fused_flat_upconv_plain))
+
+    def grads(fn):
+        leaves = [t.clone().requires_grad_(True) for t in (*xs, w, sc, sh)]
+        out, (m, m2) = fn(*leaves[:len(xs)], (Z, Y, X), *leaves[len(xs):], emit_stats=True)
+        ((out.float() ** 2).sum() + 50.0 * m.sum() + 20.0 * m2.sum()).backward()
+        return [t.grad.float() for t in leaves]
+
+    n0 = conv3d.conv3x3_input_grad.launches
+    got, want = grads(kern), grads(plain)
+    torch.cuda.synchronize()
+    assert conv3d.conv3x3_input_grad.launches == n0 + 1
+    for g, p in zip(got, want):
+        assert g.shape == p.shape
+        assert (g - p).abs().max().item() <= 2e-2 * p.abs().max().item()
+
+
+@pytest.mark.parametrize("B,T,spatial", [(2, 37, (9, 10, 11)), (1, 130, (17, 9, 33)),
+                                          (1, 8, (7, 1, 13))])
+def test_tps_backward_kernel_matches_plain_and_float64(rng, dev, B, T, spatial):
+    """T not a multiple of the kernel's 32/64 control-point lanes, N not a
+    multiple of its 1024-point blocks, an axis of size 1. Against the plain
+    version in float64: 1e-5 of the largest value (fp32 sums over N points in
+    a tree); the fp32 plain version is itself that far from float64."""
+    from keymorph_tpu_torch.ops.cuda import tpsflow
+    from keymorph_tpu_torch.transforms import solvers
+
+    src = torch.tensor(rng.uniform(-0.8, 0.8, (B, T, 3)).astype(np.float32), device=dev)
+    dst = src + torch.tensor(rng.normal(0, 0.08, (B, T, 3)).astype(np.float32), device=dev)
+    theta = solvers.fit_tps(src, dst, 0.5).contiguous()
+    g = torch.tensor(rng.normal(size=(B, 3, *spatial)).astype(np.float32), device=dev)
+    n0 = tpsflow.tps_planes_bwd.launches
+    kt, kc = tpsflow.tps_planes_bwd(theta, src, spatial, g)
+    rt, rc = tpsflow.tps_planes_bwd_plain(theta, src, spatial, g, dtype=torch.float64)
+    torch.cuda.synchronize()
+    assert tpsflow.tps_planes_bwd.launches == n0 + 1
+    assert kt.shape == (B, T + 4, 3) and kc.shape == (B, T, 3)
+    assert (kt - rt).abs().max().item() <= 1e-5 * max(rt.abs().max().item(), 1.0)
+    assert (kc - rc).abs().max().item() <= 1e-5 * max(rc.abs().max().item(), 1.0)
+    # and through autograd: tps_planes(...).backward launches the same kernel
+    th, c = theta.clone().requires_grad_(True), src.clone().requires_grad_(True)
+    tpsflow.tps_planes(th, c, spatial).backward(g)
+    torch.cuda.synchronize()
+    assert tpsflow.tps_planes_bwd.launches == n0 + 2
+    assert torch.equal(th.grad, kt) and torch.equal(c.grad, kc)
+
+
+@pytest.mark.parametrize("N", [990, 5049])
+def test_tps_flow_points_kernel_matches_plain(rng, dev, N):
+    """The TPS kernel's points mode at ragged N (not a multiple of its
+    256-point block), T = 37: abs 2e-5, as the planes mode."""
+    from keymorph_tpu_torch.ops.cuda import tpsflow
+    from keymorph_tpu_torch.transforms import solvers
+
+    src = torch.tensor(rng.uniform(-0.8, 0.8, (2, 37, 3)).astype(np.float32), device=dev)
+    dst = src + torch.tensor(rng.normal(0, 0.08, (2, 37, 3)).astype(np.float32), device=dev)
+    theta = solvers.fit_tps(src, dst, 0.5).contiguous()
+    pts = torch.tensor(rng.uniform(-1.2, 1.2, (2, N, 3)).astype(np.float32), device=dev)
+    n0, p0 = tpsflow.tps_flow.launches, tpsflow.tps_flow_plain.calls
+    got = solvers.tps_eval_chunked(theta, src, pts)  # dispatches to the kernel
+    want = tpsflow.tps_flow_plain(theta, src, pts)
+    torch.cuda.synchronize()
+    assert tpsflow.tps_flow.launches == n0 + 1 and tpsflow.tps_flow_plain.calls == p0 + 1
+    assert got.shape == (2, N, 3)
+    assert (got - want).abs().max().item() <= 2e-5
+
+
+@pytest.mark.parametrize("C", [1, 3])
+def test_warp_gradient_kernel_matches_plain(rng, dev, C):
+    """The gradient to the planes, for flows that leave the volume and with
+    exact clamp ties at both ends: 1e-5 of the largest value (the same fp32
+    terms, FMA-contracted in the kernel); ties carry half, outside is 0."""
+    from keymorph_tpu_torch.ops.cuda import resample3d
+
+    Z, Y, X = 16, 24, 32  # powers of two where a tie must be exact in fp32
+    img = torch.tensor(rng.random((2, C, Z, Y, X), dtype=np.float32), device=dev)
+    planes = rng.uniform(-1.3, 1.3, (2, 3, 18, 16, 40)).astype(np.float32)
+    planes[0, 0, 0] = 1.0 / Z - 1.0              # v == 0 exactly
+    planes[1, 2, 1] = (2.0 * X - 1.0) / X - 1.0  # v == X - 1 exactly
+    planes = torch.tensor(planes, device=dev)
+    g = torch.tensor(rng.normal(size=(2, C, 18, 16, 40)).astype(np.float32), device=dev)
+    n0 = resample3d.warp_planes_grad.launches
+    got = resample3d.warp_planes_grad(img, planes, g)
+    want = resample3d.warp_planes_grad_plain(img, planes, g)
+    torch.cuda.synchronize()
+    assert resample3d.warp_planes_grad.launches == n0 + 1
+    assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+    outside = (planes < -1.0) | (planes > 1.0)
+    assert bool(outside.any()) and not bool(got[outside].any())
+    assert not bool(got[1, 2, 1].any())  # the top edge: hi == lo
+    assert bool(got[0, 0, 0].any())
+    # through autograd, with the image gradient as a plain scatter-add
+    pe, im = planes.clone().requires_grad_(True), img.clone().requires_grad_(True)
+    resample3d.warp_planes(im, pe).backward(g)
+    torch.cuda.synchronize()
+    assert resample3d.warp_planes_grad.launches == n0 + 2
+    assert torch.equal(pe.grad, got) and im.grad.shape == img.shape
+
+
+def test_training_step_on_the_card_dice_augment_batch(rng, dev):
+    """A small training step on the kernels with what the smoke run's
+    canonical step leaves out: batch 2, Dice on 3-channel one-hot labels (the
+    warp and its gradient at C = 3), affine augmentation (the nearest warp),
+    power keypoint weights and block checkpointing. No plain version may run;
+    loss and grad_norm agree with the same step on the plain versions within
+    5% (bf16 conv outputs may differ by one ulp, and the step amplifies it);
+    the keypoint-consistency step runs on the kernels too."""
+    from keymorph_tpu_torch.models.keymorph import KeyMorphNet
+    from keymorph_tpu_torch.models.unet import TruncatedUNet3D, init_weights
+    from keymorph_tpu_torch.ops import cuda as kernels
+    from keymorph_tpu_torch.training.config import Config
+    from keymorph_tpu_torch.training.train import (
+        TrainState, make_kpconsistency_step, make_optimizer, make_train_step)
+
+    S, K = (24, 20, 40), 8
+    cfg = Config(num_keypoints=K, transform_type="tps_loguniform", loss_fn="dice", lr=1e-4,
+                 max_train_keypoints=6, max_random_affine_augment_params=(0.1, 0.1, 0.2, 0.05),
+                 kpconsistency_coeff=1.0)
+    axes = [np.linspace(-1, 1, s) for s in S]
+    zz, yy, xx = np.meshgrid(*axes, indexing="ij")
+    blob = np.exp(-(zz ** 2 + (yy - 0.2) ** 2 + (xx + 0.1) ** 2) / 0.3)
+    img = torch.tensor(np.stack([blob, blob[::-1].copy()])[:, None].astype(np.float32),
+                       device=dev)
+    labels = torch.tensor(rng.integers(0, 3, (2, *S)), device=dev)
+    seg = torch.nn.functional.one_hot(labels, 3).movedim(-1, 1).float().contiguous()
+    results = []
+    for plain in (False, True):
+        unet = TruncatedUNet3D(out_channels=K, f_maps=4, num_levels=3, num_truncated_layers=1,
+                               dtype=torch.bfloat16, use_checkpoint=not plain)
+        net = KeyMorphNet(init_weights(unet, torch.Generator().manual_seed(0)), K,
+                          weight_keypoints="power").to(dev)
+        state = TrainState.create(net, make_optimizer(cfg, net))
+        step = make_train_step(net, cfg, plain=plain)
+        kernels.reset_counters()
+        state, m = step(state, torch.Generator().manual_seed(3), img, img.flip(0).contiguous(),
+                        seg, seg.flip(0).contiguous(), 0.5, lmbda=torch.tensor([0.3, 2.0], device=dev),
+                        keypoint_idx=np.arange(6))
+        torch.cuda.synchronize()
+        counts = kernels.counters()
+        results.append((float(m["loss"]), float(m["grad_norm"])))
+        assert all(np.isfinite(v) for v in results[-1])
+        if plain:
+            continue
+        for name in ("conv3x3_fused_flat", "conv3x3_fused_flat_upconv", "conv3x3_input_grad",
+                     "tps_planes", "tps_planes_bwd", "warp_planes", "warp_planes_grad"):
+            assert counts[name]["launches"] > 0, name
+        assert not any(c["plain_calls"] for c in counts.values()), counts
+        kp = make_kpconsistency_step(net, cfg)
+        state, km = kp(state, torch.Generator().manual_seed(4), img[:1], img[1:], 1.0)
+        torch.cuda.synchronize()
+        assert state.step == 2 and np.isfinite(float(km["kploss"]))
+        assert not any(c["plain_calls"] for c in kernels.counters().values())
+    (kl, kg), (pl, pg) = results
+    assert 0.0 <= kl <= 1.0
+    assert abs(kl - pl) <= 5e-2 * pl and abs(kg - pg) <= 5e-2 * pg + 1e-6, results
+
+
 def test_wrappers_raise_instead_of_falling_back(dev):
     """A CUDA tensor the kernel does not take raises; it never falls back
     to the plain version."""
+    from keymorph_tpu_torch.ops import cuda as kernels
     from keymorph_tpu_torch.ops.cuda import conv3d, resample3d, tpsflow
 
+    before = {k: v["plain_calls"] for k, v in kernels.counters().items()}
     calls = conv3d.conv3x3_fused_flat_plain.calls
     with pytest.raises(TypeError):
         conv3d.conv3x3_fused_flat(torch.zeros((2, 1, 64), device=dev), (2, 8, 8),
@@ -127,3 +329,17 @@ def test_wrappers_raise_instead_of_falling_back(dev):
         tpsflow.tps_planes(torch.zeros((1, 8, 3), device=dev, dtype=torch.float64),
                            torch.zeros((1, 4, 3), device=dev, dtype=torch.float64),
                            (4, 4, 4))
+    # the four kernels of the training slice
+    with pytest.raises(TypeError):
+        conv3d.conv3x3_input_grad(torch.zeros((2, 2, 64), device=dev), (2, 8, 8),
+                                  torch.zeros((3, 3, 3, 1, 2), device=dev))
+    theta, ctrl = torch.zeros((1, 8, 3), device=dev), torch.zeros((1, 4, 3), device=dev)
+    with pytest.raises(ValueError):
+        tpsflow.tps_planes_bwd(theta, ctrl, (4, 4, 4), torch.zeros((1, 3, 4, 4, 5), device=dev))
+    with pytest.raises(ValueError):
+        tpsflow.tps_flow(theta, ctrl, torch.zeros((1, 3, 10), device=dev).transpose(1, 2))
+    with pytest.raises(ValueError):
+        resample3d.warp_planes_grad(torch.zeros((1, 1, 4, 4, 4), device=dev),
+                                    torch.zeros((1, 3, 4, 4, 4), device=dev),
+                                    torch.zeros((1, 2, 4, 4, 4), device=dev))
+    assert {k: v["plain_calls"] for k, v in kernels.counters().items()} == before

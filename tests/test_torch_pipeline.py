@@ -7,6 +7,7 @@ runs as it does on the CPU by default (flax extraction, the TPS-flow Pallas
 kernel in interpret mode, the gather warp).
 """
 
+import re
 import subprocess
 import sys
 import textwrap
@@ -79,7 +80,8 @@ def test_keypoints_match_jax(rng):
     jnet, variables, tnet = _nets(rng, "power")
     f, m = _pair(rng)
     jpf, jpm, jw = jax.jit(jnet.apply)(variables, jnp.asarray(f), jnp.asarray(m))
-    tpf, tpm, tw = tnet(torch.tensor(f), torch.tensor(m))
+    with torch.no_grad():  # serving: nothing is kept for a backward
+        tpf, tpm, tw = tnet(torch.tensor(f), torch.tensor(m))
     err = max(np.abs(tpf.numpy() - np.asarray(jpf)).max(),
               np.abs(tpm.numpy() - np.asarray(jpm)).max())
     print(f"keypoint max abs diff port vs jax: {err:.3g}")
@@ -123,25 +125,65 @@ def test_unported_alignment_raises():
             align_pair(p, p, grid_shape=(4, 4, 4), **kw)
 
 
+def test_unported_training_entry_points_name_their_roadmap_item(rng):
+    """Every NotImplementedError of the training slice's entry points says
+    which ROADMAP item will port what was asked for."""
+    from keymorph_tpu_torch import augment
+    from keymorph_tpu_torch.training import train
+    from keymorph_tpu_torch.training.config import Config, build_backbone
+
+    net = KeyMorphNet(TruncatedUNet3D(dtype=torch.bfloat16, **CFG), K)
+    tps = Config(num_keypoints=K, transform_type="tps_1.0")
+    img = torch.zeros((1, 1, 8, 8, 8))
+    state = train.TrainState.create(net, train.make_optimizer(tps, net))
+    cases = [
+        ("A4", lambda: train.make_train_step(net, Config(transform_type="affine"))),
+        ("A4", lambda: train.make_train_step(net, Config(transform_type="rigid"))),
+        ("A4", lambda: train.make_train_step(
+            net, Config(transform_type="tps_1.0", align_keypoints_in_real_world_coords=True))),
+        ("A4", lambda: train.make_train_step(net, tps)(
+            state, None, img, img, None, None, 1.0, aff_f=torch.eye(4)[None])),
+        ("A4", lambda: train.make_train_step(net, tps)(
+            state, None, img, img, None, None, 1.0, aff_m=torch.eye(4)[None])),
+        ("A4", lambda: train.run_train(
+            [], state, None, Config(transform_type="tps_1.0",
+                                    align_keypoints_in_real_world_coords=True),
+            1, None, device="cpu")),
+        ("A6", lambda: train.make_train_step_sameres(net, tps)),
+        ("A9", lambda: build_backbone(Config(backbone="conv"))),
+        ("A9", lambda: build_backbone(Config(backbone="residualunet"))),
+        ("A9", lambda: build_backbone(Config(backbone="residualunetse"))),
+        ("A9", lambda: build_backbone(Config(backbone="unet", dim=2))),
+        ("A9", lambda: augment.build_affine_matrix((), dim=2)),
+        ("A9", lambda: augment.fixed_affine_params(1, 2, (0, 0, 0, 0))),
+        ("A9", lambda: augment.random_affine_augment(None, torch.zeros((1, 1, 8, 8)))),
+    ]
+    for item, call in cases:
+        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+            call()
+    assert state.step == 0  # nothing was trained on the way
+
+
 def test_port_imports_neither_jax_nor_keymorph_tpu():
-    """The port and its modules import torch only: neither jax nor the JAX
-    package may appear in sys.modules (fresh interpreter)."""
+    """The port, every one of its modules and chip_smoke.py import torch
+    only: neither jax nor the JAX package may appear in sys.modules (fresh
+    interpreter), and no source line imports them."""
     code = textwrap.dedent("""
-        import sys
+        import importlib, pkgutil, sys
         import keymorph_tpu_torch
         assert "torch" not in sys.modules, "package __init__ must stay lazy"
-        import keymorph_tpu_torch._build
-        import keymorph_tpu_torch.ops.coords, keymorph_tpu_torch.ops.planes
-        import keymorph_tpu_torch.ops.resample, keymorph_tpu_torch.ops.cuda
-        import keymorph_tpu_torch.ops.cuda.conv3d, keymorph_tpu_torch.ops.cuda.tpsflow
-        import keymorph_tpu_torch.ops.cuda.resample3d
-        import keymorph_tpu_torch.transforms.solvers
-        import keymorph_tpu_torch.models.unet, keymorph_tpu_torch.models.fast_unet
-        import keymorph_tpu_torch.models.layers, keymorph_tpu_torch.models.keymorph
-        import keymorph_tpu_torch.tools.import_flax_params
+        names = sorted(m.name for m in pkgutil.walk_packages(
+            keymorph_tpu_torch.__path__, "keymorph_tpu_torch."))
+        for name in names:
+            importlib.import_module(name)
+        for want in ("losses", "augment", "utils", "transforms.affine", "training.config",
+                     "training.train", "training.checkpoint", "tools.train_step_bench",
+                     "tools.import_flax_params", "ops.cuda.conv3d", "models.keymorph"):
+            assert "keymorph_tpu_torch." + want in names, want
+        import chip_smoke
         keymorph_tpu_torch.ops.cuda.counters()
         bad = sorted(m for m in sys.modules
-                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "keymorph_tpu"))
+                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "keymorph_tpu"))
         assert not bad, bad
         print("ok")
     """)
@@ -149,3 +191,9 @@ def test_port_imports_neither_jax_nor_keymorph_tpu():
     r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                        timeout=120, cwd=root)
     assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr[-2000:]
+    pattern = re.compile(r"^\s*(?:import|from)\s+(jax|jaxlib|flax|optax|keymorph_tpu)(?:[.\s]|$)",
+                         re.M)
+    sources = sorted((root / "keymorph_tpu_torch").rglob("*.py")) + [root / "chip_smoke.py"]
+    assert len(sources) > 20
+    for path in sources:
+        assert not pattern.search(path.read_text()), path

@@ -127,9 +127,9 @@ def test_heatmaps_within_bf16_noise_of_jax(rng, monkeypatch):
     unet = _port_unet(backbone_state_dict_from_flax(
         jax.tree_util.tree_map(np.asarray, variables["params"]["backbone"])))
     timg = torch.tensor(img)
-    with torch.no_grad():
+    with torch.no_grad():  # serving: nothing is kept for a backward
         module = torch.movedim(unet(timg), 1, -1).float().numpy()
-    executor = fast_unet_forward(unet, timg)
+        executor = fast_unet_forward(unet, timg)
     assert executor.dtype == torch.bfloat16
     executor = executor.float().numpy()
     assert executor.shape == truth.shape == module.shape
@@ -166,7 +166,8 @@ def test_executor_parts_fallback_on_odd_sizes(rng):
     unet = _port_unet(backbone_state_dict_from_flax(
         jax.tree_util.tree_map(np.asarray, variables["params"]["backbone"])))
     calls = conv3d.conv3x3_fused_flat_parts_plain.calls
-    got = fast_unet_forward(unet, torch.tensor(img)).float().numpy()
+    with torch.no_grad():
+        got = fast_unet_forward(unet, torch.tensor(img)).float().numpy()
     assert conv3d.conv3x3_fused_flat_parts_plain.calls == calls + 1
     assert got.shape == truth.shape
     assert np.abs(got - truth).max() / ref <= 2.0 * noise + 1e-3
@@ -180,6 +181,7 @@ def test_executor_plain_flag_matches_default_on_cpu(rng):
 
     unet = init_weights(TruncatedUNet3D(dtype=torch.bfloat16, **CFG), g)
     img = torch.tensor(rng.uniform(0, 1, size=(1, 1, 8, 8, 16)).astype(np.float32))
-    a = fast_unet_forward(unet, img)
-    b = fast_unet_forward(unet, img, plain=True)
+    with torch.no_grad():
+        a = fast_unet_forward(unet, img)
+        b = fast_unet_forward(unet, img, plain=True)
     torch.testing.assert_close(a, b, atol=0, rtol=0)
