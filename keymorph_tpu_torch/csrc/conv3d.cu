@@ -1,83 +1,592 @@
 // Fused per-channel affine + 3x3x3 SAME conv + bias + ReLU (+ output stats)
-// on the flat (Z, C, Y*X) layout: conv3x3_fused_flat and its parts and
-// upconv forms.
+// on the flat (Z, C, Y*X) layout: conv3x3_fused_flat, its parts and upconv
+// forms, and the conv's input gradient, as ONE implicit GEMM on the H100's
+// bf16 tensor cores (wgmma), plus an FMA kernel for the forward conv at Cin < 8.
 //
 // Replaces keymorph_tpu/ops/pallas/conv3d.py:_kernel_flat + _cell_compute
 // (reached through _conv_pallas_group_flat <- _conv_pallas_flat /
-// _conv_pallas_flat_parts / _conv_pallas_flat_upconv). One kernel serves
-// all three: the input is the channel concat [A, B] of two sources split at
-// channel Ca, where B is absent (plain), at full resolution (parts), or at
-// half resolution and read at (z>>1, y>>1, x>>1) (upconv: the decoder's
-// nearest-x2 upsample + concat, neither materialized).
+// _conv_pallas_flat_parts / _conv_pallas_flat_upconv) and, for the input
+// gradient, keymorph_tpu/ops/pallas/conv3d.py:_kernel (reached through
+// _conv_pallas_group <- _conv_pallas <- _conv_bwd). The input is the channel
+// concat [A, B] of two sources split at channel Ca, where B is absent
+// (flat), at full resolution (parts), or at half resolution and read at
+// (z>>1, y>>1, x>>1) (upconv: the decoder's nearest-x2 upsample + concat,
+// neither materialized).
 //
 //   y[z, co, y, x] = relu?(bias[co] + sum_{ci, taps} W[tap, ci, co] *
 //                          pad0(bf16(a[ci] * x[ci] + b[ci]))[tap-shifted])
 //
-// Operands are bf16 values held in fp32 (bf16 x bf16 products are exact in
-// fp32) and the sum accumulates in fp32: the arithmetic of keymorph_tpu's
-// _conv_xla. Out-of-volume taps are 0 AFTER the affine (pad0(a*x+b)); the
-// affine is applied with separate rounded multiply and add, as the plain
-// version does. The stored output is bf16. With stats, each block writes
-// per-Cout partial (sum y, sum y^2) of its stored bf16 values to a
-// (n_tiles, Cout, 2) buffer that the wrapper reduces: no atomics, so results
-// are deterministic.
-//
-// What bounds it on the H100: fp32 FMA issue. The U-Net's convs are 2-700
-// GMAC each at 256^3 input, far above the bytes they move, and this simple
-// port does not use the tensor cores. The design keeps the FMA pipes fed:
-// a block owns a 4 (z) x 8 (y) x 32 (x) output tile and 16 output channels;
-// each Cin chunk's halo tile (6 x 10 x 34 x 4 values, already affined and
-// rounded) and its bf16 weights are staged once in shared memory; each
-// thread owns one (y, x) column of 4 z outputs x 16 channels in registers
-// and, per (ci, dy, dx), loads 6 input values (conflict-free: a warp reads
-// 32 consecutive x) and broadcast weights for 3 * 4 * 16 = 192 FMAs.
-// Tensor cores (wgmma), TMA staging and the TPU's 2^3 parity folding for
-// the upconv are later speed-ups.
-//
-// The conv's input gradient (conv3x3_input_grad) runs the same device code
-// in its GRAD instantiation. It replaces keymorph_tpu/ops/pallas/conv3d.py:
-// _kernel (reached through _conv_pallas_group <- _conv_pallas <- _conv_bwd),
-// which on the training path computes
+// Operands are bf16 values, products are exact in fp32, sums are fp32 (taken
+// by the tensor cores in their own order): the arithmetic of keymorph_tpu's
+// _conv_xla up to the order of the fp32 sum. Out-of-volume taps are 0 AFTER
+// the affine (pad0(a*x+b)); the affine is a separately rounded multiply and
+// add, as in the plain version. The stored output is bf16. With stats, each
+// block writes per-Cout partial (sum y, sum y^2) of its stored bf16 values
+// to a (n_tiles, Cout, 2) buffer that the wrapper reduces: no atomics, so
+// results are deterministic. The input gradient
 //
 //   g_u[z, ci, y, x] = sum_{co, taps} W[2-dz, 2-dy, 2-dx, ci, co] *
 //                      pad0(g_v)[z+dz-1, co, y+dy-1, x+dx-1]
 //
-// i.e. the same 3x3x3 SAME conv over the cotangent with the taps flipped and
-// the channel roles swapped (the wrapper repacks the weights so), bf16
-// operands, fp32 sums, bf16 result. The GRAD instantiation stages the
-// cotangent as it is (no affine, no rounding step), adds no bias, applies no
-// ReLU, emits no stats, and writes its channels to two tensors split at
-// channel Csplit: the two halves of a two-source conv's input gradient. The
-// same bound applies (fp32 FMA throughput); the work is that of the forward
-// conv.
+// is the same device code on the wrapper's flipped, channel-swapped weight
+// pack, with no affine, bias, ReLU or stats, its channels written to two
+// tensors split at Csplit (the halves of a two-source conv's gradient).
+//
+// What bounds it on the H100: tensor-core operations (2*27*Cin*Cout FLOP per
+// voxel against 2*(Cin+Cout) bytes), except at e0c1 (Cin = 1), which is bound
+// by bytes and takes the FMA instantiation.
+//
+// The tensor-core design (conv3x3_mma_kernel<NB>, every conv with Cin >= 8):
+//  * GEMM view: M = voxels, N = Cout (NB = 8, 16, 32 or 64 per block, the
+//    smallest that holds Cout, else 64 and Cout/64 blocks), K = 27 taps x Cin,
+//    walked as (16-channel chunk, tap). wgmma.mma_async m64nNBk16, bf16 x
+//    bf16 -> fp32 registers, A and B both from shared memory.
+//  * A block (256 threads, 2 warpgroups) owns a 2 (z) x TY x TX output tile
+//    and stages its 4 x (TY+2) x (TX+2) halo tile ONCE per chunk, already
+//    affined, rounded to bf16 and zeroed outside the volume, in the
+//    un-swizzled K-major core-matrix layout [ci/8][halo voxel][8 channels]:
+//    8 consecutive voxels x 8 channels are one contiguous 128-byte core
+//    matrix, so tap (dz, dy, dx) is just the A descriptor's start address
+//    moved by 16 * ((dz*HY + dy)*HX + dx) bytes. M runs over the linearised
+//    halo tile of one z slab; each warpgroup owns one slab as four 64-row
+//    blocks. For X > 32 (TX 64, TY 4) a block of rows is one x row (start
+//    oy*HX, nothing wasted); for smaller X (TX 32 / TY 7, TX 16 / TY 14)
+//    blocks start every 64 rows and the rows that fall on halo columns are
+//    computed and masked in the epilogue (a waste of 2/HX).
+//  * Weights come packed by the wrapper as bf16 [Cout block][chunk][ci/8]
+//    [tap][NB][8] (the B operand's K-major core matrices); one
+//    cp.async.bulk per chunk brings the 27 x 16 x NB slab in onto an
+//    mbarrier, two stages deep, started a whole chunk ahead.
+//  * Activations cannot come by TMA: the affine, the rounding and pad0 sit
+//    between device memory and shared memory, and the upconv source is read
+//    at half resolution. They go through registers. A lane takes one aligned
+//    x octet of one halo row in all 8 channels of a group: 8 loads of 16
+//    bytes in flight at once, then per voxel the row of 8 channels, where the
+//    affine's cvt.bf16x2 packs two channels into a word (so the transpose is
+//    free; without an affine one byte-permute per word does it), written with
+//    ONE 16-byte store. Octets side by side in a warp would put the 8 lanes
+//    of a store phase on the same four banks (an 8-way conflict, since a
+//    voxel octet is 128 bytes); instead lanes 2r and 2r + 1 take two
+//    neighbouring octets of halo row r0 + r: 32-byte sectors of device memory
+//    are still read whole, and a halo row being 32 bytes more than a multiple
+//    of 128 long, a phase's 8 lanes fall on 4 distinct bank groups (a 2-way
+//    conflict). Giving a lane one channel and 2-byte stores instead costs
+//    13 instructions per value against 4 and makes the staging as long as
+//    the wgmmas. The wgmmas of chunk c are launched asynchronously, then the
+//    same threads stage chunk c+1 into the other halo buffer while the last
+//    of them run, then wait (a warp stalls launching them until most are
+//    worked off, so the overlap is partial; the 216 wgmmas of a chunk are
+//    6,900 cycles at NB 64). Sizes not a multiple of 8 in X (16 for the upconv)
+//    take a scalar staging loop with the same result.
+//  * Epilogue from the accumulator fragments: bias, ReLU, bf16 store, stats
+//    partials by warp shuffles and one shared-memory pass, split store for
+//    the gradient.
+//
+// Shared memory per stage: halo 2 x 1600 voxels x 16 B = 51,200 B; weights
+// 27 x 16 x NB x 2 B = 55,296 B at NB 64 (27,648 at 32; 13,824 at 16; 6,912
+// at 8). Two stages when Cin > 16, else one: 213,008 B at NB 64 (one block
+// per SM), 78,864 B for e0c2 (16 -> 32, one chunk: two blocks per SM, whose
+// staging and wgmmas overlap each other).
+// Registers and spill (nvcc -Xptxas -v, sm_90a, CUDA 12.8; build/.../nvcc.log):
+// conv3x3_mma_kernel<64> 230 registers, no spill (128 of them accumulators);
+// <32> 128 registers with 44 bytes of spill, <16> 126, <8> 112 (NB <= 32 is
+// held to 128 registers so that two blocks fit an SM; the staging's 8 loads
+// in flight and 16 affine constants press on that);
+// conv3x3_fma_kernel 128 registers with 28 bytes of spill.
+//
+// Which shapes take which instantiation: every input gradient, and the
+// forward conv at Cin >= 8 -> conv3x3_mma_kernel<NB> with NB from Cout
+// (channel counts that are no multiple of 8 are zero-padded by the pack);
+// forward at Cin < 8 (the U-Net's e0c1, 1 -> 16) -> conv3x3_fma_kernel, the fp32-FMA
+// kernel of the first slices (a block owns a 4 x 8 x 32 tile and 16 output
+// channels, operands widened to fp32 in shared memory, 192 FMAs per thread
+// and (ci, dy, dx), only over a chunk's real channels): with K = 27 there is
+// no tensor-core shape along channels, and it runs ahead of the library's
+// bf16 conv there, 6x above its bytes.
 #include <cuda_bf16.h>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int TX = 32, TY = 8, TZ = 4;  // output tile (x, y, z)
-constexpr int CO = 16;                  // output channels per block
-constexpr int CI = 4;                   // input channels per shared-memory chunk
-constexpr int HX = TX + 2, HY = TY + 2, HZ = TZ + 2;
-constexpr int HALO = HZ * HY * HX;
-constexpr int THREADS = TX * TY;
+// ---------------------------------------------------------------------------
+// the tensor-core implicit GEMM
+// ---------------------------------------------------------------------------
 
-struct ConvArgs {
+constexpr int MMA_THREADS = 256;  // two warpgroups, one z slab each
+constexpr int TZ = 2, HZ = TZ + 2;
+constexpr int MBZ = 4;            // 64-row blocks per slab (per warpgroup)
+constexpr int NVOX_ALLOC = 1600;  // halo voxels a stage holds (>= every read)
+constexpr int HBYTES = 2 * NVOX_ALLOC * 16;
+
+struct MmaArgs {
   const __nv_bfloat16* xa;  // (Z, Ca, Y*X)
   const __nv_bfloat16* xb;  // (Z, Cb, Y*X) or (Z/2, Cb, Y/2*X/2), may be null
-  const float* scale;       // (Cin,)
-  const float* shift;       // (Cin,)
-  const float* w;           // (Cin, 27, CoutP) bf16-rounded values
-  const float* bias;        // (Cout,)
+  const float* scale;       // (Cin,) or null: no affine
+  const float* shift;       // (Cin,) or null
+  const __nv_bfloat16* w;   // packed [nb][chunk][2][27][NB][8]
+  const float* bias;        // (Cout,) or null
   __nv_bfloat16* out;       // (Z, Csplit, Y*X): output channels [0, Csplit)
   __nv_bfloat16* out_b;     // (Z, Cout - Csplit, Y*X): the rest, or null
   float* stats;             // (n_tiles, Cout, 2) or null
-  int Z, Y, X, Ca, Cb, Cout, CoutP, Csplit, b_lowres, relu;
+  int Z, Y, X, Ca, Cb, CaP, nchunks, Cout, Csplit, b_lowres, relu;
+  int TX, TY, HX, HY, MSTRIDE, ntx, nty, nb, vec;
 };
 
-template <bool GRAD>
-__device__ __forceinline__ float load_in(const ConvArgs& p, int c, int z, int y, int x) {
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(bar), "r"(parity) : "memory");
+}
+
+// one chunk's weight slab, device memory -> shared memory, onto the barrier
+__device__ __forceinline__ void load_weights(uint32_t dst, const void* src, uint32_t bytes,
+                                             uint32_t bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// D (64 x N fp32, in registers) += A (64 x 16) * B (16 x N), both bf16 in
+// shared memory behind their descriptors
+template <int N>
+__device__ __forceinline__ void wgmma(float* d, uint64_t da, uint64_t db) {
+  if constexpr (N == 8) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3}, "
+        "%4, %5, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "l"(da), "l"(db), "r"(1));
+  }
+  if constexpr (N == 16) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "%8, %9, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "l"(da), "l"(db), "r"(1));
+  }
+  if constexpr (N == 32) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        " %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "%16, %17, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(da), "l"(db), "r"(1));
+  }
+  if constexpr (N == 64) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        " %8, %9, %10, %11, %12, %13, %14, %15, "
+        " %16, %17, %18, %19, %20, %21, %22, %23, "
+        " %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(1));
+  }
+}
+
+// Stage 8 channels [cs0, cs0 + 8) of one source into dst ([voxel][8]) with
+// 16-byte loads along x. An item is one aligned x octet of one halo row in
+// all 8 channels: a lane has its 8 loads in flight at once, then builds each
+// voxel's row of 8 channels (the affine's cvt.bf16x2 packs two channels into a
+// word, so the transpose costs nothing; without an affine one byte-permute per
+// word does it) and writes it with one 16-byte store. Lanes 2r and 2r + 1 of
+// a warp take two neighbouring octets of halo row r0 + r: 32-byte sectors of
+// device memory are read whole, and since a halo row is 32 bytes more than a
+// multiple of 128 long, the 8 lanes of a store phase fall on 4 distinct bank
+// groups (a 2-way conflict; octets side by side would make it 8-way).
+template <bool LOW, bool AFF>
+__device__ __forceinline__ void stage_group_vec(const MmaArgs& p,
+                                                const __nv_bfloat16* __restrict__ src, int Cs,
+                                                int cs0, int aff0, int z0, int y0, int x0,
+                                                unsigned char* dst) {
+  const int Ys = LOW ? p.Y >> 1 : p.Y, Xs = LOW ? p.X >> 1 : p.X;
+  const int plane = (Ys * Xs) >> 3;  // a channel's 16-byte units
+  const int noct = (LOW ? p.TX >> 4 : p.TX >> 3) + 2;
+  const int nrows = HZ * p.HY;
+  const int xs0 = (LOW ? x0 >> 1 : x0) - 8;
+  const int nch = min(max(Cs - cs0, 0), 8);  // real channels of this group
+  const unsigned hx = static_cast<unsigned>(p.HX);
+  float a[8], b[8];
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    a[c] = AFF && c < nch ? p.scale[aff0 + c] : 1.0f;
+    b[c] = AFF && c < nch ? p.shift[aff0 + c] : 0.0f;
+  }
+  const int nitems = nrows * ((noct + 1) & ~1);
+  for (int idx = threadIdx.x; idx < nitems; idx += MMA_THREADS) {
+    const int row = (idx >> 1) % nrows;
+    const int o = 2 * ((idx >> 1) / nrows) + (idx & 1);
+    if (o >= noct) continue;
+    const int z = z0 - 1 + row / p.HY, y = y0 - 1 + row % p.HY, xs = xs0 + 8 * o;
+    const bool inside = z >= 0 && z < p.Z && y >= 0 && y < p.Y && xs >= 0 && xs < Xs;
+    uint4 v[8];
+    const uint4* at = reinterpret_cast<const uint4*>(src) +
+                      (static_cast<long long>(LOW ? z >> 1 : z) * Cs + cs0) * plane +
+                      (((LOW ? y >> 1 : y) * Xs + xs) >> 3);
+#pragma unroll
+    for (int c = 0; c < 8; ++c)
+      v[c] = inside && c < nch ? __ldg(at + c * plane) : make_uint4(0u, 0u, 0u, 0u);
+    unsigned char* drow = dst + row * p.HX * 16;
+#pragma unroll
+    for (int x = 0; x < 8; ++x) {
+      uint32_t out[4];
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        const uint4 &e = v[2 * m], &f = v[2 * m + 1];
+        const uint32_t we = x < 2 ? e.x : x < 4 ? e.y : x < 6 ? e.z : e.w;
+        const uint32_t wf = x < 2 ? f.x : x < 4 ? f.y : x < 6 ? f.z : f.w;
+        if (AFF) {  // pad0 after the affine: outside the volume stays 0
+          float lo = __uint_as_float((x & 1) ? (we & 0xffff0000u) : (we << 16));
+          float hi = __uint_as_float((x & 1) ? (wf & 0xffff0000u) : (wf << 16));
+          if (inside) {
+            lo = __fadd_rn(__fmul_rn(a[2 * m], lo), b[2 * m]);
+            hi = __fadd_rn(__fmul_rn(a[2 * m + 1], hi), b[2 * m + 1]);
+          }
+          const __nv_bfloat162 r = __floats2bfloat162_rn(lo, hi);
+          out[m] = *reinterpret_cast<const uint32_t*>(&r);
+        } else {
+          out[m] = __byte_perm(we, wf, (x & 1) ? 0x7632 : 0x5410);
+        }
+      }
+      const uint4 o4 = make_uint4(out[0], out[1], out[2], out[3]);
+      if (!LOW) {
+        const int lx = 8 * o + x - 7;
+        if (static_cast<unsigned>(lx) < hx) *reinterpret_cast<uint4*>(drow + lx * 16) = o4;
+      } else {
+        const int lx = 16 * o + 2 * x - 15;
+        if (static_cast<unsigned>(lx) < hx) *reinterpret_cast<uint4*>(drow + lx * 16) = o4;
+        if (static_cast<unsigned>(lx + 1) < hx)
+          *reinterpret_cast<uint4*>(drow + (lx + 1) * 16) = o4;
+      }
+    }
+  }
+}
+
+// The same, one value at a time: any X.
+__device__ __forceinline__ void stage_group_scalar(const MmaArgs& p,
+                                                   const __nv_bfloat16* __restrict__ src, int Cs,
+                                                   int cs0, int aff0, bool low, int z0, int y0,
+                                                   int x0, uint16_t* dst) {
+  const bool aff = p.scale != nullptr;
+  const int Ys = low ? p.Y >> 1 : p.Y, Xs = low ? p.X >> 1 : p.X;
+  const int nvox = HZ * p.HY * p.HX;
+  for (int idx = threadIdx.x; idx < nvox * 8; idx += MMA_THREADS) {
+    const int c = idx & 7, vox = idx >> 3;
+    const int lx = vox % p.HX, r = vox / p.HX;
+    const int ly = r % p.HY, lz = r / p.HY;
+    const int z = z0 - 1 + lz, y = y0 - 1 + ly, x = x0 - 1 + lx;
+    const int ch = cs0 + c;
+    uint16_t bits = 0;
+    if (ch < Cs && z >= 0 && z < p.Z && y >= 0 && y < p.Y && x >= 0 && x < p.X) {
+      const int zs = low ? z >> 1 : z, ys = low ? y >> 1 : y, xs = low ? x >> 1 : x;
+      __nv_bfloat16 v = src[(static_cast<long long>(zs) * Cs + ch) * Ys * Xs +
+                            static_cast<long long>(ys) * Xs + xs];
+      if (aff)
+        v = __float2bfloat16_rn(
+            __fadd_rn(__fmul_rn(p.scale[aff0 + c], __bfloat162float(v)), p.shift[aff0 + c]));
+      bits = __bfloat16_as_ushort(v);
+    }
+    dst[vox * 8 + c] = bits;
+  }
+}
+
+// One 16-channel chunk of the halo tile: pad0(bf16(a*x + b)) as
+// [ci/8][halo voxel][8]. Packed channel kk is source A's channel kk below
+// CaP (Ca rounded up to 8), else source B's channel kk - CaP; channels past
+// a source's end are zeros.
+__device__ __forceinline__ void stage_halo(const MmaArgs& p, int chunk, int z0, int y0, int x0,
+                                           unsigned char* dst) {
+#pragma unroll 1
+  for (int kg = 0; kg < 2; ++kg) {
+    const int kk0 = chunk * 16 + kg * 8;
+    const bool is_a = kk0 < p.CaP;
+    const int cs0 = is_a ? kk0 : kk0 - p.CaP;
+    const int Cs = is_a ? p.Ca : p.Cb;
+    const __nv_bfloat16* src = is_a ? p.xa : p.xb;
+    const int aff0 = is_a ? kk0 : p.Ca + cs0;
+    const bool low = !is_a && p.b_lowres;
+    unsigned char* d = dst + kg * NVOX_ALLOC * 16;
+    const bool aff = p.scale != nullptr;
+    if (!p.vec)
+      stage_group_scalar(p, src, Cs, cs0, aff0, low, z0, y0, x0, reinterpret_cast<uint16_t*>(d));
+    else if (low)
+      aff ? stage_group_vec<true, true>(p, src, Cs, cs0, aff0, z0, y0, x0, d)
+          : stage_group_vec<true, false>(p, src, Cs, cs0, aff0, z0, y0, x0, d);
+    else
+      aff ? stage_group_vec<false, true>(p, src, Cs, cs0, aff0, z0, y0, x0, d)
+          : stage_group_vec<false, false>(p, src, Cs, cs0, aff0, z0, y0, x0, d);
+  }
+}
+
+template <int NB>
+__global__ void __launch_bounds__(MMA_THREADS, NB <= 32 ? 2 : 1)
+    conv3x3_mma_kernel(const MmaArgs p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int WBYTES = 2 * 27 * NB * 16;
+  constexpr int NR = NB / 2;  // accumulator registers per 64-row block
+  const int nst = p.nchunks > 1 ? 2 : 1;
+  unsigned char* wbuf = smem;
+  unsigned char* hbuf = smem + nst * WBYTES;
+  const uint32_t bar0 = smem_u32(hbuf + nst * HBYTES);
+
+  const int tid = threadIdx.x;
+  const int nbi = blockIdx.x % p.nb, tile = blockIdx.x / p.nb;
+  const int x0 = (tile % p.ntx) * p.TX;
+  const int y0 = ((tile / p.ntx) % p.nty) * p.TY;
+  const int z0 = (tile / (p.ntx * p.nty)) * TZ;
+  const unsigned char* wsrc =
+      reinterpret_cast<const unsigned char*>(p.w) + static_cast<size_t>(nbi) * p.nchunks * WBYTES;
+
+  if (tid == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar0) : "memory");
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar0 + 8) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    for (int s = 0; s < nst; ++s)
+      load_weights(smem_u32(wbuf + s * WBYTES), wsrc + static_cast<size_t>(s) * WBYTES, WBYTES,
+                   bar0 + 8 * s);
+  }
+  stage_halo(p, 0, z0, y0, x0, hbuf);
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+
+  float acc[MBZ][NR];
+#pragma unroll
+  for (int i = 0; i < MBZ; ++i)
+#pragma unroll
+    for (int k = 0; k < NR; ++k) acc[i][k] = 0.0f;
+
+  // descriptors: no swizzle, K-major; the two 8-channel core matrices of a
+  // k16 step lie LBO apart, 8-row groups 128 bytes (SBO) apart
+  const int wg = tid >> 7;
+  constexpr uint64_t A_HI = (static_cast<uint64_t>(NVOX_ALLOC) << 16) | (8ull << 32);
+  constexpr uint64_t B_HI = (static_cast<uint64_t>(27 * NB) << 16) | (8ull << 32);
+  const uint32_t a_lo = (smem_u32(hbuf) >> 4) + wg * p.HY * p.HX;  // this warpgroup's slab
+  const uint32_t b_lo = smem_u32(wbuf) >> 4;
+
+#pragma unroll 1
+  for (int c = 0; c < p.nchunks; ++c) {
+    const int s = c & 1;
+    mbar_wait(bar0 + 8 * s, (c >> 1) & 1);
+#pragma unroll
+    for (int i = 0; i < MBZ; ++i)
+#pragma unroll
+      for (int k = 0; k < NR; ++k) asm volatile("" : "+f"(acc[i][k])::"memory");
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+    const uint32_t a_s = a_lo + s * (HBYTES >> 4);
+    const uint32_t b_s = b_lo + s * (WBYTES >> 4);
+#pragma unroll
+    for (int dz = 0; dz < 3; ++dz) {
+#pragma unroll
+      for (int dy = 0; dy < 3; ++dy) {
+#pragma unroll
+        for (int dx = 0; dx < 3; ++dx) {
+          const int tap = (dz * 3 + dy) * 3 + dx;
+          const uint64_t db = B_HI | static_cast<uint64_t>(b_s + tap * NB);
+          const uint32_t a_t = a_s + (dz * p.HY + dy) * p.HX + dx;
+#pragma unroll
+          for (int i = 0; i < MBZ; ++i)
+            wgmma<NB>(acc[i], A_HI | static_cast<uint64_t>(a_t + i * p.MSTRIDE), db);
+        }
+      }
+    }
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    // the tensor cores work on chunk c; stage chunk c + 1 meanwhile
+    if (c + 1 < p.nchunks) stage_halo(p, c + 1, z0, y0, x0, hbuf + (s ^ 1) * HBYTES);
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+#pragma unroll
+    for (int i = 0; i < MBZ; ++i)
+#pragma unroll
+      for (int k = 0; k < NR; ++k) asm volatile("" : "+f"(acc[i][k])::"memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();  // stage s is free, the other halo buffer is written
+    if (tid == 0 && c + 2 < p.nchunks)
+      load_weights(smem_u32(wbuf + s * WBYTES), wsrc + static_cast<size_t>(c + 2) * WBYTES, WBYTES,
+                   bar0 + 8 * s);
+  }
+
+  // epilogue. Accumulator fragment of a 64-row block: this thread holds rows
+  // r0 = 16 * (warp in group) + lane / 4 and r0 + 8, columns 8j + 2 * (lane % 4) + e
+  const int lane = tid & 31, warp = tid >> 5;
+  const int z = z0 + wg;
+  const long long YX = static_cast<long long>(p.Y) * p.X;
+  int yx[MBZ][2];
+  bool ok[MBZ][2];
+#pragma unroll
+  for (int i = 0; i < MBZ; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int lin = i * p.MSTRIDE + 16 * (warp & 3) + (lane >> 2) + 8 * h;
+      const int oy = lin / p.HX, ox = lin - oy * p.HX;
+      const int y = y0 + oy, x = x0 + ox;
+      ok[i][h] = ox < p.TX && oy < p.TY && z < p.Z && y < p.Y && x < p.X;
+      yx[i][h] = y * p.X + x;
+    }
+  float* red = reinterpret_cast<float*>(hbuf);  // (8 warps, NB, 2); the halo is done with
+#pragma unroll
+  for (int j = 0; j < NB / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int col = 8 * j + 2 * (lane & 3) + e;
+      const int co = nbi * NB + col;
+      const bool cok = co < p.Cout;
+      const float bias = (cok && p.bias != nullptr) ? p.bias[co] : 0.0f;
+      __nv_bfloat16* base = nullptr;
+      if (cok)
+        base = co < p.Csplit
+                   ? p.out + (static_cast<long long>(z) * p.Csplit + co) * YX
+                   : p.out_b + (static_cast<long long>(z) * (p.Cout - p.Csplit) + co - p.Csplit) * YX;
+      float s1 = 0.0f, s2 = 0.0f;
+#pragma unroll
+      for (int i = 0; i < MBZ; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          if (!(cok && ok[i][h])) continue;
+          float v = acc[i][4 * j + 2 * h + e] + bias;
+          if (p.relu) v = fmaxf(v, 0.0f);
+          const __nv_bfloat16 hv = __float2bfloat16_rn(v);
+          base[yx[i][h]] = hv;
+          const float f = __bfloat162float(hv);
+          s1 += f;
+          s2 = fmaf(f, f, s2);
+        }
+      if (p.stats != nullptr) {
+#pragma unroll
+        for (int o = 4; o < 32; o <<= 1) {
+          s1 += __shfl_xor_sync(0xffffffffu, s1, o);
+          s2 += __shfl_xor_sync(0xffffffffu, s2, o);
+        }
+        if (lane < 4) {
+          red[(warp * NB + col) * 2 + 0] = s1;
+          red[(warp * NB + col) * 2 + 1] = s2;
+        }
+      }
+    }
+  }
+  if (p.stats != nullptr) {
+    __syncthreads();
+    if (tid < 2 * NB) {
+      const int col = tid >> 1, k = tid & 1;
+      float sum = 0.0f;
+      for (int w = 0; w < MMA_THREADS / 32; ++w) sum += red[(w * NB + col) * 2 + k];
+      const int co = nbi * NB + col;
+      if (co < p.Cout) p.stats[(static_cast<long long>(tile) * p.Cout + co) * 2 + k] = sum;
+    }
+  }
+}
+
+template <int NB>
+int launch_mma(const MmaArgs& p, int tiles, cudaStream_t stream) {
+  const int nst = p.nchunks > 1 ? 2 : 1;
+  const int smem = nst * (2 * 27 * NB * 16 + HBYTES) + 16;
+  // once per instantiation and device, for its larger (two-stage) size
+  static bool allowed[64] = {};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 0 || dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!allowed[dev]) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(conv3x3_mma_kernel<NB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             2 * (2 * 27 * NB * 16 + HBYTES) + 16);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    allowed[dev] = true;
+  }
+  conv3x3_mma_kernel<NB><<<tiles * p.nb, MMA_THREADS, smem, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The tile geometry (tx, ty, mstride) is the caller's choice (tile_geometry in
+// ops/cuda/conv3d.py owns the table); here it is only derived from and held
+// against what this file fixes at compile time: refuses a geometry the
+// kernel's buffers and its eight 64-row blocks do not cover, or a tile count
+// that is not the caller's (its stats buffer has one row per tile).
+int run_mma(MmaArgs p, int nblk, int tx, int ty, int mstride, int n_tiles, cudaStream_t stream) {
+  p.TX = tx;
+  p.TY = ty;
+  p.HX = tx + 2;
+  p.HY = ty + 2;
+  p.MSTRIDE = mstride;
+  p.ntx = km::ceil_div(p.X, tx);
+  p.nty = km::ceil_div(p.Y, ty);
+  p.nb = km::ceil_div(p.Cout, nblk);
+  p.CaP = (p.Ca + 7) / 8 * 8;
+  p.nchunks = (p.CaP + (p.Cb + 7) / 8 * 8 + 15) / 16;
+  const int slab = p.HY * p.HX;
+  const int last_read = slab + (MBZ - 1) * mstride + 63 + (2 * p.HY + 2) * p.HX + 2;
+  const bool rows = mstride == p.HX && tx <= 64 && ty <= MBZ;          // a block per x row
+  const bool linear = mstride == 64 && (ty - 1) * p.HX + tx <= 64 * MBZ;  // blocks every 64
+  const int tiles = p.ntx * p.nty * km::ceil_div(p.Z, TZ);
+  if (tx % 16 != 0 || tx < 16 || ty < 1 || !(rows || linear) || HZ * slab > NVOX_ALLOC ||
+      last_read >= NVOX_ALLOC || tiles != n_tiles)
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch (nblk) {
+    case 8: return launch_mma<8>(p, tiles, stream);
+    case 16: return launch_mma<16>(p, tiles, stream);
+    case 32: return launch_mma<32>(p, tiles, stream);
+    case 64: return launch_mma<64>(p, tiles, stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// ---------------------------------------------------------------------------
+// the FMA kernel (forward, Cin < 8)
+// ---------------------------------------------------------------------------
+
+constexpr int FTX = 32, FTY = 8, FTZ = 4;  // output tile (x, y, z)
+constexpr int FCO = 16;                    // output channels per block
+constexpr int FCI = 4;                     // input channels per shared-memory chunk
+constexpr int FHX = FTX + 2, FHY = FTY + 2, FHZ = FTZ + 2;
+constexpr int FHALO = FHZ * FHY * FHX;
+constexpr int FMA_THREADS = FTX * FTY;
+
+struct FmaArgs {
+  const __nv_bfloat16* xa;  // (Z, Ca, Y*X)
+  const __nv_bfloat16* xb;  // (Z, Cb, Y*X) or (Z/2, Cb, Y/2*X/2), may be null
+  const float* scale;       // (Cin,) or null
+  const float* shift;       // (Cin,) or null
+  const float* w;           // (Cin, 27, CoutP) bf16-rounded values
+  const float* bias;        // (Cout,) or null
+  __nv_bfloat16* out;       // (Z, Cout, Y*X)
+  float* stats;             // (n_tiles, Cout, 2) or null
+  int Z, Y, X, Ca, Cb, Cout, CoutP, b_lowres, relu;
+};
+
+__device__ __forceinline__ float load_in(const FmaArgs& p, int c, int z, int y, int x) {
   // pad0(bf16(a*x + b)): out-of-volume taps and padded channels are 0
   const int Cin = p.Ca + p.Cb;
   if (c >= Cin || z < 0 || z >= p.Z || y < 0 || y >= p.Y || x < 0 || x >= p.X) return 0.0f;
@@ -86,7 +595,6 @@ __device__ __forceinline__ float load_in(const ConvArgs& p, int c, int z, int y,
     const long long off = (static_cast<long long>(z) * p.Ca + c) * p.Y * p.X +
                           static_cast<long long>(y) * p.X + x;
     v = __bfloat162float(p.xa[off]);
-    if (GRAD) return v;  // the cotangent as it is: one source, no affine
   } else if (p.b_lowres) {
     const int Yl = p.Y >> 1, Xl = p.X >> 1;
     const long long off = (static_cast<long long>(z >> 1) * p.Cb + (c - p.Ca)) * Yl * Xl +
@@ -97,67 +605,67 @@ __device__ __forceinline__ float load_in(const ConvArgs& p, int c, int z, int y,
                           static_cast<long long>(y) * p.X + x;
     v = __bfloat162float(p.xb[off]);
   }
+  if (p.scale == nullptr) return v;  // no affine: bf16(1 * x + 0) is x
   const float u = __fadd_rn(__fmul_rn(p.scale[c], v), p.shift[c]);
   return __bfloat162float(__float2bfloat16_rn(u));
 }
 
-template <bool GRAD>
-__global__ void __launch_bounds__(THREADS, 2) conv3x3_kernel(ConvArgs p) {
-  __shared__ __align__(16) float in_s[CI * HALO];
-  __shared__ __align__(16) float w_s[CI * 27 * CO];
+__global__ void __launch_bounds__(FMA_THREADS, 2) conv3x3_fma_kernel(FmaArgs p) {
+  __shared__ __align__(16) float in_s[FCI * FHALO];
+  __shared__ __align__(16) float w_s[FCI * 27 * FCO];
 
-  const int ntx = (p.X + TX - 1) / TX, nty = (p.Y + TY - 1) / TY;
+  const int ntx = (p.X + FTX - 1) / FTX, nty = (p.Y + FTY - 1) / FTY;
   const int tile = blockIdx.x;
-  const int x0 = (tile % ntx) * TX;
-  const int y0 = ((tile / ntx) % nty) * TY;
-  const int z0 = (tile / (ntx * nty)) * TZ;
-  const int co0 = blockIdx.y * CO;
-  const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
+  const int x0 = (tile % ntx) * FTX;
+  const int y0 = ((tile / ntx) % nty) * FTY;
+  const int z0 = (tile / (ntx * nty)) * FTZ;
+  const int co0 = blockIdx.y * FCO;
+  const int tx = threadIdx.x % FTX, ty = threadIdx.x / FTX;
   const int Cin = p.Ca + p.Cb;
 
-  float acc[TZ][CO];
+  float acc[FTZ][FCO];
 #pragma unroll
-  for (int i = 0; i < TZ; ++i)
+  for (int i = 0; i < FTZ; ++i)
 #pragma unroll
-    for (int j = 0; j < CO; ++j) acc[i][j] = 0.0f;
+    for (int j = 0; j < FCO; ++j) acc[i][j] = 0.0f;
 
-  for (int ci0 = 0; ci0 < Cin; ci0 += CI) {
+  for (int ci0 = 0; ci0 < Cin; ci0 += FCI) {
+    const int nc = min(FCI, Cin - ci0);  // real channels of this chunk (1 at e0c1)
     __syncthreads();  // the previous chunk's compute is done with in_s/w_s
-    for (int i = threadIdx.x; i < CI * HALO; i += THREADS) {
-      const int lx = i % HX;
-      int r = i / HX;
-      const int ly = r % HY;
-      r /= HY;
-      const int lz = r % HZ;
-      const int c = r / HZ;
-      in_s[i] = load_in<GRAD>(p, ci0 + c, z0 - 1 + lz, y0 - 1 + ly, x0 - 1 + lx);
+    for (int i = threadIdx.x; i < nc * FHALO; i += FMA_THREADS) {
+      const int lx = i % FHX;
+      int r = i / FHX;
+      const int ly = r % FHY;
+      r /= FHY;
+      const int lz = r % FHZ;
+      const int c = r / FHZ;
+      in_s[i] = load_in(p, ci0 + c, z0 - 1 + lz, y0 - 1 + ly, x0 - 1 + lx);
     }
-    for (int i = threadIdx.x; i < CI * 27 * CO; i += THREADS) {
-      const int co = i % CO;
-      const int tap = (i / CO) % 27;
-      const int c = i / (CO * 27);
-      const int cg = ci0 + c;
-      w_s[i] = cg < Cin ? p.w[(static_cast<long long>(cg) * 27 + tap) * p.CoutP + co0 + co] : 0.0f;
+    for (int i = threadIdx.x; i < nc * 27 * FCO; i += FMA_THREADS) {
+      const int co = i % FCO;
+      const int tap = (i / FCO) % 27;
+      const int c = i / (FCO * 27);
+      w_s[i] = p.w[(static_cast<long long>(ci0 + c) * 27 + tap) * p.CoutP + co0 + co];
     }
     __syncthreads();
 
 #pragma unroll 1
-    for (int c = 0; c < CI; ++c) {
-      const float* in_c = in_s + c * HALO;
-      const float* w_c = w_s + c * 27 * CO;
+    for (int c = 0; c < nc; ++c) {
+      const float* in_c = in_s + c * FHALO;
+      const float* w_c = w_s + c * 27 * FCO;
 #pragma unroll
       for (int dy = 0; dy < 3; ++dy) {
 #pragma unroll
         for (int dx = 0; dx < 3; ++dx) {
-          float col[TZ + 2];
+          float col[FTZ + 2];
 #pragma unroll
-          for (int lz = 0; lz < TZ + 2; ++lz) col[lz] = in_c[(lz * HY + ty + dy) * HX + tx + dx];
+          for (int lz = 0; lz < FTZ + 2; ++lz) col[lz] = in_c[(lz * FHY + ty + dy) * FHX + tx + dx];
 #pragma unroll
           for (int dz = 0; dz < 3; ++dz) {
-            const float4* wp = reinterpret_cast<const float4*>(w_c + ((dz * 3 + dy) * 3 + dx) * CO);
-            float wv[CO];
+            const float4* wp = reinterpret_cast<const float4*>(w_c + ((dz * 3 + dy) * 3 + dx) * FCO);
+            float wv[FCO];
 #pragma unroll
-            for (int q = 0; q < CO / 4; ++q) {
+            for (int q = 0; q < FCO / 4; ++q) {
               const float4 t = wp[q];
               wv[4 * q + 0] = t.x;
               wv[4 * q + 1] = t.y;
@@ -165,9 +673,9 @@ __global__ void __launch_bounds__(THREADS, 2) conv3x3_kernel(ConvArgs p) {
               wv[4 * q + 3] = t.w;
             }
 #pragma unroll
-            for (int zo = 0; zo < TZ; ++zo)
+            for (int zo = 0; zo < FTZ; ++zo)
 #pragma unroll
-              for (int co = 0; co < CO; ++co) acc[zo][co] = fmaf(col[zo + dz], wv[co], acc[zo][co]);
+              for (int co = 0; co < FCO; ++co) acc[zo][co] = fmaf(col[zo + dz], wv[co], acc[zo][co]);
           }
         }
       }
@@ -177,30 +685,22 @@ __global__ void __launch_bounds__(THREADS, 2) conv3x3_kernel(ConvArgs p) {
   // epilogue: bias, ReLU, bf16 store, stats of the stored values
   const int y = y0 + ty, x = x0 + tx;
   const long long YX = static_cast<long long>(p.Y) * p.X;
-  float s1[CO], s2[CO];
+  float s1[FCO], s2[FCO];
 #pragma unroll
-  for (int co = 0; co < CO; ++co) {
+  for (int co = 0; co < FCO; ++co) {
     s1[co] = 0.0f;
     s2[co] = 0.0f;
   }
 #pragma unroll
-  for (int zo = 0; zo < TZ; ++zo) {
+  for (int zo = 0; zo < FTZ; ++zo) {
     const int z = z0 + zo;
     if (z >= p.Z || y >= p.Y || x >= p.X) continue;
 #pragma unroll
-    for (int co = 0; co < CO; ++co) {
+    for (int co = 0; co < FCO; ++co) {
       const int cg = co0 + co;
       if (cg >= p.Cout) continue;
       const long long yx = static_cast<long long>(y) * p.X + x;
-      if (GRAD) {
-        const __nv_bfloat16 h = __float2bfloat16_rn(acc[zo][co]);
-        if (cg < p.Csplit)
-          p.out[(static_cast<long long>(z) * p.Csplit + cg) * YX + yx] = h;
-        else
-          p.out_b[(static_cast<long long>(z) * (p.Cout - p.Csplit) + cg - p.Csplit) * YX + yx] = h;
-        continue;
-      }
-      float v = acc[zo][co] + p.bias[cg];
+      float v = acc[zo][co] + (p.bias != nullptr ? p.bias[cg] : 0.0f);
       if (p.relu) v = fmaxf(v, 0.0f);
       const __nv_bfloat16 h = __float2bfloat16_rn(v);
       p.out[(static_cast<long long>(z) * p.Cout + cg) * YX + yx] = h;
@@ -209,88 +709,107 @@ __global__ void __launch_bounds__(THREADS, 2) conv3x3_kernel(ConvArgs p) {
       s2[co] = fmaf(f, f, s2[co]);
     }
   }
-  if constexpr (!GRAD) {
-    if (p.stats == nullptr) return;
-    // block reduction: warp shuffles, then one value per warp in shared memory
+  if (p.stats == nullptr) return;
+  // block reduction: warp shuffles, then one value per warp in shared memory
 #pragma unroll
-    for (int co = 0; co < CO; ++co) {
+  for (int co = 0; co < FCO; ++co) {
 #pragma unroll
-      for (int o = 16; o > 0; o >>= 1) {
-        s1[co] += __shfl_xor_sync(0xffffffffu, s1[co], o);
-        s2[co] += __shfl_xor_sync(0xffffffffu, s2[co], o);
-      }
-    }
-    __syncthreads();  // in_s is free: reuse it for the per-warp partials
-    float* red = in_s;  // (THREADS / 32, CO, 2)
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    if (lane == 0) {
-#pragma unroll
-      for (int co = 0; co < CO; ++co) {
-        red[(warp * CO + co) * 2 + 0] = s1[co];
-        red[(warp * CO + co) * 2 + 1] = s2[co];
-      }
-    }
-    __syncthreads();
-    if (threadIdx.x < 2 * CO) {
-      const int co = threadIdx.x / 2, k = threadIdx.x % 2;
-      float s = 0.0f;
-      for (int w = 0; w < THREADS / 32; ++w) s += red[(w * CO + co) * 2 + k];
-      const int cg = co0 + co;
-      if (cg < p.Cout) p.stats[(static_cast<long long>(tile) * p.Cout + cg) * 2 + k] = s;
+    for (int o = 16; o > 0; o >>= 1) {
+      s1[co] += __shfl_xor_sync(0xffffffffu, s1[co], o);
+      s2[co] += __shfl_xor_sync(0xffffffffu, s2[co], o);
     }
   }
+  __syncthreads();  // in_s is free: reuse it for the per-warp partials
+  float* red = in_s;  // (FMA_THREADS / 32, FCO, 2)
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (lane == 0) {
+#pragma unroll
+    for (int co = 0; co < FCO; ++co) {
+      red[(warp * FCO + co) * 2 + 0] = s1[co];
+      red[(warp * FCO + co) * 2 + 1] = s2[co];
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x < 2 * FCO) {
+    const int co = threadIdx.x / 2, k = threadIdx.x % 2;
+    float s = 0.0f;
+    for (int w = 0; w < FMA_THREADS / 32; ++w) s += red[(w * FCO + co) * 2 + k];
+    const int cg = co0 + co;
+    if (cg < p.Cout) p.stats[(static_cast<long long>(tile) * p.Cout + cg) * 2 + k] = s;
+  }
+}
+
+int run_fma(const FmaArgs& p, int n_tiles, cudaStream_t stream) {
+  const int tiles = km::ceil_div(p.X, FTX) * km::ceil_div(p.Y, FTY) * km::ceil_div(p.Z, FTZ);
+  if (tiles != n_tiles || p.CoutP % FCO != 0) return static_cast<int>(cudaErrorInvalidValue);
+  dim3 grid(tiles, p.CoutP / FCO);
+  conv3x3_fma_kernel<<<grid, FMA_THREADS, 0, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-KM_EXPORT int km_conv3x3_tiles(int Z, int Y, int X) {
-  return ((X + TX - 1) / TX) * ((Y + TY - 1) / TY) * ((Z + TZ - 1) / TZ);
-}
-
-KM_EXPORT int km_conv3x3_cout_block() { return CO; }
-
-KM_EXPORT int km_conv3x3(const void* xa, const void* xb, const void* scale,
-                         const void* shift, const void* w, const void* bias,
-                         void* out, void* stats, int Z, int Y, int X, int Ca,
-                         int Cb, int Cout, int CoutP, int b_lowres, int relu,
-                         void* stream) {
-  ConvArgs p;
+// Forward conv. Cin = Ca + Cb < 8 takes the FMA instantiation: w is then the
+// fp32 (Cin, 27, nblk) tensor of bf16-rounded values with nblk = Cout padded
+// to 16, and n_tiles counts 4 x 8 x 32 tiles. Otherwise w is the bf16 pack
+// [Cout block][chunk][2][27][nblk][8], (tx, ty, mstride) the tile geometry,
+// n_tiles its 2 x ty x tx tiles, and vec says that 16-byte loads along x are
+// aligned. stats, if given, is (n_tiles, Cout, 2).
+KM_EXPORT int km_conv3x3(const void* xa, const void* xb, const void* scale, const void* shift,
+                         const void* w, const void* bias, void* out, void* stats, int Z, int Y,
+                         int X, int Ca, int Cb, int Cout, int nblk, int b_lowres, int relu,
+                         int tx, int ty, int mstride, int vec, int n_tiles, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (Ca + Cb < 8) {
+    FmaArgs p;
+    p.xa = static_cast<const __nv_bfloat16*>(xa);
+    p.xb = static_cast<const __nv_bfloat16*>(xb);
+    p.scale = static_cast<const float*>(scale);
+    p.shift = static_cast<const float*>(shift);
+    p.w = static_cast<const float*>(w);
+    p.bias = static_cast<const float*>(bias);
+    p.out = static_cast<__nv_bfloat16*>(out);
+    p.stats = static_cast<float*>(stats);
+    p.Z = Z; p.Y = Y; p.X = X; p.Ca = Ca; p.Cb = Cb;
+    p.Cout = Cout; p.CoutP = nblk; p.b_lowres = b_lowres; p.relu = relu;
+    return run_fma(p, n_tiles, st);
+  }
+  MmaArgs p;
   p.xa = static_cast<const __nv_bfloat16*>(xa);
   p.xb = static_cast<const __nv_bfloat16*>(xb);
   p.scale = static_cast<const float*>(scale);
   p.shift = static_cast<const float*>(shift);
-  p.w = static_cast<const float*>(w);
+  p.w = static_cast<const __nv_bfloat16*>(w);
   p.bias = static_cast<const float*>(bias);
   p.out = static_cast<__nv_bfloat16*>(out);
   p.out_b = nullptr;
   p.stats = static_cast<float*>(stats);
   p.Z = Z; p.Y = Y; p.X = X; p.Ca = Ca; p.Cb = Cb;
-  p.Cout = Cout; p.CoutP = CoutP; p.Csplit = Cout; p.b_lowres = b_lowres; p.relu = relu;
-  dim3 grid(km_conv3x3_tiles(Z, Y, X), (Cout + CO - 1) / CO);
-  conv3x3_kernel<false><<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  p.Cout = Cout; p.Csplit = Cout; p.b_lowres = b_lowres; p.relu = relu; p.vec = vec;
+  return run_mma(p, nblk, tx, ty, mstride, n_tiles, st);
 }
 
 // g_v (Z, Cg, Y*X) bf16 -> g_u: channels [0, Ca) into out_a (Z, Ca, Y*X) and
-// [Ca, Ca + Cb) into out_b (Z, Cb, Y*X; null when Cb == 0). w is the repacked
-// (Cg, 27, CinP) fp32 tensor w[co, tap, ci] = W[26 - tap, ci, co], CinP being
-// Ca + Cb padded to the block's channel count.
-KM_EXPORT int km_conv3x3_input_grad(const void* gv, const void* w, void* out_a,
-                                    void* out_b, int Z, int Y, int X, int Cg,
-                                    int Ca, int Cb, int CinP, void* stream) {
-  ConvArgs p;
+// [Ca, Ca + Cb) into out_b (Z, Cb, Y*X; null when Cb == 0). w is the flipped,
+// channel-swapped pack w'[tap, co, ci] = W[26 - tap, ci, co] in the forward
+// entry's bf16 format. Always the tensor-core kernel: a cotangent of fewer
+// than 8 channels is zero-padded to one 16-channel chunk by the pack.
+KM_EXPORT int km_conv3x3_input_grad(const void* gv, const void* w, void* out_a, void* out_b,
+                                    int Z, int Y, int X, int Cg, int Ca, int Cb, int nblk,
+                                    int tx, int ty, int mstride, int vec, int n_tiles,
+                                    void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  MmaArgs p;
   p.xa = static_cast<const __nv_bfloat16*>(gv);
   p.xb = nullptr;
   p.scale = nullptr;
   p.shift = nullptr;
-  p.w = static_cast<const float*>(w);
+  p.w = static_cast<const __nv_bfloat16*>(w);
   p.bias = nullptr;
   p.out = static_cast<__nv_bfloat16*>(out_a);
   p.out_b = static_cast<__nv_bfloat16*>(out_b);
   p.stats = nullptr;
   p.Z = Z; p.Y = Y; p.X = X; p.Ca = Cg; p.Cb = 0;
-  p.Cout = Ca + Cb; p.CoutP = CinP; p.Csplit = Ca; p.b_lowres = 0; p.relu = 0;
-  dim3 grid(km_conv3x3_tiles(Z, Y, X), (p.Cout + CO - 1) / CO);
-  conv3x3_kernel<true><<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  p.Cout = Ca + Cb; p.Csplit = Ca; p.b_lowres = 0; p.relu = 0; p.vec = vec;
+  return run_mma(p, nblk, tx, ty, mstride, n_tiles, st);
 }

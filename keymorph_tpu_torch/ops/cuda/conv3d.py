@@ -13,10 +13,29 @@ public functions keep the JAX package's signatures and layouts:
   * ``emit_stats``: also return the per-Cout fp32 (mean, mean-square) of the
     bf16 output, for the next GroupNorm.
 
-One CUDA kernel (``csrc/conv3d.cu``) serves all three. The plain versions
-compute keymorph_tpu's ``_conv_xla`` arithmetic: operands rounded to bf16,
-lifted to fp32, an fp32 ``conv3d`` (TF32 must be off), output rounded to
-bf16. CPU tensors run them; CUDA tensors launch the kernel.
+One CUDA source (``csrc/conv3d.cu``) serves all three forms and the input
+gradient, in two kernels chosen by a shape rule: every input gradient, and
+the forward conv with 8 or more input channels, is an implicit GEMM on the
+bf16 tensor cores (``wgmma``: voxels x Cout x 27*Cin, fp32 sums in registers),
+bound by tensor-core operations; the forward conv with fewer (the U-Net's
+e0c1, 1 -> 16) is the fp32-FMA kernel of the first slices, bound by bytes.
+The tile geometry is chosen here and only validated by the C entry points
+against the buffer sizes they fix at compile time. The tensor-core kernel is
+told its tile geometry and is handed its weights already packed as its B
+operand, bf16 ``[Cout block][16-channel chunk][ci/8][tap][co][ci%8]``;
+:func:`tile_geometry`, :func:`halo_linearisation`, :func:`packed_channels`,
+:func:`pack_weights` and :func:`pack_weights_grad` below are that contract in
+plain Python, which the CPU tests hold against the plain versions. Shared
+memory per stage is 51,200 B of halo tile plus 864 B x the Cout block (8, 16,
+32 or 64) of weights, two stages when Cin > 16; ``csrc/conv3d.cu`` states
+registers and spill.
+
+The plain versions compute keymorph_tpu's ``_conv_xla`` arithmetic: operands
+rounded to bf16, lifted to fp32, an fp32 ``conv3d`` (TF32 must be off), output
+rounded to bf16. CPU tensors run them; CUDA tensors launch the kernel. The
+tensor cores take the same fp32 sum in another order and do not round every
+partial sum to nearest: a stored bf16 output lies within one bf16 ulp of the
+plain version's, plus 1e-5 of the range where the terms cancel.
 
 All forms are differentiable through one ``torch.autograd.Function`` whose
 backward follows keymorph_tpu's ``_conv_bwd``: with u = a*x + b,
@@ -41,7 +60,7 @@ block sum of the full-resolution ``g_u`` (the transpose of nearest x2).
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence
+from typing import Sequence
 
 import torch
 import torch.nn.functional as F
@@ -173,6 +192,112 @@ for _f in (conv3x3_fused_flat_plain, conv3x3_fused_flat_parts_plain,
 
 
 # ---------------------------------------------------------------------------
+# what the kernel is told: tile geometry, halo linearisation, weight packs
+# ---------------------------------------------------------------------------
+
+FMA_BELOW = 8        # a forward conv of fewer input channels: the FMA kernel
+FMA_TILE = (4, 8, 32)    # its output tile (z, y, x) ...
+FMA_COUT_BLOCK = 16      # ... and output channels per block
+TZ, MBZ, MROWS = 2, 4, 64  # z slabs per tile, 64-row blocks per slab
+NVOX_ALLOC = 1600    # halo voxels one shared-memory stage holds
+
+
+def n_block(cout: int) -> int:
+    """Output channels one block of the tensor-core kernel takes (the wgmma
+    N): the smallest of 8, 16, 32, 64 that holds ``cout``, else 64."""
+    return next((n for n in (8, 16, 32) if cout <= n), 64)
+
+
+def tile_geometry(X: int) -> dict:
+    """The tensor-core kernel's output tile for a volume ``X`` wide: ``tz`` x
+    ``ty`` x ``tx`` outputs, their (tz+2) x ``hy`` x ``hx`` halo tile, and
+    ``mstride``, the distance in halo voxels between the first rows of a
+    slab's 64-row blocks (``hx``: one block per x row; 64: blocks tile the
+    linearised slab and rows on halo columns are masked)."""
+    if X > 32:
+        tx, ty, mstride = 64, 4, 66
+    elif X > 16:
+        tx, ty, mstride = 32, 7, 64
+    else:
+        tx, ty, mstride = 16, 14, 64
+    return {"tx": tx, "ty": ty, "tz": TZ, "hx": tx + 2, "hy": ty + 2, "hz": TZ + 2,
+            "mstride": mstride}
+
+
+def n_tiles(spatial, geom=None) -> int:
+    """Blocks along the volume (the stats buffer's first axis)."""
+    Z, Y, X = spatial
+    tz, ty, tx = FMA_TILE if geom is None else (geom["tz"], geom["ty"], geom["tx"])
+    return -(-X // tx) * -(-Y // ty) * -(-Z // tz)
+
+
+def halo_linearisation(geom: dict) -> dict:
+    """How the kernel's GEMM rows map onto one tile's halo, in halo voxels
+    (index ``(lz * hy + ly) * hx + lx``; a voxel is 16 bytes of one 8-channel
+    group):
+
+      * ``tap_offsets`` (27,): tap (dz, dy, dx) reads row + this offset;
+      * ``block_starts`` (tz * MBZ,): first row of each 64-row block;
+      * ``oz``, ``oy``, ``ox`` (tz * MBZ, 64): the output voxel of each row
+        within the tile, and ``valid``: whether it lies inside the tile (rows
+        on halo columns are computed and dropped).
+    """
+    hx, hy = geom["hx"], geom["hy"]
+    taps = torch.tensor([(dz * hy + dy) * hx + dx
+                         for dz in range(3) for dy in range(3) for dx in range(3)])
+    slab = torch.arange(geom["tz"]).repeat_interleave(MBZ)
+    lin = (torch.arange(MBZ).repeat(geom["tz"]) * geom["mstride"])[:, None] \
+        + torch.arange(MROWS)[None, :]
+    oy, ox = lin // hx, lin % hx
+    return {"tap_offsets": taps, "block_starts": slab * (hy * hx) + lin[:, 0],
+            "oz": slab[:, None].expand_as(lin), "oy": oy, "ox": ox,
+            "valid": (ox < geom["tx"]) & (oy < geom["ty"])}
+
+
+def packed_channels(ca: int, cb: int) -> torch.Tensor:
+    """The kernel's K axis per tap: source A's ``ca`` channels padded to a
+    multiple of 8, then source B's ``cb`` likewise, the whole padded to 16.
+    Returns the conv's input channel at each packed position, -1 for padding."""
+    cap, cbp = -(-ca // 8) * 8, -(-cb // 8) * 8
+    idx = torch.full((-(-(cap + cbp) // 16) * 16,), -1, dtype=torch.long)
+    idx[:ca] = torch.arange(ca)
+    idx[cap:cap + cb] = ca + torch.arange(cb)
+    return idx
+
+
+def pack_weights(w: torch.Tensor, ca: int, nblk: int) -> torch.Tensor:
+    """``bf16(w)`` (3, 3, 3, Cin, Cout) as the tensor-core kernel's B operand:
+    (Cout blocks, 16-channel chunks, 2, 27, nblk, 8), i.e. per block and chunk
+    one contiguous slab of K-major core matrices [ci/8][tap][co][ci%8], with
+    zeros at padded channels (:func:`packed_channels`) and padded ``co``."""
+    cin, cout = int(w.shape[3]), int(w.shape[4])
+    idx = packed_channels(ca, cin - ca)
+    nb = -(-cout // nblk)
+    wb = w.to(torch.bfloat16).reshape(27, cin, cout)
+    if len(idx) != cin or nb * nblk != cout:
+        keep = idx >= 0
+        full = torch.zeros((27, len(idx), nb * nblk), dtype=torch.bfloat16, device=w.device)
+        full[:, keep.to(w.device), :cout] = wb[:, idx[keep].to(w.device), :]
+        wb = full
+    return wb.reshape(27, len(idx) // 16, 2, 8, nb, nblk).permute(4, 1, 2, 0, 5, 3).contiguous()
+
+
+def pack_weights_grad(w: torch.Tensor, nblk: int) -> torch.Tensor:
+    """:func:`pack_weights` of the flipped, channel-swapped weights
+    w'[tap, co, ci] = w[26 - tap, ci, co]: the cotangent's Cout channels are
+    the K axis (one source), Cin the N axis."""
+    return pack_weights(w.flip(0, 1, 2).transpose(3, 4), int(w.shape[4]), nblk)
+
+
+def pack_weights_fma(w: torch.Tensor) -> torch.Tensor:
+    """The FMA kernel's weights: bf16-rounded fp32 (Cin, 27, Cout padded
+    to its 16-channel block with zeros)."""
+    cin, cout = int(w.shape[3]), int(w.shape[4])
+    wk = w.to(torch.bfloat16).float().reshape(27, cin, cout).permute(1, 0, 2)
+    return F.pad(wk, (0, -cout % FMA_COUT_BLOCK)).contiguous()
+
+
+# ---------------------------------------------------------------------------
 # kernel launch
 # ---------------------------------------------------------------------------
 
@@ -182,23 +307,25 @@ def _fn():
     f = lib.km_conv3x3
     if f.argtypes is None:
         vp, i = ctypes.c_void_p, ctypes.c_int
-        f.argtypes = [vp] * 8 + [i] * 9 + [vp]
+        f.argtypes = [vp] * 8 + [i] * 14 + [vp]
         f.restype = ctypes.c_int
-        lib.km_conv3x3_tiles.argtypes = [i, i, i]
-        lib.km_conv3x3_tiles.restype = ctypes.c_int
-        lib.km_conv3x3_cout_block.argtypes = []
-        lib.km_conv3x3_cout_block.restype = ctypes.c_int
-        lib.km_conv3x3_input_grad.argtypes = [vp] * 4 + [i] * 7 + [vp]
+        lib.km_conv3x3_input_grad.argtypes = [vp] * 4 + [i] * 12 + [vp]
         lib.km_conv3x3_input_grad.restype = ctypes.c_int
     return lib
 
 
-def _vec(v: Optional[torch.Tensor], n: int, fill: float, dev, name: str):
-    if v is None:
-        return torch.full((n,), fill, dtype=torch.float32, device=dev)
+def _vec(v: torch.Tensor, n: int, dev, name: str):
     if v.shape != (n,):
         raise ValueError(f"conv3x3: {name} has shape {tuple(v.shape)}, want ({n},)")
     return v.to(device=dev, dtype=torch.float32).contiguous()
+
+
+def _plan(spatial, lowres, sources):
+    """(geometry ints, tile count) of a tensor-core launch."""
+    geom = tile_geometry(spatial[2])
+    vec = spatial[2] % (16 if lowres else 8) == 0 \
+        and all(t.data_ptr() % 16 == 0 for t in sources)
+    return (geom["tx"], geom["ty"], geom["mstride"], int(vec)), n_tiles(spatial, geom)
 
 
 def _launch(xa, xb, b_lowres, spatial, w, scale, shift, bias, relu, emit_stats):
@@ -230,26 +357,33 @@ def _launch(xa, xb, b_lowres, spatial, w, scale, shift, bias, relu, emit_stats):
         raise ValueError(f"conv3x3: w {tuple(w.shape)} is not (3, 3, 3, {Cin}, Cout)")
     Cout = int(w.shape[4])
     lib = _fn()
-    cb = lib.km_conv3x3_cout_block()
-    coutp = -(-Cout // cb) * cb
-    # bf16-rounded weights, (Cin, 27, Cout) with Cout padded to the block's
-    # channel count (zeros) so every block reads whole float4s
-    wk = w.to(device=dev).to(torch.bfloat16).float().reshape(27, Cin, Cout)
-    wk = F.pad(wk.permute(1, 0, 2), (0, coutp - Cout)).contiguous()
-    scale_t = _vec(scale, Cin, 1.0, dev, "scale")
-    shift_t = _vec(shift, Cin, 0.0, dev, "shift")
-    bias_t = _vec(bias, Cout, 0.0, dev, "bias")
+    w = w.to(device=dev)
+    if Cin < FMA_BELOW:  # the shape rule between the two kernels
+        geom_args, tiles = (0, 0, 0, 0), n_tiles((Z, Y, X))
+        wk = pack_weights_fma(w)
+        nblk = int(wk.shape[2])
+    else:
+        geom_args, tiles = _plan((Z, Y, X), b_lowres, srcs)
+        nblk = n_block(Cout)
+        wk = pack_weights(w, Ca, nblk)
+    if (scale is None) != (shift is None):  # the kernel takes both or neither
+        scale = torch.ones(Cin, device=dev) if scale is None else scale
+        shift = torch.zeros(Cin, device=dev) if shift is None else shift
+    scale_t = None if scale is None else _vec(scale, Cin, dev, "scale")
+    shift_t = None if shift is None else _vec(shift, Cin, dev, "shift")
+    bias_t = None if bias is None else _vec(bias, Cout, dev, "bias")
     out = torch.empty((Z, Cout, Y * X), dtype=torch.bfloat16, device=dev)
     stats = None
     if emit_stats:
-        stats = torch.empty((lib.km_conv3x3_tiles(Z, Y, X), Cout, 2),
-                            dtype=torch.float32, device=dev)
+        stats = torch.empty((tiles, Cout, 2), dtype=torch.float32, device=dev)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
     err = lib.km_conv3x3(
-        xa.data_ptr(), xb.data_ptr() if xb is not None else None,
-        scale_t.data_ptr(), shift_t.data_ptr(), wk.data_ptr(), bias_t.data_ptr(),
-        out.data_ptr(), stats.data_ptr() if stats is not None else None,
-        Z, Y, X, Ca, Cb, Cout, coutp, int(b_lowres), int(bool(relu)),
-        _build.stream_ptr(dev),
+        xa.data_ptr(), ptr(xb), ptr(scale_t), ptr(shift_t), wk.data_ptr(), ptr(bias_t),
+        out.data_ptr(), ptr(stats), Z, Y, X, Ca, Cb, Cout, nblk, int(b_lowres),
+        int(bool(relu)), *geom_args, tiles, _build.stream_ptr(dev),
     )
     _build.check(err, "km_conv3x3")
     if not emit_stats:
@@ -279,7 +413,7 @@ def conv3x3_input_grad(g_v, spatial, w, ca=None):
         ``spatial``; ``g_ub`` is None without a split.
 
     CPU tensors run :func:`conv3x3_input_grad_plain`; CUDA tensors launch the
-    kernel.
+    tensor-core kernel, whatever the channel counts (the pack pads them).
     """
     if g_v.device.type == "cpu":
         return conv3x3_input_grad_plain(g_v, spatial, w, ca)
@@ -302,18 +436,16 @@ def conv3x3_input_grad(g_v, spatial, w, ca=None):
         raise ValueError(f"conv3x3_input_grad: split {ca} outside (0, {Cin}]")
     cb_ = Cin - ca
     lib = _fn()
-    blk = lib.km_conv3x3_cout_block()
-    cinp = -(-Cin // blk) * blk
-    # wk[co, tap, ci] = W[26 - tap, ci, co]: flipped taps, swapped channels
-    wk = w.to(device=dev).to(torch.bfloat16).float().reshape(27, Cin, Cg).flip(0)
-    wk = F.pad(wk.permute(2, 0, 1), (0, cinp - Cin)).contiguous()
+    geom_args, tiles = _plan((Z, Y, X), False, [g_v])
+    nblk = n_block(Cin)
+    wk = pack_weights_grad(w.to(device=dev), nblk)
     out_a = torch.empty((Z, ca, Y * X), dtype=torch.bfloat16, device=dev)
     out_b = (torch.empty((Z, cb_, Y * X), dtype=torch.bfloat16, device=dev)
              if cb_ else None)
     err = lib.km_conv3x3_input_grad(
         g_v.data_ptr(), wk.data_ptr(), out_a.data_ptr(),
         out_b.data_ptr() if out_b is not None else None,
-        Z, Y, X, Cg, ca, cb_, cinp, _build.stream_ptr(dev))
+        Z, Y, X, Cg, ca, cb_, nblk, *geom_args, tiles, _build.stream_ptr(dev))
     _build.check(err, "km_conv3x3_input_grad")
     conv3x3_input_grad.launches += 1
     return out_a, out_b
