@@ -21,7 +21,11 @@ Phases (each prints its lines; any failure raises, so the exit code is not 0):
      done. The conv runs at ten shapes of the U-Net (e0c1, e0c2, d1c2, e3c2
      flat; d1c1 and d0c1 as upconv, d1c1 as parts; the input gradients of
      e0c2, d1c1 and d1c2) with its achieved TFLOP/s, and at d0c1 (K = 27*384)
-     kernel and plain version are each held against a float64 conv;
+     kernel and plain version are each held against a float64 conv; the three
+     TPS kernels and their plain versions are each held against the float64
+     evaluation of the same formula, for splines fitted at lmbda 1, 1e-4 and
+     1e-6 (the bottom of the range training draws from); the TPS backward
+     also at the 256^3 step's shape;
   2. end to end: the flagship config (TruncatedUNet3D f_maps=32, 4 levels,
      1 truncated, bf16; 128 keypoints; TPS lmbda=1) at 256^3 with seeded
      random weights serves 3 pairs through the kernels: extract fixed and
@@ -29,8 +33,12 @@ Phases (each prints its lines; any failure raises, so the exit code is not 0):
      under ``torch.no_grad()``; pair 0 is also served through the grid form
      (``compute_grid=True`` -> ``align_img``: the TPS kernel's points mode).
      Every kernel of the path must have launched and no plain version run;
-  3. the same 3 pairs through the plain versions on the card, compared with
-     phase 2 (keypoints, planes, warped images) within stated tolerances;
+  3. the same 3 pairs through the plain versions on the card. Each kernel
+     stage of phase 2 is held on its own inputs (planes against the plain
+     spline on the kernel path's keypoints, warped image against the plain
+     warp on the kernel path's planes), and the end-to-end distances
+     (keypoints, planes) against each pair's yardstick: the plain path
+     against itself on volumes moved by half a bf16 ulp;
   4. one steady pair through the kernels under ``torch.profiler``: the
      device's busy time, its idle share and the device time by kernel name;
   5. training: the canonical step (the same net with 128 keypoints,
@@ -85,16 +93,26 @@ CONV_REL_ULP = 2.0 ** -7   # one bf16 ulp of each output (same fp32 sum, other o
 # 4.6e-7) and the stats differ by 2.1e-5 (NVIDIA H100 80GB HBM3, 700.00 W).
 CONV_FLOOR = 1e-5          # x max|out|: outputs that cancel to near zero
 STATS_REL = 3e-5           # x max|stat|: fp32 sums of bf16 outputs that differ by ulps
-TPS_ABS = 1e-5             # fp32 sum over 128 control points in another order
+TPS_ABS = 1e-5             # fp32 sum over 128 control points in another order; sqrt and
+                           # log taken as one special-function instruction each
 WARP_ABS = 0.0             # the kernel rounds every operation as the plain version
 TPS_BWD_REL = 1e-4         # x max|ref|: fp32 sums over 2.1e6 grid points in another order
+# The TPS kernels and their plain versions are each also held against the
+# float64 evaluation of the same formula, at LMBDA, SMALL_LMBDA and MIN_LMBDA
+# (training draws lmbda from [MIN_LMBDA, 10): as it falls the spline's weights
+# grow and cancel): the kernel may be FLOAT64_FACTOR x as far from float64 as
+# its plain version, or its tolerance above, whichever is larger.
+SMALL_LMBDA = 1e-4
+MIN_LMBDA = 1e-6
+FLOAT64_FACTOR = 4.0
 WARP_GRAD_REL = 1e-5       # x max|ref|: the same fp32 terms, FMA-contracted in the kernel
-# phase 3, plain path vs kernel path (bf16 conv outputs may differ by 1 ulp
-# and the differences propagate through the network and the TPS fit)
+# phase 3, plain path vs kernel path end to end: bf16 conv outputs may differ
+# by 1 ulp and the random-weight net and the TPS fit carry that on, so the
+# tolerance is the larger of these floors and NOISE_FACTOR x what the plain
+# path itself shows when its volumes move by PERTURB. Each kernel stage is
+# also held on the kernel path's own inputs: planes TPS_ABS, warp WARP_ABS.
 KEYPOINT_ABS = 1e-3        # normalized units (0.13 voxel at 256)
 PLANES_ABS = 1e-3
-# the warped image is held against the plain warp on the kernel path's own
-# planes, so it is WARP_ABS (exact)
 
 # phase 6, the plain training step vs the kernel step on the same inputs:
 # bf16 conv outputs may differ by one ulp between kernel and plain version, a
@@ -258,6 +276,26 @@ def phase1(torch, rng, dev):
         if not ok:
             raise AssertionError(f"{name} kernel disagrees with its plain version ({what})")
 
+    def against_float64(name, tol, rel, run):
+        """Kernel and plain version against float64 at the three lmbdas.
+        ``run(lmbda)`` -> (kernel outputs, plain outputs, float64 outputs);
+        with ``rel`` the distances are relative to max|float64 output|."""
+        for lm in (LMBDA, SMALL_LMBDA, MIN_LMBDA):
+            ks, ps, rs = run(lm)
+            torch.cuda.synchronize()
+            dists, ok = [], True
+            for k, p_, r in zip(ks, ps, rs):
+                top = r.abs().max().item() if rel else 1.0
+                dk = (k.double() - r).abs().max().item() / top
+                dp = (p_.double() - r).abs().max().item() / top
+                ok &= dk <= max(tol, FLOAT64_FACTOR * dp)
+                dists.append(f"kernel {dk!r}, plain {dp!r}")
+            print(f"phase1 {name} against float64 at lmbda {lm:g}: {'; '.join(dists)}"
+                  f"{' (x max|float64|, per output)' if rel else ''} (tol max({tol}, "
+                  f"{FLOAT64_FACTOR} x plain)): {ok}")
+            if not ok:
+                raise AssertionError(f"{name} kernel is further from float64 than allowed")
+
     forms = {"flat": (conv3d.conv3x3_fused_flat, conv3d.conv3x3_fused_flat_plain),
              "parts": (conv3d.conv3x3_fused_flat_parts, conv3d.conv3x3_fused_flat_parts_plain),
              "upconv": (conv3d.conv3x3_fused_flat_upconv, conv3d.conv3x3_fused_flat_upconv_plain)}
@@ -403,6 +441,17 @@ def phase1(torch, rng, dev):
            "tps_planes 256^3 T=128", f"tol {TPS_ABS}", err <= TPS_ABS)
     del ref
 
+    def fit(T, lm):
+        c = torch.tensor(src[:, :T], device=dev).contiguous()
+        return solvers.fit_tps(c, torch.tensor(dst[:, :T], device=dev), lm).contiguous(), c
+
+    def planes_run(lm):
+        th, c = fit(NUM_KEYPOINTS, lm)
+        return ([tpsflow.tps_planes(th, c, SPATIAL)], [tpsflow.tps_planes_plain(th, c, SPATIAL)],
+                [tpsflow.tps_planes_plain(th, c, SPATIAL, dtype=torch.float64)])
+
+    against_float64("tps_planes 256^3 T=128", TPS_ABS, False, planes_run)
+
     # warp at 256^3 on those planes
     vol = torch.tensor(rng.random((1, 1, *SPATIAL), dtype=np.float32), device=dev)
     grid = torch.flip(planes.movedim(1, -1), dims=(-1,)).contiguous()  # xy, for the library
@@ -446,6 +495,34 @@ def phase1(torch, rng, dev):
            f"{pt.abs().max().item():.4g}, max |g_ctrl| {pc.abs().max().item():.4g})",
            f"tol {TPS_BWD_REL} x max", ok)
 
+    def bwd_run(lm):
+        th, c = fit(T, lm)
+        return (tpsflow.tps_planes_bwd(th, c, T3, g), tpsflow.tps_planes_bwd_plain(th, c, T3, g),
+                tpsflow.tps_planes_bwd_plain(th, c, T3, g, dtype=torch.float64))
+
+    against_float64(f"tps_planes backward 128^3 T={T}", TPS_BWD_REL, True, bwd_run)
+
+    # the same backward at the 256^3 step's shape, T = 128: 8x the points, and
+    # the blocks' rows of partial sums that the second pass adds
+    th2, c2 = fit(NUM_KEYPOINTS, LMBDA)
+    # (a generator of its own: the phases after this one keep their inputs)
+    g2 = torch.tensor(np.random.default_rng([SEED, 1]).normal(size=(1, 3, *SPATIAL))
+                      .astype(np.float32), device=dev)
+    kt, kc = tpsflow.tps_planes_bwd(th2, c2, SPATIAL, g2)
+    pt, pc = tpsflow.tps_planes_bwd_plain(th2, c2, SPATIAL, g2)
+    torch.cuda.synchronize()
+    err = max((kt - pt).abs().max().item(), (kc - pc).abs().max().item())
+    ok = bool((kt - pt).abs().max() <= TPS_BWD_REL * pt.abs().max()
+              and (kc - pc).abs().max() <= TPS_BWD_REL * pc.abs().max())
+    ms = _cuda_ms(lambda: tpsflow.tps_planes_bwd(th2, c2, SPATIAL, g2), 5)
+    pms = _cuda_ms(lambda: tpsflow.tps_planes_bwd_plain(th2, c2, SPATIAL, g2), 1)
+    n2 = Z * Y * X
+    record("tps_planes_bwd", err, ms, pms, None, _tps_bound(n2, NUM_KEYPOINTS, 12 * n2, 3, 36),
+           f"tps_planes backward 256^3 T={NUM_KEYPOINTS}, random cotangent (max |g_theta| "
+           f"{pt.abs().max().item():.4g}, max |g_ctrl| {pc.abs().max().item():.4g})",
+           f"tol {TPS_BWD_REL} x max", ok)
+    del g2, kt, kc, pt, pc
+
     pts = torch.tensor(rng.uniform(-1, 1, (1, n, 3)).astype(np.float32), device=dev)
     out = tpsflow.tps_flow(theta, ctrl, pts)
     ref = tpsflow.tps_flow_plain(theta, ctrl, pts)
@@ -455,6 +532,13 @@ def phase1(torch, rng, dev):
     pms = _cuda_ms(lambda: tpsflow.tps_flow_plain(theta, ctrl, pts), 2)
     record("tps_flow", err, ms, pms, None, _tps_bound(n, T, 24 * n, 2, 20),
            f"tps_flow N=128^3 points T={T}", f"tol {TPS_ABS}", err <= TPS_ABS)
+
+    def flow_run(lm):
+        th, c = fit(T, lm)
+        return ([tpsflow.tps_flow(th, c, pts)], [tpsflow.tps_flow_plain(th, c, pts)],
+                [tpsflow.tps_flow_plain(th, c, pts, dtype=torch.float64)])
+
+    against_float64(f"tps_flow N=128^3 points T={T}", TPS_ABS, False, flow_run)
     del pts, out, ref
 
     planes = tpsflow.tps_planes(theta, ctrl, T3)
@@ -571,55 +655,78 @@ def phase2(torch, net, pairs):
 
 
 def phase3(torch, net, pairs, kernel_outs):
-    """The same pairs through the plain versions on the card; compare."""
-    from keymorph_tpu_torch.models.fast_unet import fast_unet_forward
-    from keymorph_tpu_torch.models.layers import center_of_mass
-    from keymorph_tpu_torch.ops.cuda import resample3d, tpsflow
-    from keymorph_tpu_torch.transforms import solvers
+    """The same pairs through the plain versions on the card; compare.
 
-    worst = [0.0, 0.0, 0.0]
+    Each stage of the kernel path is held tightly on its own inputs: the
+    planes against the plain spline on the kernel path's own keypoints
+    (TPS_ABS), the warped image against the plain warp on the kernel path's
+    own planes (WARP_ABS). The end-to-end distances (keypoints and planes,
+    kernel path vs plain path) carry the random-weight net's sensitivity to
+    one-ulp differences of its bf16 convs, so each pair's are held against a
+    yardstick: the plain path against itself on that pair's volumes moved by
+    half a bf16 ulp."""
+    from keymorph_tpu_torch.models.fast_unet import fast_unet_forward
+    from keymorph_tpu_torch.models.keymorph import align_pair
+    from keymorph_tpu_torch.models.layers import center_of_mass
+    from keymorph_tpu_torch.ops.cuda import resample3d
+
+    def keypoints(img):
+        return center_of_mass(fast_unet_forward(net.backbone, img, plain=True))
+
+    def plain_planes(pf, pm):
+        return align_pair(pf, pm, "tps", SPATIAL, lmbda=LMBDA, compute_grid="planes",
+                          plain=True)["planes"]
+
+    def dist(a, b):
+        return (a - b).abs().max().item()
+
+    ok = True
     for i, ((img_f, img_m), (kpf, kpm, kplanes, kwarped)) in enumerate(zip(pairs, kernel_outs)):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        pf = center_of_mass(fast_unet_forward(net.backbone, img_f, plain=True))
-        pm = center_of_mass(fast_unet_forward(net.backbone, img_m, plain=True))
+        pf, pm = keypoints(img_f), keypoints(img_m)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        theta = solvers.fit_tps(pf, pm, LMBDA).contiguous()
-        planes = tpsflow.tps_planes_plain(theta, pf.contiguous(), SPATIAL)
+        planes = plain_planes(pf, pm)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         warped = resample3d.warp_planes_plain(img_m, planes)
         torch.cuda.synchronize()
         t3 = time.perf_counter()
-        d = [max((pf - kpf).abs().max().item(), (pm - kpm).abs().max().item()),
-             (planes - kplanes).abs().max().item(),
-             (resample3d.warp_planes_plain(img_m, kplanes) - kwarped).abs().max().item()]
-        worst = [max(a, b) for a, b in zip(worst, d)]
         print(f"phase3 pair {i} plain path: extract {(t1 - t0) * 1e3:.3f} ms, "
               f"solve+flow {(t2 - t1) * 1e3:.3f} ms, warp {(t3 - t2) * 1e3:.3f} ms, "
-              f"total {(t3 - t0) * 1e3:.3f} ms; vs kernels: keypoints {d[0]!r}, "
-              f"planes {d[1]!r}, warped on the kernel planes {d[2]!r}; warped on "
-              f"each path's own planes {(warped - kwarped).abs().max().item()!r} (not checked: it "
-              f"carries the planes difference)")
-    # a yardstick for these two numbers, printed and not checked: the plain
-    # path against ITSELF on pair 0 with both volumes moved by half a bf16 ulp
-    img_f, img_m = pairs[0]
-    pf0 = center_of_mass(fast_unet_forward(net.backbone, img_f, plain=True))
-    pm0 = center_of_mass(fast_unet_forward(net.backbone, img_m, plain=True))
-    pf1 = center_of_mass(fast_unet_forward(net.backbone, img_f * (1 + PERTURB), plain=True))
-    pm1 = center_of_mass(fast_unet_forward(net.backbone, img_m * (1 + PERTURB), plain=True))
-    planes0, planes1 = (tpsflow.tps_planes_plain(solvers.fit_tps(a, b, LMBDA).contiguous(),
-                                                 a.contiguous(), SPATIAL)
-                        for a, b in ((pf0, pm0), (pf1, pm1)))
-    print(f"phase3 plain path vs itself on pair 0's volumes perturbed by {PERTURB} relative: "
-          f"keypoints {max((pf1 - pf0).abs().max().item(), (pm1 - pm0).abs().max().item())!r}, "
-          f"planes {(planes1 - planes0).abs().max().item()!r}")
-    del planes0, planes1
-    print(f"phase3 worst: keypoints {worst[0]!r} (tol {KEYPOINT_ABS}), planes "
-          f"{worst[1]!r} (tol {PLANES_ABS}), warped {worst[2]!r} (tol {WARP_ABS})")
-    if not (worst[0] <= KEYPOINT_ABS and worst[1] <= PLANES_ABS and worst[2] <= WARP_ABS):
+              f"total {(t3 - t0) * 1e3:.3f} ms")
+        # each kernel stage on the kernel path's own inputs
+        d_flow = dist(plain_planes(kpf, kpm), kplanes)
+        d_warp = dist(resample3d.warp_planes_plain(img_m, kplanes), kwarped)
+        print(f"phase3 pair {i} kernel stages on their own inputs: planes vs the plain spline on "
+              f"the kernel path's keypoints {d_flow!r} (tol {TPS_ABS}), warped vs the plain warp "
+              f"on the kernel path's planes {d_warp!r} (tol {WARP_ABS}); warped on each path's "
+              f"own planes {dist(warped, kwarped)!r} (not checked: it carries the planes' "
+              f"difference)")
+        # end to end against this pair's yardstick
+        d_kp = max(dist(pf, kpf), dist(pm, kpm))
+        d_planes = dist(planes, kplanes)
+        del warped
+        pf1, pm1 = keypoints(img_f * (1 + PERTURB)), keypoints(img_m * (1 + PERTURB))
+        y_kp = max(dist(pf1, pf), dist(pm1, pm))
+        y_planes = dist(plain_planes(pf1, pm1), planes)
+        tol_kp = max(KEYPOINT_ABS, NOISE_FACTOR * y_kp)
+        tol_planes = max(PLANES_ABS, NOISE_FACTOR * y_planes)
+        print(f"phase3 pair {i} kernel path vs plain path: keypoints {d_kp!r} (yardstick "
+              f"{y_kp!r}, tol {tol_kp!r}), planes {d_planes!r} (yardstick {y_planes!r}, tol "
+              f"{tol_planes!r}); yardstick: the plain path vs itself on this pair's volumes "
+              f"moved by {PERTURB} relative, tol = max({KEYPOINT_ABS}, {NOISE_FACTOR} x yardstick)")
+        ok &= (d_flow <= TPS_ABS and d_warp <= WARP_ABS and d_kp <= tol_kp
+               and d_planes <= tol_planes)
+    if not ok:
         raise AssertionError("kernel path and plain path disagree")
+
+
+# the port's __global__ functions (csrc/*.cu), as the profiler names them
+PORT_KERNELS = ("conv3x3_mma_kernel", "conv3x3_fma_kernel", "tps_planes_kernel",
+                "tps_flow_kernel", "tps_planes_bwd_kernel", "warp_planes_kernel",
+                "warp_planes_grad_kernel")
 
 
 def _profile(torch, label, fn):
@@ -651,8 +758,10 @@ def _profile(torch, label, fn):
     print(f"{label}: host wall {wall_us / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms, "
           f"device idle share {1 - busy / wall_us:.4f}")
     tag = label.split()[0]
-    for name, (n, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:18]:
-        print(f"{tag} {t / 1e3:.3f} ms {n}x share_of_busy {t / busy:.4f} {name[:110]}")
+    # the 18 largest entries, and the port's own kernels wherever they rank
+    for rank, (name, (n, t)) in enumerate(sorted(by_name.items(), key=lambda kv: -kv[1][1])):
+        if rank < 18 or any(k in name for k in PORT_KERNELS):
+            print(f"{tag} {t / 1e3:.3f} ms {n}x share_of_busy {t / busy:.4f} {name[:110]}")
 
 
 def phase4(torch, net, pairs):

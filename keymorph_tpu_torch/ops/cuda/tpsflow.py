@@ -11,11 +11,16 @@ points and are what CPU tensors run.
 cotangents of the spline ``theta`` (B, T+4, 3) and the control points
 (B, T, 3) without ever holding the (T, N) RBF matrix: per control point the
 kernel sums ``g_k U`` (the spline-weight rows), ``m`` and ``m p_j`` with
-``m = (sum_k w[t, k] g_k) dU/dsq``; the wrapper forms
-``g_ctrl = 2 (ctrl * sum m - sum m p)`` and takes the affine rows of
-``g_theta`` (``sum g`` and ``sum g p``) as plain reductions of the cotangent
+``m = (sum_k w[t, k] g_k) dU/dsq``, and beside them the affine rows of
+``g_theta`` (``sum g`` and ``sum g p``), one row of partial sums per block;
+the wrapper adds the rows and forms ``g_ctrl = 2 (ctrl * sum m - sum m p)``.
+The plain backward takes the affine rows as reductions of the cotangent
 against the separable identity grid. ``tps_flow``'s gradient is the autograd
 of the plain evaluation, as keymorph_tpu's is the XLA VJP.
+
+The plain versions take a ``dtype``: float64 evaluates the same formula, step
+by step, in double precision on the same fp32 inputs and grid, which is what
+the kernels' distance from the truth is stated against.
 """
 
 from __future__ import annotations
@@ -28,8 +33,9 @@ import torch
 from keymorph_tpu_torch import _build
 from keymorph_tpu_torch.transforms import solvers
 
-_MAX_T = 2048  # 6*T fp32 control values must fit the 48 KB static smem budget
-_BWD_CHUNK = 1 << 18  # grid points per chunk of the plain backward
+_MAX_T = 2048  # the most control points the wrappers take (the kernels tile T)
+_BWD_CHUNK = 1 << 18  # grid points per chunk of the plain backward and of _spline
+_BWD_AFFINE = 12  # the backward kernel's sums for g_theta's affine rows
 
 
 def _steps(spatial):
@@ -59,20 +65,47 @@ def _grid_points(spatial, device, start=0, stop=None):
 # ---------------------------------------------------------------------------
 
 
-def _planes_plain(theta, ctrl, spatial):
+def _spline(theta, ctrl, points, dtype):
+    """``solvers.tps_eval``'s formula, step by step, in ``dtype`` over chunks
+    of points: (B, N, 3) -> (B, N, 3) in ``dtype``."""
+    T = ctrl.shape[1]
+    th, c = theta.to(dtype), ctrl.to(dtype)
+    outs = []
+    for s in range(0, points.shape[1], _BWD_CHUNK):
+        p = points[:, s: s + _BWD_CHUNK].to(dtype)
+        diff = c[:, :, None, :] - p[:, None]  # (B, T, n, 3)
+        r = torch.sqrt((diff * diff).sum(-1) + solvers.EPS_DIST)
+        u = r * r * torch.log(r + solvers.EPS_LOG)
+        outs.append(torch.einsum("btn,btk->bnk", u, th[:, :T])
+                    + th[:, T: T + 1] + p @ th[:, T + 1:])
+    return torch.cat(outs, dim=1)
+
+
+def _planes_plain(theta, ctrl, spatial, dtype=torch.float32):
     D, H, W = spatial
     B = theta.shape[0]
-    pts = _grid_points(spatial, theta.device)
-    moved = solvers.tps_eval_chunked_plain(theta, ctrl, pts.expand(B, -1, 3))
+    pts = _grid_points(spatial, theta.device).expand(B, -1, 3)
+    if dtype == torch.float32:
+        moved = solvers.tps_eval_chunked_plain(theta, ctrl, pts)
+    else:
+        moved = _spline(theta, ctrl, pts, dtype)
     return moved.transpose(1, 2).reshape(B, 3, D, H, W)
 
 
-def tps_planes_plain(theta: torch.Tensor, ctrl: torch.Tensor, spatial: Sequence[int]):
+def tps_planes_plain(theta: torch.Tensor, ctrl: torch.Tensor, spatial: Sequence[int],
+                     dtype=torch.float32):
     """Plain PyTorch ``tps_planes``: the spline (``solvers.tps_eval_chunked_plain``)
     at the identity grid ``idx * (2/(S-1)) - 1`` (ij order), returned
     plane-major (B, 3, D, H, W) fp32. Differentiable, with
-    :func:`tps_planes_bwd_plain` as its backward."""
-    return _TpsPlanes.apply(theta, ctrl, tuple(int(s) for s in spatial), True)
+    :func:`tps_planes_bwd_plain` as its backward. With ``dtype`` float64 the
+    same formula runs in double precision on the same fp32 grid and the
+    result stays float64 (the reference a kernel's tolerance is stated
+    against; differentiable by autograd itself)."""
+    spatial = tuple(int(s) for s in spatial)
+    if dtype != torch.float32:
+        tps_planes_plain.calls += 1
+        return _planes_plain(theta, ctrl, spatial, dtype)
+    return _TpsPlanes.apply(theta, ctrl, spatial, True)
 
 
 def tps_planes_bwd_plain(theta, ctrl, spatial, g, dtype=torch.float32):
@@ -118,9 +151,13 @@ def _affine_rows(g, spatial):
     return torch.stack(rows, dim=1)
 
 
-def tps_flow_plain(theta, ctrl, points):
-    """Plain PyTorch ``tps_flow``: ``solvers.tps_eval`` over chunks of points."""
+def tps_flow_plain(theta, ctrl, points, dtype=torch.float32):
+    """Plain PyTorch ``tps_flow``: ``solvers.tps_eval`` over chunks of points
+    (with ``dtype`` float64: the same formula in double precision, returned
+    as float64)."""
     tps_flow_plain.calls += 1
+    if dtype != torch.float32:
+        return _spline(theta, ctrl, points, dtype)
     return solvers.tps_eval_chunked_plain(theta, ctrl, points)
 
 
@@ -166,8 +203,9 @@ def _planes_launch(theta, ctrl, spatial):
 def tps_planes_bwd(theta, ctrl, spatial, g):
     """Backward of :func:`tps_planes`: cotangent ``g`` (B, 3, D, H, W) fp32 ->
     (g_theta (B, T+4, 3), g_ctrl (B, T, 3)). CPU tensors run
-    :func:`tps_planes_bwd_plain`; CUDA tensors launch the kernel (per-block
-    partial sums, added here in a second pass)."""
+    :func:`tps_planes_bwd_plain`; CUDA tensors launch the kernel, which
+    writes one row of partial sums per block, ``[g_theta's T+4 rows | 2 sum m
+    (T) | -2 sum m p (T, 3)]``; the rows are added here in a second pass."""
     spatial = tuple(int(s) for s in spatial)
     if g.device.type == "cpu":
         return tps_planes_bwd_plain(theta, ctrl, spatial, g)
@@ -179,16 +217,25 @@ def tps_planes_bwd(theta, ctrl, spatial, g):
                          f"contiguous float32 (B, 3, D, H, W) tensor on {theta.device}")
     lib = _fn()
     nblk = lib.km_tps_planes_bwd_blocks(D, H, W)
-    part = torch.empty((B, nblk, T, 7), dtype=torch.float32, device=g.device)
+    part = torch.empty((B, nblk, 7 * T + _BWD_AFFINE), dtype=torch.float32, device=g.device)
     sd, sh, sw = _steps(spatial)
     err = lib.km_tps_planes_bwd(theta.data_ptr(), ctrl.data_ptr(), g.data_ptr(),
                                 part.data_ptr(), B, T, D, H, W, sd, sh, sw,
                                 _build.stream_ptr(g.device))
     _build.check(err, "km_tps_planes_bwd")
     tps_planes_bwd.launches += 1
-    acc = part.sum(dim=1)  # (B, T, 7)
-    g_ctrl = 2.0 * (ctrl * acc[:, :, 3:4] - acc[:, :, 4:7])
-    g_theta = torch.cat([acc[:, :, 0:3], _affine_rows(g, spatial)], dim=1)
+    return _bwd_from_sums(part.sum(dim=1), ctrl)
+
+
+def _bwd_from_sums(acc, ctrl):
+    """(g_theta, g_ctrl) from the backward kernel's row of sums (B, 7T + 12):
+    ``[g_theta (T+4, 3) | 2 sum m (T) | -2 sum m p (T, 3)]``, so that
+    ``g_ctrl = ctrl * (2 sum m) + (-2 sum m p)``."""
+    B, T = ctrl.shape[:2]
+    n_theta = 3 * T + _BWD_AFFINE
+    g_theta = acc[:, :n_theta].reshape(B, T + 4, 3)
+    g_ctrl = torch.addcmul(acc[:, n_theta + T:].reshape(B, T, 3), ctrl,
+                           acc[:, n_theta: n_theta + T, None])
     return g_theta, g_ctrl
 
 

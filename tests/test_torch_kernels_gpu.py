@@ -187,18 +187,64 @@ def test_conv_kernel_against_float64_at_the_longest_sums(rng, dev):
             err.max().item()
 
 
-def test_tps_kernel_matches_plain(rng, dev):
-    """fp32 sums over T = 130 control points in another order: abs 2e-5."""
-    from keymorph_tpu_torch.ops.cuda import tpsflow
+def _splines(rng, dev, B, T, lmbda):
+    """B different splines: control points, and a theta fitted to them (drawn
+    at random below 4 control points, where the fit's system is singular)."""
     from keymorph_tpu_torch.transforms import solvers
 
-    src = torch.tensor(rng.uniform(-0.8, 0.8, (2, 130, 3)).astype(np.float32), device=dev)
-    dst = src + torch.tensor(rng.normal(0, 0.08, (2, 130, 3)).astype(np.float32), device=dev)
-    theta = solvers.fit_tps(src, dst, torch.tensor([0.1, 1.0], device=dev)).contiguous()
-    got = tpsflow.tps_planes(theta, src, (17, 9, 33))
-    want = tpsflow.tps_planes_plain(theta, src, (17, 9, 33))
+    src = torch.tensor(rng.uniform(-0.8, 0.8, (B, T, 3)).astype(np.float32), device=dev)
+    if T < 4:
+        return torch.tensor(rng.normal(0, 0.3, (B, T + 4, 3)).astype(np.float32), device=dev), src
+    dst = src + torch.tensor(rng.normal(0, 0.08, (B, T, 3)).astype(np.float32), device=dev)
+    lm = torch.tensor(lmbda, device=dev) if isinstance(lmbda, list) else lmbda
+    return solvers.fit_tps(src, dst, lm).contiguous(), src
+
+
+# The forward kernels give a thread 8 consecutive x positions of one grid row
+# (identity grid; stored four at a time where W % 4 == 0) or 4 points (points
+# mode), and 256 threads a block; the backward cuts the grid into groups of
+# up to 1024 points of whole rows (a row longer than 512 is cut) and deals
+# them to at most 2112 blocks, a warp takes a piece of a row and a lane up to
+# 4 control points. T is walked in tiles of 512 (forward) and of 32-128
+# (backward, which stages its groups anew for every tile).
+TPS_SHAPES = [
+    # B, T, spatial, lmbda
+    (2, 130, (17, 9, 33), [0.1, 1.0]),   # W not a multiple of 8 or 4; two splines
+    (2, 37, (9, 10, 11), [0.5, 0.05]),
+    (1, 8, (7, 1, 13), 0.5),             # a size-1 axis (step 0)
+    (1, 5, (1, 5, 9), 0.5),
+    (1, 16, (4, 6, 1), 0.5),             # W = 1: one live point per thread
+    (1, 1, (3, 4, 3), 0.5),              # T = 1, W < 4: less than one store
+    (1, 64, (8, 8, 16), 1.0),            # W % 4 == 0: 16-byte stores
+    (1, 128, (6, 10, 32), 1.0),
+    (2, 64, (5, 3, 12), [1.0, 0.2]),     # W % 4 == 0 but not % 8: half a thread's points
+    (1, 96, (2, 2, 600), 1.0),           # W > 512: the backward cuts the row
+    (1, 160, (3, 3, 40), 1.0),           # the backward takes 3 control points a lane
+    (1, 512, (4, 4, 7), 1.0),
+    (1, 2048, (2, 3, 6), 1.0),           # the most control points: 4 tiles of T
+    (1, 5, (300, 300, 1), 0.5),          # 2813 groups of 32 rows: a backward block takes two
+    (1, 130, (96, 96, 300), 1.0),        # 3072 groups and 5 tiles of T
+]
+
+
+@pytest.mark.parametrize("B,T,spatial,lmbda", TPS_SHAPES)
+def test_tps_kernel_matches_plain(rng, dev, B, T, spatial, lmbda):
+    """fp32 sums over T control points in another order, and sqrt and log
+    taken as one special-function instruction each: abs 2e-5 against the plain
+    version; against the float64 evaluation of the same formula, 2e-5 or 4x
+    the plain version's own distance from it."""
+    from keymorph_tpu_torch.ops.cuda import tpsflow
+
+    theta, src = _splines(rng, dev, B, T, lmbda)
+    n0 = tpsflow.tps_planes.launches
+    got = tpsflow.tps_planes(theta, src, spatial)
+    want = tpsflow.tps_planes_plain(theta, src, spatial)
+    ref = tpsflow.tps_planes_plain(theta, src, spatial, dtype=torch.float64)
     torch.cuda.synchronize()
+    assert tpsflow.tps_planes.launches == n0 + 1
+    assert got.shape == (B, 3, *spatial) and got.dtype == torch.float32
     assert (got - want).abs().max().item() <= 2e-5
+    assert (got - ref).abs().max().item() <= max(2e-5, 4 * (want - ref).abs().max().item())
 
 
 @pytest.mark.parametrize("mode", ["bilinear", "nearest"])
@@ -279,19 +325,15 @@ def test_conv_backward_through_the_kernels_matches_plain(rng, dev, mode):
         assert (g - p).abs().max().item() <= 2e-2 * p.abs().max().item()
 
 
-@pytest.mark.parametrize("B,T,spatial", [(2, 37, (9, 10, 11)), (1, 130, (17, 9, 33)),
-                                          (1, 8, (7, 1, 13))])
-def test_tps_backward_kernel_matches_plain_and_float64(rng, dev, B, T, spatial):
-    """T not a multiple of the kernel's 32/64 control-point lanes, N not a
+@pytest.mark.parametrize("B,T,spatial,lmbda", TPS_SHAPES)
+def test_tps_backward_kernel_matches_plain_and_float64(rng, dev, B, T, spatial, lmbda):
+    """T not a multiple of the kernel's 32-128 control points a warp, N not a
     multiple of its 1024-point blocks, an axis of size 1. Against the plain
     version in float64: 1e-5 of the largest value (fp32 sums over N points in
     a tree); the fp32 plain version is itself that far from float64."""
     from keymorph_tpu_torch.ops.cuda import tpsflow
-    from keymorph_tpu_torch.transforms import solvers
 
-    src = torch.tensor(rng.uniform(-0.8, 0.8, (B, T, 3)).astype(np.float32), device=dev)
-    dst = src + torch.tensor(rng.normal(0, 0.08, (B, T, 3)).astype(np.float32), device=dev)
-    theta = solvers.fit_tps(src, dst, 0.5).contiguous()
+    theta, src = _splines(rng, dev, B, T, lmbda)
     g = torch.tensor(rng.normal(size=(B, 3, *spatial)).astype(np.float32), device=dev)
     n0 = tpsflow.tps_planes_bwd.launches
     kt, kc = tpsflow.tps_planes_bwd(theta, src, spatial, g)
@@ -309,16 +351,17 @@ def test_tps_backward_kernel_matches_plain_and_float64(rng, dev, B, T, spatial):
     assert torch.equal(th.grad, kt) and torch.equal(c.grad, kc)
 
 
-@pytest.mark.parametrize("N", [990, 5049])
-def test_tps_flow_points_kernel_matches_plain(rng, dev, N):
+@pytest.mark.parametrize("N,T", [(990, 37), (5049, 37), (1, 1), (1023, 5), (1025, 64),
+                                  (4097, 128), (300, 512), (2000, 2048)])
+def test_tps_flow_points_kernel_matches_plain(rng, dev, N, T):
     """The TPS kernel's points mode at ragged N (not a multiple of its
-    256-point block), T = 37: abs 2e-5, as the planes mode."""
+    1024-point block, below one block, one point), two splines: abs 2e-5
+    against the plain version, as the planes mode; against float64, 2e-5 or 4x
+    the plain version's own distance."""
     from keymorph_tpu_torch.ops.cuda import tpsflow
     from keymorph_tpu_torch.transforms import solvers
 
-    src = torch.tensor(rng.uniform(-0.8, 0.8, (2, 37, 3)).astype(np.float32), device=dev)
-    dst = src + torch.tensor(rng.normal(0, 0.08, (2, 37, 3)).astype(np.float32), device=dev)
-    theta = solvers.fit_tps(src, dst, 0.5).contiguous()
+    theta, src = _splines(rng, dev, 2, T, [0.5, 1.0])
     pts = torch.tensor(rng.uniform(-1.2, 1.2, (2, N, 3)).astype(np.float32), device=dev)
     n0, p0 = tpsflow.tps_flow.launches, tpsflow.tps_flow_plain.calls
     got = solvers.tps_eval_chunked(theta, src, pts)  # dispatches to the kernel
@@ -327,6 +370,37 @@ def test_tps_flow_points_kernel_matches_plain(rng, dev, N):
     assert tpsflow.tps_flow.launches == n0 + 1 and tpsflow.tps_flow_plain.calls == p0 + 1
     assert got.shape == (2, N, 3)
     assert (got - want).abs().max().item() <= 2e-5
+    ref = tpsflow.tps_flow_plain(theta, src, pts, dtype=torch.float64)
+    assert (got - ref).abs().max().item() <= max(2e-5, 4 * (want - ref).abs().max().item())
+
+
+def test_tps_kernels_against_float64_at_the_smallest_lmbda(rng, dev):
+    """lmbda 1e-6, the bottom of the range training draws from: the spline's
+    weights are at their largest and cancel, and neither kernel nor plain
+    version is near the other any more. Each kernel is held against the
+    float64 evaluation of the formula: as near as 4x its plain version's own
+    distance (or the bars of the tests above)."""
+    from keymorph_tpu_torch.ops.cuda import tpsflow
+
+    spatial = (12, 10, 24)
+    theta, src = _splines(rng, dev, 2, 64, 1e-6)
+    f64 = torch.float64
+
+    def held(got, plain, ref, floor):
+        top = ref.abs().max().item()
+        d_k, d_p = (got - ref).abs().max().item(), (plain - ref).abs().max().item()
+        assert d_k <= max(floor(top), 4 * d_p), (d_k, d_p)
+
+    held(tpsflow.tps_planes(theta, src, spatial), tpsflow.tps_planes_plain(theta, src, spatial),
+         tpsflow.tps_planes_plain(theta, src, spatial, dtype=f64), lambda top: 2e-5)
+    pts = torch.tensor(rng.uniform(-1.0, 1.0, (2, 3000, 3)).astype(np.float32), device=dev)
+    held(tpsflow.tps_flow(theta, src, pts), tpsflow.tps_flow_plain(theta, src, pts),
+         tpsflow.tps_flow_plain(theta, src, pts, dtype=f64), lambda top: 2e-5)
+    g = torch.tensor(rng.normal(size=(2, 3, *spatial)).astype(np.float32), device=dev)
+    for k, p, r in zip(tpsflow.tps_planes_bwd(theta, src, spatial, g),
+                       tpsflow.tps_planes_bwd_plain(theta, src, spatial, g),
+                       tpsflow.tps_planes_bwd_plain(theta, src, spatial, g, dtype=f64)):
+        held(k, p, r, lambda top: 1e-5 * top)
 
 
 @pytest.mark.parametrize("C", [1, 3])
@@ -451,4 +525,14 @@ def test_wrappers_raise_instead_of_falling_back(dev):
         resample3d.warp_planes_grad(torch.zeros((1, 1, 4, 4, 4), device=dev),
                                     torch.zeros((1, 3, 4, 4, 4), device=dev),
                                     torch.zeros((1, 2, 4, 4, 4), device=dev))
+    # the TPS wrappers' limits: more than 2048 control points, more than 65535
+    # batch items (the grid's second dimension)
+    for B, T in ((1, 2049), (65536, 1)):
+        theta, ctrl = torch.zeros((B, T + 4, 3), device=dev), torch.zeros((B, T, 3), device=dev)
+        with pytest.raises(ValueError):
+            tpsflow.tps_planes(theta, ctrl, (2, 2, 2))
+        with pytest.raises(ValueError):
+            tpsflow.tps_planes_bwd(theta, ctrl, (2, 2, 2), torch.zeros((B, 3, 2, 2, 2), device=dev))
+        with pytest.raises(ValueError):
+            tpsflow.tps_flow(theta, ctrl, torch.zeros((B, 2, 3), device=dev))
     assert {k: v["plain_calls"] for k, v in kernels.counters().items()} == before
