@@ -25,7 +25,10 @@ Phases (each prints its lines; any failure raises, so the exit code is not 0):
      TPS kernels and their plain versions are each held against the float64
      evaluation of the same formula, for splines fitted at lmbda 1, 1e-4 and
      1e-6 (the bottom of the range training draws from); the TPS backward
-     also at the 256^3 step's shape;
+     also at the 256^3 step's shape; the warp (trilinear and nearest) at
+     256^3 C=1 and 128^3 C=14 (the Dice step's one-hot channels) and its
+     gradient at 128^3 C=1, 4 and 14, each timed with the L2 cleared before
+     every call (the time held against the bound) and warm;
   2. end to end: the flagship config (TruncatedUNet3D f_maps=32, 4 levels,
      1 truncated, bf16; 128 keypoints; TPS lmbda=1) at 256^3 with seeded
      random weights serves 3 pairs through the kernels: extract fixed and
@@ -203,6 +206,38 @@ def _cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+SPIN_CYCLES = 10 ** 6       # ~0.5 ms of the device at its 1.98 GHz boost clock
+
+
+def _call_ms(fn, reps, flush=None):
+    """Median milliseconds of ``reps`` single calls, each on its own CUDA
+    events. Before each the device spins for SPIN_CYCLES
+    (``torch.cuda._sleep``), so the host has enqueued the call before the
+    device reaches it and the events time the device's work alone, however
+    long the wrapper takes on the host (back to back, as ``_cuda_ms`` times,
+    a call shorter than its wrapper's host time reads the host). With
+    ``flush`` (5x the 50 MB L2) read first, outside the events, the call
+    finds its inputs in device memory, as the bound counts them; the flush
+    reads rather than writes, so no dirty lines are left whose write-back
+    would fall inside the call. Without it the call finds what its previous
+    run left in L2. (The median: a call now and then lands behind a stall.)"""
+    import torch
+
+    fn()
+    events = []
+    for _ in range(reps):
+        if flush is not None:
+            flush.sum()
+        torch.cuda._sleep(SPIN_CYCLES)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    return float(np.median([s.elapsed_time(e) for s, e in events]))
+
+
 def _ulp_ok(k, p):
     """(max abs err, ok): bf16 values within one bf16 ulp of the plain
     version's (plus CONV_FLOOR of the range for values that cancel)."""
@@ -262,17 +297,18 @@ def phase1(torch, rng, dev):
                else wb.permute(4, 3, 0, 1, 2)).contiguous()
         return _cuda_ms(lambda: F.conv3d(lhs, rhs, padding=1), 3)
 
-    def record(name, err, ms, pms, lms, bound, what, tol, ok, flops=None):
+    def record(name, err, ms, pms, lms, bound, what, tol, ok, flops=None, extra=None):
         row = {"max_abs_err": err, "ms": ms, "plain_ms": pms, "library_ms": lms,
-               "bound_ms": bound[0], "bound_by": bound[1]}
+               "bound_ms": bound[0], "bound_by": bound[1], **(extra or {})}
         if name in results:  # a further shape of the same wrapper
             results[name].setdefault("more_shapes", []).append({"shape": what, **row})
         else:
             results[name] = {"shape": what, **row}
         lib = "none" if lms is None else f"{lms:.3f} ms"
         rate = "" if flops is None else f" ({flops / ms / 1e9:.1f} TFLOP/s)"
-        print(f"phase1 {what}: max_abs_err={err!r} ({tol}): {ok}; kernel {ms:.3f} ms{rate}, "
-              f"plain {pms:.3f} ms, library {lib}, bound {bound[0]:.4f} ms by {bound[1]}")
+        print(f"phase1 {what}: max_abs_err={err!r} ({tol}): {ok}; kernel {ms:.4f} ms{rate}, "
+              f"plain {pms:.3f} ms, library {lib}, bound {bound[0]:.4f} ms by {bound[1]}"
+              + "".join(f", {k} {v!r}" for k, v in (extra or {}).items()))
         if not ok:
             raise AssertionError(f"{name} kernel disagrees with its plain version ({what})")
 
@@ -452,29 +488,54 @@ def phase1(torch, rng, dev):
 
     against_float64("tps_planes 256^3 T=128", TPS_ABS, False, planes_run)
 
-    # warp at 256^3 on those planes
-    vol = torch.tensor(rng.random((1, 1, *SPATIAL), dtype=np.float32), device=dev)
-    grid = torch.flip(planes.movedim(1, -1), dims=(-1,)).contiguous()  # xy, for the library
-    for mode in ("bilinear", "nearest"):
-        out = resample3d.warp_planes(vol, planes, mode)
-        ref = resample3d.warp_planes_plain(vol, planes, mode)
+    # The warp rows: kernel and library each timed call by call on the device
+    # (``_call_ms``), with the L2 cleared before every call (``ms``,
+    # ``library_ms``: what the bound, which counts device-memory bytes, is
+    # held against) and without (``ms_warm``, ``library_ms_warm``). Forward
+    # bound: C*V source values and 3N planes read, C*N written; gradient
+    # bound: C*V source values, C*N cotangent and 3N planes read, 3N written
+    # (4 bytes each).
+    flush = torch.ones(64 * 2 ** 20, device=dev)  # 256 MB
+
+    def warp_case(vol, planes, mode, g=None):
+        C, n = vol.shape[1], planes[0, 0].numel()
+        v = vol[0, 0].numel()
+        grid = torch.flip(planes.movedim(1, -1), dims=(-1,)).contiguous()  # xy, for the library
+        if g is None:
+            name = "warp_planes"
+            kern = lambda: resample3d.warp_planes(vol, planes, mode)
+            plain = lambda: resample3d.warp_planes_plain(vol, planes, mode)
+            lib = lambda: F.grid_sample(vol, grid, mode=mode, padding_mode="border",
+                                        align_corners=False)
+            nbytes = 4 * (C * v + 3 * n) + 4 * C * n
+            what = f"warp_planes {mode} {planes.shape[2]}^3 C={C}"
+        else:
+            name = "warp_planes_grad"
+            kern = lambda: resample3d.warp_planes_grad(vol, planes, g)
+            plain = lambda: resample3d.warp_planes_grad_plain(vol, planes, g)
+            lib = lambda: torch.ops.aten.grid_sampler_3d_backward(g, vol, grid, 0, 1, False,
+                                                                  [False, True])
+            nbytes = 4 * (C * v + C * n + 3 * n) + 4 * 3 * n
+        out, ref = kern(), plain()
         torch.cuda.synchronize()
         err = (out - ref).abs().max().item()
-        ms = _cuda_ms(lambda: resample3d.warp_planes(vol, planes, mode), 5)
-        pms = _cuda_ms(lambda: resample3d.warp_planes_plain(vol, planes, mode), 3)
-        lms = _cuda_ms(lambda: F.grid_sample(vol, grid, mode=mode, padding_mode="border",
-                                             align_corners=False), 5)
-        bound = _bound(4 * (vol.numel() + planes.numel() + n), 0.0)
-        what = f"warp_planes {mode} 256^3 C=1"
-        if mode == "bilinear":
-            record("warp_planes", err, ms, pms, lms, bound, what, f"tol {WARP_ABS}",
-                   err <= WARP_ABS)
+        if g is None:
+            tol, ok = f"tol {WARP_ABS}", err <= WARP_ABS
         else:
-            print(f"phase1 {what}: max_abs_err={err!r} (tol {WARP_ABS}); kernel {ms:.3f} ms, "
-                  f"plain {pms:.3f} ms, library {lms:.3f} ms")
-            if not err <= WARP_ABS:
-                raise AssertionError(f"warp_planes {mode} disagrees with its plain version")
-    del vol, grid, planes, out, ref
+            top = ref.abs().max().item()
+            tol, ok = f"tol {WARP_GRAD_REL} x max", err <= WARP_GRAD_REL * top
+            what = f"warp_planes gradient {planes.shape[2]}^3 C={C} (max |ref| {top:.4g})"
+        del out, ref
+        ms, lms = _call_ms(kern, 10, flush), _call_ms(lib, 10, flush)
+        extra = {"ms_warm": _call_ms(kern, 10), "library_ms_warm": _call_ms(lib, 10)}
+        record(name, err, ms, _cuda_ms(plain, 3), lms, _bound(nbytes, 0.0), what, tol, ok,
+               extra=extra)
+
+    # the warp at 256^3 on those planes
+    vol = torch.tensor(rng.random((1, 1, *SPATIAL), dtype=np.float32), device=dev)
+    for mode in ("bilinear", "nearest"):
+        warp_case(vol, planes, mode)
+    del vol, planes
 
     # the training path's TPS and warp kernels at 128^3, T = 64
     T = TRAIN_KEYPOINTS
@@ -541,31 +602,20 @@ def phase1(torch, rng, dev):
     against_float64(f"tps_flow N=128^3 points T={T}", TPS_ABS, False, flow_run)
     del pts, out, ref
 
+    # the warp and its gradient at 128^3: C = 1 (the MSE step), 4, and 14 (the
+    # Dice step's one-hot segmentation, utils.py:one_hot_subsampled_pair)
+    # (C = 14 from a generator of its own: the phases after this one keep their
+    # inputs)
     planes = tpsflow.tps_planes(theta, ctrl, T3)
-    grid = torch.flip(planes.movedim(1, -1), dims=(-1,)).contiguous()
-    for C in (1, 4):
-        vol = torch.tensor(rng.random((1, C, *T3), dtype=np.float32), device=dev)
-        g = torch.tensor(rng.normal(size=(1, C, *T3)).astype(np.float32), device=dev)
-        out = resample3d.warp_planes_grad(vol, planes, g)
-        ref = resample3d.warp_planes_grad_plain(vol, planes, g)
-        torch.cuda.synchronize()
-        err = (out - ref).abs().max().item()
-        ok = err <= WARP_GRAD_REL * ref.abs().max().item()
-        ms = _cuda_ms(lambda: resample3d.warp_planes_grad(vol, planes, g), 5)
-        pms = _cuda_ms(lambda: resample3d.warp_planes_grad_plain(vol, planes, g), 3)
-        lms = _cuda_ms(lambda: torch.ops.aten.grid_sampler_3d_backward(
-            g, vol, grid, 0, 1, False, [False, True]), 5)
-        bound = _bound(4 * (2 * vol.numel() + 2 * planes.numel()), 0.0)
-        what = (f"warp_planes gradient 128^3 C={C} (max |ref| {ref.abs().max().item():.4g})")
-        if C == 1:
-            record("warp_planes_grad", err, ms, pms, lms, bound, what,
-                   f"tol {WARP_GRAD_REL} x max", ok)
-        else:
-            print(f"phase1 {what}: max_abs_err={err!r} (tol {WARP_GRAD_REL} x max): {ok}; "
-                  f"kernel {ms:.3f} ms, plain {pms:.3f} ms, library {lms:.3f} ms, "
-                  f"bound {bound[0]:.4f} ms by {bound[1]}")
-            if not ok:
-                raise AssertionError("warp_planes gradient C=4 disagrees with its plain version")
+    for C in (1, 4, 14):
+        r = rng if C < 14 else np.random.default_rng([SEED, 2])
+        vol = torch.tensor(r.random((1, C, *T3), dtype=np.float32), device=dev)
+        g = torch.tensor(r.normal(size=(1, C, *T3)).astype(np.float32), device=dev)
+        warp_case(vol, planes, "bilinear", g)
+        if C == 14:
+            for mode in ("bilinear", "nearest"):
+                warp_case(vol, planes, mode)
+    del flush
     return results
 
 

@@ -12,6 +12,11 @@ gradient at an exact clamp tie where keymorph_tpu (``jnp.clip``) passes
 half. CPU tensors run the plain versions through the same
 ``torch.autograd.Function``.
 
+On CUDA tensors every shape takes the kernels' one path (4 voxels a thread,
+256 apart, the ragged end masked; no access needs more than 4-byte
+alignment, so a planes view at any storage offset is served as it is); the
+wrapper refuses 2^31 or more voxels a channel (32-bit offsets).
+
 The gradient to the image is no kernel of keymorph_tpu either (its XLA VJP):
 when the image requires a gradient it is an ``index_add_`` of the eight
 weighted corners. A training step never asks for it.
@@ -21,6 +26,7 @@ from __future__ import annotations
 
 import ctypes
 import itertools
+import math
 
 import torch
 
@@ -127,12 +133,20 @@ def _image_grad(img, planes, g, mode):
 # ---------------------------------------------------------------------------
 
 
+# The kernels index within one channel in 32 bits (source and output alike).
+MAX_CHANNEL_VOXELS = 2 ** 31 - 1
+
+
 def _check(name, img, planes):
     if img.dim() != 5 or planes.dim() != 5 or planes.shape[1] != 3:
         raise ValueError(f"{name}: img {tuple(img.shape)} / planes "
                          f"{tuple(planes.shape)} are not (B, C, Z, Y, X) / (B, 3, D, H, W)")
     if planes.shape[0] != img.shape[0]:
         raise ValueError(f"{name}: img and planes batch sizes differ")
+    for what, t in (("img", img), ("planes", planes)):
+        if math.prod(t.shape[2:]) > MAX_CHANNEL_VOXELS:
+            raise ValueError(f"{name}: {what} has {math.prod(t.shape[2:])} voxels a channel, "
+                             f"2^31 or more (the kernel's offsets are 32-bit)")
     if img.device != planes.device or img.device.type != "cuda":
         raise ValueError(f"{name}: img and planes must be on one CUDA device")
     if img.dtype != torch.float32 or planes.dtype != torch.float32:

@@ -11,6 +11,8 @@ The kernels build from ``keymorph_tpu_torch/csrc`` at first use. Shapes are
 ragged against each kernel's tiles on purpose.
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -247,19 +249,96 @@ def test_tps_kernel_matches_plain(rng, dev, B, T, spatial, lmbda):
     assert (got - ref).abs().max().item() <= max(2e-5, 4 * (want - ref).abs().max().item())
 
 
+# The warp kernels give a thread 4 output voxels 256 apart (1024 voxels a
+# tile, the ragged last tile masked) on a grid of the blocks resident at once,
+# each walking a contiguous range of tiles; no access needs more than 4-byte
+# alignment, so planes and cotangent at any storage offset are served as they
+# are. Source sizes are powers of two so that the border and rounding ties
+# below are exact.
+WARP_SHAPES = [
+    # B, C, source, output, storage offset of planes and cotangent (floats)
+    (1, 1, (4, 4, 4), (1, 1, 1), 0),          # N = 1: one voxel of a thread
+    (1, 3, (4, 8, 16), (1, 1, 3), 0),         # N = 3
+    (1, 1, (8, 8, 8), (1, 1, 5), 0),          # N = 5
+    (2, 3, (16, 8, 32), (3, 11, 31), 0),      # N = 1023: a tile less one voxel
+    (1, 14, (16, 16, 16), (5, 5, 41), 0),     # N = 1025: a tile and one voxel; C = 14
+    (2, 1, (8, 16, 32), (7, 9, 11), 0),       # N % 4 != 0
+    (2, 3, (16, 32, 32), (18, 16, 40), 0),    # 12 tiles a batch item
+    (2, 3, (16, 8, 32), (18, 16, 40), 1),     # planes (and cotangent) 4 bytes off 16
+    (1, 14, (16, 32, 8), (16, 16, 16), 3),    # C = 14, 12 bytes off 16
+    (1, 1, (64, 64, 64), (96, 96, 96), 0),    # 864 tiles: blocks walk several
+]
+
+
+def _warp_inputs(rng, dev, B, C, src, out, offset):
+    """Source volume, planes and cotangent on the card. Planes are random in
+    [-1.6, 1.6] (far outside the volume too) with exact ties laid in per
+    batch item at fixed voxels: v == 0 on axis 0, v == S - 1 on axis 2
+    (the top edge), v == 1.5 and 2.5 on axis 1 (nearest rounds them to 2).
+    Planes and cotangent start ``offset`` floats into their storage."""
+    planes = rng.uniform(-1.6, 1.6, (B, 3, *out)).astype(np.float32)
+    flat = planes.reshape(B, 3, -1)
+    n = flat.shape[2]
+
+    def p_at(v, s):
+        return (2.0 * v + 1.0) / s - 1.0
+
+    for b in range(B):
+        flat[b, 0, b % n::7] = p_at(0.0, src[0])
+        flat[b, 2, (b + 3) % n::7] = p_at(src[2] - 1.0, src[2])
+        if src[1] >= 4:
+            flat[b, 1, (b + 1) % n::5] = p_at(1.5, src[1])
+            flat[b, 1, (b + 2) % n::5] = p_at(2.5, src[1])
+
+    def at_offset(a):
+        t = torch.empty(a.size + offset, device=dev)[offset:].view(a.shape)
+        t.copy_(torch.tensor(a))
+        return t
+
+    img = torch.tensor(rng.random((B, C, *src), dtype=np.float32), device=dev)
+    g = at_offset(rng.normal(size=(B, C, *out)).astype(np.float32))
+    return img, at_offset(planes), g
+
+
 @pytest.mark.parametrize("mode", ["bilinear", "nearest"])
-def test_warp_kernel_matches_plain(rng, dev, mode):
+@pytest.mark.parametrize("B,C,src,out,offset", WARP_SHAPES)
+def test_warp_kernel_matches_plain(rng, dev, mode, B, C, src, out, offset):
     """The kernel rounds every operation in the plain version's order:
-    bit-exact, for flows far outside the volume too."""
+    bit-exact, at every shape and storage offset, for flows far outside the
+    volume and at the border and rounding ties too."""
     from keymorph_tpu_torch.ops.cuda import resample3d
 
-    img = torch.tensor(rng.random((2, 3, 20, 24, 28), dtype=np.float32), device=dev)
-    planes = torch.tensor(rng.uniform(-1.6, 1.6, (2, 3, 18, 16, 40)).astype(np.float32),
-                          device=dev)
+    img, planes, _ = _warp_inputs(rng, dev, B, C, src, out, offset)
+    assert planes.is_contiguous() and (planes.data_ptr() % 16 == 0) == (offset == 0)
+    n0 = resample3d.warp_planes.launches
     got = resample3d.warp_planes(img, planes, mode)
     want = resample3d.warp_planes_plain(img, planes, mode)
     torch.cuda.synchronize()
+    assert resample3d.warp_planes.launches == n0 + 1
+    assert got.shape == (B, C, *out)
     torch.testing.assert_close(got, want, atol=0, rtol=0)
+    if mode == "nearest" and src[1] >= 4 and math.prod(out) > 2:
+        # v == 1.5 and 2.5 on axis 1 both take source row 2
+        yrow = img[0, 0, :, 2, :]
+        i = 1 % math.prod(out)
+        z, x = (torch.round(((planes[0, a].flatten()[i] + 1) * src[a] - 1) / 2)
+                .clamp(0, src[a] - 1).long() for a in (0, 2))
+        assert got[0, 0].flatten()[i] == yrow[z, x]
+
+
+def test_warp_kernels_take_an_empty_batch(dev):
+    """B = 0 (or no output voxels) launches nothing and returns empty."""
+    from keymorph_tpu_torch.ops.cuda import resample3d
+
+    for img, planes in ((torch.zeros((0, 2, 4, 4, 4), device=dev),
+                         torch.zeros((0, 3, 5, 6, 7), device=dev)),
+                        (torch.zeros((1, 2, 4, 4, 4), device=dev),
+                         torch.zeros((1, 3, 0, 6, 7), device=dev))):
+        out = resample3d.warp_planes(img, planes)
+        g = resample3d.warp_planes_grad(img, planes, torch.zeros_like(out))
+        torch.cuda.synchronize()
+        assert out.shape == (img.shape[0], 2, *planes.shape[2:])
+        assert g.shape == planes.shape
 
 
 @pytest.mark.parametrize("shape", [((6, 12, 40), 24, 8, 0), ((6, 12, 40), 24, 8, 16),
@@ -403,30 +482,30 @@ def test_tps_kernels_against_float64_at_the_smallest_lmbda(rng, dev):
         held(k, p, r, lambda top: 1e-5 * top)
 
 
-@pytest.mark.parametrize("C", [1, 3])
-def test_warp_gradient_kernel_matches_plain(rng, dev, C):
-    """The gradient to the planes, for flows that leave the volume and with
-    exact clamp ties at both ends: 1e-5 of the largest value (the same fp32
-    terms, FMA-contracted in the kernel); ties carry half, outside is 0."""
+@pytest.mark.parametrize("B,C,src,out,offset", WARP_SHAPES)
+def test_warp_gradient_kernel_matches_plain(rng, dev, B, C, src, out, offset):
+    """The gradient to the planes, at every shape and storage offset, for flows
+    that leave the volume and with exact clamp ties at both ends: 1e-5 of the
+    largest value (the same fp32 terms, FMA-contracted in the kernel); ties
+    carry half, outside is 0, the top edge exactly 0."""
     from keymorph_tpu_torch.ops.cuda import resample3d
 
-    Z, Y, X = 16, 24, 32  # powers of two where a tie must be exact in fp32
-    img = torch.tensor(rng.random((2, C, Z, Y, X), dtype=np.float32), device=dev)
-    planes = rng.uniform(-1.3, 1.3, (2, 3, 18, 16, 40)).astype(np.float32)
-    planes[0, 0, 0] = 1.0 / Z - 1.0              # v == 0 exactly
-    planes[1, 2, 1] = (2.0 * X - 1.0) / X - 1.0  # v == X - 1 exactly
-    planes = torch.tensor(planes, device=dev)
-    g = torch.tensor(rng.normal(size=(2, C, 18, 16, 40)).astype(np.float32), device=dev)
+    img, planes, g = _warp_inputs(rng, dev, B, C, src, out, offset)
     n0 = resample3d.warp_planes_grad.launches
     got = resample3d.warp_planes_grad(img, planes, g)
     want = resample3d.warp_planes_grad_plain(img, planes, g)
     torch.cuda.synchronize()
     assert resample3d.warp_planes_grad.launches == n0 + 1
+    assert got.shape == (B, 3, *out)
     assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+    n = math.prod(out)
     outside = (planes < -1.0) | (planes > 1.0)
-    assert bool(outside.any()) and not bool(got[outside].any())
-    assert not bool(got[1, 2, 1].any())  # the top edge: hi == lo
-    assert bool(got[0, 0, 0].any())
+    assert (bool(outside.any()) or n < 8) and not bool(got[outside].any())
+    for b in range(B):
+        # the top edge of axis 2 (hi == lo): exactly 0
+        assert not bool(got[b, 2].flatten()[(b + 3) % n::7].any())
+    if n > 1:  # the tie at v == 0 on axis 0 carries half of a nonzero gradient
+        assert bool(got[:, 0].flatten(1)[:, 0::7].any())
     # through autograd, with the image gradient as a plain scatter-add
     pe, im = planes.clone().requires_grad_(True), img.clone().requires_grad_(True)
     resample3d.warp_planes(im, pe).backward(g)
@@ -525,6 +604,17 @@ def test_wrappers_raise_instead_of_falling_back(dev):
         resample3d.warp_planes_grad(torch.zeros((1, 1, 4, 4, 4), device=dev),
                                     torch.zeros((1, 3, 4, 4, 4), device=dev),
                                     torch.zeros((1, 2, 4, 4, 4), device=dev))
+    # the warp's 32-bit offsets: 2^31 voxels a channel (1291^3), source or
+    # output, raise on the shapes alone (expanded views allocate nothing)
+    big = torch.zeros(1, device=dev).expand(1, 1, 1291, 1291, 1291)
+    small = torch.zeros((1, 3, 2, 2, 2), device=dev)
+    for img, planes in ((big, small), (torch.zeros((1, 1, 2, 2, 2), device=dev),
+                                       big.expand(1, 3, 1291, 1291, 1291))):
+        with pytest.raises(ValueError, match="2\\^31"):
+            resample3d.warp_planes(img, planes)
+        with pytest.raises(ValueError, match="2\\^31"):
+            resample3d.warp_planes_grad(img, planes, torch.zeros(1, device=dev).expand(
+                1, 1, *planes.shape[2:]))
     # the TPS wrappers' limits: more than 2048 control points, more than 65535
     # batch items (the grid's second dimension)
     for B, T in ((1, 2049), (65536, 1)):

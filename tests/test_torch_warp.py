@@ -46,19 +46,29 @@ def _planes(rng, B, out_spatial, kind):
     return np.stack(out).astype(np.float32)
 
 
-def _mixed_planes(rng, B):
-    """Batch element 0 smooth (registration-like), 1 wild (random, far
-    outside the volume)."""
-    return np.concatenate([_planes(rng, 1, S, "smooth"), _planes(rng, B - 1, S, "wild")])
+def _mixed_planes(rng, B, out_spatial=S):
+    """Batch element 0 smooth (registration-like), the others wild (random,
+    far outside the volume); a single element is wild."""
+    if B == 1:
+        return _planes(rng, 1, out_spatial, "wild")
+    return np.concatenate([_planes(rng, 1, out_spatial, "smooth"),
+                           _planes(rng, B - 1, out_spatial, "wild")])
+
+
+# C = 14: the Dice step's one-hot segmentation (utils.one_hot_subsampled_pair);
+# the output grid other than the source's
+DICE = (1, 14, (12, 20, 16), (10, 8, 24))
 
 
 @pytest.mark.parametrize("mode", ["bilinear", "nearest"])
-def test_warp_planes_matches_jax_gather(rng, mode):
-    """C=3, B=2 at 32^3, smooth and wild flows, vs keymorph_tpu's gather
-    formulation: the same arithmetic in the same order, so nearest is
-    bit-exact and trilinear agrees to 1e-6 (fp32 contraction)."""
-    img = rng.random((2, 3, *S), dtype=np.float32)
-    planes = _mixed_planes(rng, 2)
+@pytest.mark.parametrize("B,C,src,out", [(2, 3, S, S), DICE])
+def test_warp_planes_matches_jax_gather(rng, mode, B, C, src, out):
+    """C=3, B=2 at 32^3, smooth and wild flows, and C=14 onto another grid,
+    vs keymorph_tpu's gather formulation: the same arithmetic in the same
+    order, so nearest is bit-exact and trilinear agrees to 1e-6 (fp32
+    contraction)."""
+    img = rng.random((B, C, *src), dtype=np.float32)
+    planes = _mixed_planes(rng, B, out)
     got = resample3d.warp_planes(torch.tensor(img), torch.tensor(planes), mode).numpy()
     want = np.asarray(jgrid_sample_planes(jnp.asarray(img), jnp.asarray(planes), mode))
     if mode == "nearest":
@@ -67,16 +77,19 @@ def test_warp_planes_matches_jax_gather(rng, mode):
         np.testing.assert_allclose(got, want, atol=1e-6)
 
 
-@pytest.mark.parametrize("mode,B,C", [("bilinear", 2, 3), ("nearest", 1, 1)])
-def test_warp_planes_matches_jax_kernel(rng, monkeypatch, mode, B, C):
+@pytest.mark.parametrize("mode,B,C,src,out", [("bilinear", 2, 3, S, S), ("nearest", 1, 1, S, S),
+                                              ("bilinear", 1, 14, (8, 8, 32), (8, 16, 64))])
+def test_warp_planes_matches_jax_kernel(rng, monkeypatch, mode, B, C, src, out):
     """vs keymorph_tpu's Pallas warp (fast path forced, interpret mode),
     which contracts fp32 values as bf16 hi/lo parts (~16 mantissa bits,
     also for nearest): abs <= 1e-5 on images in [0, 1]. The wild batch
     element takes the kernel's own exactness fallback. Interpret mode costs
-    ~8-12 s per batch element at 32^3, hence the small nearest case."""
+    ~8-12 s per batch element at 32^3, hence the small nearest case; C=14
+    onto another grid is the smallest the kernel takes (8 cells of 4x8x32
+    output voxels), ~20 s."""
     monkeypatch.setenv("KM_FORCE_FAST_WARP", "1")
-    img = rng.random((B, C, *S), dtype=np.float32)
-    planes = _mixed_planes(rng, B) if B > 1 else _planes(rng, 1, S, "smooth")
+    img = rng.random((B, C, *src), dtype=np.float32)
+    planes = _mixed_planes(rng, B, out) if B > 1 else _planes(rng, 1, out, "smooth")
     got = resample3d.warp_planes(torch.tensor(img), torch.tensor(planes), mode).numpy()
     want = np.asarray(jwarp.warp_planes(jnp.asarray(img), jnp.asarray(planes), mode))
     np.testing.assert_allclose(got, want, atol=1e-5)
@@ -115,6 +128,23 @@ def test_nearest_rounds_half_to_even():
     planes[0, 0, :, 0, 0] = p
     got = resample3d.warp_planes(img, planes, "nearest").flatten().tolist()
     assert got == [2.0, 2.0]
+
+
+@pytest.mark.parametrize("which", ["img", "planes"])
+def test_kernel_limit_is_held_on_shapes(which):
+    """The kernels' offsets within one channel are 32-bit: the launch check
+    refuses 2^31 voxels a channel, of the source or of the output, from the
+    shapes alone (expanded views allocate nothing), and lets 2^31 - 1 pass
+    on to the device check."""
+    def views(n):
+        big = torch.zeros(1).expand(1, 3, *n)
+        small = torch.zeros((1, 3, 2, 2, 2))
+        return (big[:, :1], small) if which == "img" else (small[:, :1], big)
+
+    with pytest.raises(ValueError, match="2\\^31"):
+        resample3d._check("warp_planes", *views((2 ** 11, 2 ** 10, 2 ** 10)))
+    with pytest.raises(ValueError, match="one CUDA device"):
+        resample3d._check("warp_planes", *views((2 ** 31 - 1, 1, 1)))
 
 
 def test_torch_grid_sample_agrees(rng):

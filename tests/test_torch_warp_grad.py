@@ -70,10 +70,15 @@ def _cot(rng, shape):
     return rng.normal(size=shape).astype(np.float32)
 
 
-def test_planes_grad_smooth_flow_matches_jax_xla_and_pallas(rng, monkeypatch):
-    src = rng.random((1, 1, S, S, S), dtype=np.float32)
-    planes = _smooth_planes((S, S, S))
-    cot = _cot(rng, (1, 1, S, S, S))
+@pytest.mark.parametrize("C,src_spatial,out_spatial", [(1, (S, S, S), (S, S, S)),
+                                                       (14, (8, 8, 32), (8, 16, 64))])
+def test_planes_grad_smooth_flow_matches_jax_xla_and_pallas(rng, monkeypatch, C, src_spatial,
+                                                            out_spatial):
+    """One channel at 32^3, and the Dice step's 14 one-hot channels onto
+    another grid (the smallest the Pallas kernel takes; ~60 s interpreted)."""
+    src = rng.random((1, C, *src_spatial), dtype=np.float32)
+    planes = _smooth_planes(out_spatial)
+    cot = _cot(rng, (1, C, *out_spatial))
     gi, gp = _port_grads(src, planes, cot)
     xi, xp = _jax_grads(src, planes, cot, _xla)
     np.testing.assert_allclose(gp, xp, atol=1e-4)
@@ -122,9 +127,10 @@ def test_planes_grad_border_ties_and_outside(rng):
     assert outside.any() and np.all(gp[0, 0][outside] == 0.0)
 
 
-@pytest.mark.parametrize("C", [3, 5])
+@pytest.mark.parametrize("C", [3, 5, 14])
 def test_planes_grad_several_channels(rng, C):
-    """The planes gradient sums over channels; other output size than source."""
+    """The planes gradient sums over channels (14: the Dice step's one-hot
+    segmentation); other output size than source."""
     src = rng.random((2, C, 12, 20, 16), dtype=np.float32)
     planes = np.concatenate([_smooth_planes((10, 8, 24)), _smooth_planes((10, 8, 24), 0.2)])
     cot = _cot(rng, (2, C, 10, 8, 24))
