@@ -1,12 +1,17 @@
 """Coordinate-space conversions and grid builders (fp32).
 
-Port of ``keymorph_tpu/ops/coords.py`` (norm and voxel spaces; the
-real-world conversions are not ported yet).
+Port of ``keymorph_tpu/ops/coords.py``.
 
 Spaces:
   * norm  — [-1, 1] per axis, ``ij`` ordering (first volume axis first);
             -1 <-> -0.5 voxel and +1 <-> N-0.5 voxel (``align_corners=False``).
   * voxel — continuous voxel indices in [-0.5, N-0.5].
+  * real  — scanner (world) coordinates in millimetres, through a NIfTI-style
+            (d+1, d+1) voxel -> world affine.
+
+The real-world conversions take batched affines (B, d+1, d+1) and points
+(B, N, d). Inverting an affine uses ``torch.linalg.inv_ex``: ``inv`` checks
+for a singular matrix by synchronizing the host with the card.
 """
 
 from __future__ import annotations
@@ -26,6 +31,49 @@ def convert_points_voxel2norm(points: torch.Tensor, grid_sizes) -> torch.Tensor:
     """Continuous voxel coordinates (..., dim) -> [-1, 1]."""
     sizes = torch.as_tensor(grid_sizes, dtype=points.dtype, device=points.device)
     return 2.0 * (points + 0.5) / sizes - 1.0
+
+
+def homogeneous(points: torch.Tensor) -> torch.Tensor:
+    """Append a trailing 1: (..., N, d) -> (..., N, d+1)."""
+    ones = torch.ones((*points.shape[:-1], 1), dtype=points.dtype, device=points.device)
+    return torch.cat([points, ones], dim=-1)
+
+
+def convert_points_voxel2real(points: torch.Tensor, affine: torch.Tensor) -> torch.Tensor:
+    """Voxel coordinates (B, N, d) -> real-world, through the (B, d+1, d+1)
+    voxel -> world ``affine``."""
+    return (homogeneous(points) @ affine.to(points.dtype).transpose(-1, -2))[..., :-1]
+
+
+def convert_points_real2voxel(points: torch.Tensor, affine: torch.Tensor) -> torch.Tensor:
+    """Real-world points (B, N, d) -> voxel coordinates, through the inverse
+    of the (B, d+1, d+1) voxel -> world ``affine``."""
+    inv = torch.linalg.inv_ex(affine.to(points.dtype))[0]
+    return (homogeneous(points) @ inv.transpose(-1, -2))[..., :-1]
+
+
+def convert_points_norm2real(points, affine, grid_sizes):
+    """norm -> voxel -> real."""
+    return convert_points_voxel2real(convert_points_norm2voxel(points, grid_sizes), affine)
+
+
+def convert_points_real2norm(points, affine, grid_sizes):
+    """real -> voxel -> norm."""
+    return convert_points_voxel2norm(convert_points_real2voxel(points, affine), grid_sizes)
+
+
+def convert_flow_voxel2norm(flow: torch.Tensor, dim_sizes) -> torch.Tensor:
+    """Dense flow in voxel units (..., dim) -> [-1, 1] along the last axis;
+    ``flow[..., i]`` indexes the axis of size ``dim_sizes[i]``."""
+    sizes = torch.as_tensor(dim_sizes, dtype=flow.dtype, device=flow.device)
+    return 2.0 * (flow + 0.5) / sizes - 1.0
+
+
+def uniform_voxel_grid(spatial_shape: Sequence[int], device=None) -> torch.Tensor:
+    """Integer meshgrid of voxel indices, ``ij`` ordering:
+    (*spatial_shape, dim) fp32."""
+    axes = [torch.arange(int(s), device=device, dtype=torch.float32) for s in spatial_shape]
+    return torch.stack(torch.meshgrid(*axes, indexing="ij"), dim=-1)
 
 
 def uniform_norm_grid(spatial_shape: Sequence[int], device=None,

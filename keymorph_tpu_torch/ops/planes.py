@@ -1,6 +1,7 @@
-"""Plane-based resampling: the plain warp.
+"""``ij``-ordered coordinate planes: the affine flow as planes, the plain
+warp, and the affine register-and-warp path.
 
-Port of ``keymorph_tpu/ops/planes.py:grid_sample_planes``. Semantics are
+Port of ``keymorph_tpu/ops/planes.py``. The warp's semantics are
 ``torch.nn.functional.grid_sample(mode, padding_mode="border",
 align_corners=False)`` on ``ij``-ordered coordinate planes:
 
@@ -15,8 +16,49 @@ This gather formulation is the plain version of the warp kernel
 from __future__ import annotations
 
 import itertools
+from typing import Optional, Sequence
 
 import torch
+
+
+def affine_flow_planes(inverse_matrix: torch.Tensor, spatial: Sequence[int]) -> torch.Tensor:
+    """``ij``-ordered coordinate planes of an affine registration, straight
+    from the matrix: plane a is ``m[a, 0] z + m[a, 1] y + m[a, 2] x + m[a, 3]``
+    on the linspace(-1, 1) axes, broadcast per axis (no (B, N, 3) grid is
+    written and flipped).
+
+    Args:
+        inverse_matrix: (B, 4, 4) fixed -> moving matrix.
+        spatial: (D, H, W).
+    Returns:
+        (B, 3, D, H, W) fp32 planes.
+    """
+    D, H, W = (int(s) for s in spatial)
+    m = inverse_matrix.float()
+    dev = m.device
+    zz = torch.linspace(-1.0, 1.0, D, device=dev)[:, None, None]
+    yy = torch.linspace(-1.0, 1.0, H, device=dev)[None, :, None]
+    xx = torch.linspace(-1.0, 1.0, W, device=dev)[None, None, :]
+    c = m[:, :3, :, None, None, None]  # (B, 3, 4, 1, 1, 1)
+    return c[:, :, 0] * zz + c[:, :, 1] * yy + c[:, :, 2] * xx + c[:, :, 3]
+
+
+def affine_register_warp(inverse_matrix: torch.Tensor, img_m: torch.Tensor,
+                         out_spatial: Optional[Sequence[int]] = None, mode: str = "bilinear"):
+    """Affine/rigid serving path: :func:`affine_flow_planes`, then the warp
+    (``ops.cuda.resample3d.warp_planes``: the kernel on CUDA tensors).
+    Returns (warped (B, C, *out_spatial), planes)."""
+    from keymorph_tpu_torch.ops.cuda import resample3d
+
+    out_spatial = tuple(out_spatial or img_m.shape[2:])
+    planes = affine_flow_planes(inverse_matrix, out_spatial)
+    return resample3d.warp_planes(img_m, planes, mode), planes
+
+
+def planes_to_grid(planes: torch.Tensor) -> torch.Tensor:
+    """(B, 3, *S) ``ij`` planes -> (B, *S, 3) ``xy`` grid (the reference
+    contract)."""
+    return torch.flip(torch.movedim(planes, 1, -1), dims=(-1,))
 
 
 def unnormalize(coord: torch.Tensor, size: int) -> torch.Tensor:

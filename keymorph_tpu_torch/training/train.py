@@ -1,16 +1,17 @@
 """Training: one step (augment -> extract -> fit -> flow -> warp -> loss ->
 backward -> Adam) and the epoch loop.
 
-Port of ``keymorph_tpu/training/train.py`` for pairwise TPS registration in
-normalized coordinates: ``make_train_step`` (MSE and Dice, affine
-augmentation with the ``aug_scale`` ramp, keypoint subsampling, per-sample
-lambda), ``make_kpconsistency_step`` and ``run_train``. The step runs the
-planes-native path: ``align_pair(compute_grid="planes")`` then
-``align_planes``, so on a CUDA device the forward and the backward go through
-the port's kernels (conv and its input gradient, TPS flow and its backward,
-warp and its gradient). Affine/rigid training, real-world coordinates
-(``aff_f``/``aff_m``) and the same-resolution variant are not ported yet
-(ROADMAP A4, A6).
+Port of ``keymorph_tpu/training/train.py``: ``make_train_step`` (affine,
+rigid and TPS; MSE and Dice; affine augmentation with the ``aug_scale``
+ramp; TPS keypoint subsampling and per-sample lambda; real-world
+coordinates), ``make_kpconsistency_step`` and ``run_train``. TPS in
+normalized coordinates runs the planes-native path
+(``align_pair(compute_grid="planes")`` then ``align_planes``); affine, rigid
+and every real-world step run the grid path (``align_pair(compute_grid=True)``
+then ``align_img``), as keymorph_tpu's step does. On a CUDA device the
+forward and the backward go through the port's kernels (conv and its input
+gradient, TPS flow and its backward, warp and its gradient). The
+same-resolution variant is not ported yet (ROADMAP A7).
 
 Random draws come from an explicit ``torch.Generator`` in a fixed order:
 augmentation parameters, lambda, keypoint subset.
@@ -36,7 +37,7 @@ from keymorph_tpu_torch.models.keymorph import (
     subsample_keypoints,
 )
 from keymorph_tpu_torch.ops.cuda import resample3d
-from keymorph_tpu_torch.ops.resample import align_planes
+from keymorph_tpu_torch.ops.resample import grid_to_planes
 from keymorph_tpu_torch.training.config import Config
 from keymorph_tpu_torch.utils import aggregate_dicts, one_hot, one_hot_subsampled_pair
 
@@ -72,20 +73,8 @@ def _global_norm(params) -> torch.Tensor:
     return torch.sqrt(torch.stack(sq).sum())
 
 
-def _reject_unported(config: Config, aff_f=None, aff_m=None):
-    align_type, lmbda_spec = parse_transform_type(config.transform_type)
-    if align_type != "tps":
-        raise NotImplementedError(
-            f"training with transform_type={config.transform_type!r} is not ported: "
-            "only TPS (ROADMAP A4, affine/rigid alignment)")
-    if config.align_keypoints_in_real_world_coords or aff_f is not None or aff_m is not None:
-        raise NotImplementedError(
-            "real-world-coordinate training (aff_f/aff_m) is not ported (ROADMAP A4)")
-    return lmbda_spec
-
-
 def make_train_step(net: nn.Module, config: Config, plain: bool = False):
-    """Build the training step for ``config.transform_type`` (TPS).
+    """Build the training step for ``config.transform_type``.
 
     Returned signature::
 
@@ -94,64 +83,79 @@ def make_train_step(net: nn.Module, config: Config, plain: bool = False):
             -> (state, metrics)
 
     ``seg_f``/``seg_m`` may be None (MSE). ``aug_scale`` is the affine-slope
-    ramp factor. ``lmbda`` (B,) and ``keypoint_idx`` override the draws from
-    ``generator`` (so a test can inject another framework's). ``metrics``
-    holds 0-d tensors: ``loss``, ``mse`` or ``softdice``/``softdiceloss``,
-    and ``grad_norm`` (the global L2 norm of the gradients). The update is
-    the state's optimizer's.
+    ramp factor. With ``config.align_keypoints_in_real_world_coords`` the
+    step needs ``aff_f``/``aff_m``, the (B, 4, 4) voxel -> world affines; the
+    augmentation matrix composes into the moving one (``aff_m @ aug``) and
+    the fit runs in scanner coordinates. ``lmbda`` (B,) and ``keypoint_idx``
+    override the TPS draws from ``generator`` (so a test can inject another
+    framework's). ``metrics`` holds 0-d tensors: ``loss``, ``mse`` or
+    ``softdice``/``softdiceloss``, and ``grad_norm`` (the global L2 norm of
+    the gradients). The update is the state's optimizer's.
 
     ``plain=True`` runs every kernel's plain PyTorch version instead (the
     oracle route on a CUDA device; CPU tensors take the plain versions either
     way).
     """
-    lmbda_spec = _reject_unported(config)
+    align_type, lmbda_spec = parse_transform_type(config.transform_type)
+    rw = bool(config.align_keypoints_in_real_world_coords)
+    use_planes = align_type == "tps" and not rw
     use_dice = config.loss_fn == "dice"
     max_params = tuple(config.max_random_affine_augment_params)
-    if plain:
-        def warp(planes, x):
-            return resample3d.warp_planes_plain(x, planes)
-    else:
-        warp = align_planes
+    warp_planes = resample3d.warp_planes_plain if plain else resample3d.warp_planes
 
-    def loss_fn(generator, img_f, img_m, seg_f, seg_m, aug_scale, lmbda, keypoint_idx):
+    def warp(flow, x):  # align_planes / align_img
+        return warp_planes(x, flow if use_planes else grid_to_planes(flow))
+
+    def loss_fn(generator, img_f, img_m, seg_f, seg_m, aug_scale, aff_f, aff_m, lmbda,
+                keypoint_idx):
         if any(p > 0 for p in max_params):
             with torch.no_grad():
+                out = augment.random_affine_augment(
+                    generator, img_m, seg=seg_m if use_dice else None,
+                    max_random_params=max_params, scale_params=aug_scale,
+                    return_affine_matrix=True)
                 if use_dice:
-                    img_m, seg_m = augment.random_affine_augment(
-                        generator, img_m, seg=seg_m, max_random_params=max_params,
-                        scale_params=aug_scale)
+                    img_m, seg_m, aug_M = out
                 else:
-                    img_m = augment.random_affine_augment(
-                        generator, img_m, max_random_params=max_params,
-                        scale_params=aug_scale)
+                    img_m, aug_M = out
+                if rw:
+                    aff_m = aff_m @ aug_M
 
         points_f, points_m, weights = net(img_f, img_m, plain=plain)
 
-        if lmbda is None:
-            lmbda = sample_tps_lmbda(generator, img_f.shape[0], lmbda_spec,
-                                     config.max_train_tps_lmbda, device=img_f.device)
-        if config.max_train_keypoints and config.num_keypoints > config.max_train_keypoints:
-            points_f, points_m, weights = subsample_keypoints(
-                generator, points_f, points_m, weights, config.max_train_keypoints,
-                idx=keypoint_idx)
+        if align_type == "tps":
+            if lmbda is None:
+                lmbda = sample_tps_lmbda(generator, img_f.shape[0], lmbda_spec,
+                                         config.max_train_tps_lmbda, device=img_f.device)
+            if config.max_train_keypoints and config.num_keypoints > config.max_train_keypoints:
+                points_f, points_m, weights = subsample_keypoints(
+                    generator, points_f, points_m, weights, config.max_train_keypoints,
+                    idx=keypoint_idx)
+        else:
+            lmbda = None
 
-        planes = align_pair(points_f, points_m, "tps", img_f.shape[2:], lmbda=lmbda,
-                            weights=weights, compute_grid="planes", plain=plain)["planes"]
+        flow = align_pair(points_f, points_m, align_type, img_f.shape[2:], lmbda=lmbda,
+                          weights=weights, compute_grid="planes" if use_planes else True,
+                          aff_f=aff_f if rw else None, aff_m=aff_m if rw else None,
+                          moving_shape=img_m.shape[2:], plain=plain)
+        flow = flow["planes" if use_planes else "grid"]
         if use_dice:
-            loss = soft_dice_loss(warp(planes, seg_m), seg_f)
+            loss = soft_dice_loss(warp(flow, seg_m), seg_f)
             metrics = {"softdiceloss": loss, "softdice": 1.0 - loss}
         else:
-            loss = mse_loss(img_f, warp(planes, img_m))
+            loss = mse_loss(img_f, warp(flow, img_m))
             metrics = {"mse": loss}
         metrics["loss"] = loss
         return loss, metrics
 
     def step(state: TrainState, generator, img_f, img_m, seg_f, seg_m, aug_scale,
              aff_f=None, aff_m=None, *, lmbda=None, keypoint_idx=None):
-        _reject_unported(config, aff_f, aff_m)
+        if rw and (aff_f is None or aff_m is None):
+            raise ValueError("real-world-coordinate training needs aff_f and aff_m "
+                             "(the images' voxel -> world affines)")
         state.optimizer.zero_grad(set_to_none=True)
         loss, metrics = loss_fn(generator, img_f, img_m, seg_f, seg_m, float(aug_scale),
-                                lmbda, keypoint_idx)
+                                aff_f, aff_m, lmbda, keypoint_idx)
         loss.backward()
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["grad_norm"] = _global_norm(net.parameters())
@@ -188,12 +192,22 @@ def make_kpconsistency_step(net: nn.Module, config: Config):
 def make_train_step_sameres(net: nn.Module, config: Config):
     """Same-resolution training variant of keymorph_tpu; not ported."""
     raise NotImplementedError(
-        "make_train_step_sameres (train_same_resolution) is not ported (ROADMAP A6)")
+        "make_train_step_sameres (train_same_resolution) is not ported (ROADMAP A7)")
 
 
 def _tensor(x, device, dtype=torch.float32):
     return torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x).to(
         device=device, dtype=dtype)
+
+
+def _affine(batch, batch_size: int, device) -> torch.Tensor:
+    """A batch's (B, 4, 4) voxel -> world affine, the identity without one
+    (a source without headers is in voxel space)."""
+    a = batch.get("affine")
+    if a is None:
+        return torch.eye(4, device=device).repeat(batch_size, 1, 1)
+    a = _tensor(a, device)
+    return a[None].repeat(batch_size, 1, 1) if a.dim() == 2 else a
 
 
 def run_train(loader, state: TrainState, step_fn, config: Config, epoch: int,
@@ -207,13 +221,14 @@ def run_train(loader, state: TrainState, step_fn, config: Config, epoch: int,
     dataset of same-ordered subjects) are given and
     ``config.kpconsistency_coeff > 0``, each step also runs a
     keypoint-consistency update on a random same-subject cross-modality
-    pair. Batches move to ``device`` (the CUDA card when None).
+    pair. Batches move to ``device`` (the CUDA card when None). With
+    ``config.align_keypoints_in_real_world_coords`` each batch's
+    ``"affine"`` (4, 4) or (B, 4, 4) voxel -> world matrix goes to the step
+    as ``aff_f``/``aff_m``, the identity where a batch has none.
 
     Returns ``(state, epoch_stats, generator)``.
     """
     device = resolve_device(device)
-    if config.align_keypoints_in_real_world_coords:
-        _reject_unported(config)
     aug_scale = min(epoch / config.affine_slope, 1.0) if config.affine_slope >= 1 else 1.0
 
     metrics_list = []
@@ -262,7 +277,12 @@ def run_train(loader, state: TrainState, step_fn, config: Config, epoch: int,
                 seg_f = one_hot(_tensor(b_f["seg"], device, torch.long).clamp(0, n_cls - 1), n_cls)
                 seg_m = one_hot(_tensor(b_m["seg"], device, torch.long).clamp(0, n_cls - 1), n_cls)
 
-        state, metrics = step_fn(state, generator, img_f, img_m, seg_f, seg_m, aug_scale)
+        affines = {}
+        if config.align_keypoints_in_real_world_coords:
+            affines = {"aff_f": _affine(b_f, img_f.shape[0], device),
+                       "aff_m": _affine(b_m, img_m.shape[0], device)}
+        state, metrics = step_fn(state, generator, img_f, img_m, seg_f, seg_m, aug_scale,
+                                 **affines)
 
         if (kp_step_fn is not None and modality_datasets and len(modality_datasets) >= 2
                 and config.kpconsistency_coeff > 0):

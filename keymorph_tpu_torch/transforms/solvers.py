@@ -1,9 +1,12 @@
-"""Closed-form thin-plate-spline solver and evaluation (fp32).
+"""Closed-form keypoint-alignment solvers and TPS evaluation (fp32).
 
-Port of the TPS part of ``keymorph_tpu/transforms/solvers.py``; affine,
-rigid and approximate TPS are not ported yet. Everything upcasts to fp32
+Port of ``keymorph_tpu/transforms/solvers.py``: the weighted least-squares
+affine fit, the Arun SVD rigid fit, the exact TPS fit and the approximate
+(first-S-centres, least-squares) TPS fit. Everything upcasts to fp32
 (geometry never runs in reduced precision; callers keep TF32 off, see
-:func:`keymorph_tpu_torch.disable_tf32`).
+:func:`keymorph_tpu_torch.disable_tf32`). Linear systems go through
+``solve_ex``: ``solve`` checks for a singular matrix by synchronizing the
+host with the card.
 """
 
 from __future__ import annotations
@@ -20,6 +23,59 @@ def square_matrix(m: torch.Tensor) -> torch.Tensor:
     bottom = torch.zeros((*m.shape[:-2], 1, d + 1), dtype=m.dtype, device=m.device)
     bottom[..., 0, d] = 1.0
     return torch.cat([m, bottom], dim=-2)
+
+
+def fit_affine(x: torch.Tensor, y: torch.Tensor, w=None) -> torch.Tensor:
+    """Weighted least-squares affine ``argmin_A ||A x~ - y||`` (x~ homogeneous):
+    one solve of the (d+1)^2 Gram system, ``A^T = (x~ W x~^T)^-1 x~ W y``.
+
+    Args:
+        x, y: (B, N, d) source and target points.
+        w: optional (B, N) per-point weights.
+    Returns:
+        (B, d, d+1) affine matrix mapping x -> y.
+    """
+    x, y = x.float(), y.float()
+    xh = torch.cat([x, torch.ones((*x.shape[:-1], 1), device=x.device)], dim=-1)
+    xw = xh * w.float()[..., None] if w is not None else xh
+    gram = xw.transpose(-1, -2) @ xh  # (B, d+1, d+1)
+    rhs = xw.transpose(-1, -2) @ y  # (B, d+1, d)
+    return torch.linalg.solve_ex(gram, rhs)[0].transpose(-1, -2)
+
+
+def fit_rigid(p1: torch.Tensor, p2: torch.Tensor, w=None) -> torch.Tensor:
+    """Arun/SVD rigid fit ``argmin_{R,T} sum_i ||p2_i - (R p1_i + T)||``.
+
+    With weights (expected to sum to 1 per batch row) both centred sets are
+    scaled by w before the covariance. Where det(V U^T) < 0 the sign of V's
+    LAST COLUMN flips (keymorph_tpu's dim-generic correction, not the
+    reference's last-row form).
+
+    Args:
+        p1, p2: (B, N, d) source and target points.
+        w: optional (B, N) weights.
+    Returns:
+        (B, d, d+1) rigid matrix [R | T] mapping p1 -> p2.
+    """
+    p1, p2 = p1.float(), p2.float()
+    d = p1.shape[-1]
+    if w is not None:
+        w = w.float()[..., None]
+        c1 = torch.sum(p1 * w, dim=1, keepdim=True)
+        c2 = torch.sum(p2 * w, dim=1, keepdim=True)
+        q1, q2 = (p1 - c1) * w, (p2 - c2) * w
+    else:
+        c1, c2 = p1.mean(dim=1, keepdim=True), p2.mean(dim=1, keepdim=True)
+        q1, q2 = p1 - c1, p2 - c2
+    H = q1.transpose(-1, -2) @ q2  # (B, d, d)
+    U, _, Vh = torch.linalg.svd(H, full_matrices=False)
+    V = Vh.transpose(-1, -2)
+    sign = torch.sign(torch.linalg.det(V @ U.transpose(-1, -2)))
+    scale = torch.cat([torch.ones((*sign.shape, d - 1), device=sign.device),
+                       sign[..., None]], dim=-1)  # (B, d)
+    R = (V * scale[..., None, :]) @ U.transpose(-1, -2)
+    T = c2.transpose(1, 2) - R @ c1.transpose(1, 2)  # (B, d, 1)
+    return torch.cat([R, T], dim=-1)
 
 
 def tps_pairwise_dist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -80,7 +136,56 @@ def fit_tps(c_src: torch.Tensor, c_dst: torch.Tensor, lmbda, w=None) -> torch.Te
         dim=-2,
     )  # (B, T+d+1, T+d+1)
     v = torch.cat([c_dst, torch.zeros((B, d + 1, d), device=dev)], dim=-2)
-    return torch.linalg.solve(A, v)
+    return torch.linalg.solve_ex(A, v)[0]
+
+
+def fit_tps_approximate(c_src: torch.Tensor, c_dst: torch.Tensor, lmbda, num_subsample: int,
+                        w=None) -> torch.Tensor:
+    """Approximate TPS (Donato & Belongie, method 2): only the first
+    ``num_subsample`` = S control points are RBF centres, and the
+    overdetermined (T+d+1) x (S+d+1) system is solved by least squares.
+    Spline evaluation then costs O(S) per point instead of O(T). Callers
+    choose the centres by permuting the points beforehand.
+
+    The least squares go through a reduced QR and a triangular solve, not
+    the normal equations, which square the condition number (near-duplicate
+    keypoints reach cond(A^T A) ~ 4e5, where an fp32 solve loses most of the
+    mantissa); the ridge rides as 1e-4 * I rows appended to A.
+
+    Returns:
+        theta: (B, S+d+1, d); evaluate with ``tps_eval(theta,
+        c_src[:, :S], points)``.
+    """
+    c_src, c_dst = c_src.float(), c_dst.float()
+    B, T, d = c_src.shape
+    S = int(num_subsample)
+    if not 0 < S <= T:
+        raise ValueError(f"fit_tps_approximate: num_subsample={S} not in [1, {T}]")
+    dev = c_src.device
+    lmbda = torch.as_tensor(lmbda, dtype=torch.float32, device=dev).reshape(-1, 1)
+    lmbda = lmbda.expand(B, 1)
+    sub = c_src[:, :S]
+
+    K = tps_rbf(tps_pairwise_dist(c_src, sub))  # (B, T, S)
+    eye_ts = torch.eye(T, S, device=dev)[None]
+    reg = lmbda / (w.float() + 1e-6) if w is not None else lmbda
+    K = K + reg[..., None] * eye_ts
+
+    P = torch.cat([torch.ones((B, T, 1), device=dev), c_src], dim=-1)
+    P_sub = torch.cat([torch.ones((B, S, 1), device=dev), sub], dim=-1)
+    A = torch.cat(
+        [torch.cat([K, P], dim=-1),
+         torch.cat([P_sub.transpose(-1, -2), torch.zeros((B, d + 1, d + 1), device=dev)],
+                   dim=-1)],
+        dim=-2,
+    )  # (B, T+d+1, S+d+1)
+    v = torch.cat([c_dst, torch.zeros((B, d + 1, d), device=dev)], dim=-2)
+    n = A.shape[-1]
+    ridge = (1e-4 * torch.eye(n, device=dev)).expand(B, n, n)
+    A_aug = torch.cat([A, ridge], dim=-2)
+    v_aug = torch.cat([v, torch.zeros((B, n, d), device=dev)], dim=-2)
+    Q, R = torch.linalg.qr(A_aug, mode="reduced")  # Q (B, M, n), R (B, n, n)
+    return torch.linalg.solve_triangular(R, Q.transpose(-1, -2) @ v_aug, upper=True)
 
 
 def tps_eval(theta: torch.Tensor, ctrl: torch.Tensor, points: torch.Tensor) -> torch.Tensor:

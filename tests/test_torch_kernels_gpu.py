@@ -626,3 +626,120 @@ def test_wrappers_raise_instead_of_falling_back(dev):
         with pytest.raises(ValueError):
             tpsflow.tps_flow(theta, ctrl, torch.zeros((B, 2, 3), device=dev))
     assert {k: v["plain_calls"] for k, v in kernels.counters().items()} == before
+
+
+def _rw_affines(B, dev):
+    """Anisotropic voxel -> world affines, the moving one rotated (B, 4, 4)."""
+    c, s = math.cos(0.2), math.sin(0.2)
+    aff_f = torch.eye(4)
+    aff_f[:3, :3] = torch.diag(torch.tensor([1.0, 1.25, 2.0]))
+    aff_f[:3, 3] = torch.tensor([-40.0, -50.0, 30.0])
+    aff_m = torch.eye(4)
+    aff_m[:3, :3] = torch.tensor([[c, -s, 0.0], [s, c, 0.0], [0.0, 0.0, 1.0]]) @ torch.diag(
+        torch.tensor([1.1, 1.2, 1.9]))
+    aff_m[:3, 3] = torch.tensor([-42.0, -48.0, 28.0])
+    return aff_f.repeat(B, 1, 1).to(dev), aff_m.repeat(B, 1, 1).to(dev)
+
+
+@pytest.mark.parametrize("align_type", ["affine", "rigid"])
+def test_affine_register_warp_on_the_kernel_matches_plain(rng, dev, align_type):
+    """Affine and rigid serving: align_pair's matrices, the planes from the
+    matrix and the warp kernel on them, bit-exact with the plain warp on
+    the same planes; the planes equal the flip of the affine grid."""
+    from keymorph_tpu_torch.models.keymorph import align_pair
+    from keymorph_tpu_torch.ops import cuda as kernels
+    from keymorph_tpu_torch.ops.cuda import resample3d
+    from keymorph_tpu_torch.ops.planes import affine_register_warp, planes_to_grid
+
+    B, T, S = 2, 32, (20, 24, 36)
+    pf = torch.tensor(rng.uniform(-0.7, 0.7, (B, T, 3)).astype(np.float32), device=dev)
+    pm = pf + torch.tensor(rng.normal(0, 0.05, (B, T, 3)).astype(np.float32), device=dev)
+    img = torch.tensor(rng.random((B, 1, 18, 22, 30)).astype(np.float32), device=dev)
+    out = align_pair(pf, pm, align_type, S, compute_grid=True)
+    planes_out = align_pair(pf, pm, align_type, S, compute_grid="planes")["planes"]
+    inverse = torch.linalg.inv(out["matrix"])
+    kernels.reset_counters()
+    warped, planes = affine_register_warp(inverse, img, S)
+    torch.cuda.synchronize()
+    counts = kernels.counters()
+    assert counts["warp_planes"]["launches"] == 1 and not counts["warp_planes"]["plain_calls"]
+    assert torch.equal(warped, resample3d.warp_planes_plain(img, planes))
+    assert (planes - planes_out).abs().max().item() <= 1e-5
+    assert (planes_to_grid(planes_out) - out["grid"]).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("centers", [None, 20])
+def test_real_world_and_approximate_tps_on_the_kernel_match_plain(rng, dev, centers):
+    """Real-world TPS (scanner millimetres, up to ~75 from the origin) and
+    approximate TPS (20 of 48 centres): the grid through the points-mode
+    kernel no further from the float64 evaluation than 4x the plain version
+    or 1e-5, and from the plain version within twice the plain version's
+    distance from float64 plus 1e-5 (normalized units: in millimetres the
+    fp32 sum of w_t U_t is itself inexact, 3e-5 to 1e-4 at these shapes on
+    an NVIDIA H100 80GB HBM3); the approximate planes through the
+    identity-grid kernel within 1e-5 of the plain version."""
+    from keymorph_tpu_torch.models.keymorph import align_pair
+    from keymorph_tpu_torch.ops import coords
+    from keymorph_tpu_torch.ops import cuda as kernels
+    from keymorph_tpu_torch.ops.cuda import tpsflow
+    from keymorph_tpu_torch.transforms import solvers
+
+    B, T, S = 2, 48, (24, 28, 40)
+    pf = torch.tensor(rng.uniform(-0.8, 0.8, (B, T, 3)).astype(np.float32), device=dev)
+    pm = pf + torch.tensor(rng.normal(0, 0.04, (B, T, 3)).astype(np.float32), device=dev)
+    lm = torch.tensor([0.1, 1.0], device=dev)
+    aff_f, aff_m = _rw_affines(B, dev)
+    kw = dict(lmbda=lm, tps_centers=centers, aff_f=aff_f, aff_m=aff_m, compute_grid=True)
+    kernels.reset_counters()
+    grid = align_pair(pf, pm, "tps", S, **kw)["grid"]
+    torch.cuda.synchronize()
+    assert kernels.counters()["tps_flow"]["launches"] == 1
+    plain = align_pair(pf, pm, "tps", S, plain=True, **kw)["grid"]
+    # float64: the same spline evaluated in double on the same fp32 fit
+    rf = coords.convert_points_norm2real(pf, aff_f, S)
+    rm = coords.convert_points_norm2real(pm, aff_m, S)
+    n = centers or T
+    theta = (solvers.fit_tps_approximate(rf, rm, lm, n) if centers
+             else solvers.fit_tps(rf, rm, lm)).contiguous()
+    pts = coords.convert_points_norm2real(coords.flat_norm_grid(S, device=dev).expand(B, -1, 3),
+                                          aff_f, S)
+    moved = tpsflow.tps_flow_plain(theta, rf[:, :n].contiguous(), pts, dtype=torch.float64)
+    inv = torch.linalg.inv(aff_m.double())
+    vox = (torch.cat([moved, torch.ones_like(moved[..., :1])], -1) @ inv.transpose(1, 2))[..., :3]
+    ref = torch.flip((2.0 * (vox + 0.5) / torch.tensor(S, device=dev).double() - 1.0)
+                     .reshape(B, *S, 3), dims=(-1,))
+    d_plain = (grid - plain).abs().max().item()
+    dk, dp = (grid.double() - ref).abs().max().item(), (plain.double() - ref).abs().max().item()
+    assert dk <= max(1e-5, 4.0 * dp), (dk, dp)
+    assert d_plain <= 2.0 * dp + 1e-5, (d_plain, dp)
+    if centers:
+        kw.update(aff_f=None, aff_m=None, compute_grid="planes")
+        kernels.reset_counters()
+        planes = align_pair(pf, pm, "tps", S, **kw)["planes"]
+        torch.cuda.synchronize()
+        assert kernels.counters()["tps_planes"]["launches"] == 1
+        assert (planes - align_pair(pf, pm, "tps", S, plain=True, **kw)["planes"]).abs().max() <= 1e-5
+
+
+def test_keymorph_serves_on_the_card(rng, dev):
+    """The orchestrator on the card: affine, rigid and TPS grids and aligned
+    points, no plain version run, every output on the card and finite."""
+    from keymorph_tpu_torch.models.keymorph import KeyMorph
+    from keymorph_tpu_torch.models.unet import TruncatedUNet3D, init_weights
+    from keymorph_tpu_torch.ops import cuda as kernels
+
+    K, S = 8, (24, 20, 40)
+    unet = init_weights(TruncatedUNet3D(out_channels=K, f_maps=4, num_levels=3,
+                                        num_truncated_layers=1, dtype=torch.bfloat16),
+                        torch.Generator().manual_seed(0))
+    model = KeyMorph(unet, K, weight_keypoints="power")
+    img = rng.random((1, 1, *S)).astype(np.float32)
+    kernels.reset_counters()
+    res = model(img, img[:, :, ::-1].copy(), transform_type=["affine", "rigid", "tps_1"],
+                return_aligned_points=True)
+    counts = kernels.counters()
+    assert counts["tps_flow"]["launches"] == 1 and counts["conv3x3_fused_flat"]["launches"] > 0
+    assert not any(c["plain_calls"] for c in counts.values()), counts
+    for r in res.values():
+        assert r["grid"].shape == (1, *S, 3) and r["grid"].is_cuda
+        assert bool(torch.isfinite(r["grid"]).all() and torch.isfinite(r["points_a"]).all())

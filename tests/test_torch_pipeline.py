@@ -117,39 +117,40 @@ def test_registration_from_identical_keypoints_matches_jax(rng):
 
 
 def test_unported_alignment_raises():
+    """align_pair refuses what it cannot mean: an unknown transform or grid
+    form, one of the two real-world affines alone, TPS without lambda."""
     p = torch.zeros((1, 4, 3))
-    for kw in (dict(align_type="affine"), dict(align_type="tps", aff_f=torch.eye(4)),
-               dict(align_type="tps", tps_centers=2)):
+    eye = torch.eye(4)[None]
+    for kw, match in ((dict(align_type="similarity"), "align_type"),
+                      (dict(align_type="affine", compute_grid="grid"), "compute_grid"),
+                      (dict(align_type="tps", compute_grid=None), "compute_grid"),
+                      (dict(align_type="affine", aff_f=eye), "aff_m"),
+                      (dict(align_type="tps", aff_m=eye), "aff_f"),
+                      (dict(align_type="tps", lmbda=None), "lmbda")):
         kw.setdefault("lmbda", 1.0)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(ValueError, match=match):
             align_pair(p, p, grid_shape=(4, 4, 4), **kw)
 
 
 def test_unported_training_entry_points_name_their_roadmap_item(rng):
-    """Every NotImplementedError of the training slice's entry points says
-    which ROADMAP item will port what was asked for."""
+    """Every NotImplementedError of the ported entry points says which
+    ROADMAP item will port what was asked for."""
     from keymorph_tpu_torch import augment
+    from keymorph_tpu_torch.models.keymorph import KeyMorph
     from keymorph_tpu_torch.training import train
     from keymorph_tpu_torch.training.config import Config, build_backbone
 
     net = KeyMorphNet(TruncatedUNet3D(dtype=torch.bfloat16, **CFG), K)
     tps = Config(num_keypoints=K, transform_type="tps_1.0")
-    img = torch.zeros((1, 1, 8, 8, 8))
     state = train.TrainState.create(net, train.make_optimizer(tps, net))
+    km = KeyMorph(TruncatedUNet3D(dtype=torch.bfloat16, **CFG), K, device="cpu")
     cases = [
-        ("A4", lambda: train.make_train_step(net, Config(transform_type="affine"))),
-        ("A4", lambda: train.make_train_step(net, Config(transform_type="rigid"))),
-        ("A4", lambda: train.make_train_step(
-            net, Config(transform_type="tps_1.0", align_keypoints_in_real_world_coords=True))),
-        ("A4", lambda: train.make_train_step(net, tps)(
-            state, None, img, img, None, None, 1.0, aff_f=torch.eye(4)[None])),
-        ("A4", lambda: train.make_train_step(net, tps)(
-            state, None, img, img, None, None, 1.0, aff_m=torch.eye(4)[None])),
-        ("A4", lambda: train.run_train(
-            [], state, None, Config(transform_type="tps_1.0",
-                                    align_keypoints_in_real_world_coords=True),
-            1, None, device="cpu")),
-        ("A6", lambda: train.make_train_step_sameres(net, tps)),
+        ("A7", lambda: train.make_train_step_sameres(net, tps)),
+        ("A9", lambda: KeyMorph(TruncatedUNet3D(dtype=torch.float32, **CFG), K, device="cpu")),
+        ("A9", lambda: KeyMorph(TruncatedUNet3D(dtype=torch.bfloat16, **CFG), K,
+                                keypoint_layer="linear", device="cpu")),
+        ("A9", lambda: km.groupwise_register(np.zeros((2, 1, 8, 8, 8), np.float32),
+                                             mesh=object())),
         ("A9", lambda: build_backbone(Config(backbone="conv"))),
         ("A9", lambda: build_backbone(Config(backbone="residualunet"))),
         ("A9", lambda: build_backbone(Config(backbone="residualunetse"))),
@@ -176,7 +177,8 @@ def test_port_imports_neither_jax_nor_keymorph_tpu():
             keymorph_tpu_torch.__path__, "keymorph_tpu_torch."))
         for name in names:
             importlib.import_module(name)
-        for want in ("losses", "augment", "utils", "transforms.affine", "training.config",
+        for want in ("losses", "augment", "utils", "transforms.affine", "transforms.aligners",
+                     "training.config",
                      "training.train", "training.checkpoint", "tools.train_step_bench",
                      "tools.import_flax_params", "ops.cuda.conv3d", "models.keymorph"):
             assert "keymorph_tpu_torch." + want in names, want

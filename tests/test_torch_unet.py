@@ -97,7 +97,7 @@ def test_keymorphnet_rejects_backbones_the_executor_cannot_run():
     """An fp32 U-Net has no kernel path: KeyMorphNet raises rather than run
     the module's plain forward."""
     net = KeyMorphNet(TruncatedUNet3D(dtype=torch.float32, **CFG), CFG["out_channels"])
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
         net.get_keypoints(torch.zeros(1, 1, 8, 8, 8))
 
 
