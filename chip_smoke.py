@@ -33,7 +33,9 @@ Phases (each prints its lines; any failure raises, so the exit code is not 0):
      also at the 256^3 step's shape; the warp (trilinear and nearest) at
      256^3 C=1 and 128^3 C=14 (the Dice step's one-hot channels) and its
      gradient at 128^3 C=1, 4 and 14, each timed with the L2 cleared before
-     every call (the time held against the bound) and warm;
+     every call (the time held against the bound) and warm; the register
+     CLI's shapes: ``tps_flow`` at every voxel centre of 256^3 (T = 128) and
+     the warp at 256^3 C=14;
   2. end to end: the flagship config (TruncatedUNet3D f_maps=32, 4 levels,
      1 truncated, bf16; 128 keypoints; TPS lmbda=1) at 256^3 with seeded
      random weights serves 3 pairs through the kernels: extract fixed and
@@ -87,10 +89,24 @@ Phases (each prints its lines; any failure raises, so the exit code is not 0):
      registration (phase 5's initial weights and first pair), each held
      against the same step on the plain versions under phase 6's rule; the
      conv, input-gradient, warp and warp-gradient kernels (and ``tps_flow``
-     in the real-world step) must launch.
+     in the real-world step) must launch;
+ 11. the register CLI at full width: an IXI-like pair (256 x 256 x 150 at
+     0.94 x 0.94 x 1.2 mm, the moving scan turned 10 degrees; Gaussian-blob
+     phantoms with 14-label segmentations) written as .nii.gz, the flagship
+     net's seeded weights saved as a reference-format ``.pt``, then
+     ``keymorph_tpu_torch.cli.register.main`` at ``--size 256`` with rigid,
+     affine and tps_1, the metrics mse, harddice, harddiceroi, hausd, jdstd
+     and jdlessthan0 and the augmentations rot0 and rot45, under
+     torch.profiler. Prints the wall time per stage, the device's busy share,
+     the peak memory, the gzip reader and the launches (the warp's by mode
+     and channels). Checks the metric keys and artifact files against the
+     harness's naming schemes; the augmentation and every warp against the
+     plain warp on the CLI's own inputs and grids (``WARP_ABS``, labels
+     exactly); every metric JSON against a float64 recomputation on the CPU;
+     the saved keypoints against the plain route with phase 3's yardstick.
 
 The line before the last is the kernels' JSON record (``launches`` summed
-over the main paths of phases 2, 5, 9 and 10); the last line is
+over the main paths of phases 2, 5, 9, 10 and 11); the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA it raises before printing
 a result. The script imports neither jax nor keymorph_tpu.
 """
@@ -316,6 +332,7 @@ def phase1(torch, rng, dev):
     import torch.nn.functional as F
 
     from keymorph_tpu_torch.models.fast_unet import gn_affine_from_stats
+    from keymorph_tpu_torch.ops import coords
     from keymorph_tpu_torch.ops.cuda import conv3d, resample3d, tpsflow
     from keymorph_tpu_torch.ops.cuda.conv3d import channel_stats
     from keymorph_tpu_torch.transforms import solvers
@@ -579,8 +596,13 @@ def phase1(torch, rng, dev):
         record(name, err, ms, _cuda_ms(plain, 3), lms, _bound(nbytes, 0.0), what, tol, ok,
                extra=extra)
 
-    # the warp at 256^3 on those planes
+    # the warp at 256^3 on those planes: C = 1, and C = 14 (the register
+    # CLI's one-hot segmentation at full width; from a generator of its own)
     vol = torch.tensor(rng.random((1, 1, *SPATIAL), dtype=np.float32), device=dev)
+    for mode in ("bilinear", "nearest"):
+        warp_case(vol, planes, mode)
+    vol = torch.tensor(np.random.default_rng([SEED, 3]).random((1, REG_LABELS, *SPATIAL),
+                                                               dtype=np.float32), device=dev)
     for mode in ("bilinear", "nearest"):
         warp_case(vol, planes, mode)
     del vol, planes
@@ -649,6 +671,19 @@ def phase1(torch, rng, dev):
 
     against_float64(f"tps_flow N=128^3 points T={T}", TPS_ABS, False, flow_run)
     del pts, out, ref
+
+    # the same kernel at the register CLI's shape: the grid form of a tps_*
+    # align, the spline at every voxel centre of 256^3, T = 128
+    pts = coords.flat_norm_grid(SPATIAL, device=dev).contiguous()
+    out = tpsflow.tps_flow(th2, c2, pts)
+    ref = tpsflow.tps_flow_plain(th2, c2, pts)
+    torch.cuda.synchronize()
+    err = (out - ref).abs().max().item()
+    ms = _cuda_ms(lambda: tpsflow.tps_flow(th2, c2, pts), 5)
+    pms = _cuda_ms(lambda: tpsflow.tps_flow_plain(th2, c2, pts), 1)
+    record("tps_flow", err, ms, pms, None, _tps_bound(n2, NUM_KEYPOINTS, 24 * n2, 2, 20),
+           f"tps_flow N=256^3 grid points T={NUM_KEYPOINTS}", f"tol {TPS_ABS}", err <= TPS_ABS)
+    del pts, out, ref, th2, c2
 
     # the warp and its gradient at 128^3: C = 1 (the MSE step), 4, and 14 (the
     # Dice step's one-hot segmentation, utils.py:one_hot_subsampled_pair)
@@ -827,24 +862,23 @@ PORT_KERNELS = ("conv3x3_mma_kernel", "conv3x3_fma_kernel", "tps_planes_kernel",
                 "warp_planes_grad_kernel")
 
 
-def _profile(torch, label, fn):
-    """Run ``fn`` under torch.profiler and print the host wall time, the
-    device busy time (the union of the device's kernel and copy intervals),
-    the device's idle share, and device time by kernel name."""
+def _profiled(torch, fn):
+    """Run ``fn`` under torch.profiler. Returns (its result, host wall µs,
+    device busy µs: the union of the device's kernel and copy intervals, or
+    None where the profiler recorded no device activity, {kernel name:
+    (count, µs)})."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        fn()
+        out = fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not events:  # a measurement gap, not a failure of the port
-        print(f"{label}: host wall {wall_us / 1e3:.3f} ms; torch.profiler recorded "
-              f"no device activity, device idle share not measured")
-        return
+        return out, wall_us, None, {}
     busy, end = 0.0, float("-inf")
     for s, e in sorted((e.time_range.start, e.time_range.end) for e in events):
         busy += max(0.0, e - max(s, end))
@@ -853,6 +887,18 @@ def _profile(torch, label, fn):
     for e in events:
         n, t = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (n + 1, t + e.time_range.end - e.time_range.start)
+    return out, wall_us, busy, by_name
+
+
+def _profile(torch, label, fn):
+    """Run ``fn`` under torch.profiler and print the host wall time, the
+    device busy time, the device's idle share, and device time by kernel
+    name."""
+    _, wall_us, busy, by_name = _profiled(torch, fn)
+    if busy is None:
+        print(f"{label}: host wall {wall_us / 1e3:.3f} ms; torch.profiler recorded "
+              f"no device activity, device idle share not measured")
+        return
     print(f"{label}: host wall {wall_us / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms, "
           f"device idle share {1 - busy / wall_us:.4f}")
     tag = label.split()[0]
@@ -1426,6 +1472,307 @@ def phase10(torch, rng, dev, first):
     return total, held
 
 
+# phase 11: the register CLI on an IXI-like pair at the flagship width
+REG_SHAPE = (256, 256, 150)          # an IXI T1 scan's grid
+REG_SPACING = (0.94, 0.94, 1.2)      # and its voxel size, mm
+REG_LABELS = 14                      # labels 0-13 of each scan's segmentation
+REG_ALIGNS = ["rigid", "affine", "tps_1"]
+REG_METRICS = ["mse", "harddice", "harddiceroi", "hausd", "jdstd", "jdlessthan0"]
+REG_AUGS = ["rot0", "rot45"]
+# The CLI's metric JSONs against a float64 recomputation on the CPU from the
+# plain versions' warps of the CLI's own grids (whose labels and images must
+# equal the CLI's saved ones exactly, WARP_ABS): the mse within MSE_REL of
+# its value (an fp32 mean over 16.7e6 voxels on the card); the Dice values,
+# from identical labels and so from identical counts, each region's within
+# DICE_ABS, one fp32 ulp of 1.0 (the fp32 division and 1 - x), their mean
+# within one such ulp per region (each enters the fp32 sum with its own
+# rounding); the Hausdorff distance exactly (the same masks, float64 on the
+# host in both); jdstd within JD_STD_ABS and jdlessthan0 within JD_LT0_ABS
+# (fp32 central differences of a grid whose steps are 2/256, each off by up
+# to ~6e-8, give each determinant ~2e-7 of rounding; JD_LT0_ABS is 16 of
+# the 252^3 cropped voxels). Measured at seed 0 on NVIDIA H100 80GB HBM3,
+# 700.00 W: mse 7.5e-8, Dice 7.6e-8 (regions 4.4e-8), jdstd 8.1e-8,
+# jdlessthan0 0, over 6 aligns.
+MSE_REL = 1e-6
+DICE_ABS = 2.0 ** -23
+DICE_MEAN_ABS = (REG_LABELS - 1) * DICE_ABS
+JD_STD_ABS = 1e-6
+JD_LT0_ABS = 1e-6
+
+
+def _register_files(aligns, augs, i=0, fixed="fixed", moving="moving"):
+    """The file names ``run_eval`` writes for pair ``i`` with segmentations
+    and no keypoint weights, by its naming scheme
+    (``keymorph_tpu_torch/cli/eval_pairwise.py``, ``_save_pair_common``,
+    ``_save_pair_align`` and the metrics paths)."""
+    names = {f"img_f_{i}-{fixed}.npy", f"seg_f_{i}-{fixed}.npy", f"points_f_{i}-{fixed}.npy"}
+    for aug in augs:
+        names |= {f"img_m_{i}-{moving}-{aug}.npy", f"seg_m_{i}-{moving}-{aug}.npy",
+                  f"points_m_{i}-{moving}-{aug}.npy"}
+        for align in aligns:
+            tag = f"{i}-{fixed}-{moving}-{aug}-{align}"
+            names |= {f"metrics-{aug}-{align}.json", f"img_a_{tag}.npy", f"grid_{tag}.npy",
+                      f"seg_a_{tag}.npy", f"points_a_{tag}.npy"}
+    return names
+
+
+def _phantom(torch, rng, dev):
+    """An IXI-like pair (REG_SHAPE): Gaussian blobs as ``_make_pairs`` makes
+    them (the moving blobs displaced by a few voxels) plus 0.2 x white
+    noise, and for each scan a REG_LABELS-label segmentation (label k where
+    blob k dominates above a threshold, else 0). Returns host numpy
+    [(img, seg), (img, seg)]."""
+    axes = [torch.linspace(-1, 1, s, device=dev) for s in REG_SHAPE]
+    n_blobs = REG_LABELS - 1
+    c = rng.uniform(-0.6, 0.6, (n_blobs, 3))
+    width = rng.uniform(0.02, 0.08, n_blobs)
+    amp = rng.uniform(0.3, 1.0, n_blobs)
+    shift = rng.normal(0, 0.03, (n_blobs, 3))
+    out = []
+    for cs in (c, c + shift):
+        img = torch.zeros(REG_SHAPE, device=dev)
+        best = torch.zeros(REG_SHAPE, device=dev)
+        seg = torch.zeros(REG_SHAPE, dtype=torch.int16, device=dev)
+        for k, ((cz, cy, cx), wd, a) in enumerate(zip(cs, width, amp)):
+            g = (torch.exp(-(axes[0] - cz) ** 2 / wd)[:, None, None]
+                 * torch.exp(-(axes[1] - cy) ** 2 / wd)[None, :, None]
+                 * torch.exp(-(axes[2] - cx) ** 2 / wd)[None, None, :])
+            img += a * g
+            take = (g > best) & (g > 0.3)
+            seg[take] = k + 1
+            best = torch.maximum(best, g)
+        noise = torch.tensor(rng.random(REG_SHAPE, dtype=np.float32), device=dev)
+        out.append(((img.clamp(max=1.0) + 0.2 * noise).cpu().numpy(), seg.cpu().numpy()))
+    return out
+
+
+def _ixi_affine(angle_deg):
+    """Voxel -> world of a REG_SHAPE scan of REG_SPACING voxels centred on
+    the scanner's origin, turned by ``angle_deg`` about the first axis."""
+    a = np.deg2rad(angle_deg)
+    aff = np.eye(4)
+    aff[:3, :3] = np.array([[1, 0, 0], [0, np.cos(a), -np.sin(a)],
+                            [0, np.sin(a), np.cos(a)]]) @ np.diag(REG_SPACING)
+    aff[:3, 3] = -(aff[:3, :3] @ (np.asarray(REG_SHAPE) / 2.0))
+    return aff
+
+
+def phase11(torch, dev):
+    """The register CLI end to end at full width on the flagship net's
+    seeded weights, from a reference-format checkpoint; every kernel stage
+    then held against its plain version on the CLI's own outputs, every
+    metric against a float64 recomputation, the keypoints against the plain
+    route. Returns the path's launch counts."""
+    import shutil
+    import tempfile
+
+    from keymorph_tpu_torch import metrics as M
+    from keymorph_tpu_torch import utils as U
+    from keymorph_tpu_torch.augment import build_affine_matrix, fixed_affine_params
+    from keymorph_tpu_torch.cli import register
+    from keymorph_tpu_torch.cli.eval_pairwise import _build_metric_dict, _per_pair_dice
+    from keymorph_tpu_torch.cli.script_utils import load_dict_from_json, parse_test_aug
+    from keymorph_tpu_torch.data import Preprocessor, save_nifti
+    from keymorph_tpu_torch.data.nifti import gzip_reader
+    from keymorph_tpu_torch.models.keymorph import KeyMorphNet
+    from keymorph_tpu_torch.models.unet import TruncatedUNet3D, init_weights
+    from keymorph_tpu_torch.ops import cuda as kernels
+    from keymorph_tpu_torch.ops import resample
+    from keymorph_tpu_torch.ops.cuda import resample3d
+    from keymorph_tpu_torch.transforms.affine import affine_flow
+
+    size = SPATIAL[0]
+    rng = np.random.default_rng([SEED, 11])
+    net = KeyMorphNet(init_weights(TruncatedUNet3D(dtype=torch.bfloat16, **UNET),
+                                   torch.Generator().manual_seed(SEED)), NUM_KEYPOINTS).to(dev)
+    net.eval()
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="phase11_", dir=ROOT / "build"))
+    try:
+        t0 = time.perf_counter()
+        (img_f, seg_f), (img_m, seg_m) = _phantom(torch, rng, dev)
+        files = {}
+        for name, data, aff in (("fixed", img_f, _ixi_affine(0.0)),
+                                ("fixed_seg", seg_f, _ixi_affine(0.0)),
+                                ("moving", img_m, _ixi_affine(10.0)),
+                                ("moving_seg", seg_m, _ixi_affine(10.0))):
+            files[name] = str(tmp / f"{name}.nii.gz")
+            save_nifti(files[name], data, aff)
+        weights = tmp / "weights.pt"
+        torch.save({"state_dict": {"backbone." + k: v.cpu()
+                                   for k, v in net.backbone.state_dict().items()}}, weights)
+        write_s = time.perf_counter() - t0
+        out_dir = tmp / "out"
+        argv = ["--moving", files["moving"], "--fixed", files["fixed"],
+                "--moving_seg", files["moving_seg"], "--fixed_seg", files["fixed_seg"],
+                "--backbone", "truncatedunet", "--use_amp", "--num_keypoints", str(NUM_KEYPOINTS),
+                "--size", str(size), "--list_of_aligns", *REG_ALIGNS,
+                "--list_of_metrics", *REG_METRICS, "--list_of_augs", *REG_AUGS,
+                "--load_path", str(weights), "--save_dir", str(out_dir)]
+        print(f"phase11 inputs: {REG_SHAPE} at {REG_SPACING} mm, {REG_LABELS} labels, .nii.gz "
+              f"written in {write_s:.3f} s; python -m keymorph_tpu_torch.cli.register "
+              f"{' '.join(a if not a.startswith(str(tmp)) else '<tmp>/' + Path(a).name for a in argv)}")
+
+        # every warp of the path goes through ops/resample.py:grid_sample:
+        # tally its calls by (mode, channels)
+        warps, real = {}, resample.grid_sample
+
+        def tallied(img, grid, mode="bilinear"):
+            key = f"{mode} C={img.shape[1]}"
+            warps[key] = warps.get(key, 0) + 1
+            return real(img, grid, mode=mode)
+
+        stages = {}
+        resample.grid_sample = tallied
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_counters()
+            metrics, wall_us, busy_us, by_name = _profiled(
+                torch, lambda: register.main(argv, stage_times=stages))
+            counts = kernels.counters()
+        finally:
+            resample.grid_sample = real
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        wall = wall_us / 1e6
+        print("phase11 stages (s): " + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
+              + f"; the run's wall {wall:.3f} (decode and preprocess run in the prefetch "
+              f"thread; the rest is building the model and loading the weights)")
+        busy = "not measured (torch.profiler recorded no device activity)" if busy_us is None \
+            else f"{busy_us / 1e6:.3f} s, {busy_us / wall_us:.4f} of the run's wall"
+        print(f"phase11 device busy {busy}; peak device memory {peak:.3f} GiB; gzip reader "
+              f"{gzip_reader()}")
+        for name, (n, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]:
+            print(f"phase11 {t / 1e3:.3f} ms {n}x {name[:110]}")
+        print(f"phase11 counters {json.dumps(counts)}; warp_planes launches by (mode, C) "
+              f"{json.dumps(warps)}")
+
+        # launches: every kernel of the path, the warp in each form, no plain version
+        for name in ("conv3x3_fused_flat", "conv3x3_fused_flat_upconv", "tps_flow",
+                     "warp_planes"):
+            if counts[name]["launches"] <= 0:
+                raise AssertionError(f"phase 11 never launched the {name} kernel")
+        if any(c["plain_calls"] for c in counts.values()):
+            raise AssertionError(f"phase 11 ran a plain version: {counts}")
+        # the augmentation warps the image (bilinear, C = 1) and its one-hot
+        # segmentation (nearest, C = REG_LABELS), the scorer both (bilinear)
+        want_warps = {"bilinear C=1", f"nearest C={REG_LABELS}", f"bilinear C={REG_LABELS}"}
+        if set(warps) != want_warps or sum(warps.values()) != counts["warp_planes"]["launches"]:
+            raise AssertionError(f"phase 11 warps {warps} vs launches {counts['warp_planes']}")
+
+        # the metric keys and the artifact files, by the harness's schemes
+        keys = set(_build_metric_dict(REG_METRICS, REG_AUGS, REG_ALIGNS, [("fixed", "moving")]))
+        pair_dir = out_dir / "register" / "0_fixed_moving"
+        got = set(p.name for p in pair_dir.iterdir())
+        want = _register_files(REG_ALIGNS, REG_AUGS)
+        print(f"phase11 metric keys {len(metrics)} (expected {len(keys)}), artifacts "
+              f"{len(got)} (expected {len(want)})")
+        if set(metrics) != keys or any(len(v) != 1 for v in metrics.values()) or got != want:
+            raise AssertionError(f"phase 11 keys or artifacts differ: keys {sorted(set(metrics) ^ keys)}, "
+                                 f"files {sorted(got ^ want)}")
+
+        def load(name):
+            return np.load(pair_dir / name)
+
+        # the CLI's preprocessing is the Preprocessor's
+        pre = Preprocessor(size=(size,) * 3)
+        ref_f = pre.load(files["fixed"], files["fixed_seg"])
+        ref_m = pre.load(files["moving"], files["moving_seg"])
+        if not (np.array_equal(load("img_f_0-fixed.npy"), ref_f["img"])
+                and np.array_equal(load("seg_f_0-fixed.npy"), ref_f["seg"].astype(np.int64))):
+            raise AssertionError("phase 11: the CLI's fixed volumes are not the Preprocessor's")
+        n_cls = int(max(ref_f["seg"].max(), ref_m["seg"].max())) + 1
+        img_f_t = torch.tensor(ref_f["img"][None], device=dev)
+        img_f64 = torch.tensor(ref_f["img"][None], dtype=torch.float64)
+        seg_f_oh = U.one_hot(torch.tensor(ref_f["seg"][None].astype(np.int64)), n_cls)
+        seg_f64 = seg_f_oh.double()
+        ch0_f = M.ch0_mask(seg_f_oh)
+        ch_mask = torch.ones((1, n_cls), dtype=torch.float64)
+        ok, worst = True, {}
+
+        def check(name, got_v, want_v, bar):
+            nonlocal ok
+            d = float(np.max(np.abs(np.asarray(got_v, np.float64) - np.asarray(want_v))))
+            worst[name] = max(worst.get(name, 0.0), d)
+            ok &= d <= bar
+            return d
+
+        for aug in REG_AUGS:
+            # the augmentation through the plain warps
+            M_aug = build_affine_matrix(fixed_affine_params(1, 3, parse_test_aug(aug), device=dev))
+            planes = resample.grid_to_planes(affine_flow(torch.linalg.inv(M_aug), (size,) * 3))
+            img_m0 = torch.tensor(ref_m["img"][None], device=dev)
+            seg_m0 = U.one_hot(torch.tensor(ref_m["seg"][None].astype(np.int64), device=dev), n_cls)
+            img_m_aug = resample3d.warp_planes_plain(img_m0, planes, "bilinear")
+            seg_m_aug = resample3d.warp_planes_plain(seg_m0, planes, "nearest")
+            del seg_m0, planes
+            d_img = (img_m_aug[0].cpu() - torch.tensor(load(f"img_m_0-moving-{aug}.npy"))).abs().max().item()
+            lab_ok = np.array_equal(seg_m_aug.argmax(1).cpu().numpy(),
+                                    load(f"seg_m_0-moving-{aug}.npy"))
+            print(f"phase11 {aug}: augmented moving image vs the plain warp {d_img!r} (tol "
+                  f"{WARP_ABS}), its segmentation's labels equal: {lab_ok}")
+            ok &= d_img <= WARP_ABS and lab_ok
+
+            # keypoints against the plain route on the same preprocessed pair
+            with torch.no_grad():
+                pf, pm, _ = net(img_f_t, img_m_aug, plain=True)
+                pf1, pm1, _ = net(img_f_t * (1 + PERTURB), img_m_aug * (1 + PERTURB), plain=True)
+            d_kp = max(np.abs(load("points_f_0-fixed.npy") - pf[0].cpu().numpy()).max(),
+                       np.abs(load(f"points_m_0-moving-{aug}.npy") - pm[0].cpu().numpy()).max())
+            y_kp = max((pf1 - pf).abs().max().item(), (pm1 - pm).abs().max().item())
+            tol_kp = max(KEYPOINT_ABS, NOISE_FACTOR * y_kp)
+            print(f"phase11 {aug}: the CLI's keypoints vs the plain route {float(d_kp)!r} "
+                  f"(yardstick {y_kp!r}, tol {tol_kp!r})")
+            ok &= d_kp <= tol_kp
+
+            for align in REG_ALIGNS:
+                tag = f"0-fixed-moving-{aug}-{align}"
+                grid = torch.tensor(load(f"grid_{tag}.npy")[None], device=dev)
+                planes = resample.grid_to_planes(grid)
+                img_a = resample3d.warp_planes_plain(img_m_aug, planes, "bilinear")
+                seg_a = resample3d.warp_planes_plain(seg_m_aug, planes, "bilinear")
+                del planes
+                d_img = (img_a[0].cpu() - torch.tensor(load(f"img_a_{tag}.npy"))).abs().max().item()
+                labels = seg_a.argmax(1)
+                lab_ok = np.array_equal(labels[0].cpu().numpy(), load(f"seg_a_{tag}.npy")[0])
+                ok &= d_img <= WARP_ABS and lab_ok
+                # every metric again, float64 on the CPU
+                saved = load_dict_from_json(pair_dir / f"metrics-{aug}-{align}.json")
+                mse = float(((img_f64 - img_a.cpu().double()) ** 2).mean())
+                seg_a_host = seg_a.cpu()
+                del seg_a
+                hd_mean, hd_regions = _per_pair_dice(seg_a_host, seg_f64, True, ch_mask, True,
+                                                     dtype=torch.float64)
+                hausd = M.hausdorff_from_ch0_masks(M.ch0_mask(seg_a_host), ch0_f)
+                det = M.jacobian_determinant(grid.cpu().movedim(-1, 1), dtype=torch.float64)
+                jd_std = float(torch.std(det, correction=0))
+                jd_lt0 = float(torch.mean((det <= 0).double()))
+                del seg_a_host, det, grid
+                d_mse = check("mse rel", saved["mse"] / mse - 1.0, 0.0, MSE_REL)
+                d_hd = check("harddice", saved["harddice"], 1.0 - float(hd_mean[0]),
+                             DICE_MEAN_ABS)
+                d_roi = check("harddiceroi", saved["harddiceroi"],
+                              (1.0 - hd_regions[0]).numpy(), DICE_ABS)
+                d_hs = check("hausd", saved["hausd"], hausd, 0.0)
+                d_js = check("jdstd", saved["jdstd"], jd_std, JD_STD_ABS)
+                d_jl = check("jdlessthan0", saved["jdlessthan0"], jd_lt0, JD_LT0_ABS)
+                print(f"phase11 {aug} {align}: warped image vs plain {d_img!r} (tol {WARP_ABS}), "
+                      f"labels equal {lab_ok}; JSON vs float64: mse {saved['mse']!r} rel "
+                      f"{d_mse!r} (tol {MSE_REL}), harddice {saved['harddice']!r} {d_hd!r} "
+                      f"(tol {DICE_MEAN_ABS!r}), harddiceroi {d_roi!r} (tol {DICE_ABS!r}), "
+                      f"hausd {saved['hausd']!r} "
+                      f"{d_hs!r} (tol 0), jdstd {saved['jdstd']!r} {d_js!r} (tol {JD_STD_ABS}), "
+                      f"jdlessthan0 {saved['jdlessthan0']!r} {d_jl!r} (tol {JD_LT0_ABS})")
+            del img_m_aug, seg_m_aug
+        print(f"phase11 largest distances from the float64 recomputation: {json.dumps(worst)}")
+        if not ok:
+            raise AssertionError("phase 11: the register CLI's outputs disagree with the plain "
+                                 "versions or the float64 metrics")
+        return counts
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 # --plant-fault: each fault wraps one kernel's wrapper, so only the kernel
 # route sees it (the plain steps call the plain versions by their own names)
 FAULTS = ("warp_grad_plane", "input_grad_half")
@@ -1537,15 +1884,20 @@ def main():
     if not all(held.values()):
         raise AssertionError(f"phase 10: kernel and plain training steps disagree: "
                              f"{[k for k, ok in held.items() if not ok]}")
+    del net
+    torch.cuda.empty_cache()
+    register_counts = phase11(torch, dev)
 
     def entry(name, key, source):
         # launches: over every main path, each counted from 0 just before it
         # and read just after (phase 2's 3 pairs, phase 5's 3 steps, phase
-        # 9's registration API, phase 10's three steps); 0 where no main
-        # path reaches the wrapper at these sizes, as with the parts form,
-        # the decoder's route for odd sizes. Phase 1's launches are kept apart.
+        # 9's registration API, phase 10's three steps, phase 11's register
+        # CLI); 0 where no main path reaches the wrapper at these sizes, as
+        # with the parts form, the decoder's route for odd sizes. Phase 1's
+        # launches are kept apart.
         paths = {"launches_served_3_pairs": serve_counts, "launches_3_train_steps": train_counts,
-                 "launches_phase9_api": api_counts, "launches_phase10_steps": api_train_counts}
+                 "launches_phase9_api": api_counts, "launches_phase10_steps": api_train_counts,
+                 "launches_phase11_register": register_counts}
         per_path = {k: c[name]["launches"] for k, c in paths.items()}
         return {"name": name, "route": "cuda", "source": f"keymorph_tpu_torch/csrc/{source}",
                 "replaces": REPLACES[key], "launches": sum(per_path.values()), **per_path,

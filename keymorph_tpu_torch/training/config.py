@@ -1,6 +1,7 @@
 """Configuration: the typed dataclass of the training and evaluation flags
 (a copy of ``keymorph_tpu/training/config.py``'s field set, so a saved config
-moves between the two packages) and the backbone factory."""
+moves between the two packages), the backbone factory and the model
+factory."""
 
 from __future__ import annotations
 
@@ -144,3 +145,33 @@ def build_backbone(config: Config, dtype=None):
             f"backbone {config.backbone!r} is not ported (ROADMAP A9: ConvNet and "
             "residual U-Net families)")
     raise ValueError(f'Invalid keypoint extractor "{config.backbone}"')
+
+
+def build_model(config: Config, device=None):
+    """The registration pipeline of ``config``: a ``KeyMorph`` on ``device``
+    (None: the CUDA card) with the config's keypoints, real-world flag,
+    keypoint weighting, subgrids and TPS centres, over the backbone of
+    :func:`build_backbone` initialized from ``config.seed``
+    (``models.unet.init_weights``; a checkpoint usually replaces it)."""
+    import torch
+
+    from keymorph_tpu_torch.models.keymorph import KeyMorph
+    from keymorph_tpu_torch.models.unet import init_weights
+
+    backbone = build_backbone(config)
+    init_weights(backbone, torch.Generator().manual_seed(int(config.seed)))
+    return KeyMorph(
+        backbone=backbone,
+        num_keypoints=config.num_keypoints,
+        dim=config.dim,
+        keypoint_layer=config.kp_layer,
+        max_train_keypoints=config.max_train_keypoints,
+        use_amp=config.use_amp,
+        use_checkpoint=config.use_checkpoint,
+        weight_keypoints=config.weighted_kp_align,
+        align_keypoints_in_real_world_coords=config.align_keypoints_in_real_world_coords,
+        max_rand_tps_lmbda=config.max_train_tps_lmbda,
+        num_subgrids=config.num_subgrids,
+        num_tps_centers=config.num_tps_centers,
+        device=device,
+    )

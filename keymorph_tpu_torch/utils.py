@@ -1,5 +1,6 @@
-"""Small helpers shared by training and tools. Port of the parts of
-``keymorph_tpu/utils.py`` the training loop uses."""
+"""Small helpers shared by training, evaluation and the CLI. Port of the
+JAX-free parts of ``keymorph_tpu/utils.py`` (its sampling of reference
+keypoints waits for pretraining, ROADMAP A7)."""
 
 from __future__ import annotations
 
@@ -8,7 +9,23 @@ from typing import Optional
 
 import numpy as np
 import torch
-import torch.nn.functional as F
+
+
+def str_or_float(x):
+    """A float where ``x`` parses as one, else ``x`` itself."""
+    try:
+        return float(x)
+    except ValueError:
+        return x
+
+
+def parse_test_mod(mod):
+    """'T1_T2' (or a pair) -> ('T1', 'T2')."""
+    if isinstance(mod, str):
+        mod1, mod2 = mod.split("_")
+    else:
+        mod1, mod2 = mod
+    return mod1, mod2
 
 
 def aggregate_dicts(dicts):
@@ -21,12 +38,18 @@ def aggregate_dicts(dicts):
 
 
 def one_hot(seg: torch.Tensor, num_classes: Optional[int] = None) -> torch.Tensor:
-    """(B, 1, *spatial) integer labels -> (B, C, *spatial) float one-hot
-    (``num_classes`` defaults to max + 1)."""
+    """(B, 1, *spatial) integer labels -> contiguous (B, C, *spatial) fp32
+    one-hot on the labels' device (``num_classes`` defaults to max + 1).
+    Written by a scatter, so no int64 one-hot is materialized on the way."""
     seg = torch.as_tensor(seg)
     if num_classes is None:
         num_classes = int(seg.max()) + 1
-    return F.one_hot(seg[:, 0].long(), num_classes).movedim(-1, 1).float()
+    idx = seg[:, :1].long()
+    if bool((idx < 0).any() or (idx >= num_classes).any()):
+        raise ValueError(f"one_hot: labels outside [0, {num_classes})")
+    out = torch.zeros((seg.shape[0], num_classes, *seg.shape[2:]), dtype=torch.float32,
+                      device=seg.device)
+    return out.scatter_(1, idx, 1.0)
 
 
 def one_hot_subsampled_pair(seg1, seg2, subsample_num: int = 14, seed=None, device=None):
@@ -47,3 +70,53 @@ def one_hot_subsampled_pair(seg1, seg2, subsample_num: int = 14, seed=None, devi
         return torch.tensor(out, device=device)
 
     return apply(s1), apply(s2)
+
+
+SYNTHSEG_REGION_PAIRS = (
+    (0, 24),   # Background and CSF
+    (13, 52),  # Pallidum
+    (18, 54),  # Amygdala
+    (11, 50),  # Caudate
+    (3, 42),   # Cerebral Cortex
+    (17, 53),  # Hippocampus
+    (10, 49),  # Thalamus
+    (12, 51),  # Putamen
+    (2, 41),   # Cerebral WM
+    (8, 47),   # Cerebellum Cortex
+    (4, 43),   # Lateral Ventricle
+    (7, 46),   # Cerebellum WM
+    (16, 16),  # Brain-Stem
+)
+
+
+def one_hot_eval_synthseg(asegs) -> torch.Tensor:
+    """14-region one-hot of a (B, 1, *spatial) SynthSeg label volume: the
+    left/right pairs of :data:`SYNTHSEG_REGION_PAIRS` merged, plus a last
+    channel for everything outside them."""
+    asegs = torch.as_tensor(asegs)
+    chans = [((asegs[:, 0] == a) | (asegs[:, 0] == b)).float()
+             for a, b in SYNTHSEG_REGION_PAIRS]
+    oh = torch.stack(chans, dim=1)
+    return torch.cat([oh, 1.0 - oh.sum(dim=1, keepdim=True)], dim=1)
+
+
+def _percentile(flat_sorted: torch.Tensor, p: float) -> torch.Tensor:
+    """``numpy.percentile``'s linear interpolation on sorted values (no size
+    limit, unlike ``torch.quantile``)."""
+    pos = p / 100.0 * (flat_sorted.numel() - 1)
+    lo = int(pos)
+    hi = min(lo + 1, flat_sorted.numel() - 1)
+    return flat_sorted[lo] + (flat_sorted[hi] - flat_sorted[lo]) * (pos - lo)
+
+
+def rescale_intensity(array, out_range=(0, 1), percentiles=(0, 100)) -> torch.Tensor:
+    """Percentile clip, then min-max rescale to ``out_range``, in fp32 on the
+    input's device (a constant input maps to ``out_range[0]``)."""
+    x = torch.as_tensor(array).float()
+    if tuple(percentiles) != (0, 100):
+        lo, hi = (_percentile(torch.sort(x.reshape(-1)).values, p) for p in percentiles)
+        x = torch.clamp(x, lo, hi)
+    in_min = x.min()
+    in_range = x.max() - in_min
+    scale = (out_range[1] - out_range[0]) / torch.where(in_range == 0, 1.0, in_range)
+    return (x - in_min) * scale + out_range[0]

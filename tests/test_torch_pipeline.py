@@ -166,8 +166,9 @@ def test_unported_training_entry_points_name_their_roadmap_item(rng):
 
 
 def test_port_imports_neither_jax_nor_keymorph_tpu():
-    """The port, every one of its modules and chip_smoke.py import torch
-    only: neither jax nor the JAX package may appear in sys.modules (fresh
+    """The port, every one of its modules (the data layer, the metrics and
+    the register CLI among them) and chip_smoke.py import torch only:
+    neither jax nor the JAX package may appear in sys.modules (fresh
     interpreter), and no source line imports them."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
@@ -180,7 +181,10 @@ def test_port_imports_neither_jax_nor_keymorph_tpu():
         for want in ("losses", "augment", "utils", "transforms.affine", "transforms.aligners",
                      "training.config",
                      "training.train", "training.checkpoint", "tools.train_step_bench",
-                     "tools.import_flax_params", "ops.cuda.conv3d", "models.keymorph"):
+                     "tools.import_flax_params", "ops.cuda.conv3d", "models.keymorph",
+                     "metrics", "data", "data.nifti", "data.preprocess", "data.datasets",
+                     "data.loader", "native.kmio", "cli.register", "cli.eval_pairwise",
+                     "cli.eval_groupwise", "cli.script_utils", "cli.hyperparameters"):
             assert "keymorph_tpu_torch." + want in names, want
         import chip_smoke
         keymorph_tpu_torch.ops.cuda.counters()
