@@ -8,9 +8,11 @@ the port builds, launches and registers on the card).
 phase's inputs; the tolerances do not depend on it. ``--plant-fault``
 (``warp_grad_plane``: the warp-gradient kernel's first plane zeroed;
 ``input_grad_half``: the conv input-gradient kernel's output halved) is a
-control of phases 6 and 10's rule: it wraps that kernel with the fault,
-runs phases 5, 6 and 10 only, and exits 0 only if each of the four step
-comparisons fails; it prints no kernels line and no ``ok`` line.
+control of phases 6, 10 and 12's rule: it wraps that kernel with the fault,
+runs phases 5, 6 and 10 and phase 12's kernel steps only, and exits 0 only
+if each step comparison whose path holds the faulty kernel fails (phase
+12's pretrain step has no warp gradient); it prints no kernels line and no
+``ok`` line.
 
 Phases (each prints its lines; any failure raises, so the exit code is not 0):
 
@@ -105,8 +107,33 @@ Phases (each prints its lines; any failure raises, so the exit code is not 0):
      exactly); every metric JSON against a float64 recomputation on the CPU;
      the saved keypoints against the plain route with phase 3's yardstick.
 
+ 12. the main CLI, pretraining, the same-resolution step and the other
+     backbones at full width: five IXI-like subjects (REG_SHAPE, 14 labels;
+     three for training, a T1 and a T2 for testing) written as .nii.gz and
+     listed in a CSV; ``keymorph_tpu_torch.cli.run.main`` pretrains the
+     flagship net (``--run_mode pretrain --debug_mode --img_size 128 128
+     128``), hands its weights to a same-resolution ``tps_loguniform`` run
+     (``--load_weights_only --train_same_resolution --debug_mode``), resumes
+     that run for one more epoch (``--resume_latest``) and evaluates it
+     (``--run_mode eval --debug_mode``); the checkpoints, ``train_log.jsonl``
+     and the summaries must hold keymorph_tpu's keys, the resumed run must
+     begin at epoch 3 and the handoff must restart the optimizer. Then the
+     pretrain step (a preprocessed subject, 128 sampled reference points)
+     and the same-resolution step (a smooth pair at REG_SHAPE, model size
+     128^3, 64 of 128 keypoints, MSE), each through the kernels and on the
+     plain versions under phase 6's rule, its yardstick moving only the
+     net's input (the pretrain step's augmentation warps through the kernel
+     in both routes: that warp is bit-exact with its plain version, phase
+     1), the same-resolution step's alignment alone at REG_SHAPE on the grid
+     path as in phase 6, and the resize against float64; the bf16
+     'cr' U-Net's heatmaps through the kernels against its plain route
+     (phase 3's yardstick rule); one 128^3 training step each (after a
+     first) for the fp32 ConvNet, the fp32 ResidualUNetSE3D and the linear
+     keypoint head on the flagship net, on CUDA events, with peak memory.
+     Every kernel of these paths must launch and no plain version run.
+
 The line before the last is the kernels' JSON record (``launches`` summed
-over the main paths of phases 2, 5, 9, 10 and 11); the last line is
+over the main paths of phases 2, 5, 9, 10, 11 and 12); the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA it raises before printing
 a result. The script imports neither jax nor keymorph_tpu.
 """
@@ -172,7 +199,10 @@ PLANES_ABS = 1e-3
 # volumes move by PERTURB; a parameter may also lie within GRAD_WHOLE_FLOOR x
 # the whole gradient's norm (the first GroupNorm's scalar weight and bias
 # nearly cancel, while the noise they receive scales with their
-# neighbours'). The whole gradient is held to its floor alone: the yardstick
+# neighbours'). Phase 12 holds its steps to the same rule with only the
+# net's input moved by PERTURB: the same-resolution step resizes before the
+# net and takes its loss at the original resolution, where noise would
+# reach the loss unfiltered. The whole gradient is held to its floor alone: the yardstick
 # reads 0.15-0.44 there, and a zero gradient reads 1. The step's alignment
 # alone (align_pair, then the warp and MSE, in fp32 on the keypoints of the
 # plain extraction) is held sharper: its gradient to the keypoints, kernels
@@ -940,12 +970,14 @@ def _grads(net):
     return {k: p.grad.detach().clone() for k, p in net.named_parameters() if p.grad is not None}
 
 
-def _align_grads(torch, first, points, affines, plain):
+def _align_grads(torch, first, points, affines, plain, grid=False):
     """The step's alignment alone, in fp32: the MSE of the moving volume
     warped by ``align_pair``'s flow from ``points`` (the keypoints phase 5's
     initial weights give, the step's subset for TPS), and its gradient to
     the fixed and moving keypoints, through the kernels or (``plain``) their
-    plain versions."""
+    plain versions. ``grid``: the TPS flow on the grid path (``tps_flow``,
+    then the warp of the grid's planes), as the same-resolution step takes
+    it."""
     from keymorph_tpu_torch.losses import mse_loss
     from keymorph_tpu_torch.models.keymorph import align_pair, parse_transform_type
     from keymorph_tpu_torch.ops.cuda import resample3d
@@ -957,7 +989,7 @@ def _align_grads(torch, first, points, affines, plain):
     if align_type == "tps":
         lmbda = first["lmbda"] if first["lmbda"] is not None else torch.full(
             (1,), spec, device=img_f.device)
-    use_planes = align_type == "tps" and not affines
+    use_planes = align_type == "tps" and not affines and not grid
     pf, pm = (p.detach().clone().requires_grad_(True) for p in points)
     aff_f, aff_m = affines if affines else (None, None)
     flow = align_pair(pf, pm, align_type, img_f.shape[2:], lmbda=lmbda,
@@ -1076,12 +1108,6 @@ def hold_step(torch, rng, dev, first, label, affines=()):
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3, float(m["loss"]), float(m["grad_norm"]), _grads(net)
 
-    def rel_l2(ga, gb):
-        per = {k: ((ga[k] - g).norm() / g.norm().clamp_min(1e-30)).item() for k, g in gb.items()}
-        num = sum(((ga[k] - g) ** 2).sum().item() for k, g in gb.items())
-        den = sum((g ** 2).sum().item() for g in gb.values())
-        return per, (num / den) ** 0.5
-
     kernels.reset_counters()
     ms, loss, gn, grads = plain_step(first["pair"])
     counts = kernels.counters()
@@ -1092,9 +1118,6 @@ def hold_step(torch, rng, dev, first, label, affines=()):
         for v in first["pair"])
     _, loss_n, gn_n, grads_n = plain_step(noisy)
 
-    d_loss = abs(first["loss"] - loss) / abs(loss)
-    d_gn = abs(first["grad_norm"] - gn) / abs(gn)
-    rel, whole = rel_l2(first["grads"], grads)
     # the alignment alone, on the keypoints of the plain extraction
     with torch.no_grad():
         net = KeyMorphNet(build_backbone(config), NUM_KEYPOINTS).to(dev)
@@ -1103,22 +1126,53 @@ def hold_step(torch, rng, dev, first, label, affines=()):
         del net
     if first["config"].transform_type.startswith("tps"):
         points = tuple(p[:, first["idx"]] for p in points)
-    g_kernel = _align_grads(torch, first, points, affines, plain=False)
-    g_plain = _align_grads(torch, first, points, affines, plain=True)
+    aligned = _hold_align(torch, label, first, points, affines)
+    print(f"{label} plain step: {ms:.3f} ms (kernel step {first['ms']:.3f} ms incl. warm-up)")
+    held = _hold_readings(label, (first["loss"], first["grad_norm"], first["grads"]),
+                          (loss, gn, grads), (loss_n, gn_n, grads_n))
+    return held and aligned
+
+
+def _hold_align(torch, label, first, points, affines=(), grid=False):
+    """The step's alignment alone (:func:`_align_grads`) through the kernels
+    and through the plain versions: their gradients to the keypoints within
+    ALIGN_GRAD_REL (ALIGN_GRAD_REL_RW in real-world coordinates). Prints the
+    reading; returns whether it holds."""
+    g_kernel = _align_grads(torch, first, points, affines, plain=False, grid=grid)
+    g_plain = _align_grads(torch, first, points, affines, plain=True, grid=grid)
     d_align = max(((a - b).norm() / b.norm()).item() for a, b in zip(g_kernel, g_plain))
     tol_align = ALIGN_GRAD_REL_RW if affines else ALIGN_GRAD_REL
     print(f"{label} the alignment alone (fp32), its gradient to the keypoints, kernels vs plain: "
           f"rel L2 {d_align!r} (tol {tol_align!r})")
-    base, base_whole = rel_l2(grads_n, grads)
+    return d_align <= tol_align
+
+
+def _hold_readings(label, kernel, plain, noisy):
+    """Phase 6's rule on readings of one step, each (loss, grad_norm,
+    {parameter: gradient}): through the kernels, through the plain versions,
+    and (``noisy``) through the plain versions with the net's input
+    perturbed by PERTURB, the yardstick. Prints the readings and the bars
+    they exceed; returns whether they hold."""
+    (k_loss, k_gn, k_grads), (loss, gn, grads), (loss_n, gn_n, grads_n) = kernel, plain, noisy
+
+    def rel_l2(ga, gb):
+        per = {k: ((ga[k] - g).norm() / g.norm().clamp_min(1e-30)).item() for k, g in gb.items()}
+        num = sum(((ga[k] - g) ** 2).sum().item() for k, g in gb.items())
+        den = sum((g ** 2).sum().item() for g in gb.values())
+        return per, (num / den) ** 0.5
+
+    d_loss = abs(k_loss - loss) / abs(loss)
+    d_gn = abs(k_gn - gn) / abs(gn)
+    rel, whole = rel_l2(k_grads, grads)
     y_loss, y_gn = abs(loss_n - loss) / abs(loss), abs(gn_n - gn) / abs(gn)
+    base, base_whole = rel_l2(grads_n, grads)
     tol_loss = max(TRAIN_LOSS_REL, NOISE_FACTOR * y_loss)
     tol_gn = max(TRAIN_GRAD_NORM_REL, NOISE_FACTOR * y_gn)
     worst = max(rel, key=lambda k: rel[k] / max(TRAIN_GRAD_REL_L2, NOISE_FACTOR * base[k]))
-    print(f"{label} plain step: {ms:.3f} ms (kernel step {first['ms']:.3f} ms incl. warm-up), "
-          f"loss {loss!r} vs {first['loss']!r}: rel {d_loss!r} (tol {tol_loss!r}); grad_norm "
-          f"{gn!r} vs {first['grad_norm']!r}: rel {d_gn!r} (tol {tol_gn!r}); whole "
+    print(f"{label} plain step: loss {loss!r} vs {k_loss!r}: rel {d_loss!r} (tol {tol_loss!r}); "
+          f"grad_norm {gn!r} vs {k_gn!r}: rel {d_gn!r} (tol {tol_gn!r}); whole "
           f"gradient rel L2 {whole!r} (tol {TRAIN_GRAD_WHOLE_REL_L2!r})")
-    print(f"{label} plain step on volumes perturbed by {PERTURB} relative: loss rel "
+    print(f"{label} plain step with its input perturbed by {PERTURB} relative: loss rel "
           f"{y_loss!r}, grad_norm rel {y_gn!r}, whole gradient rel L2 {base_whole!r}")
     print(f"{label} per-parameter gradient rel L2, kernel vs plain: median "
           f"{float(np.median(list(rel.values())))!r}, max {max(rel.values())!r}; perturbed plain "
@@ -1130,12 +1184,15 @@ def hold_step(torch, rng, dev, first, label, affines=()):
         print(f"{label}   {k}: kernel {rel[k]:.4f} perturbed {base[k]:.4f}")
     floor = GRAD_WHOLE_FLOOR * float(sum((g ** 2).sum().item() for g in grads.values())) ** 0.5
     beyond = [k for k in rel if rel[k] > max(TRAIN_GRAD_REL_L2, NOISE_FACTOR * base[k])]
-    held = {k: (first["grads"][k] - grads[k]).norm().item() for k in beyond}
+    held = {k: (k_grads[k] - grads[k]).norm().item() for k in beyond}
     beyond = [k for k in beyond if held[k] > floor]
     print(f"{label} beyond their relative bar, held to {GRAD_WHOLE_FLOOR} x the whole "
           f"gradient's norm ({floor!r}): {held}; beyond both: {len(beyond)} of {len(rel)}")
-    return (d_loss <= tol_loss and d_gn <= tol_gn and whole <= TRAIN_GRAD_WHOLE_REL_L2
-            and not beyond and d_align <= tol_align)
+    exceeded = [bar for bar, ok in (("loss", d_loss <= tol_loss), ("grad_norm", d_gn <= tol_gn),
+                                    ("whole gradient", whole <= TRAIN_GRAD_WHOLE_REL_L2),
+                                    ("per parameter", not beyond)) if not ok]
+    print(f"{label} bars exceeded: {exceeded}")
+    return not exceeded
 
 
 def phase6(torch, rng, dev, first):
@@ -1773,6 +1830,396 @@ def phase11(torch, dev):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# phase 12: the main CLI, pretraining, the same-resolution step and the
+# backbones that are not on the serving path, at the flagship width
+RUN_SUBJECTS = (("T1", True), ("T1", True), ("T2", True), ("T1", False), ("T2", False))
+RUN_SIZE = (128, 128, 128)           # the model's size (--img_size)
+# the fp32 resize against float64 of the same weights: sums of at most ~6
+# terms an axis in three passes (x max|ref|)
+RESIZE_REL = 1e-6
+# heatmaps through the kernels vs the plain route: a bf16 output is within
+# one ulp of the same fp32 sum in either route, 2^-8 of the largest value
+# (x max|plain|), or NOISE_FACTOR x the plain route against itself on
+# volumes moved by PERTURB
+HEATMAP_REL = 2.0 ** -8
+RUN_LOG_KEYS = {"train": {"epoch", "mse", "loss", "grad_norm", "epoch_time", "steps_per_sec"},
+                "pretrain": {"epoch", "mse", "loss", "epoch_time"}}
+OTHER_BACKBONES = (("conv", dict(backbone="conv", use_amp=False)),
+                   ("residualunetse", dict(backbone="residualunetse", use_amp=False)),
+                   ("linear head", dict(kp_layer="linear")))
+
+
+def _add_counts(total, counts):
+    return counts if total is None else {
+        k: {c: total[k][c] + v[c] for c in v} for k, v in counts.items()}
+
+
+def _expect(label, counts, names):
+    for name in names:
+        if counts[name]["launches"] <= 0:
+            raise AssertionError(f"{label} never launched the {name} kernel")
+    if any(c["plain_calls"] for c in counts.values()):
+        raise AssertionError(f"{label} ran a plain version: {counts}")
+
+
+def _payload(model_dir, epoch):
+    import torch
+
+    return torch.load(model_dir / "checkpoints" / f"epoch{epoch}_model" / "checkpoint.pt",
+                      map_location="cpu", weights_only=True)
+
+
+def _train_log(model_dir):
+    with open(model_dir / "train_log.jsonl") as fh:
+        return [json.loads(line) for line in fh]
+
+
+def _phase12_cli(torch, rng, dev, tmp):
+    """(a) and (c): ``cli.run`` pretrains the flagship net, hands its weights
+    to a same-resolution TPS run, resumes that run, and evaluates it, on
+    RUN_SUBJECTS IXI-like scans written as .nii.gz. Returns the runs' summed
+    launch counts and the subjects' paths."""
+    from keymorph_tpu_torch.cli import hyperparameters as hp
+    from keymorph_tpu_torch.cli import run
+    from keymorph_tpu_torch.cli.eval_pairwise import _build_metric_dict
+    from keymorph_tpu_torch.data import save_nifti
+    from keymorph_tpu_torch.ops import cuda as kernels
+
+    t0 = time.perf_counter()
+    rows, paths = [], []
+    scans = [s for _ in range((len(RUN_SUBJECTS) + 1) // 2) for s in _phantom(torch, rng, dev)]
+    for i, ((mod, train), (img, seg)) in enumerate(zip(RUN_SUBJECTS, scans)):
+        img_p, seg_p = str(tmp / f"sub{i}.nii.gz"), str(tmp / f"sub{i}_seg.nii.gz")
+        save_nifti(img_p, img, _ixi_affine(5.0 * i))
+        save_nifti(seg_p, seg, _ixi_affine(5.0 * i))
+        rows.append(f"{img_p},{seg_p},None,{mod},{train}")
+        paths.append(img_p)
+    csv = tmp / "data.csv"
+    csv.write_text("img_path,seg_path,mask_path,modality,train\n" + "\n".join(rows) + "\n")
+    print(f"phase12 inputs: {len(RUN_SUBJECTS)} subjects {REG_SHAPE} at {REG_SPACING} mm with "
+          f"{REG_LABELS}-label segmentations, .nii.gz written in {time.perf_counter() - t0:.3f} s")
+
+    out = tmp / "out"
+    common = ["--num_keypoints", str(NUM_KEYPOINTS), "--data_path", str(csv), "--train_dataset",
+              "csv", "--save_dir", str(out), "--backbone", "truncatedunet", "--use_amp",
+              "--img_size", *map(str, RUN_SIZE), "--lr", str(TRAIN_LR), "--log_interval", "1",
+              "--seed", str(SEED)]
+    train = common + ["--job_name", "train", "--transform_type", "tps_loguniform",
+                      "--train_same_resolution"]
+    pre_ckpt = out / "pretrain" / "checkpoints" / "epoch2_model"
+    runs = (
+        ("pretrain", common + ["--job_name", "pretrain", "--run_mode", "pretrain",
+                               "--debug_mode"]),
+        ("train (weights-only handoff)", train + ["--run_mode", "train", "--debug_mode",
+                                                  "--load_path", str(pre_ckpt),
+                                                  "--load_weights_only"]),
+        ("train --resume_latest", train + ["--run_mode", "train", "--resume_latest",
+                                           "--epochs", "3", "--steps_per_epoch", "2"]),
+        ("eval", common + ["--job_name", "train", "--run_mode", "eval", "--debug_mode",
+                           "--load_path", str(out / "train" / "checkpoints" / "epoch3_model")]),
+    )
+    needed = {"pretrain": ("conv3x3_fused_flat", "conv3x3_fused_flat_upconv",
+                           "conv3x3_input_grad", "warp_planes"),
+              "train": ("conv3x3_fused_flat", "conv3x3_fused_flat_upconv", "conv3x3_input_grad",
+                        "tps_flow", "warp_planes", "warp_planes_grad"),
+              "eval": ("conv3x3_fused_flat", "conv3x3_fused_flat_upconv", "warp_planes")}
+    total = None
+    for label, argv in runs:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_counters()
+        t0 = time.perf_counter()
+        run.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = kernels.counters()
+        print(f"phase12 cli {label}: {wall:.3f} s, peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB; launches "
+              f"{json.dumps({k: c['launches'] for k, c in counts.items()})}")
+        _expect(f"phase 12 cli {label}", counts, needed[label.split()[0]])
+        total = _add_counts(total, counts)
+
+    # keymorph_tpu's files and keys
+    pre, trained = out / "pretrain", out / "train"
+    p2, t2, t3 = _payload(pre, 2), _payload(trained, 2), _payload(trained, 3)
+    logs = {"pretrain": _train_log(pre), "train": _train_log(trained)}
+    with open(trained / "eval" / "summary_unimodal.json") as fh:
+        summary_uni = json.load(fh)
+    checks = {
+        "pretrain checkpoint": (set(p2) == {"params", "opt_state", "step", "epoch", "ref_points"}
+                                and p2["step"] == 6
+                                and tuple(p2["ref_points"].shape) == (1, NUM_KEYPOINTS, 3)
+                                and float(p2["ref_points"].abs().max()) <= 1.0),
+        # the handoff restarts the optimizer: 2 debug epochs of 3 steps, then 2 more
+        "train checkpoints": (set(t2) == set(t3) == {"params", "opt_state", "step", "epoch"}
+                              and t2["step"] == 6 and t3["step"] == 8 and t3["epoch"] == 3
+                              and all(float(s["step"]) == 8
+                                      for s in t3["opt_state"]["state"].values())),
+        "pretrain log epochs": [r["epoch"] for r in logs["pretrain"]] == [1, 2],
+        "train log epochs (the resumed run began at 3)":
+            [r["epoch"] for r in logs["train"]] == [1, 2, 3],
+        "log keys": all(set(r) == RUN_LOG_KEYS[k] and np.isfinite(r["loss"])
+                        for k, rs in logs.items() for r in rs),
+        "args.json": all((d / "args.json").is_file() for d in (pre, trained)),
+        # debug mode scores the test loader's first pair (T1, T1) in each suite
+        "T1:T1 scored": all(summary_uni[f"{m}:T1:T1:rot0:affine"] is not None
+                            for m in hp.EVAL_METRICS),
+    }
+    for suite, names in (("unimodal", hp.EVAL_UNI_NAMES), ("multimodal", hp.EVAL_MULTI_NAMES)):
+        with open(trained / "eval" / f"summary_{suite}.json") as fh:
+            summary = json.load(fh)
+        keys = set(_build_metric_dict(hp.EVAL_METRICS, ["rot0"], ["affine"], names))
+        checks[f"summary_{suite} keys"] = set(summary) == keys and all(
+            v is None or np.isfinite(v) for v in summary.values())
+        scored = {k: v for k, v in summary.items() if v is not None}
+        print(f"phase12 eval summary_{suite}.json: {len(summary)} keys, scored {scored}")
+    print(f"phase12 train_log.jsonl: pretrain {json.dumps(logs['pretrain'])}; train "
+          f"{json.dumps(logs['train'])}")
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"phase 12: the CLI's files differ from keymorph_tpu's: {failed}")
+    return total, paths
+
+
+def _phase12_steps(torch, rng, dev, img):
+    """(b): the pretrain step on ``img`` (1, 1, *RUN_SIZE) and the
+    same-resolution step at REG_SHAPE, each through the kernels and again on
+    the plain versions (phase 6's rule, the yardstick moving the net's input
+    only; the same-resolution step's alignment alone on the grid path), and
+    the resize against float64.
+    Returns the kernel steps' launch counts and, for each step's label,
+    whether it holds against its plain step (the resize raises)."""
+    import dataclasses
+
+    from keymorph_tpu_torch import augment
+    from keymorph_tpu_torch.models.keymorph import KeyMorphNet
+    from keymorph_tpu_torch.models.unet import init_weights
+    from keymorph_tpu_torch.ops import cuda as kernels
+    from keymorph_tpu_torch.ops.resize import resize_trilinear, resize_weights
+    from keymorph_tpu_torch.training.config import build_backbone
+    from keymorph_tpu_torch.training.pretrain import (
+        PRETRAIN_MAX_PARAMS, make_pretrain_step, pick_reference_subject)
+    from keymorph_tpu_torch.training.train import (
+        TrainState, make_optimizer, make_train_step_sameres)
+
+    config = dataclasses.replace(_train_config(RUN_SIZE), train_same_resolution=True)
+    init = init_weights(build_backbone(config), torch.Generator().manual_seed(SEED + 12))
+    init = {f"backbone.{k}": v for k, v in init.state_dict().items()}
+
+    def state_of(perturb=False):
+        net = KeyMorphNet(build_backbone(config), NUM_KEYPOINTS).to(dev)
+        net.load_state_dict(init)
+        if perturb:  # the yardstick: only the net's input moves, the loss's volumes do not
+            features = net.features
+            net.features = lambda v, plain=False: features(v * (1.0 + PERTURB * torch.tensor(
+                rng.choice([-1.0, 1.0], size=tuple(v.shape)).astype(np.float32), device=dev)),
+                plain=plain)
+        return net, TrainState.create(net, make_optimizer(config, net))
+
+    def reading(net, m):
+        grads = _grads(net)
+        gn = float(sum((g.float() ** 2).sum() for g in grads.values()) ** 0.5)
+        return float(m["loss"]), gn, grads
+
+    # the pretrain step
+    _, ref_points, _ = pick_reference_subject([{"img": img.cpu().numpy()}], config, seed=SEED,
+                                              device=dev)
+    aug = augment.sample_affine_params(torch.Generator(device=dev).manual_seed(SEED), 1, 3,
+                                       PRETRAIN_MAX_PARAMS, 1.0, device=dev)
+
+    def pretrain_step(plain, perturb=False):
+        net, state = state_of(perturb)
+        step = make_pretrain_step(net, config, plain=plain)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, m = step(state, None, img, ref_points, 1.0, aug_params=aug)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3, reading(net, m)
+
+    # the same-resolution step: a smooth pair at the scans' own grid
+    pair = _make_pairs(torch, rng, dev, REG_SHAPE, 1, noise_amp=0.0)[0]
+    lmbda = torch.tensor([0.5], device=dev)
+    idx = torch.tensor(rng.permutation(NUM_KEYPOINTS)[:TRAIN_KEYPOINTS].copy(), device=dev)
+
+    def sameres_step(plain, perturb=False):
+        net, state = state_of(perturb)
+        step = make_train_step_sameres(net, config, plain=plain)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, m = step(state, None, *pair, None, None, 1.0, lmbda=lmbda, keypoint_idx=idx)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3, reading(net, m)
+
+    total, held = None, {}
+    for label, fn, needed in (
+            ("pretrain step", pretrain_step,
+             ("conv3x3_fused_flat", "conv3x3_fused_flat_upconv", "conv3x3_input_grad",
+              "warp_planes")),
+            ("same-resolution step", sameres_step,
+             ("conv3x3_fused_flat", "conv3x3_fused_flat_upconv", "conv3x3_input_grad",
+              "tps_flow", "warp_planes", "warp_planes_grad"))):
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_counters()
+        ms, kern = fn(False)
+        counts = kernels.counters()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        _expect(f"phase 12 {label}", counts, needed)
+        total = _add_counts(total, counts)
+        ms2, _ = fn(False)
+        plain_ms, plain = fn(True)
+        _, perturbed = fn(True, perturb=True)
+        print(f"phase12 {label}: {ms:.3f} ms (first), {ms2:.3f} ms (second), plain {plain_ms:.3f}"
+              f" ms; peak device memory {peak:.3f} GiB; loss {kern[0]!r}, grad_norm {kern[1]!r}")
+        held[f"phase12 {label}"] = _hold_readings(f"phase12 {label}", kern, plain, perturbed)
+
+    # the same-resolution step's alignment alone at REG_SHAPE on the grid
+    # path, on the keypoints of the plain extraction (phase 6's rule)
+    with torch.no_grad():
+        net, _ = state_of()
+        points = net(*(resize_trilinear(v, RUN_SIZE) for v in pair), plain=True)[:2]
+        del net
+    step_of = {"pair": pair, "config": config, "lmbda": lmbda}
+    held["phase12 same-resolution step"] &= _hold_align(
+        torch, "phase12 same-resolution step", step_of, tuple(p[:, idx] for p in points),
+        grid=True)
+
+    # the resize (REG_SHAPE -> RUN_SIZE) against float64 of the same weights
+    vol = pair[0]
+    got = resize_trilinear(vol, RUN_SIZE)
+    ref = vol.double()
+    for axis, (n_in, n_out) in enumerate(zip(REG_SHAPE, RUN_SIZE)):
+        w = resize_weights(n_in, n_out, device=dev, dtype=torch.float64)
+        ref = torch.tensordot(ref.movedim(axis + 2, -1), w, dims=1).movedim(-1, axis + 2)
+    d = ((got.double() - ref).abs().max() / ref.abs().max()).item()
+    rs_ms = _cuda_ms(lambda: resize_trilinear(vol, RUN_SIZE), 20)
+    print(f"phase12 resize {REG_SHAPE} -> {RUN_SIZE}: {rs_ms:.4f} ms; vs float64 {d!r} "
+          f"(tol {RESIZE_REL})")
+    if d > RESIZE_REL:
+        raise AssertionError("phase 12: the resize disagrees with float64")
+    return total, held
+
+
+def _phase12_backbones(torch, rng, dev, subject):
+    """(d): the bf16 'cr' U-Net's heatmaps through the kernels against its
+    plain route (phase 3's yardstick rule); one 128^3 training step each for
+    the fp32 ConvNet (the CLI's default), the fp32 ResidualUNetSE3D and the
+    linear keypoint head on the flagship net, timed on CUDA events after a
+    first step. Returns the kernel routes' launch counts."""
+    import dataclasses
+
+    from keymorph_tpu_torch.data import Preprocessor
+    from keymorph_tpu_torch.models.keymorph import KeyMorphNet
+    from keymorph_tpu_torch.models.layers import center_of_mass
+    from keymorph_tpu_torch.models.unet import TruncatedUNet3D, init_weights
+    from keymorph_tpu_torch.ops import cuda as kernels
+    from keymorph_tpu_torch.training.config import build_backbone
+    from keymorph_tpu_torch.training.train import TrainState, make_optimizer, make_train_step
+
+    img = torch.tensor(Preprocessor(size=RUN_SIZE).load(subject)["img"][None], device=dev)
+    net = KeyMorphNet(init_weights(TruncatedUNet3D(dtype=torch.bfloat16, layer_order="cr",
+                                                   **UNET),
+                                   torch.Generator().manual_seed(SEED + 13)),
+                      NUM_KEYPOINTS).to(dev)
+    with torch.no_grad():
+        kernels.reset_counters()
+        k_feat = net.features(img)
+        counts = kernels.counters()
+        _expect("phase 12 'cr' U-Net", counts, ("conv3x3_fused_flat", "conv3x3_fused_flat_upconv"))
+        p_feat = net.features(img, plain=True)
+        n_feat = net.features(img * (1 + PERTURB), plain=True)
+        k_ms = _cuda_ms(lambda: net.features(img), 3)
+        p_ms = _cuda_ms(lambda: net.features(img, plain=True), 1)
+    top = p_feat.float().abs().max().item()
+    d = (k_feat.float() - p_feat.float()).abs().max().item() / top
+    y = (n_feat.float() - p_feat.float()).abs().max().item() / top
+    d_kp = (center_of_mass(k_feat) - center_of_mass(p_feat)).abs().max().item()
+    y_kp = (center_of_mass(n_feat) - center_of_mass(p_feat)).abs().max().item()
+    tol, tol_kp = max(HEATMAP_REL, NOISE_FACTOR * y), max(KEYPOINT_ABS, NOISE_FACTOR * y_kp)
+    print(f"phase12 'cr' U-Net at {RUN_SIZE}: heatmaps {k_ms:.3f} ms through the kernels, "
+          f"{p_ms:.3f} ms plain; kernels vs plain {d!r} x max (yardstick {y!r}, tol {tol!r}); "
+          f"keypoints {d_kp!r} (yardstick {y_kp!r}, tol {tol_kp!r})")
+    if d > tol or d_kp > tol_kp:
+        raise AssertionError("phase 12: the 'cr' U-Net's heatmaps through the kernels disagree "
+                             "with its plain route")
+    del net, k_feat, p_feat, n_feat
+    total = counts
+
+    pair = _make_pairs(torch, rng, dev, RUN_SIZE, 1, noise_amp=0.0)[0]
+    for label, over in OTHER_BACKBONES:
+        config = dataclasses.replace(_train_config(RUN_SIZE), **over)
+        net = KeyMorphNet(build_backbone(config), NUM_KEYPOINTS,
+                          keypoint_layer=config.kp_layer).to(dev)
+        init_weights(net, torch.Generator().manual_seed(SEED + 14))
+        state = TrainState.create(net, make_optimizer(config, net))
+        step = make_train_step(net, config)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_counters()
+        t0 = time.perf_counter()
+        state, m1 = step(state, None, *pair, None, None, 1.0)
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, m2 = step(state, None, *pair, None, None, 1.0)
+        end.record()
+        torch.cuda.synchronize()
+        counts = kernels.counters()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        losses = [float(m[k]) for m in (m1, m2) for k in ("loss", "grad_norm")]
+        grads_ok = all(bool(torch.isfinite(p.grad).all()) for p in net.parameters()
+                       if p.grad is not None)
+        print(f"phase12 {label} ({'bf16' if config.use_amp else 'fp32'} {config.backbone}, "
+              f"{config.kp_layer} head) {RUN_SIZE[0]}^3 step: {start.elapsed_time(end):.3f} ms on CUDA "
+              f"events "
+              f"(first {first_ms:.3f} ms on the host clock), peak device memory {peak:.3f} GiB; "
+              f"loss, grad_norm {losses}; launches "
+              f"{json.dumps({k: c['launches'] for k, c in counts.items()})}")
+        if not (all(np.isfinite(losses)) and grads_ok):
+            raise AssertionError(f"phase 12 {label}: a loss or gradient is not finite")
+        _expect(f"phase 12 {label}", counts,
+                ("tps_planes", "tps_planes_bwd", "warp_planes", "warp_planes_grad")
+                + (("conv3x3_fused_flat", "conv3x3_input_grad") if config.use_amp else ()))
+        total = _add_counts(total, counts)
+        del net, state, step
+        torch.cuda.empty_cache()
+    return total
+
+
+def phase12(torch, rng, dev):
+    """The main CLI, pretraining, the same-resolution step and the other
+    backbones (module docstring, phase 12). Returns the summed launch counts
+    of every kernel route it drove."""
+    import shutil
+    import tempfile
+
+    from keymorph_tpu_torch.data import Preprocessor
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="phase12_", dir=ROOT / "build"))
+    try:
+        stages = {}
+        t0 = time.perf_counter()
+        cli_counts, paths = _phase12_cli(torch, rng, dev, tmp)
+        stages["cli (a, c)"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        img = torch.tensor(Preprocessor(size=RUN_SIZE).load(paths[0])["img"][None], device=dev)
+        step_counts, held = _phase12_steps(torch, rng, dev, img)
+        if not all(held.values()):
+            raise AssertionError(f"phase 12: kernel and plain steps disagree: "
+                                 f"{[k for k, ok in held.items() if not ok]}")
+        stages["steps (b)"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        bb_counts = _phase12_backbones(torch, rng, dev, paths[0])
+        stages["backbones (d)"] = time.perf_counter() - t0
+        print("phase12 stages (s): " + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
+        return _add_counts(_add_counts(cli_counts, step_counts), bb_counts)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 # --plant-fault: each fault wraps one kernel's wrapper, so only the kernel
 # route sees it (the plain steps call the plain versions by their own names)
 FAULTS = ("warp_grad_plane", "input_grad_half")
@@ -1798,16 +2245,23 @@ def _plant(kind):
 
 
 def fault_control(torch, dev, kind):
-    """Phases 5, 6 and 10 with ``kind`` planted in the kernel route: each of
-    the four step comparisons must fail under the rule it is held to.
-    Phase 5's volumes and subset are drawn afresh from the seed, so they
-    differ from those of the full run at the same seed."""
+    """Phases 5, 6 and 10 and phase 12's kernel steps with ``kind`` planted
+    in the kernel route: each step comparison whose path holds the faulty
+    kernel must fail under the rule it is held to. Phase 5's volumes and
+    subset are drawn afresh from the seed, so they differ from those of the
+    full run at the same seed."""
     _plant(kind)
     rng = np.random.default_rng(SEED)
     first, _, _ = phase5(torch, rng, dev)
     held = {"phase6": hold_step(torch, rng, dev, first, "phase6")}
     torch.cuda.empty_cache()
     held.update(phase10(torch, rng, dev, first)[1])
+    torch.cuda.empty_cache()
+    # phase 12's kernel steps whose path holds the faulty kernel
+    img = _make_pairs(torch, rng, dev, RUN_SIZE, 1, noise_amp=0.0)[0][0]
+    step_held = _phase12_steps(torch, rng, dev, img)[1]
+    held.update({k: v for k, v in step_held.items()
+                 if kind == "input_grad_half" or "same-resolution" in k})
     caught = {label: not ok for label, ok in held.items()}
     print(json.dumps({"planted_fault": kind, "seed": SEED, "caught": caught}))
     if not all(caught.values()):
@@ -1887,17 +2341,21 @@ def main():
     del net
     torch.cuda.empty_cache()
     register_counts = phase11(torch, dev)
+    torch.cuda.empty_cache()
+    run_counts = phase12(torch, np.random.default_rng([SEED, 12]), dev)
 
     def entry(name, key, source):
         # launches: over every main path, each counted from 0 just before it
         # and read just after (phase 2's 3 pairs, phase 5's 3 steps, phase
         # 9's registration API, phase 10's three steps, phase 11's register
-        # CLI); 0 where no main path reaches the wrapper at these sizes, as
-        # with the parts form, the decoder's route for odd sizes. Phase 1's
-        # launches are kept apart.
+        # CLI, phase 12's CLI runs, kernel steps, 'cr' heatmaps and other
+        # backbones' steps); 0 where no main path reaches the wrapper at
+        # these sizes, as with the parts form, the decoder's route for odd
+        # sizes. Phase 1's launches are kept apart.
         paths = {"launches_served_3_pairs": serve_counts, "launches_3_train_steps": train_counts,
                  "launches_phase9_api": api_counts, "launches_phase10_steps": api_train_counts,
-                 "launches_phase11_register": register_counts}
+                 "launches_phase11_register": register_counts,
+                 "launches_phase12_run": run_counts}
         per_path = {k: c[name]["launches"] for k, c in paths.items()}
         return {"name": name, "route": "cuda", "source": f"keymorph_tpu_torch/csrc/{source}",
                 "replaces": REPLACES[key], "launches": sum(per_path.values()), **per_path,

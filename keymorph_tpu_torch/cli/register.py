@@ -12,13 +12,19 @@ Usage (the flagship net on the card):
     python -m keymorph_tpu_torch.cli.register --groupwise --moving dir_of_niftis/ \\
         --backbone truncatedunet --use_amp --load_path weights.pt
 
-The backbone runs on the port's conv kernels, which take bf16 U-Nets only:
-``--use_amp`` is required, and ``--backbone`` must be ``truncatedunet`` or
-``unet`` (the default ``conv`` and an fp32 backbone raise, ROADMAP A9).
+Every 3D ``--backbone`` of keymorph_tpu runs (the default ``conv``, ``unet``,
+``truncatedunet``, ``residualunet``, ``residualunetse``), in bf16 with
+``--use_amp`` and else in fp32 (TF32 off on the card); the bf16 U-Nets in
+layer order 'gcr' (``truncatedunet``, ``unet``) run on the port's conv
+kernels, the others on PyTorch's convolutions, as keymorph_tpu runs them on
+flax's.
 
 ``--load_path``: a ``.pt``/``.pth``/``.tar``/``.h5`` file is a reference
 torch checkpoint (a backbone ``state_dict``, bare or under ``state_dict``,
-with ``backbone.``/``module.`` prefixes), loaded strictly; another path is a
+with ``backbone.``/``module.`` prefixes), loaded strictly (a batch norm's
+running statistics, which the port's batch norm does not keep, are dropped;
+an instance norm's scale and bias, which the reference's affine-free
+``InstanceNorm3d`` lacks, keep their identity init); another path is a
 checkpoint directory of the port (``training/checkpoint.py``). A
 keymorph_tpu (Orbax) checkpoint directory is refused: load it with
 keymorph_tpu and carry its parameters over with
@@ -101,16 +107,27 @@ def _strip_prefixes(state_dict):
 
 def load_weights(model, path: str):
     """Load ``path`` into ``model`` (a ``KeyMorph``) as the module docstring
-    says; every key must match (missing or unexpected keys raise)."""
+    says; every other key must match (missing or unexpected keys raise)."""
     import torch
 
+    from keymorph_tpu_torch.models.layers import GroupNorm
     from keymorph_tpu_torch.training import checkpoint as ckpt
 
     if path.endswith(TORCH_CHECKPOINT_SUFFIXES):
         sd = torch.load(path, map_location="cpu", weights_only=True)
         if isinstance(sd, dict) and "state_dict" in sd:
             sd = sd["state_dict"]
-        model.net.backbone.load_state_dict(_strip_prefixes(sd), strict=True)
+        sd = {k: v for k, v in _strip_prefixes(sd).items()
+              if k.rsplit(".", 1)[-1] not in ("running_mean", "running_var",
+                                              "num_batches_tracked")}
+        backbone = model.net.backbone
+        if getattr(backbone, "norm_type", None) == "instance":
+            own = backbone.state_dict()
+            for name, m in backbone.named_modules():
+                if isinstance(m, GroupNorm):  # affine-free in the reference
+                    for leaf in ("weight", "bias"):
+                        sd.setdefault(f"{name}.{leaf}", own[f"{name}.{leaf}"])
+        backbone.load_state_dict(sd, strict=True)
         print(f"Imported torch reference checkpoint {path}")
         return
     if os.path.isdir(path) and not os.path.isfile(os.path.join(path, "checkpoint.pt")):
@@ -147,7 +164,7 @@ def main(argv=None, stage_times=None):
     run."""
     args = parse_args(argv)
 
-    from keymorph_tpu_torch import resolve_device
+    from keymorph_tpu_torch import disable_tf32, resolve_device
     from keymorph_tpu_torch.cli.eval_groupwise import run_group_eval
     from keymorph_tpu_torch.cli.eval_pairwise import run_eval
     from keymorph_tpu_torch.data import ThreadPrefetcher
@@ -155,6 +172,8 @@ def main(argv=None, stage_times=None):
     from keymorph_tpu_torch.training.config import Config, build_model
 
     device = resolve_device(args.device)
+    if device.type == "cuda":  # fp32 backbones run cuDNN in full fp32
+        disable_tf32()
     size = args.size or (128 if args.half_resolution else 256)
     transform = _timed_preprocessor(size, stage_times)
 

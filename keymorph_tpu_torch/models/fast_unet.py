@@ -1,15 +1,18 @@
-"""Kernel-layout U-Net executor: the DoubleConv 'gcr' U-Net on the fused
-conv kernels (``ops/cuda/conv3d.py``).
+"""Kernel-layout U-Net executor: the bf16 DoubleConv U-Net in layer order
+'gcr' or 'cr' on the fused conv kernels (``ops/cuda/conv3d.py``).
 
 Port of ``keymorph_tpu/models/fast_unet.py:fast_unet_forward``. It re-runs
 the network of an :class:`~keymorph_tpu_torch.models.unet.AbstractUNet`
 from its parameters on flat (Z, C, Y*X) bf16 tensors, one sample at a time:
 
-  * every GroupNorm is folded into the next conv as a per-channel affine,
-    computed from per-channel fp32 (mean, E[x^2]) with
-    var = E[x^2] - mean^2 (not a two-pass variance);
-  * each DoubleConv's second GroupNorm takes its statistics from the first
-    conv's in-kernel output stats, so the intermediate is never re-read;
+  * 'gcr': every GroupNorm is folded into the next conv as a per-channel
+    affine, computed from per-channel fp32 (mean, E[x^2]) with
+    var = E[x^2] - mean^2 (not a two-pass variance), and each DoubleConv's
+    second GroupNorm takes its statistics from the first conv's in-kernel
+    output stats, so the intermediate is never re-read;
+  * 'cr': the convs take no norm operands and their bias (added in fp32
+    before the ReLU, as keymorph_tpu's ``_conv_affine`` passes it), and no
+    conv emits statistics;
   * a decoder's first conv reads the skip and the half-resolution deeper
     tensor directly (``conv3x3_fused_flat_upconv``: no upsample, no concat),
     with its GroupNorm statistics taken on the small pre-upsample tensors
@@ -40,7 +43,7 @@ from types import SimpleNamespace
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from keymorph_tpu_torch.models.unet import AbstractUNet, gn_groups
+from keymorph_tpu_torch.models.unet import AbstractUNet, gn_groups, supports_fast_unet
 from keymorph_tpu_torch.ops.cuda import conv3d
 from keymorph_tpu_torch.ops.cuda.conv3d import channel_stats, upsample_nearest_flat
 
@@ -73,32 +76,42 @@ def gn_affine_from_stats(stats, gamma, beta, groups: int):
 
 
 def _single_conv_operands(sc, stats, num_groups):
-    """(w (3,3,3,Cin,Cout), scale, shift) of a 'gcr' SingleConv module."""
+    """(w (3,3,3,Cin,Cout), scale, shift, bias) of a SingleConv module: 'gcr'
+    folds its GroupNorm from ``stats`` (no bias), 'cr' passes the conv bias
+    (no scale, shift or stats)."""
     w = sc.conv.weight.permute(2, 3, 4, 1, 0)
+    if not hasattr(sc, "groupnorm"):
+        return w, None, None, sc.conv.bias
     cin = w.shape[3]
     scale, shift = gn_affine_from_stats(
         stats, sc.groupnorm.weight, sc.groupnorm.bias, gn_groups(cin, num_groups)
     )
-    return w, scale, shift
+    return w, scale, shift, None
 
 
 def _double_conv_flat(block, xf, spatial, num_groups, convs, stats0=None,
                       xb=None, xb_lowres=False):
     """DoubleConv on flat tensors. ``xb``: optional second input part (the
     decoder's deeper tensor; at half resolution with ``xb_lowres``), in
-    which case ``stats0`` must cover the concatenated channels."""
-    if xb is not None and stats0 is None:
+    which case a 'gcr' block's ``stats0`` must cover the concatenated
+    channels. The first conv emits its output statistics only where the
+    second normalizes."""
+    gn = hasattr(block.SingleConv1, "groupnorm")
+    if gn and xb is not None and stats0 is None:
         raise ValueError("a two-part DoubleConv needs the concatenated GN stats")
-    stats0 = stats0 if stats0 is not None else channel_stats(xf)
-    w0, sc0, sh0 = _single_conv_operands(block.SingleConv1, stats0, num_groups)
+    if gn and stats0 is None:
+        stats0 = channel_stats(xf)
+    w0, sc0, sh0, b0 = _single_conv_operands(block.SingleConv1, stats0, num_groups)
+    wants = hasattr(block.SingleConv2, "groupnorm")
     if xb is None:
-        y, s1 = convs.flat(xf, spatial, w0, sc0, sh0, emit_stats=True)
+        r = convs.flat(xf, spatial, w0, sc0, sh0, b0, emit_stats=wants)
     elif xb_lowres:
-        y, s1 = convs.upconv(xf, xb, spatial, w0, sc0, sh0, emit_stats=True)
+        r = convs.upconv(xf, xb, spatial, w0, sc0, sh0, b0, emit_stats=wants)
     else:
-        y, s1 = convs.parts(xf, xb, spatial, w0, sc0, sh0, emit_stats=True)
-    w1, sc1, sh1 = _single_conv_operands(block.SingleConv2, s1, num_groups)
-    return convs.flat(y, spatial, w1, sc1, sh1)
+        r = convs.parts(xf, xb, spatial, w0, sc0, sh0, b0, emit_stats=wants)
+    y, s1 = r if wants else (r, None)
+    w1, sc1, sh1, b1 = _single_conv_operands(block.SingleConv2, s1, num_groups)
+    return convs.flat(y, spatial, w1, sc1, sh1, b1)
 
 
 def _maxpool2_flat(xf, spatial):
@@ -115,15 +128,23 @@ def fast_unet_forward(unet: AbstractUNet, img: torch.Tensor, plain: bool = False
     """Run ``unet`` on the conv kernels.
 
     Args:
-        unet: a bf16 'gcr' DoubleConv :class:`AbstractUNet` (parameters are
-            read from it; see ``unet.supports_fast_unet``).
+        unet: a bf16 'gcr' or 'cr' DoubleConv :class:`AbstractUNet`
+            (parameters are read from it; see ``unet.supports_fast_unet``).
         img: (B, 1, Z, Y, X) channel-first volume.
         plain: run every conv through its plain PyTorch version instead of
             the kernel wrapper (the oracle route on a GPU; CPU tensors take
             the plain versions either way).
     Returns:
         (B, Z', Y', X', K) bf16 channel-last heatmaps.
+    Raises:
+        ValueError: for a backbone ``supports_fast_unet`` refuses (its
+            module's forward computes it; ``KeyMorphNet.features`` takes
+            that path).
     """
+    if not supports_fast_unet(unet):
+        raise ValueError(f"the conv-kernel executor runs bf16 'gcr'/'cr' DoubleConv U-Nets, not "
+                         f"{type(unet).__name__} (dtype {getattr(unet, 'dtype', None)}, layer "
+                         f"order {getattr(unet, 'layer_order', None)!r})")
     convs = _PLAIN_CONVS if plain else _KERNEL_CONVS
     g = unet.num_groups
 
@@ -145,8 +166,10 @@ def fast_unet_forward(unet: AbstractUNet, img: torch.Tensor, plain: bool = False
             xf = block(enc.basic_module, xf, spatial)
             skips.append((xf, spatial))
         for dec, (skip, sk_sp) in zip(unet.decoders, skips[:-1][::-1]):
-            s_skip, s_low = channel_stats(skip), channel_stats(xf)
-            stats0 = (torch.cat([s_skip[0], s_low[0]]), torch.cat([s_skip[1], s_low[1]]))
+            stats0 = None
+            if hasattr(dec.basic_module.SingleConv1, "groupnorm"):
+                s_skip, s_low = channel_stats(skip), channel_stats(xf)
+                stats0 = (torch.cat([s_skip[0], s_low[0]]), torch.cat([s_skip[1], s_low[1]]))
             if tuple(sk_sp) == tuple(2 * s for s in spatial):
                 xf = block(dec.basic_module, skip, sk_sp, stats0=stats0, xb=xf,
                            xb_lowres=True)

@@ -33,7 +33,7 @@ from torch import nn
 
 from keymorph_tpu_torch import resolve_device
 from keymorph_tpu_torch.models.fast_unet import fast_unet_forward
-from keymorph_tpu_torch.models.layers import center_of_mass
+from keymorph_tpu_torch.models.layers import LinearRegressor, center_of_mass
 from keymorph_tpu_torch.models.unet import supports_fast_unet
 from keymorph_tpu_torch.ops import coords
 from keymorph_tpu_torch.ops.cuda import tpsflow
@@ -98,39 +98,49 @@ def subsample_keypoints(generator: Optional[torch.Generator], points_f, points_m
 
 
 class KeyMorphNet(nn.Module):
-    """Backbone + center-of-mass keypoint head + optional keypoint-weighting
-    parameters (3D; the linear keypoint head is not ported, ROADMAP A9)."""
+    """Backbone + keypoint head (center of mass, or the linear regressor) +
+    optional keypoint-weighting parameters (3D)."""
 
     def __init__(self, backbone: nn.Module, num_keypoints: int,
-                 weight_keypoints: Optional[str] = None):
+                 weight_keypoints: Optional[str] = None, keypoint_layer: str = "com"):
         super().__init__()
         if weight_keypoints not in (None, "power", "variance"):
             raise ValueError(f"weight_keypoints={weight_keypoints!r}")
+        if keypoint_layer not in ("com", "linear"):
+            raise ValueError(f"keypoint_layer={keypoint_layer!r}")
         self.backbone = backbone
         self.num_keypoints = num_keypoints
         self.weight_keypoints = weight_keypoints
+        self.keypoint_layer = keypoint_layer
         if weight_keypoints == "variance":
             self.scales = nn.Parameter(torch.ones(num_keypoints))
             self.biases = nn.Parameter(torch.zeros(num_keypoints))
+        if keypoint_layer == "linear":
+            self.regressor = LinearRegressor(num_keypoints, num_keypoints)
 
     def features(self, img: torch.Tensor, plain: bool = False) -> torch.Tensor:
-        """img (B, 1, *spatial) -> heatmaps (B, *spatial', K), channel-last.
+        """img (B, 1, *spatial) -> heatmaps (B, *spatial', K), channel-last,
+        in the backbone's dtype (its compute dtype).
 
-        The backbone runs on the conv kernels (``fast_unet_forward``), which
-        take bf16 'gcr' U-Nets only: the backbone's ``dtype`` is the compute
-        dtype. ``plain`` runs the convs' plain versions (the oracle route).
+        A bf16 'gcr' or 'cr' DoubleConv U-Net runs on the conv kernels
+        (``fast_unet_forward``; ``plain`` runs the convs' plain versions, the
+        oracle route). Every other backbone is its module's forward, as
+        keymorph_tpu's ``features`` applies the flax module (XLA convs, no
+        Pallas kernel) where its executor does not apply.
         """
-        if not supports_fast_unet(self.backbone):
-            raise NotImplementedError(
-                "only bf16 'gcr' U-Net backbones are ported (ROADMAP A9: fp32 "
-                "backbones, other layer orders and block families)"
-            )
-        return fast_unet_forward(self.backbone, img, plain=plain)
+        if supports_fast_unet(self.backbone):
+            return fast_unet_forward(self.backbone, img, plain=plain)
+        return self.backbone(img).movedim(1, -1)
+
+    def keypoints_from_features(self, feat: torch.Tensor) -> torch.Tensor:
+        if self.keypoint_layer == "com":
+            return center_of_mass(feat)
+        return self.regressor(feat)
 
     def get_keypoints(self, img: torch.Tensor, return_feat: bool = False,
                       plain: bool = False):
         feat = self.features(img, plain=plain)
-        points = center_of_mass(feat)
+        points = self.keypoints_from_features(feat)
         return (points, feat) if return_feat else points
 
     def weight_by_variance(self, feat1, feat2):
@@ -340,9 +350,9 @@ class KeyMorph:
         time_keypoint_extract, time_align, time, [matrix], [points_a]}}``;
       * ``groupwise_register(inputs, transform_type=[...], ...)``.
 
-    The backbone is the port's ``nn.Module``; only bf16 'gcr' U-Nets run on
-    the kernels, so its dtype is the compute dtype and ``use_amp`` is kept
-    for the signature alone. ``device`` (None = the CUDA card, raising
+    The backbone is the port's ``nn.Module`` (``KeyMorphNet.features`` says
+    which run on the conv kernels); its dtype is the compute dtype, so
+    ``use_amp`` is kept for the signature alone. ``device`` (None = the CUDA card, raising
     without one; tests pass "cpu") holds the net, the inputs and a
     ``torch.Generator`` for the random draws (``seed_rng``). Gradients flow
     only in ``train()`` mode. The time fields are the host clock around
@@ -358,16 +368,12 @@ class KeyMorph:
                  align_keypoints_in_real_world_coords: bool = False,
                  max_rand_tps_lmbda: float = 10.0, num_subgrids: int = 4,
                  num_tps_centers: Optional[int] = None, device=None):
-        if dim != 3 or keypoint_layer != "com":
-            raise NotImplementedError(
-                f"dim={dim}, keypoint_layer={keypoint_layer!r}: only the 3D center-of-mass "
-                "head is ported (ROADMAP A9: the 2D pipeline, LinearRegressor)")
-        if not supports_fast_unet(backbone):
-            raise NotImplementedError(
-                "only bf16 'gcr' U-Net backbones are ported (ROADMAP A9: fp32 backbones, "
-                "other layer orders and block families)")
+        if dim != 3:
+            raise NotImplementedError(f"dim={dim}: only 3D registration is ported "
+                                      "(ROADMAP A9: the 2D pipeline)")
         self.device = resolve_device(device)
-        self.net = KeyMorphNet(backbone, num_keypoints, weight_keypoints).to(self.device)
+        self.net = KeyMorphNet(backbone, num_keypoints, weight_keypoints,
+                               keypoint_layer).to(self.device)
         self.num_keypoints = num_keypoints
         self.dim = dim
         self.max_train_keypoints = max_train_keypoints

@@ -1,26 +1,43 @@
-"""DoubleConv U-Net backbones as plain ``nn.Module``s (the oracle).
+"""U-Net backbones as plain ``nn.Module``\\ s.
 
-Port of ``keymorph_tpu/models/unet.py`` for ``basic_module="double"`` and
-``layer_order="gcr"`` (GroupNorm -> Conv(no bias) -> ReLU), channel-first
+Port of ``keymorph_tpu/models/unet.py`` in 3D, channel-first
 (B, C, Z, Y, X):
 
-  * f_maps ladder ``[f * 2**k]``; encoder conv-1 width ``max(out // 2, in)``;
-  * GroupNorm eps 1e-5, one group below ``num_groups`` channels;
-  * 2x max-pool before every encoder but the first; nearest 2x upsample and
-    ``[skip, x]`` concat in the decoders; ``TruncatedUNet3D`` drops the last
-    ``num_truncated_layers`` decoders;
-  * a final 1x1 conv with bias.
+  * ``SingleConv`` in any layer order of 'g' (GroupNorm, eps 1e-5, one group
+    below ``num_groups`` channels), 'b' (the stateless batch norm), 'c' (the
+    conv, with a bias only where the order has no norm), 'r' (ReLU), 'l'
+    (LeakyReLU, slope 0.1), 'e' (ELU); ``DoubleConv`` with the encoder's
+    conv-1 width ``max(out // 2, in)``;
+  * ``ResNetBlock``: a 1x1 lift where the widths differ, a SingleConv, a
+    SingleConv without the non-linearity, the residual sum, the
+    non-linearity, and optionally the concurrent scSE gate (reduction ratio
+    1; ``ChannelSE``, ``SpatialSE``, ``ChannelSpatialSE``);
+  * 3^3 convs with padding 1 (keymorph_tpu's ``conv_kernel_size`` and
+    ``conv_padding`` defaults, the only values its factory uses);
+  * the f_maps ladder ``[f * 2**k]``; 2x max-pool before every encoder but
+    the first; DoubleConv decoders join by nearest 2x upsample and
+    ``[skip, x]`` concat, residual ones by a transposed conv (3^3, stride 2,
+    keymorph_tpu's padding (1, 2) on the dilated input, which is
+    ``ConvTranspose3d(padding=1, output_padding=1)``) cropped to the skip
+    and summed; ``TruncatedUNet3D`` drops the last
+    ``num_truncated_layers`` decoders; a final 1x1 conv with bias of bf16
+    operands, fp32 sums and an fp32 bias (keymorph_tpu's ``PointwiseConv``).
 
 Parameter names are the reference unet3d ``state_dict`` keys
-(``encoders.i.basic_module.SingleConv{1,2}.{groupnorm,conv}.*``,
-``decoders.j...``, ``final_conv.*``), so weights move between this module,
-the kernel executor (``models/fast_unet.py``) and keymorph_tpu's flax tree
-(``tools/import_flax_params.py``).
+(``encoders.i.basic_module.SingleConv{1,2}.{groupnorm,batchnorm,conv}.*``;
+residual blocks ``conv1`` (the lift), ``conv2``, ``conv3``,
+``se_module.{cSE.fc1,cSE.fc2,sSE.conv}``; ``decoders.j.upsampling.upsample``;
+``final_conv.*``), so weights move between these modules, the kernel
+executor (``models/fast_unet.py``), a reference ``.pt`` and keymorph_tpu's
+flax tree (``tools/import_flax_params.py``).
 
-With ``dtype=torch.bfloat16`` the module emulates the flax bf16 backbone:
-GroupNorm statistics in fp32, conv operands rounded to bf16 with fp32
-accumulation, activations stored in bf16. It is the straightforward
-reference for the executor, not the fast path.
+With ``dtype=torch.bfloat16`` the modules compute as the flax bf16
+backbones do (``models/layers.py:conv_nd``): normalization statistics in
+fp32, conv operands rounded to bf16 with fp32 sums, activations stored in
+bf16. The bf16 'gcr' and 'cr' DoubleConv U-Nets also run on the conv
+kernels (:func:`supports_fast_unet`); every other backbone is computed by
+these modules, as keymorph_tpu computes it with flax ``nn.Conv`` (XLA, no
+Pallas kernel). With ``dtype=torch.float64`` they evaluate in float64.
 """
 
 from __future__ import annotations
@@ -31,6 +48,9 @@ from typing import Optional, Sequence, Union
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+from keymorph_tpu_torch.models.layers import GroupNorm, StatelessBatchNorm, acc_dtype, conv_nd
 
 
 def number_of_features_per_level(init_channels: int, num_levels: int):
@@ -47,103 +67,249 @@ def gn_groups(c: int, num_groups: int) -> int:
     return next(g for g in range(num_groups, 0, -1) if c % g == 0)
 
 
-class SingleConv(nn.Module):
-    """'gcr': GroupNorm -> 3^3 conv (no bias) -> ReLU."""
+def _activation(ch: str, x: torch.Tensor) -> torch.Tensor:
+    if ch == "r":
+        return torch.relu(x)
+    if ch == "l":
+        return F.leaky_relu(x, 0.1)
+    return F.elu(x)
 
-    def __init__(self, in_channels: int, out_channels: int, num_groups: int = 8,
-                 dtype: torch.dtype = torch.float32):
+
+class SingleConv(nn.Module):
+    """One norm/conv/activation layer in the order ``order``."""
+
+    def __init__(self, in_channels: int, out_channels: int, order: str = "gcr",
+                 num_groups: int = 8, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.groupnorm = nn.GroupNorm(gn_groups(in_channels, num_groups),
-                                      in_channels, eps=1e-5)
-        self.conv = nn.Conv3d(in_channels, out_channels, 3, padding=1, bias=False)
+        if "c" not in order or set(order) - set("gbcrle"):
+            raise ValueError(f"layer order {order!r}: 'c' required, chars from 'gbcrle'")
+        self.order = order
         self.dtype = dtype
+        self.conv = nn.Conv3d(in_channels, out_channels, 3, padding=1,
+                              bias=not ("g" in order or "b" in order))
+        for ch in "gb":
+            if ch in order:
+                c = in_channels if order.index(ch) < order.index("c") else out_channels
+                if ch == "g":
+                    self.groupnorm = GroupNorm(gn_groups(c, num_groups), c, dtype)
+                else:
+                    self.batchnorm = StatelessBatchNorm(c, dtype)
 
     def forward(self, x):
-        gn = self.groupnorm
-        h = F.group_norm(x.float(), gn.num_groups, gn.weight, gn.bias, gn.eps)
-        h = h.to(self.dtype).float()
-        w = self.conv.weight.to(self.dtype).float()
-        return torch.relu(F.conv3d(h, w, padding=1)).to(self.dtype)
+        for ch in self.order:
+            if ch == "c":
+                x = conv_nd(x, self.conv, self.dtype, padding=1)
+            elif ch == "g":
+                x = self.groupnorm(x)
+            elif ch == "b":
+                x = self.batchnorm(x)
+            else:
+                x = _activation(ch, x)
+        return x
 
 
 class DoubleConv(nn.Module):
-    def __init__(self, in_channels: int, out_channels: int, encoder: bool,
+    def __init__(self, in_channels: int, out_channels: int, encoder: bool, order: str = "gcr",
                  num_groups: int = 8, dtype: torch.dtype = torch.float32):
         super().__init__()
         mid = max(out_channels // 2, in_channels) if encoder else out_channels
-        self.SingleConv1 = SingleConv(in_channels, mid, num_groups, dtype)
-        self.SingleConv2 = SingleConv(mid, out_channels, num_groups, dtype)
+        kw = dict(order=order, num_groups=num_groups, dtype=dtype)
+        self.SingleConv1 = SingleConv(in_channels, mid, **kw)
+        self.SingleConv2 = SingleConv(mid, out_channels, **kw)
 
     def forward(self, x):
         return self.SingleConv2(self.SingleConv1(x))
 
 
-class Encoder(nn.Module):
-    def __init__(self, in_channels, out_channels, pool: bool, num_groups, dtype):
+def _linear(x: torch.Tensor, fc: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
+    """A flax ``Dense`` of ``dtype``: operands rounded to ``dtype``."""
+    acc = acc_dtype(dtype)
+    return F.linear(x.to(dtype).to(acc), fc.weight.to(dtype).to(acc),
+                    fc.bias.to(dtype).to(acc)).to(dtype)
+
+
+class ChannelSE(nn.Module):
+    """Channel squeeze-and-excitation: spatial mean -> fc1 -> ReLU -> fc2 ->
+    sigmoid -> scale each channel."""
+
+    def __init__(self, channels: int, reduction_ratio: int = 2,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.pool = pool
-        self.basic_module = DoubleConv(in_channels, out_channels, True, num_groups, dtype)
+        self.fc1 = nn.Linear(channels, max(channels // reduction_ratio, 1))
+        self.fc2 = nn.Linear(max(channels // reduction_ratio, 1), channels)
+        self.dtype = dtype
 
     def forward(self, x):
-        if self.pool:
-            x = F.max_pool3d(x, 2)
-        return self.basic_module(x)
+        s = x.to(acc_dtype(self.dtype)).mean(dim=tuple(range(2, x.dim())))
+        s = torch.sigmoid(_linear(torch.relu(_linear(s, self.fc1, self.dtype)), self.fc2,
+                                  self.dtype))
+        return x * s.reshape(*s.shape, *([1] * (x.dim() - 2)))
+
+
+class SpatialSE(nn.Module):
+    """Spatial squeeze-and-excitation: 1x1 conv to one channel -> sigmoid ->
+    scale every channel."""
+
+    def __init__(self, channels: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.conv = nn.Conv3d(channels, 1, 1)
+        self.dtype = dtype
+
+    def forward(self, x):
+        return x * torch.sigmoid(conv_nd(x, self.conv, self.dtype))
+
+
+class ChannelSpatialSE(nn.Module):
+    """Concurrent scSE: the elementwise max of the channel and spatial gates."""
+
+    def __init__(self, channels: int, reduction_ratio: int = 2,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.cSE = ChannelSE(channels, reduction_ratio, dtype)
+        self.sSE = SpatialSE(channels, dtype)
+
+    def forward(self, x):
+        return torch.maximum(self.cSE(x), self.sSE(x))
+
+
+class ResNetBlock(nn.Module):
+    """Residual block, optionally with the scSE gate (``se``)."""
+
+    def __init__(self, in_channels: int, out_channels: int, encoder: bool = True,
+                 order: str = "gcr", num_groups: int = 8, dtype: torch.dtype = torch.float32,
+                 se: bool = False):
+        super().__init__()
+        self.dtype = dtype
+        self.conv1 = (nn.Conv3d(in_channels, out_channels, 1) if in_channels != out_channels
+                      else nn.Identity())
+        kw = dict(num_groups=num_groups, dtype=dtype)
+        self.conv2 = SingleConv(out_channels, out_channels, order=order, **kw)
+        n_order = "".join(c for c in order if c not in "rel")
+        self.conv3 = SingleConv(out_channels, out_channels, order=n_order, **kw)
+        self.act = "l" if "l" in order else "e" if "e" in order else "r"
+        self.se_module = ChannelSpatialSE(out_channels, 1, dtype) if se else None
+
+    def forward(self, x):
+        residual = (conv_nd(x, self.conv1, self.dtype) if isinstance(self.conv1, nn.Conv3d)
+                    else x)
+        out = _activation(self.act, self.conv3(self.conv2(residual)) + residual)
+        return out if self.se_module is None else self.se_module(out)
+
+
+class Encoder(nn.Module):
+    def __init__(self, in_channels, out_channels, pool: bool, block):
+        super().__init__()
+        self.pool = pool
+        self.basic_module = block(in_channels, out_channels, True)
+
+    def forward(self, x):
+        return self.basic_module(F.max_pool3d(x, 2) if self.pool else x)
+
+
+class TransposeConvUpsampling(nn.Module):
+    """The residual decoder's upsampling: a stride-2 transposed conv."""
+
+    def __init__(self, in_channels, out_channels, dtype):
+        super().__init__()
+        self.upsample = nn.ConvTranspose3d(in_channels, out_channels, 3, stride=2, padding=1,
+                                           output_padding=1)
+        self.dtype = dtype
+
+    def forward(self, skip, x):
+        x = conv_nd(x, self.upsample, self.dtype, stride=2, padding=1, output_padding=1)
+        x = x[(slice(None), slice(None)) + tuple(slice(0, s) for s in skip.shape[2:])]
+        if x.shape != skip.shape:
+            # keymorph_tpu's sum fails here too (and the reference's
+            # ConvTranspose3d refuses the output size): the upsample of a
+            # floor-halved odd size is one voxel short
+            raise ValueError(f"residual decoder: the upsampled {tuple(x.shape[2:])} cannot join "
+                             f"the skip {tuple(skip.shape[2:])} (odd skip sizes are not "
+                             "supported, as in keymorph_tpu)")
+        return skip + x
 
 
 class Decoder(nn.Module):
-    def __init__(self, in_channels, out_channels, num_groups, dtype):
+    def __init__(self, in_channels, out_channels, block, residual: bool, dtype):
         super().__init__()
-        self.basic_module = DoubleConv(in_channels, out_channels, False, num_groups, dtype)
+        if residual:
+            self.upsampling = TransposeConvUpsampling(in_channels, out_channels, dtype)
+            self.basic_module = block(out_channels, out_channels, False)
+        else:
+            self.upsampling = None
+            self.basic_module = block(in_channels + out_channels, out_channels, False)
 
     def forward(self, skip, x):
+        if self.upsampling is not None:
+            return self.basic_module(self.upsampling(skip, x))
         x = F.interpolate(x, size=skip.shape[2:], mode="nearest")
         return self.basic_module(torch.cat([skip, x], dim=1))
 
 
 class AbstractUNet(nn.Module):
-    """DoubleConv 'gcr' encoder/decoder U-Net on one-channel volumes
-    (channel-first). Other block families and layer orders are not ported
-    (ROADMAP A9)."""
+    """Encoder/decoder U-Net on one-channel volumes (channel-first).
+
+    ``basic_module``: ``"double"`` (DoubleConv blocks, upsample + concat),
+    ``"resnet"`` or ``"resnetse"`` (ResNetBlocks without or with the scSE
+    gate, transposed conv + sum). keymorph_tpu's segmentation head
+    (``is_segmentation``) is not carried: no backbone of the registration
+    pipeline sets it.
+    """
 
     def __init__(self, out_channels: int, f_maps: Union[int, Sequence[int]] = 64,
-                 num_groups: int = 8, num_levels: int = 4,
-                 num_truncated_layers: int = 0, dtype: torch.dtype = torch.float32,
-                 use_checkpoint: bool = False):
+                 layer_order: str = "gcr", num_groups: int = 8, num_levels: int = 4,
+                 num_truncated_layers: int = 0, basic_module: str = "double",
+                 dtype: torch.dtype = torch.float32, use_checkpoint: bool = False):
         super().__init__()
-        # block-level gradient checkpointing in the kernel executor
-        # (models/fast_unet.py); this plain module ignores it
+        if basic_module not in ("double", "resnet", "resnetse"):
+            raise ValueError(f"basic_module={basic_module!r}")
+        # block-level gradient checkpointing, here and in the kernel executor
         self.use_checkpoint = use_checkpoint
         if isinstance(f_maps, int):
             f_maps = number_of_features_per_level(f_maps, num_levels)
         self.f_maps = list(f_maps)
         if len(self.f_maps) < 2:
             raise ValueError("a U-Net needs at least 2 levels")
+        self.layer_order = layer_order
         self.num_groups = num_groups
+        self.basic_module = basic_module
         self.dtype = dtype
+        residual = basic_module != "double"
+        kw = dict(order=layer_order, num_groups=num_groups, dtype=dtype)
+
+        def block(cin, cout, encoder):
+            if residual:
+                return ResNetBlock(cin, cout, encoder, se=basic_module == "resnetse", **kw)
+            return DoubleConv(cin, cout, encoder, **kw)
+
         self.encoders = nn.ModuleList(
-            Encoder(1 if i == 0 else self.f_maps[i - 1], ch, i > 0,
-                    num_groups, dtype)
+            Encoder(1 if i == 0 else self.f_maps[i - 1], ch, i > 0, block)
             for i, ch in enumerate(self.f_maps)
         )
         rev = self.f_maps[::-1]
         n_dec = len(rev) - 1 - num_truncated_layers
         self.decoders = nn.ModuleList(
-            Decoder(rev[i] + rev[i + 1], rev[i + 1], num_groups, dtype)
+            Decoder(rev[i], rev[i + 1], block, residual, dtype)
             for i in range(n_dec)
         )
         self.final_conv = nn.Conv3d(self.f_maps[num_truncated_layers], out_channels, 1)
 
+    def _run(self, module, *args):
+        if self.use_checkpoint and torch.is_grad_enabled():
+            return checkpoint(module, *args, use_reentrant=False)
+        return module(*args)
+
     def forward(self, x):
-        """(B, 1, Z, Y, X) -> (B, out_channels, Z', Y', X')."""
+        """(B, 1, Z, Y, X) -> (B, out_channels, Z', Y', X') in ``dtype``."""
         x = x.to(self.dtype)
         skips = []
         for enc in self.encoders:
-            x = enc(x)
+            x = self._run(enc, x)
             skips.append(x)
         for dec, skip in zip(self.decoders, skips[:-1][::-1]):
-            x = dec(skip, x)
-        w = self.final_conv.weight.to(self.dtype).float()
-        out = F.conv3d(x.float(), w) + self.final_conv.bias.float()[:, None, None, None]
+            x = self._run(dec, skip, x)
+        acc = acc_dtype(self.dtype)
+        w = self.final_conv.weight.to(self.dtype).to(acc)
+        out = F.conv3d(x.to(acc), w) + self.final_conv.bias.to(acc)[:, None, None, None]
         return out.to(self.dtype)
 
 
@@ -156,25 +322,45 @@ class TruncatedUNet3D(AbstractUNet):
     reduced resolution (the center-of-mass head is resolution-agnostic)."""
 
 
-def init_weights(unet: AbstractUNet, generator: torch.Generator) -> AbstractUNet:
+class ResidualUNet3D(AbstractUNet):
+    """Residual 3D U-Net: ResNetBlocks, transposed-conv upsampling, sum
+    joining (5 levels unless told otherwise)."""
+
+    def __init__(self, out_channels: int, num_levels: int = 5, **kw):
+        super().__init__(out_channels, num_levels=num_levels, basic_module="resnet", **kw)
+
+
+class ResidualUNetSE3D(AbstractUNet):
+    """Residual 3D U-Net whose blocks end in the scSE gate."""
+
+    def __init__(self, out_channels: int, num_levels: int = 5, **kw):
+        super().__init__(out_channels, num_levels=num_levels, basic_module="resnetse", **kw)
+
+
+def init_weights(net: nn.Module, generator: torch.Generator) -> nn.Module:
     """Deterministic init from ``generator`` (on the CPU, so the same seed
-    gives the same weights on every device): conv kernels LeCun-normal
-    (flax's default, std sqrt(1/fan_in)), GroupNorm scale 1 / bias 0, final
-    conv bias 0."""
+    gives the same weights on every device), flax's defaults: conv, transposed
+    conv and dense kernels LeCun-normal (std sqrt(1 / fan_in)), their biases 0,
+    norm scales 1 and biases 0."""
     with torch.no_grad():
-        for m in unet.modules():
-            if isinstance(m, nn.Conv3d):
-                fan_in = m.weight[0].numel()
+        for m in net.modules():
+            if isinstance(m, (nn.Conv3d, nn.ConvTranspose3d, nn.Linear)):
+                fan_in = m.weight[0].numel() if not isinstance(m, nn.ConvTranspose3d) \
+                    else m.weight.shape[0] * m.weight[0, 0].numel()
                 w = torch.randn(m.weight.shape, generator=generator) / math.sqrt(fan_in)
                 m.weight.copy_(w)
                 if m.bias is not None:
                     m.bias.zero_()
-            elif isinstance(m, nn.GroupNorm):
+            elif isinstance(m, (nn.GroupNorm, StatelessBatchNorm)):
                 m.weight.fill_(1.0)
                 m.bias.zero_()
-    return unet
+    return net
 
 
 def supports_fast_unet(backbone: Optional[nn.Module]) -> bool:
-    """Can the kernel executor (``models/fast_unet.py``) run this backbone?"""
-    return isinstance(backbone, AbstractUNet) and backbone.dtype == torch.bfloat16
+    """Can the kernel executor (``models/fast_unet.py``) run this backbone?
+    keymorph_tpu's predicate: a DoubleConv U-Net in layer order 'gcr' or
+    'cr', in bf16 (its convs are 3^3 with padding 1, and it has no
+    segmentation head, as every port U-Net)."""
+    return (isinstance(backbone, AbstractUNet) and backbone.basic_module == "double"
+            and backbone.layer_order in ("gcr", "cr") and backbone.dtype == torch.bfloat16)

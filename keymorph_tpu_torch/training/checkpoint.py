@@ -33,7 +33,8 @@ def save_checkpoint(directory: str, epoch: int, state, ref_points=None):
         "epoch": int(epoch),
     }
     if ref_points is not None:
-        payload["ref_points"] = torch.as_tensor(np.asarray(ref_points))
+        payload["ref_points"] = (ref_points.detach().cpu() if torch.is_tensor(ref_points)
+                                 else torch.as_tensor(np.asarray(ref_points)))
     tmp = os.path.join(path, _FILE + ".tmp")
     torch.save(payload, tmp)
     os.replace(tmp, os.path.join(path, _FILE))

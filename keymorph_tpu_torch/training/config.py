@@ -121,47 +121,52 @@ class Config:
 
 
 def build_backbone(config: Config, dtype=None):
-    """Backbone factory for the ported families: ``truncatedunet`` and
-    ``unet`` (3D, DoubleConv 'gcr')."""
+    """Backbone factory, every 3D family of keymorph_tpu's: ``conv`` (the
+    ConvNet with ``config.norm_type``), ``unet``, ``truncatedunet``,
+    ``residualunet`` and ``residualunetse``; bf16 with ``use_amp``, else
+    fp32."""
     import torch
 
-    from keymorph_tpu_torch.models.unet import TruncatedUNet3D, UNet3D
+    from keymorph_tpu_torch.models.convnet import ConvNet
+    from keymorph_tpu_torch.models.unet import (
+        ResidualUNet3D,
+        ResidualUNetSE3D,
+        TruncatedUNet3D,
+        UNet3D,
+    )
 
     dtype = dtype or (torch.bfloat16 if config.use_amp else torch.float32)
-    if config.backbone in ("truncatedunet", "unet") and config.dim != 3:
-        raise NotImplementedError("2D backbones are not ported (ROADMAP A9)")
-    if config.backbone == "unet":
-        return UNet3D(out_channels=config.num_keypoints, f_maps=32,
-                      num_levels=config.num_levels_for_unet, dtype=dtype,
-                      use_checkpoint=config.use_checkpoint)
+    families = ("conv", "unet", "truncatedunet", "residualunet", "residualunetse")
+    if config.backbone not in families:
+        raise ValueError(f'Invalid keypoint extractor "{config.backbone}"')
+    if config.dim != 3:
+        raise NotImplementedError("2D backbones are not ported (ROADMAP A9: the 2D pipeline)")
+    if config.backbone == "conv":
+        return ConvNet(out_dim=config.num_keypoints, norm_type=config.norm_type, dtype=dtype)
+    kw = dict(out_channels=config.num_keypoints, f_maps=32,
+              num_levels=config.num_levels_for_unet, dtype=dtype,
+              use_checkpoint=config.use_checkpoint)
     if config.backbone == "truncatedunet":
         return TruncatedUNet3D(
-            out_channels=config.num_keypoints, f_maps=32,
-            num_levels=config.num_levels_for_unet,
-            num_truncated_layers=config.num_truncated_layers_for_truncatedunet,
-            dtype=dtype, use_checkpoint=config.use_checkpoint)
-    if config.backbone in ("conv", "residualunet", "residualunetse"):
-        raise NotImplementedError(
-            f"backbone {config.backbone!r} is not ported (ROADMAP A9: ConvNet and "
-            "residual U-Net families)")
-    raise ValueError(f'Invalid keypoint extractor "{config.backbone}"')
+            num_truncated_layers=config.num_truncated_layers_for_truncatedunet, **kw)
+    return {"unet": UNet3D, "residualunet": ResidualUNet3D,
+            "residualunetse": ResidualUNetSE3D}[config.backbone](**kw)
 
 
 def build_model(config: Config, device=None):
     """The registration pipeline of ``config``: a ``KeyMorph`` on ``device``
     (None: the CUDA card) with the config's keypoints, real-world flag,
     keypoint weighting, subgrids and TPS centres, over the backbone of
-    :func:`build_backbone` initialized from ``config.seed``
-    (``models.unet.init_weights``; a checkpoint usually replaces it)."""
+    :func:`build_backbone` and its keypoint head, initialized from
+    ``config.seed`` (``models.unet.init_weights``; a checkpoint usually
+    replaces it)."""
     import torch
 
     from keymorph_tpu_torch.models.keymorph import KeyMorph
     from keymorph_tpu_torch.models.unet import init_weights
 
-    backbone = build_backbone(config)
-    init_weights(backbone, torch.Generator().manual_seed(int(config.seed)))
-    return KeyMorph(
-        backbone=backbone,
+    model = KeyMorph(
+        backbone=build_backbone(config),
         num_keypoints=config.num_keypoints,
         dim=config.dim,
         keypoint_layer=config.kp_layer,
@@ -175,3 +180,5 @@ def build_model(config: Config, device=None):
         num_tps_centers=config.num_tps_centers,
         device=device,
     )
+    init_weights(model.net, torch.Generator().manual_seed(int(config.seed)))
+    return model

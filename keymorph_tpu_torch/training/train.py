@@ -8,10 +8,11 @@ coordinates), ``make_kpconsistency_step`` and ``run_train``. TPS in
 normalized coordinates runs the planes-native path
 (``align_pair(compute_grid="planes")`` then ``align_planes``); affine, rigid
 and every real-world step run the grid path (``align_pair(compute_grid=True)``
-then ``align_img``), as keymorph_tpu's step does. On a CUDA device the
-forward and the backward go through the port's kernels (conv and its input
-gradient, TPS flow and its backward, warp and its gradient). The
-same-resolution variant is not ported yet (ROADMAP A7).
+then ``align_img``), as keymorph_tpu's step does; ``make_train_step_sameres``
+extracts keypoints from volumes resized to the model's size and takes the
+loss at the original resolution. On a CUDA device the forward and the
+backward go through the port's kernels (conv and its input gradient, TPS
+flow and its backward, warp and its gradient).
 
 Random draws come from an explicit ``torch.Generator`` in a fixed order:
 augmentation parameters, lambda, keypoint subset.
@@ -38,6 +39,7 @@ from keymorph_tpu_torch.models.keymorph import (
 )
 from keymorph_tpu_torch.ops.cuda import resample3d
 from keymorph_tpu_torch.ops.resample import grid_to_planes
+from keymorph_tpu_torch.ops.resize import resize_trilinear
 from keymorph_tpu_torch.training.config import Config
 from keymorph_tpu_torch.utils import aggregate_dicts, one_hot, one_hot_subsampled_pair
 
@@ -79,16 +81,18 @@ def make_train_step(net: nn.Module, config: Config, plain: bool = False):
     Returned signature::
 
         step(state, generator, img_f, img_m, seg_f, seg_m, aug_scale,
-             aff_f=None, aff_m=None, *, lmbda=None, keypoint_idx=None)
-            -> (state, metrics)
+             aff_f=None, aff_m=None, *, lmbda=None, keypoint_idx=None,
+             aug_params=None) -> (state, metrics)
 
     ``seg_f``/``seg_m`` may be None (MSE). ``aug_scale`` is the affine-slope
     ramp factor. With ``config.align_keypoints_in_real_world_coords`` the
     step needs ``aff_f``/``aff_m``, the (B, 4, 4) voxel -> world affines; the
     augmentation matrix composes into the moving one (``aff_m @ aug``) and
-    the fit runs in scanner coordinates. ``lmbda`` (B,) and ``keypoint_idx``
-    override the TPS draws from ``generator`` (so a test can inject another
-    framework's). ``metrics`` holds 0-d tensors: ``loss``, ``mse`` or
+    the fit runs in scanner coordinates. ``lmbda`` (B,), ``keypoint_idx`` and
+    ``aug_params`` (the augmentation's (scale, offset, theta, shear), applied
+    whatever ``config.max_random_affine_augment_params`` says) override the
+    draws from ``generator`` (so a test can inject another framework's).
+    ``metrics`` holds 0-d tensors: ``loss``, ``mse`` or
     ``softdice``/``softdiceloss``, and ``grad_norm`` (the global L2 norm of
     the gradients). The update is the state's optimizer's.
 
@@ -96,9 +100,26 @@ def make_train_step(net: nn.Module, config: Config, plain: bool = False):
     oracle route on a CUDA device; CPU tensors take the plain versions either
     way).
     """
+    return _make_step(net, config, plain, model_size=None)
+
+
+def make_train_step_sameres(net: nn.Module, config: Config, plain: bool = False):
+    """The same-resolution step (keymorph_tpu's ``make_train_step_sameres``,
+    the reference's ``run_train_sameres``): the images come at their
+    original (per-dataset) resolution; after the augmentation both are
+    resized to ``config.img_size`` (``ops/resize.py``, antialiased as
+    ``jax.image.resize``) for keypoint extraction, and the flow and the loss
+    are computed at the fixed image's ORIGINAL resolution on the grid path
+    (``align_pair(compute_grid=True)``: the TPS flow's points mode, then the
+    warp of the grid's planes). Signature, draws, overrides and metrics are
+    :func:`make_train_step`'s."""
+    return _make_step(net, config, plain, model_size=tuple(config.img_size))
+
+
+def _make_step(net: nn.Module, config: Config, plain: bool, model_size):
     align_type, lmbda_spec = parse_transform_type(config.transform_type)
     rw = bool(config.align_keypoints_in_real_world_coords)
-    use_planes = align_type == "tps" and not rw
+    use_planes = align_type == "tps" and not rw and model_size is None
     use_dice = config.loss_fn == "dice"
     max_params = tuple(config.max_random_affine_augment_params)
     warp_planes = resample3d.warp_planes_plain if plain else resample3d.warp_planes
@@ -107,13 +128,17 @@ def make_train_step(net: nn.Module, config: Config, plain: bool = False):
         return warp_planes(x, flow if use_planes else grid_to_planes(flow))
 
     def loss_fn(generator, img_f, img_m, seg_f, seg_m, aug_scale, aff_f, aff_m, lmbda,
-                keypoint_idx):
-        if any(p > 0 for p in max_params):
+                keypoint_idx, aug_params):
+        if aug_params is not None or any(p > 0 for p in max_params):
             with torch.no_grad():
-                out = augment.random_affine_augment(
-                    generator, img_m, seg=seg_m if use_dice else None,
-                    max_random_params=max_params, scale_params=aug_scale,
-                    return_affine_matrix=True)
+                seg = seg_m if use_dice else None
+                if aug_params is None:
+                    out = augment.random_affine_augment(
+                        generator, img_m, seg=seg, max_random_params=max_params,
+                        scale_params=aug_scale, return_affine_matrix=True)
+                else:
+                    out = augment.affine_augment_with_params(img_m, aug_params, seg=seg,
+                                                             return_affine_matrix=True)
                 if use_dice:
                     img_m, seg_m, aug_M = out
                 else:
@@ -121,7 +146,11 @@ def make_train_step(net: nn.Module, config: Config, plain: bool = False):
                 if rw:
                     aff_m = aff_m @ aug_M
 
-        points_f, points_m, weights = net(img_f, img_m, plain=plain)
+        if model_size is None:
+            points_f, points_m, weights = net(img_f, img_m, plain=plain)
+        else:  # keypoints from the model's resolution, the loss at the original
+            points_f, points_m, weights = net(resize_trilinear(img_f, model_size),
+                                              resize_trilinear(img_m, model_size), plain=plain)
 
         if align_type == "tps":
             if lmbda is None:
@@ -149,13 +178,13 @@ def make_train_step(net: nn.Module, config: Config, plain: bool = False):
         return loss, metrics
 
     def step(state: TrainState, generator, img_f, img_m, seg_f, seg_m, aug_scale,
-             aff_f=None, aff_m=None, *, lmbda=None, keypoint_idx=None):
+             aff_f=None, aff_m=None, *, lmbda=None, keypoint_idx=None, aug_params=None):
         if rw and (aff_f is None or aff_m is None):
             raise ValueError("real-world-coordinate training needs aff_f and aff_m "
                              "(the images' voxel -> world affines)")
         state.optimizer.zero_grad(set_to_none=True)
         loss, metrics = loss_fn(generator, img_f, img_m, seg_f, seg_m, float(aug_scale),
-                                aff_f, aff_m, lmbda, keypoint_idx)
+                                aff_f, aff_m, lmbda, keypoint_idx, aug_params)
         loss.backward()
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["grad_norm"] = _global_norm(net.parameters())
@@ -187,12 +216,6 @@ def make_kpconsistency_step(net: nn.Module, config: Config):
         return state, {"kploss": loss.detach()}
 
     return step
-
-
-def make_train_step_sameres(net: nn.Module, config: Config):
-    """Same-resolution training variant of keymorph_tpu; not ported."""
-    raise NotImplementedError(
-        "make_train_step_sameres (train_same_resolution) is not ported (ROADMAP A7)")
 
 
 def _tensor(x, device, dtype=torch.float32):

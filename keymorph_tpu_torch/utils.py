@@ -1,6 +1,5 @@
-"""Small helpers shared by training, evaluation and the CLI. Port of the
-JAX-free parts of ``keymorph_tpu/utils.py`` (its sampling of reference
-keypoints waits for pretraining, ROADMAP A7)."""
+"""Small helpers shared by training, pretraining, evaluation and the CLI.
+Port of ``keymorph_tpu/utils.py``."""
 
 from __future__ import annotations
 
@@ -120,3 +119,28 @@ def rescale_intensity(array, out_range=(0, 1), percentiles=(0, 100)) -> torch.Te
     in_range = x.max() - in_min
     scale = (out_range[1] - out_range[0]) / torch.where(in_range == 0, 1.0, in_range)
     return (x - in_min) * scale + out_range[0]
+
+
+def sample_valid_coordinates(x, num_points: int, dim: int, point_space: str = "norm",
+                             indexing: str = "xy", seed: int = 0) -> torch.Tensor:
+    """``num_points`` voxels drawn uniformly, with replacement, from the
+    support of ``x`` (values above 0.1 in 3D, above 0 in 2D; x is
+    (1, 1, *spatial)) by ``numpy.random.default_rng(seed)``, so the same seed
+    picks keymorph_tpu's voxels. Returns (1, num_points, dim) fp32 on the
+    CPU: in [0, 1] (the voxel index over the axis size, ``"norm"``) or in
+    voxels (``"voxel"``), ``xy`` (last volume axis first, the reference's
+    order) or ``ij``."""
+    x = np.asarray(x)
+    eps = 0 if dim == 2 else 1e-1
+    idx = np.argwhere(x[0, 0] > eps)  # (M, dim) valid voxels
+    if len(idx) == 0:
+        raise ValueError("mask has no valid voxels")
+    rng = np.random.default_rng(seed)
+    sel = idx[rng.integers(0, len(idx), size=num_points)]
+    coords = sel[:, ::-1].astype(np.float64)
+    if point_space == "norm":
+        coords = coords / np.asarray(x.shape[2:][::-1])
+    pts = coords.reshape(1, num_points, dim)
+    if indexing == "ij":
+        pts = pts[..., ::-1]
+    return torch.tensor(np.ascontiguousarray(pts), dtype=torch.float32)

@@ -442,16 +442,52 @@ def test_long_eval_keys_and_layout(cli_inputs, tmp_path):
 
 
 def test_register_cli_refuses_unported_backbones(cli_inputs, tmp_path):
-    """The default ``--backbone conv`` and an fp32 backbone (no
-    ``--use_amp``) raise, naming ROADMAP A9."""
-    base = ["--moving", str(cli_inputs / "img0.nii.gz"), "--fixed", str(cli_inputs / "img1.nii.gz"),
-            "--size", "16", "--num_keypoints", "8", "--save_dir", str(tmp_path), "--device", "cpu"]
-    from keymorph_tpu_torch.cli.register import main
+    """Every 3D backbone is ported; the 2D ones are what is left, and the
+    register CLI refuses them (``--dim 2``) naming their ROADMAP item
+    before it reads a scan or writes a file."""
+    args = ["--moving", str(cli_inputs / "img0.nii.gz"), "--fixed", str(cli_inputs / "img1.nii.gz"),
+            "--num_keypoints", "8", "--dim", "2", "--list_of_aligns", "affine"]
+    for backbone in (["--backbone", "conv"], ["--backbone", "unet", "--use_amp"]):
+        with pytest.raises(NotImplementedError, match="ROADMAP A9: the 2D pipeline"):
+            _run_port_cli(args + backbone, tmp_path / "port")
+    assert not (tmp_path / "port").exists() or not any((tmp_path / "port").rglob("*.npy"))
 
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        main(base + ["--use_amp"])
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        main(base + ["--backbone", "unet", "--num_levels_for_unet", "2"])
+
+def test_register_cli_default_and_fp32_backbones_match_jax(cli_inputs, tmp_path):
+    """No 3D backbone is left unported: the register CLI's default
+    ``--backbone conv`` (the fp32 ConvNet, at 32^3 so that its 16x
+    downsampling leaves 2^3 heatmaps) and an fp32 ``unet`` (no
+    ``--use_amp``) register a pair through both packages from the same
+    reference-format weights, with equal metric keys and files and saved
+    keypoints within ``KEYPOINT_ABS``."""
+    from keymorph_tpu_torch.models.unet import init_weights
+    from keymorph_tpu_torch.training.config import Config, build_backbone
+
+    pair = ["--moving", str(cli_inputs / "img0.nii.gz"), "--fixed", str(cli_inputs / "img1.nii.gz"),
+            "--moving_seg", str(cli_inputs / "seg0.nii.gz"),
+            "--fixed_seg", str(cli_inputs / "seg1.nii.gz"), "--num_keypoints", "8",
+            "--list_of_aligns", "affine", "tps_1", "--list_of_metrics", "mse", "harddice"]
+    for name, net, size in (("conv", [], 32),
+                            ("unet", ["--backbone", "unet", "--num_levels_for_unet", "2"], 16)):
+        backbone = build_backbone(Config(num_keypoints=8, backbone=name, num_levels_for_unet=2))
+        assert backbone.dtype == torch.float32
+        init_weights(backbone, torch.Generator().manual_seed(7))
+        weights = tmp_path / f"{name}.pt"
+        torch.save({"state_dict": {"backbone." + k: v for k, v in backbone.state_dict().items()}},
+                   weights)
+        args = pair + net + ["--size", str(size), "--load_path", str(weights)]
+        ours = _run_port_cli(args, tmp_path / name / "port")
+        ref = _run_jax_cli(args, tmp_path / name / "jax")
+        assert set(ours) == set(ref) and all(len(v) == 1 and np.isfinite(v[0])
+                                             for v in ours.values())
+        files = _files(tmp_path / name / "port")
+        assert files == _files(tmp_path / name / "jax")
+        points = [f for f in files if os.path.basename(f).startswith(("points_f", "points_m"))]
+        assert points
+        worst = max(float(np.abs(np.load(tmp_path / name / "port" / f)
+                                 - np.load(tmp_path / name / "jax" / f)).max()) for f in points)
+        print(f"register CLI, fp32 {name}: saved keypoints max |port - keymorph_tpu| {worst:.3g}")
+        assert worst <= KEYPOINT_ABS
 
 
 def test_load_weights_is_strict(cli_inputs, tmp_path):

@@ -384,11 +384,27 @@ def test_config_fields_and_round_trip_match_jax(tmp_path):
 
 
 def test_build_backbone_variants():
+    """Every 3D family of keymorph_tpu's factory, fp32 by default and bf16
+    with use_amp; only the bf16 DoubleConv U-Nets run on the conv kernels."""
+    from keymorph_tpu_torch.models.convnet import ConvNet
+    from keymorph_tpu_torch.models.unet import ResidualUNetSE3D, supports_fast_unet
+
     unet = build_backbone(Config(backbone="unet", num_keypoints=5, num_levels_for_unet=2))
     trunc = build_backbone(Config(backbone="truncatedunet", num_keypoints=5, use_amp=True,
                                   use_checkpoint=True))
     assert unet.final_conv.out_channels == 5 and len(unet.encoders) == 2
     assert trunc.dtype == torch.bfloat16 and trunc.use_checkpoint and len(trunc.decoders) == 2
+    assert supports_fast_unet(trunc) and not supports_fast_unet(unet)
+    conv = build_backbone(Config(backbone="conv", num_keypoints=5, norm_type="batch"))
+    assert isinstance(conv, ConvNet) and conv.dtype == torch.float32 and conv.norm_type == "batch"
+    assert conv.block9.conv.out_channels == 5 and not supports_fast_unet(conv)
+    for name in ("residualunet", "residualunetse"):
+        res = build_backbone(Config(backbone=name, num_keypoints=5, num_levels_for_unet=3,
+                                    use_amp=True))
+        assert res.basic_module == name[len("residual"):].replace("unet", "resnet")
+        assert res.dtype == torch.bfloat16 and len(res.encoders) == 3 and len(res.decoders) == 2
+        assert isinstance(res, ResidualUNetSE3D) == (name == "residualunetse")
+        assert not supports_fast_unet(res)
     with pytest.raises(ValueError):
         build_backbone(Config(backbone="nope"))
 

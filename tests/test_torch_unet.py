@@ -93,12 +93,49 @@ def test_keymorphnet_state_dict_keys(rng):
                                   np.asarray(variables["params"]["scales"]))
 
 
-def test_keymorphnet_rejects_backbones_the_executor_cannot_run():
-    """An fp32 U-Net has no kernel path: KeyMorphNet raises rather than run
-    the module's plain forward."""
-    net = KeyMorphNet(TruncatedUNet3D(dtype=torch.float32, **CFG), CFG["out_channels"])
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        net.get_keypoints(torch.zeros(1, 1, 8, 8, 8))
+def test_keymorphnet_rejects_backbones_the_executor_cannot_run(rng):
+    """The executor behind ``KeyMorphNet.features`` refuses every backbone
+    outside keymorph_tpu's ``supports_fast_unet`` (fp32, another layer order,
+    residual blocks, a ConvNet) before any conv runs, so
+    ``features`` never hands it one."""
+    from keymorph_tpu_torch.models.convnet import ConvNet
+    from keymorph_tpu_torch.models.unet import ResidualUNet3D, supports_fast_unet
+    from keymorph_tpu_torch.ops import cuda as kernels
+
+    img = torch.tensor(rng.uniform(0, 1, size=(1, 1, 8, 8, 8)).astype(np.float32))
+    refused = (TruncatedUNet3D(dtype=torch.float32, **CFG),
+               TruncatedUNet3D(dtype=torch.bfloat16, layer_order="bcr", **CFG),
+               ResidualUNet3D(CFG["out_channels"], num_levels=2, f_maps=4, dtype=torch.bfloat16),
+               ConvNet(CFG["out_channels"], dtype=torch.bfloat16))
+    kernels.reset_counters()
+    for backbone in refused:
+        assert not supports_fast_unet(backbone)
+        with pytest.raises(ValueError, match="executor runs bf16 'gcr'/'cr'"):
+            fast_unet_forward(backbone, img)
+    assert all(c["launches"] == 0 and c["plain_calls"] == 0
+               for c in kernels.counters().values())
+
+
+def test_keymorphnet_takes_module_path_for_non_executor_backbones(rng):
+    """An fp32 U-Net's heatmaps are its module's forward (as keymorph_tpu's
+    ``features`` applies the flax module there), channel-last and bit for
+    bit, and no conv of the executor runs."""
+    from keymorph_tpu_torch.ops import cuda as kernels
+
+    g = torch.Generator().manual_seed(0)
+    from keymorph_tpu_torch.models.unet import init_weights
+
+    unet = init_weights(TruncatedUNet3D(dtype=torch.float32, **CFG), g)
+    net = KeyMorphNet(unet, CFG["out_channels"])
+    img = torch.tensor(rng.uniform(0, 1, size=(1, 1, 8, 8, 8)).astype(np.float32))
+    kernels.reset_counters()
+    with torch.no_grad():
+        feat = net.features(img)
+        want = unet(img).movedim(1, -1)
+    assert feat.dtype == torch.float32 and feat.shape == (1, 4, 4, 4, CFG["out_channels"])
+    torch.testing.assert_close(feat, want, atol=0, rtol=0)
+    assert all(c["launches"] == 0 and c["plain_calls"] == 0
+               for c in kernels.counters().values())
 
 
 def test_heatmaps_within_bf16_noise_of_jax(rng, monkeypatch):
