@@ -132,8 +132,30 @@ Phases (each prints its lines; any failure raises, so the exit code is not 0):
      keypoint head on the flagship net, on CUDA events, with peak memory.
      Every kernel of these paths must launch and no plain version run.
 
+ 13. 2D registration, LC2, brain extraction and the parts form, at full
+     width: (a) ``KeyMorph.forward`` of ``build_model(Config(dim=2,
+     backbone="unet", num_keypoints=128))`` (UNet2D f_maps 64, 4 levels,
+     fp32, seeded weights) on 8 Gaussian-blob image pairs at 256^2 with
+     rigid, affine and tps_1 and the aligned points, every grid warped
+     bilinear (images) and nearest (4-label maps): extract, align and warp
+     times on CUDA events, peak memory; (b) the 2D training step (batch 8 at
+     256^2, MSE, 64 of 128 keypoints, augmentation (0.1, 0.1, 0.3, 0.05)) as
+     affine and as tps_loguniform: a first step with injected draws, then 3
+     more; (c) ``brain_extract.extract_brain`` with seeded ``SimpleUnet``
+     weights on an IXI-like scan resized to 256^3; (d) ``LC2()`` on 4 odd
+     cubes of 51^3 and ``ImageLC2(51, (5,))`` on one 255^3 pair (125
+     patches). Each is held against the same call on the CPU (a, b, c) or
+     float64 (d): within the larger of a stated floor and CARD_CPU_FACTOR x
+     the CPU route's distance from the same call in float64; the brain mask
+     equal but at voxels that near the threshold, and cleaned by keymorph_tpu's
+     rule; (a)-(d) may move no kernel and no plain-version counter. (e) the
+     flagship net's extraction of one IXI-like scan at its native 256 x 256
+     x 150 through the kernel executor, where the decoders' skips are not
+     twice the deeper tensor and the concat-free parts form runs (it must
+     launch), held against the plain route under phase 3's yardstick.
+
 The line before the last is the kernels' JSON record (``launches`` summed
-over the main paths of phases 2, 5, 9, 10, 11 and 12); the last line is
+over the main paths of phases 2, 5, 9, 10, 11, 12 and 13); the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA it raises before printing
 a result. The script imports neither jax nor keymorph_tpu.
 """
@@ -2220,6 +2242,466 @@ def phase12(torch, rng, dev):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# phase 13: 2D registration, LC2 and ImageLC2, brain extraction, and the
+# decoder's parts form on the flagship net at an IXI scan's native grid
+TWO_D_SHAPE = (256, 256)          # the in-plane size of the flagship volumes
+TWO_D_BATCH = 8
+TWO_D_TYPES = ["rigid", "affine", "tps_1"]
+TWO_D_LABELS = 4                  # labels 0-3 of each slice's label map
+TWO_D_AUG = (0.1, 0.1, 0.3, 0.05)  # tests/test_2d_pipeline.py's training step
+TWO_D_STEPS = ("affine", "tps_loguniform")
+TWO_D_MORE_STEPS = 3
+# the card against the CPU, both fp32 (cuDNN with TF32 off and the CPU's
+# convs sum in other orders): each output within the larger of its floor and
+# CARD_CPU_FACTOR x the CPU route's distance from the same call in float64
+# (the backbone and the keypoint head in float64; the fit, the grid and the
+# warp are fp32 in the port, as in keymorph_tpu, and take the float64
+# keypoints). The factor is not phase 3's 2: the card's fp32 convs lie
+# further from float64 than the CPU's (the 2D U-Net's heatmaps at 256^2,
+# batch 16: cuDNN 6.0e-6, PyTorch's convs without cuDNN 4.1e-6, the CPU
+# 2.6e-6 x max; tools/conv_precision_2d.py on NVIDIA H100 80GB HBM3,
+# 700.00 W), so card vs CPU reads up to (1 + 2.3) x the CPU's own distance
+# where both errors add.
+CARD_CPU_FACTOR = 4.0
+TWO_D_LMBDA = 0.5                  # the first TPS step's injected lambda, as phase 5's
+TWO_D_KEYPOINT_ABS = 1e-5          # normalized units
+TWO_D_GRID_ABS = 1e-5
+TWO_D_WARP_ABS = 1e-5              # images in [0, 1.2]
+TWO_D_LABEL_SHARE = 1e-3           # share of warped labels that may differ
+TWO_D_STAGE_ABS = 1e-5             # a stage on the card's own inputs: fit + grid
+TWO_D_LOSS_REL = 1e-5
+TWO_D_GRAD_NORM_REL = 1e-4
+LOGIT_REL = 1e-5                   # x max |logit|, the brain extractor
+LC2_ABS = 1e-5                     # scores in [0, 1], against float64
+LC2_CUBES = (4, 51)                # LC2() on 4 odd cubes of 51^3
+IMAGE_LC2_SIZE = 255               # ImageLC2(51, (5,)) on one 255^3 pair: 125 patches
+
+
+def _slices(torch, rng, dev):
+    """TWO_D_BATCH (fixed, moving) image pairs (B, 1, *TWO_D_SHAPE) in [0, ~1.2]:
+    Gaussian blobs plus 0.2 x white noise, the moving blobs displaced by a
+    few pixels, and the moving image's label map (label k where blob k
+    dominates above 0.3, else 0)."""
+    shape = TWO_D_SHAPE
+    axes = [torch.linspace(-1, 1, s, device=dev) for s in shape]
+    out = {"f": [], "m": [], "seg_m": []}
+    for _ in range(TWO_D_BATCH):
+        nb = TWO_D_LABELS - 1
+        c = rng.uniform(-0.6, 0.6, (nb, 2))
+        width = rng.uniform(0.03, 0.12, nb)
+        amp = rng.uniform(0.3, 1.0, nb)
+        shift = rng.normal(0, 0.03, (nb, 2))
+        for key, cs in (("f", c), ("m", c + shift)):
+            img = torch.zeros(shape, device=dev)
+            best = torch.zeros(shape, device=dev)
+            seg = torch.zeros(shape, device=dev)
+            for k, ((cy, cx), wd, a) in enumerate(zip(cs, width, amp)):
+                g = (torch.exp(-(axes[0] - cy) ** 2 / wd)[:, None]
+                     * torch.exp(-(axes[1] - cx) ** 2 / wd)[None, :])
+                img += a * g
+                seg[(g > best) & (g > 0.3)] = k + 1
+                best = torch.maximum(best, g)
+            noise = torch.tensor(rng.random(shape, dtype=np.float32), device=dev)
+            out[key].append((img.clamp(max=1.0) + 0.2 * noise)[None])
+            if key == "m":
+                out["seg_m"].append(seg[None])
+    return {k: torch.stack(v) for k, v in out.items()}
+
+
+def _com64(torch, heat):
+    """The center-of-mass head in float64 (the port's sums in fp32)."""
+    spatial = heat.shape[1:-1]
+    v = torch.relu(heat.double())
+    coords = []
+    for k in range(len(spatial)):
+        axes = tuple(i + 1 for i in range(len(spatial)) if i != k)
+        m = v.sum(dim=axes)
+        line = torch.linspace(0.0, 1.0, spatial[k], dtype=torch.float64, device=heat.device)
+        coords.append((m * line[None, :, None]).sum(dim=1) / (m.sum(dim=1) + 1e-8))
+    return torch.stack(coords, dim=-1) * 2.0 - 1.0
+
+
+def _dist(a, b):
+    return (a.double().cpu() - b.double().cpu()).abs().max().item()
+
+
+def _phase13_serve(torch, rng, dev, config, data):
+    """(a): KeyMorph.forward at dim 2 on the card and on the CPU; every grid
+    warped bilinear (images) and nearest (label maps)."""
+    from keymorph_tpu_torch.models.keymorph import align_pair
+    from keymorph_tpu_torch.ops.resample import align_img
+    from keymorph_tpu_torch.training.config import build_backbone, build_model
+
+    models = {"card": build_model(config, device=dev), "cpu": build_model(config, device="cpu")}
+    for m in models.values():
+        m.eval()
+    f, m_img, seg = data["f"], data["m"], data["seg_m"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out, walls = {}, {}
+    for where, model in models.items():
+        d = dev if where == "card" else torch.device("cpu")
+        t0 = time.perf_counter()
+        res = model(f.to(d), m_img.to(d), transform_type=TWO_D_TYPES, return_aligned_points=True)
+        warps = {t: (align_img(r["grid"], m_img.to(d)), align_img(r["grid"], seg.to(d), "nearest"))
+                 for t, r in res.items()}
+        if where == "card":
+            torch.cuda.synchronize()
+        walls[where] = time.perf_counter() - t0
+        out[where] = res, warps
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    card, card_w = out["card"]
+
+    # times on CUDA events: the pair's extraction, each type's fit + grid, each warp
+    net = models["card"].net
+    with torch.no_grad():
+        ext_ms = _cuda_ms(lambda: net(f, m_img), 3)
+        pf, pm = card[TWO_D_TYPES[0]]["points_f"], card[TWO_D_TYPES[0]]["points_m"]
+        align_ms, warp_ms = {}, {}
+        for t in TWO_D_TYPES:
+            align_type = t.split("_")[0]
+            lm = torch.ones((TWO_D_BATCH,), device=dev) if align_type == "tps" else None
+            align_ms[t] = _cuda_ms(lambda: align_pair(pf, pm, align_type, TWO_D_SHAPE, lmbda=lm,
+                                                      num_chunks=4), 5)
+            warp_ms[t] = _cuda_ms(lambda: align_img(card[t]["grid"], m_img), 10)
+    print(f"phase13 (a) 2D serving, UNet2D f_maps 64 x 4 levels fp32, {TWO_D_BATCH} pairs at "
+          f"{TWO_D_SHAPE}, {config.num_keypoints} keypoints, {TWO_D_TYPES}: extract {ext_ms:.3f} "
+          f"ms; align (fit + grid) {json.dumps({k: round(v, 4) for k, v in align_ms.items()})} "
+          f"ms; warp {json.dumps({k: round(v, 4) for k, v in warp_ms.items()})} ms (CUDA events); "
+          f"forward + warps {walls['card'] * 1e3:.3f} ms on the card, {walls['cpu'] * 1e3:.3f} ms "
+          f"on the CPU (host clock); peak device memory {peak:.3f} GiB")
+
+    # the float64 call: the backbone and the head in float64, then the fp32
+    # fit, grid and warps on the CPU from its keypoints
+    net64 = models["cpu"].net
+    bb64 = build_backbone(config, dtype=torch.float64).to(dev)
+    bb64.load_state_dict(net64.backbone.state_dict())
+    with torch.no_grad():
+        kp64 = [_com64(torch, bb64(v.double()).movedim(1, -1)).float().cpu() for v in (f, m_img)]
+    del bb64
+    cpu, cpu_w = out["cpu"]
+    ok = True
+    for t in TWO_D_TYPES:
+        align_type, lm = t.split("_")[0], cpu[t]["tps_lmbda"]
+        with torch.no_grad():
+            y = align_pair(*kp64, align_type, TWO_D_SHAPE, lmbda=lm, num_chunks=4,
+                           compute_aligned_points=True)
+            y_img = align_img(y["grid"], m_img.cpu())
+            y_seg = align_img(y["grid"], seg.cpu(), "nearest")
+            # each stage on the card's own inputs: the fit and grid from the
+            # card's keypoints, the warps of the card's grid
+            st = align_pair(card[t]["points_f"].cpu(), card[t]["points_m"].cpu(), align_type,
+                            TWO_D_SHAPE, lmbda=None if lm is None else lm.cpu(), num_chunks=4)
+            st_img = align_img(card[t]["grid"].cpu(), m_img.cpu())
+            st_seg = align_img(card[t]["grid"].cpu(), seg.cpu(), "nearest")
+        rows = []
+        for name, got, ref, yard_of, floor in (
+                ("keypoints", (card[t]["points_f"], card[t]["points_m"]),
+                 (cpu[t]["points_f"], cpu[t]["points_m"]), kp64, TWO_D_KEYPOINT_ABS),
+                ("grid", (card[t]["grid"],), (cpu[t]["grid"],), (y["grid"],), TWO_D_GRID_ABS),
+                ("aligned points", (card[t]["points_a"],), (cpu[t]["points_a"],),
+                 (y["points_a"],), TWO_D_GRID_ABS),
+                ("warped image", (card_w[t][0],), (cpu_w[t][0],), (y_img,), TWO_D_WARP_ABS)):
+            d = max(_dist(a, b) for a, b in zip(got, ref))
+            yard = max(_dist(b, c) for b, c in zip(ref, yard_of))
+            own = max(_dist(a, c) for a, c in zip(got, yard_of))
+            tol = max(floor, CARD_CPU_FACTOR * yard)
+            rows.append(f"{name} {d!r} (yardstick {yard!r}, tol {tol!r}; the card from the "
+                        f"float64 call {own!r})")
+            ok &= d <= tol
+        share = (card_w[t][1].cpu() != cpu_w[t][1]).float().mean().item()
+        y_share = (y_seg != cpu_w[t][1]).float().mean().item()
+        tol_share = max(TWO_D_LABEL_SHARE, CARD_CPU_FACTOR * y_share)
+        d_st = _dist(st["grid"], card[t]["grid"])
+        d_img, d_seg = _dist(st_img, card_w[t][0]), _dist(st_seg, card_w[t][1])
+        print(f"phase13 (a) {t}, card vs CPU: " + "; ".join(rows)
+              + f"; warped labels differ at {share!r} of pixels (yardstick {y_share!r}, tol "
+              f"{tol_share!r}); on the card's own inputs: fit + grid {d_st!r} (tol "
+              f"{TWO_D_STAGE_ABS}), warp {d_img!r} (tol {TWO_D_WARP_ABS}), labels {d_seg!r} (tol 0)")
+        ok &= (share <= tol_share and d_st <= TWO_D_STAGE_ABS and d_img <= TWO_D_WARP_ABS
+               and d_seg == 0.0)
+        for v in list(card[t].values()) + list(card_w[t]):
+            if torch.is_tensor(v) and not bool(torch.isfinite(v).all()):
+                raise AssertionError(f"phase 13 (a) {t}: an output is not finite")
+        if card[t]["grid"].shape != (TWO_D_BATCH, *TWO_D_SHAPE, 2):
+            raise AssertionError(f"phase 13 (a) {t}: grid {tuple(card[t]['grid'].shape)}")
+    if not ok:
+        raise AssertionError("phase 13 (a): the card's 2D registration disagrees with the CPU's")
+
+
+def _phase13_train(torch, rng, dev, config, data):
+    """(b): the 2D training step (MSE, 64 of 128 keypoints, augmentation) as
+    affine and as tps_loguniform: a first step with injected draws (the
+    augmentation parameters and the keypoint subset drawn once, lambda
+    TWO_D_LMBDA as phase 5 injects it), then TWO_D_MORE_STEPS with every
+    draw from the generator; the first step's loss and grad_norm against the
+    CPU's."""
+    import dataclasses
+
+    from keymorph_tpu_torch import augment
+    from keymorph_tpu_torch.models.keymorph import KeyMorphNet
+    from keymorph_tpu_torch.models.unet import init_weights
+    from keymorph_tpu_torch.training.config import build_backbone
+    from keymorph_tpu_torch.training.train import TrainState, make_optimizer, make_train_step
+
+    f, m_img = data["f"], data["m"]
+    ok = True
+    for tt in TWO_D_STEPS:
+        cfg = dataclasses.replace(config, transform_type=tt)
+        init = init_weights(build_backbone(cfg), torch.Generator().manual_seed(SEED + 131))
+        init = {f"backbone.{k}": v for k, v in init.state_dict().items()}
+        g = torch.Generator(device=dev).manual_seed(SEED + 132)
+        aug = augment.sample_affine_params(g, TWO_D_BATCH, 2, TWO_D_AUG, 1.0, device=dev)
+        lmbda = idx = None
+        if tt.startswith("tps"):
+            lmbda = torch.full((TWO_D_BATCH,), TWO_D_LMBDA, device=dev)
+            idx = torch.randperm(cfg.num_keypoints, generator=g,
+                                 device=dev)[:cfg.max_train_keypoints]
+
+        def first_step(d, dtype=torch.float32, keep=False):
+            net = KeyMorphNet(build_backbone(cfg, dtype=dtype), cfg.num_keypoints, dim=2).to(d)
+            net.load_state_dict(init)
+            state = TrainState.create(net, make_optimizer(cfg, net))
+            step = make_train_step(net, cfg)
+            mv = (lambda v: None if v is None else v.to(d))
+            t0 = time.perf_counter()
+            state, m = step(state, None, f.to(d, dtype), m_img.to(d, dtype), None, None, 1.0,
+                            lmbda=mv(lmbda), keypoint_idx=mv(idx), aug_params=[mv(p) for p in aug])
+            if d == dev:
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            return (net, state, step, m, wall) if keep else (float(m["loss"]),
+                                                             float(m["grad_norm"]), wall)
+
+        torch.cuda.reset_peak_memory_stats()
+        before = {k: v.to(dev) for k, v in init.items()}
+        net, state, step, m1, first_s = first_step(dev, keep=True)
+        changed = [k for k, p in net.named_parameters()
+                   if p.grad is not None and not torch.equal(p.detach(), before[k])]
+        with_grad = [k for k, p in net.named_parameters() if p.grad is not None]
+        finite = (np.isfinite(float(m1["loss"])) and np.isfinite(float(m1["grad_norm"]))
+                  and all(bool(torch.isfinite(p.grad).all()) for p in net.parameters()
+                          if p.grad is not None))
+        gen = torch.Generator(device=dev).manual_seed(SEED + 133)
+        times, losses = [], [float(m1["loss"])]
+        for _ in range(TWO_D_MORE_STEPS):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            state, m = step(state, gen, f, m_img, None, None, 1.0)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+            losses.append(float(m["loss"]))
+            finite &= np.isfinite(float(m["loss"])) and np.isfinite(float(m["grad_norm"]))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        kern = (float(m1["loss"]), float(m1["grad_norm"]))
+        del net, state, step
+        torch.cuda.empty_cache()
+        cpu_loss, cpu_gn, cpu_s = first_step(torch.device("cpu"))
+        y_loss, y_gn, _ = first_step(dev, torch.float64)
+        rows = []
+        for name, k, c, y, floor in (("loss", kern[0], cpu_loss, y_loss, TWO_D_LOSS_REL),
+                                     ("grad_norm", kern[1], cpu_gn, y_gn, TWO_D_GRAD_NORM_REL)):
+            d, yard = abs(k - c) / abs(c), abs(c - y) / abs(y)
+            tol = max(floor, CARD_CPU_FACTOR * yard)
+            rows.append(f"{name} {k!r} vs {c!r}: {d!r} (yardstick {yard!r}, tol {tol!r}; the "
+                        f"card from the float64 call {abs(k - y) / abs(y)!r})")
+            ok &= d <= tol
+        print(f"phase13 (b) 2D step {tt} (batch {TWO_D_BATCH} at {TWO_D_SHAPE}, MSE, "
+              f"{cfg.max_train_keypoints} of {cfg.num_keypoints} keypoints, augmentation "
+              f"{TWO_D_AUG}): first {first_s * 1e3:.3f} ms (host clock), then "
+              f"{', '.join(f'{t:.3f}' for t in times)} ms (CUDA events); peak device memory "
+              f"{peak:.3f} GiB; losses {losses}; CPU first step {cpu_s:.3f} s; "
+              + "; ".join(rows))
+        if not finite:
+            raise AssertionError(f"phase 13 (b) {tt}: a loss or gradient is not finite")
+        if set(changed) != set(with_grad) or not with_grad:
+            raise AssertionError(f"phase 13 (b) {tt}: parameters with a gradient unchanged: "
+                                 f"{sorted(set(with_grad) - set(changed))}")
+    if not ok:
+        raise AssertionError("phase 13 (b): the card's 2D step disagrees with the CPU's")
+
+
+def _clean_rule(mask, threshold=0.2):
+    """keymorph_tpu's brain-mask cleanup, restated: label the face-connected
+    components of ``mask``, keep each whose size over the largest one's
+    exceeds ``threshold``."""
+    import scipy.ndimage
+
+    labeled, num = scipy.ndimage.label(mask > 0)
+    if num == 0:
+        return np.zeros(mask.shape, np.uint8)
+    sizes = np.bincount(labeled.ravel(), minlength=num + 1)[1:]
+    keep = np.flatnonzero(sizes / sizes.max() > threshold) + 1
+    return np.isin(labeled, keep).astype(np.uint8)
+
+
+def _phase13_brain(torch, dev, scan):
+    """(c): extract_brain with seeded SimpleUnet weights on an IXI-like scan
+    preprocessed to 256^3 (a trilinear resize on the card, ``ops/resize.py``,
+    then min-max scaling, as ``tools/extract_brains.py`` scales)."""
+    from keymorph_tpu_torch import brain_extract
+    from keymorph_tpu_torch.models.unet import SimpleUnet, init_weights
+    from keymorph_tpu_torch.ops.resize import resize_trilinear
+
+    t0 = time.perf_counter()
+    data = resize_trilinear(torch.tensor(scan[None, None], device=dev), SPATIAL)
+    x = ((data - data.min()) / (data.max() - data.min()).clamp(min=1e-6)).cpu()
+    prep_s = time.perf_counter() - t0
+    model = init_weights(SimpleUnet(), torch.Generator().manual_seed(SEED + 134))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    masks = brain_extract.extract_brain(model, x, device=dev)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    xd = x.to(dev)
+    logit_ms = _cuda_ms(lambda: brain_extract.brain_logits(model, xd, device=dev), 3)
+    card_d = brain_extract.brain_logits(model, xd, device=dev)[:, 0]
+    # thresholded as extract_brain does it: the sigmoid on the card (its
+    # rounding of a logit within ~1e-7 of 0 may differ from the CPU's)
+    raw = (torch.sigmoid(card_d) > 0.5).cpu().numpy()
+    card = card_d.cpu()
+    t0 = time.perf_counter()
+    cpu = brain_extract.brain_logits(model, x, device="cpu")[:, 0]
+    cpu_s = time.perf_counter() - t0
+    m64 = SimpleUnet(dtype=torch.float64)
+    m64.load_state_dict(model.state_dict())
+    ref = brain_extract.brain_logits(m64, xd, device=dev)[:, 0].cpu()
+    del m64
+    top = ref.abs().max().item()
+    d, yard = _dist(card, cpu) / top, _dist(cpu, ref) / top
+    tol = max(LOGIT_REL, CARD_CPU_FACTOR * yard)
+    p_card, p_cpu = torch.sigmoid(card), torch.sigmoid(cpu)
+    bar = 0.25 * tol * top  # the sigmoid's slope is at most 1/4
+    near = (p_cpu - 0.5).abs() <= bar
+    flips = ((p_card > 0.5) != (p_cpu > 0.5))
+    rule = np.stack([_clean_rule(r) for r in raw])[:, None]
+    port = np.stack([brain_extract.clean_mask(r) for r in raw])[:, None]
+    print(f"phase13 (c) brain extraction, SimpleUnet (4, 8, 16, 32 / 32, 16, 8, 4) fp32 on an "
+          f"IXI-like {REG_SHAPE} scan resized to {SPATIAL}: extract_brain {wall:.3f} s (host "
+          f"clock, the cleanup on the host included), logits {logit_ms:.3f} ms (CUDA events), "
+          f"preprocessing {prep_s:.3f} s, CPU logits {cpu_s:.3f} s; peak device memory "
+          f"{peak:.3f} GiB; logits card vs CPU {d!r} x max (yardstick {yard!r}, tol {tol!r}; "
+          f"the card from float64 {_dist(card, ref) / top!r}); "
+          f"mask voxels {int(masks.sum())}, raw {int(raw.sum())}; threshold flips "
+          f"{int(flips.sum())}, all within {bar!r} of 0.5: {bool((~flips | near).all())}; "
+          f"clean_mask vs keymorph_tpu's rule on the card's raw mask: "
+          f"{bool(np.array_equal(port, rule))}; extract_brain's masks vs them: "
+          f"{int((masks != rule).sum())} voxels differ")
+    if not (d <= tol and bool((~flips | near).all()) and np.array_equal(port, rule)
+            and np.array_equal(masks, rule)):
+        raise AssertionError("phase 13 (c): the brain extraction disagrees with the CPU route "
+                             "or keymorph_tpu's cleanup rule")
+
+
+def _phase13_lc2(torch, rng, dev):
+    """(d): LC2() on LC2_CUBES odd cubes and ImageLC2(51, (5,)) on one
+    IMAGE_LC2_SIZE^3 pair, each against float64 on the CPU."""
+    from keymorph_tpu_torch import metrics as M
+
+    def pair(shape):
+        mr = torch.tensor(rng.normal(size=shape).astype(np.float32), device=dev)
+        us = torch.tanh(2 * mr) + 0.3 * torch.tensor(rng.normal(size=shape).astype(np.float32),
+                                                     device=dev)
+        return us, mr
+
+    n, s = LC2_CUBES
+    rows, ok = [], True
+    for label, fn, fn64, shape in (
+            (f"LC2() on {n} x {s}^3", M.LC2(), M.LC2(dtype=torch.float64), (n, 1, s, s, s)),
+            (f"ImageLC2(51, (5,)) on {IMAGE_LC2_SIZE}^3", M.ImageLC2(51, (5,)),
+             M.ImageLC2(51, (5,), dtype=torch.float64), (1, 1) + (IMAGE_LC2_SIZE,) * 3)):
+        us, mr = pair(shape)
+        ms = _cuda_ms(lambda: fn(us, mr), 5)
+        got = fn(us, mr)
+        ref = fn64(us.cpu(), mr.cpu())
+        d = _dist(got, ref)
+        rows.append(f"{label}: {ms:.3f} ms (CUDA events), {got.cpu().numpy().round(6).tolist()} "
+                    f"vs float64 {d!r} (tol {LC2_ABS})")
+        ok &= d <= LC2_ABS and bool(torch.isfinite(got).all())
+    print("phase13 (d) " + "; ".join(rows))
+    if not ok:
+        raise AssertionError("phase 13 (d): LC2 on the card disagrees with float64")
+
+
+def _phase13_parts(torch, dev, scan):
+    """(e): the flagship net's kernel executor on one IXI-like scan at its
+    native REG_SHAPE: the skips at the 75 -> 37 and 37 -> 18 levels are not
+    twice the deeper tensor, so both decoders run the concat-free parts
+    form. Heatmaps and keypoints against the plain route under phase 3's
+    yardstick. Returns the launch counts."""
+    from keymorph_tpu_torch.models.keymorph import KeyMorphNet
+    from keymorph_tpu_torch.models.layers import center_of_mass
+    from keymorph_tpu_torch.models.unet import TruncatedUNet3D, init_weights
+    from keymorph_tpu_torch.ops import cuda as kernels
+
+    net = KeyMorphNet(init_weights(TruncatedUNet3D(dtype=torch.bfloat16, **UNET),
+                                   torch.Generator().manual_seed(SEED)), NUM_KEYPOINTS).to(dev)
+    vol = torch.tensor(scan[None, None], device=dev)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        kernels.reset_counters()
+        k_feat = net.features(vol)
+        torch.cuda.synchronize()
+        counts = kernels.counters()
+        _expect("phase 13 (e)", counts, ("conv3x3_fused_flat", "conv3x3_fused_flat_parts"))
+        p_feat = net.features(vol, plain=True)
+        n_feat = net.features(vol * (1 + PERTURB), plain=True)
+        k_ms = _cuda_ms(lambda: net.features(vol), 3)
+    top = p_feat.float().abs().max().item()
+    d = (k_feat.float() - p_feat.float()).abs().max().item() / top
+    y = (n_feat.float() - p_feat.float()).abs().max().item() / top
+    d_kp = (center_of_mass(k_feat) - center_of_mass(p_feat)).abs().max().item()
+    y_kp = (center_of_mass(n_feat) - center_of_mass(p_feat)).abs().max().item()
+    tol, tol_kp = max(HEATMAP_REL, NOISE_FACTOR * y), max(KEYPOINT_ABS, NOISE_FACTOR * y_kp)
+    print(f"phase13 (e) flagship net at {REG_SHAPE}: heatmaps {tuple(k_feat.shape)} in "
+          f"{k_ms:.3f} ms (CUDA events); launches "
+          f"{json.dumps({k: c['launches'] for k, c in counts.items() if c['launches']})}; "
+          f"kernels vs plain {d!r} x max (yardstick {y!r}, tol {tol!r}); keypoints {d_kp!r} "
+          f"(yardstick {y_kp!r}, tol {tol_kp!r})")
+    if d > tol or d_kp > tol_kp:
+        raise AssertionError("phase 13 (e): the parts form's heatmaps disagree with the plain "
+                             "route")
+    return counts
+
+
+def phase13(torch, dev):
+    """2D registration, LC2, brain extraction and the parts form (module
+    docstring, phase 13). Returns the launch counts of (e), the one path of
+    the phase with kernels."""
+    from keymorph_tpu_torch.ops import cuda as kernels
+    from keymorph_tpu_torch.training.config import Config
+
+    rng = np.random.default_rng([SEED, 13])
+    stages = {}
+    config = Config(dim=2, backbone="unet", num_keypoints=NUM_KEYPOINTS, loss_fn="mse",
+                    max_train_keypoints=TRAIN_KEYPOINTS, max_random_affine_augment_params=TWO_D_AUG,
+                    seed=SEED)
+    t0 = time.perf_counter()
+    data = _slices(torch, rng, dev)
+    (scan, _), _ = _phantom(torch, rng, dev)
+    stages["inputs"] = time.perf_counter() - t0
+    kernels.reset_counters()
+    for label, fn in (("(a) serve", lambda: _phase13_serve(torch, rng, dev, config, data)),
+                      ("(b) train", lambda: _phase13_train(torch, rng, dev, config, data)),
+                      ("(c) brain", lambda: _phase13_brain(torch, dev, scan)),
+                      ("(d) lc2", lambda: _phase13_lc2(torch, rng, dev))):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.empty_cache()
+        stages[label] = time.perf_counter() - t0
+    counts = kernels.counters()
+    if any(c["launches"] or c["plain_calls"] for c in counts.values()):
+        raise AssertionError(f"phase 13 (a)-(d) moved a kernel or plain-version counter: {counts}")
+    t0 = time.perf_counter()
+    parts_counts = _phase13_parts(torch, dev, scan)
+    stages["(e) parts"] = time.perf_counter() - t0
+    print("phase13 stages (s): " + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
+          + "; (a)-(d) moved no kernel and no plain-version counter")
+    return parts_counts
+
+
 # --plant-fault: each fault wraps one kernel's wrapper, so only the kernel
 # route sees it (the plain steps call the plain versions by their own names)
 FAULTS = ("warp_grad_plane", "input_grad_half")
@@ -2343,19 +2825,20 @@ def main():
     register_counts = phase11(torch, dev)
     torch.cuda.empty_cache()
     run_counts = phase12(torch, np.random.default_rng([SEED, 12]), dev)
+    torch.cuda.empty_cache()
+    parts_counts = phase13(torch, dev)
 
     def entry(name, key, source):
         # launches: over every main path, each counted from 0 just before it
         # and read just after (phase 2's 3 pairs, phase 5's 3 steps, phase
         # 9's registration API, phase 10's three steps, phase 11's register
         # CLI, phase 12's CLI runs, kernel steps, 'cr' heatmaps and other
-        # backbones' steps); 0 where no main path reaches the wrapper at
-        # these sizes, as with the parts form, the decoder's route for odd
-        # sizes. Phase 1's launches are kept apart.
+        # backbones' steps, phase 13's extraction at an IXI scan's native
+        # grid, where the parts form runs). Phase 1's launches are kept apart.
         paths = {"launches_served_3_pairs": serve_counts, "launches_3_train_steps": train_counts,
                  "launches_phase9_api": api_counts, "launches_phase10_steps": api_train_counts,
                  "launches_phase11_register": register_counts,
-                 "launches_phase12_run": run_counts}
+                 "launches_phase12_run": run_counts, "launches_phase13_parts": parts_counts}
         per_path = {k: c[name]["launches"] for k, c in paths.items()}
         return {"name": name, "route": "cuda", "source": f"keymorph_tpu_torch/csrc/{source}",
                 "replaces": REPLACES[key], "launches": sum(per_path.values()), **per_path,

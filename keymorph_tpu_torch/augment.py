@@ -1,4 +1,4 @@
-"""On-device affine augmentation (3D). Port of ``keymorph_tpu/augment.py``.
+"""On-device affine augmentation (2D and 3D). Port of ``keymorph_tpu/augment.py``.
 
 Parameter sampling, matrix composition, flow generation and the warp are all
 tensor code on the images' device, with an explicit ``torch.Generator``.
@@ -21,10 +21,27 @@ from keymorph_tpu_torch.transforms.affine import affine_flow
 DEFAULT_MAX_PARAMS = (0.2, 0.2, 3.1416, 0.1)
 
 
-def _require_3d(dim: int):
-    if dim != 3:
-        raise NotImplementedError("augment: only 3D volumes are ported "
-                                  "(ROADMAP A9, 2D pipeline)")
+def build_affine_matrix_2d(scale, offset, theta, shear) -> torch.Tensor:
+    """(B, 2), (B, 2), (B, 1), (B, 2) -> (B, 3, 3)."""
+    B = scale.shape[0]
+    dev = scale.device
+
+    def eye():
+        return torch.eye(3, device=dev).repeat(B, 1, 1)
+
+    Ms = torch.diag_embed(torch.cat([scale.float(), torch.ones((B, 1), device=dev)], dim=1))
+    Mt = eye()
+    Mt[:, :2, 2] = offset.float()
+    c, s = torch.cos(theta[:, 0].float()), torch.sin(theta[:, 0].float())
+    Mr = eye()
+    Mr[:, 0, 0] = c
+    Mr[:, 0, 1] = -s
+    Mr[:, 1, 0] = s
+    Mr[:, 1, 1] = c
+    Mz = eye()
+    Mz[:, 0, 1] = shear[:, 0].float()
+    Mz[:, 1, 0] = shear[:, 1].float()
+    return Mz @ (Ms @ (Mt @ Mr))
 
 
 def build_affine_matrix_3d(scale, offset, theta, shear) -> torch.Tensor:
@@ -58,8 +75,12 @@ def build_affine_matrix_3d(scale, offset, theta, shear) -> torch.Tensor:
 
 
 def build_affine_matrix(params, dim: int = 3) -> torch.Tensor:
-    _require_3d(dim)
-    return build_affine_matrix_3d(*params)
+    return (build_affine_matrix_2d if dim == 2 else build_affine_matrix_3d)(*params)
+
+
+def _param_widths(dim: int):
+    """Widths of (scale, offset, theta, shear) for a ``dim``-D transform."""
+    return (2, 2, 1, 2) if dim == 2 else (3, 3, 3, 6)
 
 
 def sample_affine_params(generator: Optional[torch.Generator], batch_size: int,
@@ -68,7 +89,6 @@ def sample_affine_params(generator: Optional[torch.Generator], batch_size: int,
                          scale_params: float = 1.0, device=None):
     """Random (scale, offset, theta, shear): scale in 1 +- s, the others in
     +- their maximum; ``scale_params`` is the affine-slope ramp factor."""
-    _require_3d(dim)
     s, o, a, z = (p * float(scale_params) for p in max_random_params)
     gdev = generator.device if generator is not None else "cpu"
 
@@ -76,18 +96,19 @@ def sample_affine_params(generator: Optional[torch.Generator], batch_size: int,
         u = torch.rand((batch_size, n), generator=generator, device=gdev).to(device)
         return lo + (hi - lo) * u
 
-    return (uniform(3, 1 - s, 1 + s), uniform(3, -o, o), uniform(3, -a, a),
-            uniform(6, -z, z))
+    ns, no, na, nz = _param_widths(dim)
+    return (uniform(ns, 1 - s, 1 + s), uniform(no, -o, o), uniform(na, -a, a),
+            uniform(nz, -z, z))
 
 
 def fixed_affine_params(batch_size: int, dim: int, fixed_params, device=None):
     """Deterministic params (the evaluation augmentations); scale is 1 + s."""
-    _require_3d(dim)
     s, o, a, z = fixed_params
-    return (torch.full((batch_size, 3), 1.0 + s, device=device),
-            torch.full((batch_size, 3), float(o), device=device),
-            torch.full((batch_size, 3), float(a), device=device),
-            torch.full((batch_size, 6), float(z), device=device))
+    ns, no, na, nz = _param_widths(dim)
+    return (torch.full((batch_size, ns), 1.0 + s, device=device),
+            torch.full((batch_size, no), float(o), device=device),
+            torch.full((batch_size, na), float(a), device=device),
+            torch.full((batch_size, nz), float(z), device=device))
 
 
 def deform_img(img, matrix, interp_mode: str = "bilinear"):

@@ -230,6 +230,11 @@ def run_eval(loader, registration_model, list_of_eval_metrics, list_of_eval_name
     if getattr(args, "visualize", False):
         raise NotImplementedError("run_eval with visualize: the panels are not ported "
                                   "(ROADMAP A9: viz.py)")
+    jd = sorted({"jdstd", "jdlessthan0"} & set(list_of_eval_metrics))
+    if jd and args.dim != 3:
+        # keymorph_tpu's scorer reduces the 3D determinant over `dim` axes and
+        # fails to make a number of what is left
+        raise ValueError(f"{jd}: the Jacobian-determinant metrics need --dim 3, got {args.dim}")
     test_metrics = _build_metric_dict(list_of_eval_metrics, list_of_eval_augs,
                                       list_of_eval_aligns, list_of_eval_names)
     seg_available = getattr(args, "seg_available", False)

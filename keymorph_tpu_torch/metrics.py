@@ -9,16 +9,20 @@ arrays or as ``.npy`` / NIfTI paths.
 The Hausdorff distance is taken on channel 0 thresholded at ``> 0.5``, as
 keymorph_tpu does (the original torch code casts it to bool).
 
-LC2 and ImageLC2 are not ported (ROADMAP A9).
+LC2 and ImageLC2, the multimodal similarity, are PyTorch on the tensors'
+device: a 3-tap gradient filter, a 3x3 normal system a sample solved by
+``solve_ex``, in fp32 as keymorph_tpu computes them (float64 on request,
+the oracle the card's result is held against).
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Sequence
 
 import numpy as np
 import scipy.ndimage
 import torch
+import torch.nn.functional as F
 
 from keymorph_tpu_torch.losses import DiceLoss, MSELoss, mse_loss  # noqa: F401
 
@@ -184,6 +188,113 @@ def jdlessthan0(disp, as_percentage=False):
     if as_percentage:
         return float(torch.mean((jd <= 0).float()))
     return int(torch.sum(jd <= 0))
+
+
+# ---------------------------------------------------------------------------
+# LC2 multimodal similarity
+# ---------------------------------------------------------------------------
+
+
+def lc2_gradient(mr: torch.Tensor) -> torch.Tensor:
+    """|grad| of (B, Z, Y, X) volumes by keymorph_tpu's 3-tap filter: per
+    axis ``v[i - 1] - v[i + 1]`` with zero padding (the conv of taps +1 and
+    -1, one exact subtraction a voxel), then the L2 norm over the three."""
+    p = F.pad(mr, (1, 1, 1, 1, 1, 1))
+    c = slice(1, -1)
+    gx = p[:, c, c, :-2] - p[:, c, c, 2:]
+    gy = p[:, c, :-2, c] - p[:, c, 2:, c]
+    gz = p[:, :-2, c, c] - p[:, 2:, c, c]
+    return torch.sqrt(gx * gx + gy * gy + gz * gz)
+
+
+def _lc2_run(us, mr, radius: int, dtype=torch.float32, alpha: float = 1e-3,
+             beta: float = 1e-2) -> torch.Tensor:
+    """Single-scale LC2 of (B, 1, S, S, S) odd cubes -> (B,) in [0, 1]: the
+    centre (2r+1)^3 crop of ``us`` regressed on [mr, |grad mr|, 1] by the
+    ridge (alpha) normal equations, scored as the share of its variance
+    explained (the variance floored at beta)."""
+    us = torch.as_tensor(us)[:, 0].to(dtype)
+    mr = torch.as_tensor(mr, device=us.device)[:, 0].to(dtype)
+    if us.dim() != 4 or not us.shape[1] == us.shape[2] == us.shape[3]:
+        raise ValueError(f"LC2: input must be cubic (B, 1, S, S, S), got {tuple(us.shape)}")
+    bs, size = mr.shape[0], mr.shape[1]
+    if size % 2 != 1:
+        raise ValueError(f"LC2: input must be odd size, got {size}")
+    pad = (size - (2 * radius + 1)) // 2
+    count = (2 * radius + 1) ** 3
+    sl = (slice(None),) + (slice(pad, size - pad),) * 3
+    A = torch.stack([mr[sl].reshape(bs, -1), lc2_gradient(mr)[sl].reshape(bs, -1),
+                     torch.ones((bs, count), dtype=dtype, device=us.device)], dim=1)
+    b = us[sl].reshape(bs, -1)
+    C = (A @ A.transpose(1, 2) / count
+         + alpha * torch.eye(3, dtype=dtype, device=us.device)[None])
+    Atb = (A @ b[..., None])[..., 0] / count
+    coeff = torch.linalg.solve_ex(C, Atb[..., None])[0][..., 0]
+    mean_b2 = torch.mean(b * b, dim=1)
+    var = mean_b2 - torch.mean(b, dim=1) ** 2
+    dist = (mean_b2 + torch.einsum("bi,bj,bij->b", coeff, coeff, C)
+            - 2 * torch.einsum("bi,bi->b", coeff, Atb))
+    return torch.clamp((var - dist) / torch.clamp(var, min=beta), 0.0, 1.0)
+
+
+class LC2:
+    """Local correlation-of-correlations similarity of (B, 1, S, S, S) odd
+    cubes, averaged over ``radiuses``: (B,). ``dtype`` is the working
+    precision (fp32 as keymorph_tpu; float64 gives the oracle)."""
+
+    def __init__(self, radiuses: Sequence[int] = (3, 5, 7), dtype=torch.float32):
+        self.radiuses = radiuses
+        self.dtype = dtype
+
+    def __call__(self, us, mr):
+        s = _lc2_run(us, mr, self.radiuses[0], self.dtype)
+        for r in self.radiuses[1:]:
+            s = s + _lc2_run(us, mr, r, self.dtype)
+        return s / len(self.radiuses)
+
+    forward = __call__
+
+
+class ImageLC2:
+    """Patchwise LC2: the images cut into non-overlapping ``patch_size``
+    cubes (:meth:`patch2batch`), LC2 of each, their mean (``reduction``
+    "mean") or each patch's (None)."""
+
+    def __init__(self, patch_size: int = 51, radiuses: Sequence[int] = (5,), reduction="mean",
+                 dtype=torch.float32):
+        if reduction not in ("mean", None):
+            raise ValueError(f"reduction={reduction!r}: 'mean' or None")
+        self.patch_size = patch_size
+        self.radii = radiuses
+        self.reduction = reduction
+        self.dtype = dtype
+
+    @staticmethod
+    def patch2batch(x, size: int, stride: int) -> torch.Tensor:
+        """(B, C, *spatial) 2D or 3D -> (B * patches, C, size, ...): the
+        non-overlapping patches (``stride == size``; the crop-and-reshape
+        refuses another stride, as keymorph_tpu's does), with keymorph_tpu's
+        reshape order."""
+        x = torch.as_tensor(x)
+        nch, spatial = x.shape[1], x.shape[2:]
+        counts = [(s - size) // stride + 1 for s in spatial]
+        x = x[(slice(None), slice(None))
+              + tuple(slice(0, (c - 1) * stride + size) for c in counts)]
+        if len(spatial) == 2:
+            x = x.reshape(-1, nch, counts[0], size, counts[1], size)
+            return x.movedim(4, 3).reshape(-1, nch, size, size)
+        x = x.reshape(-1, nch, counts[0], size, counts[1], size, counts[2], size)
+        return x.permute(0, 1, 2, 4, 6, 3, 5, 7).reshape(-1, nch, size, size, size)
+
+    def __call__(self, us, mr):
+        if tuple(us.shape) != tuple(mr.shape):
+            raise ValueError(f"ImageLC2: shapes {tuple(us.shape)} and {tuple(mr.shape)} differ")
+        us_p = self.patch2batch(us, self.patch_size, self.patch_size)
+        mr_p = self.patch2batch(mr, self.patch_size, self.patch_size)
+        s = LC2(self.radii, self.dtype)(us_p, mr_p)
+        return torch.mean(s) if self.reduction == "mean" else s
+
+    forward = __call__
 
 
 # ---------------------------------------------------------------------------

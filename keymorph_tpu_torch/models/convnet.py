@@ -21,19 +21,21 @@ H_DIMS = (32, 64, 64, 128, 128, 256, 256, 512)
 
 
 class ConvNet(nn.Module):
-    """(B, 1, *spatial) -> heatmaps (B, out_dim, *spatial / 16) in ``dtype``."""
+    """(B, 1, *spatial) -> heatmaps (B, out_dim, *spatial / 16) in ``dtype``;
+    3^dim convs (``dim`` 3 or 2)."""
 
     def __init__(self, out_dim: int, norm_type: str = "instance",
-                 dtype: torch.dtype = torch.float32, in_channels: int = 1):
+                 dtype: torch.dtype = torch.float32, in_channels: int = 1, dim: int = 3):
         super().__init__()
         self.norm_type = norm_type
         self.dtype = dtype
+        self.dim = dim
         widths = (in_channels,) + H_DIMS
         for k, (cin, cout) in enumerate(zip(widths, H_DIMS)):
             self.add_module(f"block{k + 1}",
-                            ConvBlock(cin, cout, 1, norm_type, k % 2 == 1, dtype))
+                            ConvBlock(cin, cout, 1, norm_type, k % 2 == 1, dtype, dim))
         self.add_module(f"block{len(H_DIMS) + 1}",
-                        ConvBlock(H_DIMS[-1], out_dim, 1, norm_type, False, dtype))
+                        ConvBlock(H_DIMS[-1], out_dim, 1, norm_type, False, dtype, dim))
 
     def forward(self, x):
         x = x.to(self.dtype)

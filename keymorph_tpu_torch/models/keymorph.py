@@ -15,8 +15,12 @@ Port of ``keymorph_tpu/models/keymorph.py``, in two layers:
 
 Everything in the core is differentiable; serving code calls it under
 ``torch.no_grad()``. Keypoints are ``ij``-indexed in [-1, 1]; images are
-channel-first (B, 1, Z, Y, X). On CUDA tensors the TPS flow, the warp and
-the convs run the port's kernels.
+channel-first (B, 1, Z, Y, X), or (B, 1, H, W) in 2D. On CUDA tensors the
+TPS flow, the warp and the convs of the bf16 3D U-Nets run the port's
+kernels; 2D registration has no kernel in either package (its spline is
+evaluated by ``solvers.tps_eval_chunked``'s 2D route, its warp by
+``ops.resample.grid_sample_2d``), and no planes form, as keymorph_tpu's is
+3D only.
 """
 
 from __future__ import annotations
@@ -99,10 +103,12 @@ def subsample_keypoints(generator: Optional[torch.Generator], points_f, points_m
 
 class KeyMorphNet(nn.Module):
     """Backbone + keypoint head (center of mass, or the linear regressor) +
-    optional keypoint-weighting parameters (3D)."""
+    optional keypoint-weighting parameters; ``dim`` is the keypoints' (the
+    linear head's output width)."""
 
     def __init__(self, backbone: nn.Module, num_keypoints: int,
-                 weight_keypoints: Optional[str] = None, keypoint_layer: str = "com"):
+                 weight_keypoints: Optional[str] = None, keypoint_layer: str = "com",
+                 dim: int = 3):
         super().__init__()
         if weight_keypoints not in (None, "power", "variance"):
             raise ValueError(f"weight_keypoints={weight_keypoints!r}")
@@ -112,17 +118,18 @@ class KeyMorphNet(nn.Module):
         self.num_keypoints = num_keypoints
         self.weight_keypoints = weight_keypoints
         self.keypoint_layer = keypoint_layer
+        self.dim = dim
         if weight_keypoints == "variance":
             self.scales = nn.Parameter(torch.ones(num_keypoints))
             self.biases = nn.Parameter(torch.zeros(num_keypoints))
         if keypoint_layer == "linear":
-            self.regressor = LinearRegressor(num_keypoints, num_keypoints)
+            self.regressor = LinearRegressor(num_keypoints, num_keypoints, dim)
 
     def features(self, img: torch.Tensor, plain: bool = False) -> torch.Tensor:
         """img (B, 1, *spatial) -> heatmaps (B, *spatial', K), channel-last,
         in the backbone's dtype (its compute dtype).
 
-        A bf16 'gcr' or 'cr' DoubleConv U-Net runs on the conv kernels
+        A bf16 'gcr' or 'cr' DoubleConv 3D U-Net runs on the conv kernels
         (``fast_unet_forward``; ``plain`` runs the convs' plain versions, the
         oracle route). Every other backbone is its module's forward, as
         keymorph_tpu's ``features`` applies the flax module (XLA convs, no
@@ -210,9 +217,10 @@ def align_pair(points_f: torch.Tensor, points_m: torch.Tensor, align_type: str,
     aligned points.
 
     Args:
-        points_f, points_m: (B, T, 3) keypoints, ``ij`` order, in [-1, 1].
+        points_f, points_m: (B, T, d) keypoints, ``ij`` order, in [-1, 1]
+            (d = 3, or 2 for 2D registration).
         align_type: "affine", "rigid" or "tps".
-        grid_shape: (D, H, W) of the fixed image (``()`` with
+        grid_shape: (D, H, W) or (H, W) of the fixed image (``()`` with
             ``compute_grid=False``).
         lmbda: scalar or (B,) TPS regularization (TPS only, required).
         weights: optional (B, T) keypoint weights.
@@ -220,22 +228,23 @@ def align_pair(points_f: torch.Tensor, points_m: torch.Tensor, align_type: str,
             nothing in the result: on CUDA tensors the TPS-flow kernel
             covers any number of points at once, and the CPU path chunks by
             ``solvers.CHUNK_POINTS``.
-        compute_grid: True -> ``out["grid"]``, the ``xy`` (B, D, H, W, 3)
-            sampling grid; "planes" -> ``out["planes"]``, the ``ij``
-            (B, 3, D, H, W) planes, ``flip(moveaxis(grid, -1, 1), 1)``;
+        compute_grid: True -> ``out["grid"]``, the ``xy`` (B, *grid_shape, d)
+            sampling grid; "planes" (3D only) -> ``out["planes"]``, the
+            ``ij`` (B, 3, D, H, W) planes, ``flip(moveaxis(grid, -1, 1), 1)``;
             False -> neither.
         compute_aligned_points: also ``out["points_a"]``, the moving
-            keypoints carried into the fixed frame (B, T, 3).
-        aff_f, aff_m: (B, 4, 4) voxel -> world affines of the fixed and
+            keypoints carried into the fixed frame (B, T, d).
+        aff_f, aff_m: (B, d+1, d+1) voxel -> world affines of the fixed and
             moving images: fit in real-world (scanner) coordinates, and map
             the grid back through the moving affine. Both or neither.
-        moving_shape: the moving image's (D, H, W) (default ``grid_shape``).
+        moving_shape: the moving image's spatial shape (default
+            ``grid_shape``).
         tps_centers: S below T selects approximate TPS: a least-squares fit
             against the first S keypoints as RBF centres.
         plain: run the plain versions of the TPS kernels (the oracle route).
     Returns:
         dict with "grid" or "planes" (per ``compute_grid``), "matrix"
-        (affine and rigid: the (B, 4, 4) moving -> fixed matrix) and
+        (affine and rigid: the (B, d+1, d+1) moving -> fixed matrix) and
         "points_a" (with ``compute_aligned_points``).
 
     On the TPS planes path in normalized coordinates the planes come from
@@ -258,6 +267,9 @@ def align_pair(points_f: torch.Tensor, points_m: torch.Tensor, align_type: str,
     spatial_m = tuple(int(s) for s in moving_shape) if moving_shape is not None else spatial
     rw = aff_f is not None
     B, d = points_f.shape[0], points_f.shape[-1]
+    if want_planes and d != 3:
+        raise ValueError(f"compute_grid='planes' is 3D only (keymorph_tpu's planes path "
+                         f"unpacks three sizes); got {d}D keypoints")
     pf, pm = points_f.float(), points_m.float()
     if rw:
         aff_f, aff_m = aff_f.float(), aff_m.float()
@@ -334,7 +346,7 @@ def _groupwise_iterate(points: torch.Tensor, lmbda, weights, align_type: str,
 
 def _groupwise_grids(mean_points: torch.Tensor, pts: torch.Tensor, lmbda, weights,
                      align_type: str, spatial: Sequence[int], num_chunks: int):
-    """Dense ``xy`` grids (n, *spatial, 3) of a chunk of subjects: each
+    """Dense ``xy`` grids (n, *spatial, d) of a chunk of subjects: each
     subject's original keypoints -> the group mean."""
     return align_pair(mean_points.expand_as(pts), pts, align_type, spatial, lmbda=lmbda,
                       weights=weights, num_chunks=num_chunks, compute_grid=True)["grid"]
@@ -368,12 +380,11 @@ class KeyMorph:
                  align_keypoints_in_real_world_coords: bool = False,
                  max_rand_tps_lmbda: float = 10.0, num_subgrids: int = 4,
                  num_tps_centers: Optional[int] = None, device=None):
-        if dim != 3:
-            raise NotImplementedError(f"dim={dim}: only 3D registration is ported "
-                                      "(ROADMAP A9: the 2D pipeline)")
+        if dim not in (2, 3):
+            raise ValueError(f"dim={dim}: 2D or 3D registration")
         self.device = resolve_device(device)
         self.net = KeyMorphNet(backbone, num_keypoints, weight_keypoints,
-                               keypoint_layer).to(self.device)
+                               keypoint_layer, dim).to(self.device)
         self.num_keypoints = num_keypoints
         self.dim = dim
         self.max_train_keypoints = max_train_keypoints
@@ -433,7 +444,7 @@ class KeyMorph:
         """One keypoint extraction, then one alignment per transform type.
 
         kwargs: ``return_aligned_points`` (default False); ``aff_f``/``aff_m``
-        ((B, 4, 4) voxel -> world affines) in real-world mode.
+        ((B, d+1, d+1) voxel -> world affines) in real-world mode.
         """
         ret_pts = kwargs.get("return_aligned_points", False)
         if not isinstance(transform_type, (list, tuple)):
@@ -534,8 +545,8 @@ class KeyMorph:
         weights. Chunks are not padded to one size (nothing is compiled per
         shape), which leaves every result as keymorph_tpu's.
 
-        Returns ``{type: {time, grouppoints_m (N, K, 3), grouppoints_a,
-        [grouppoints_weights (N, K)], [groupgrids (N, *spatial, 3)]}}``.
+        Returns ``{type: {time, grouppoints_m (N, K, d), grouppoints_a,
+        [grouppoints_weights (N, K)], [groupgrids (N, *spatial, d)]}}``.
         """
         if kwargs.get("mesh") is not None:
             raise NotImplementedError(

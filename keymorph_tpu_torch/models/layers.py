@@ -2,8 +2,16 @@
 
 Port of ``keymorph_tpu/models/layers.py``: the center-of-mass head, the
 linear keypoint regressor, the stateless batch norm, the norm factory and
-the ConvNet's block. Modules are channel-first (B, C, *spatial), as the
-reference's are; the heads take the backbone's channel-last heatmaps.
+the ConvNet's block, in 3D and 2D (``dim``). Modules are channel-first
+(B, C, *spatial), as the reference's are; the heads take the backbone's
+channel-last heatmaps.
+
+A 2D conv or max-pool given a volume (B, C, D, H, W) runs on each of its D
+slices, as a flax ``nn.Conv``/``nn.max_pool`` of two window dims treats
+every leading axis as a batch axis, while a norm's statistics still span
+the whole volume (flax's ``GroupNorm`` reduces over every axis but the
+first): keymorph_tpu's register CLI runs its 2D backbones so on the 3D
+scans it reads.
 
 The blocks compute in ``dtype`` the way flax does with ``dtype=bf16``: conv
 operands rounded to ``dtype`` (products and sums in fp32), normalization
@@ -60,19 +68,20 @@ def acc_dtype(dtype: torch.dtype) -> torch.dtype:
 
 class LinearRegressor(nn.Module):
     """Global average pool (fp32) -> dense -> ``sigmoid * 2 - 1`` ->
-    (B, K, 3) keypoints: keymorph_tpu's ``LinearRegressor`` (the
+    (B, K, dim) keypoints: keymorph_tpu's ``LinearRegressor`` (the
     reference's, with its undefined ``num_keypoints`` fixed). Takes the
     channel-last heatmaps (B, *spatial, C)."""
 
-    def __init__(self, in_channels: int, num_keypoints: int):
+    def __init__(self, in_channels: int, num_keypoints: int, dim: int = 3):
         super().__init__()
         self.num_keypoints = num_keypoints
-        self.fc = nn.Linear(in_channels, num_keypoints * 3)
+        self.dim = dim
+        self.fc = nn.Linear(in_channels, num_keypoints * dim)
 
     def forward(self, feat: torch.Tensor) -> torch.Tensor:
         pooled = feat.float().mean(dim=tuple(range(1, feat.dim() - 1)))
         out = torch.sigmoid(F.linear(pooled, self.fc.weight.float(), self.fc.bias.float()))
-        return (out * 2.0 - 1.0).reshape(-1, self.num_keypoints, 3)
+        return (out * 2.0 - 1.0).reshape(-1, self.num_keypoints, self.dim)
 
 
 class StatelessBatchNorm(nn.Module):
@@ -100,13 +109,14 @@ class StatelessBatchNorm(nn.Module):
 
 
 class GroupNorm(nn.GroupNorm):
-    """GroupNorm (eps 1e-5) as flax's ``GroupNorm(dtype=...)`` computes it:
-    per-group fp32 mean and ``max(E[x^2] - mean^2, 0)`` whatever the input
-    dtype (so a single voxel a channel normalizes to the bias, where
-    ``F.group_norm`` refuses), the output in ``dtype``."""
+    """GroupNorm (eps 1e-5 unless given) as flax's ``GroupNorm(dtype=...)``
+    computes it: per-group fp32 mean and ``max(E[x^2] - mean^2, 0)`` whatever
+    the input dtype (so a single voxel a channel normalizes to the bias,
+    where ``F.group_norm`` refuses), the output in ``dtype``."""
 
-    def __init__(self, num_groups: int, channels: int, dtype: torch.dtype = torch.float32):
-        super().__init__(num_groups, channels, eps=1e-5)
+    def __init__(self, num_groups: int, channels: int, dtype: torch.dtype = torch.float32,
+                 eps: float = 1e-5):
+        super().__init__(num_groups, channels, eps=eps)
         self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -135,37 +145,64 @@ def norm_layer(norm_type: Optional[str], channels: int, dtype=torch.float32):
     raise NotImplementedError(f"norm_type={norm_type}")
 
 
+def per_slice(fn, x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``fn`` of a channel-first ``dim``-D tensor applied to ``x``
+    (B, C, *lead, *spatial): every leading spatial axis is folded into the
+    batch, as flax folds the leading axes of a conv's or a pool's input."""
+    lead = x.shape[2:x.dim() - dim]
+    if not lead:
+        return fn(x)
+    B, C = x.shape[:2]
+    n = len(lead)
+    xs = x.movedim(1, n + 1).reshape(-1, C, *x.shape[x.dim() - dim:])
+    y = fn(xs)
+    return y.reshape(B, *lead, *y.shape[1:]).movedim(n + 1, 1)
+
+
+_CONVS = {nn.Conv3d: F.conv3d, nn.Conv2d: F.conv2d, nn.ConvTranspose3d: F.conv_transpose3d}
+
+
 def conv_nd(x: torch.Tensor, conv: nn.Module, dtype: torch.dtype, **kw) -> torch.Tensor:
-    """``conv`` (an ``nn.Conv3d`` or ``nn.ConvTranspose3d``, its bias
-    included) applied as flax applies a conv of ``dtype``: operands rounded to
-    ``dtype`` and multiplied in fp32, the result in ``dtype``."""
+    """``conv`` (an ``nn.Conv3d``, ``nn.Conv2d`` or ``nn.ConvTranspose3d``,
+    its bias included) applied as flax applies a conv of ``dtype``: operands
+    rounded to ``dtype`` and multiplied in fp32, the result in ``dtype``. A
+    2D conv takes a volume slice by slice (:func:`per_slice`)."""
     if x.is_cuda and torch.backends.cudnn.allow_tf32:
         raise RuntimeError("fp32 convolutions need TF32 off: call "
                            "keymorph_tpu_torch.disable_tf32() first")
     acc = acc_dtype(dtype)
     w = conv.weight.to(dtype).to(acc)
     b = None if conv.bias is None else conv.bias.to(dtype).to(acc)
-    fn = F.conv_transpose3d if isinstance(conv, nn.ConvTranspose3d) else F.conv3d
-    return fn(x.to(dtype).to(acc), w, b, **kw).to(dtype)
+    fn = _CONVS[type(conv)]
+    return per_slice(lambda t: fn(t, w, b, **kw), x.to(dtype).to(acc),
+                     w.dim() - 2).to(dtype)
+
+
+def max_pool(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """2x max-pool (VALID, floor) over the last ``dim`` axes."""
+    pool = F.max_pool2d if dim == 2 else F.max_pool3d
+    return per_slice(lambda t: pool(t, 2), x, dim)
 
 
 class ConvBlock(nn.Module):
-    """3^3 conv (with bias) -> norm -> ReLU -> optional 2x max-pool
+    """3^dim conv (with bias) -> norm -> ReLU -> optional 2x max-pool
     (keymorph_tpu's ``ConvBlock``, the reference's ``layers.py`` names
     ``conv`` and ``norm``)."""
 
     def __init__(self, in_channels: int, out_channels: int, stride: int = 1,
                  norm_type: str = "instance", down_sample: bool = True,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, dim: int = 3):
         super().__init__()
-        self.conv = nn.Conv3d(in_channels, out_channels, 3, stride=stride, padding=1)
+        conv = nn.Conv2d if dim == 2 else nn.Conv3d
+        self.conv = conv(in_channels, out_channels, 3, stride=stride, padding=1)
         self.norm = norm_layer(norm_type, out_channels, dtype)
         self.down_sample = down_sample
         self.dtype = dtype
+        self.dim = dim
 
     def forward(self, x):
         x = conv_nd(x, self.conv, self.dtype, stride=self.conv.stride, padding=1)
         if self.norm is not None:
             x = self.norm(x)
         x = torch.relu(x)
-        return F.max_pool3d(x, 2) if self.down_sample else x
+        return max_pool(x, self.dim) if self.down_sample else x

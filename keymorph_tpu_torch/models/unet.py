@@ -1,7 +1,6 @@
 """U-Net backbones as plain ``nn.Module``\\ s.
 
-Port of ``keymorph_tpu/models/unet.py`` in 3D, channel-first
-(B, C, Z, Y, X):
+Port of ``keymorph_tpu/models/unet.py``, channel-first (B, C, *spatial):
 
   * ``SingleConv`` in any layer order of 'g' (GroupNorm, eps 1e-5, one group
     below ``num_groups`` channels), 'b' (the stateless batch norm), 'c' (the
@@ -13,7 +12,9 @@ Port of ``keymorph_tpu/models/unet.py`` in 3D, channel-first
     non-linearity, and optionally the concurrent scSE gate (reduction ratio
     1; ``ChannelSE``, ``SpatialSE``, ``ChannelSpatialSE``);
   * 3^3 convs with padding 1 (keymorph_tpu's ``conv_kernel_size`` and
-    ``conv_padding`` defaults, the only values its factory uses);
+    ``conv_padding`` defaults, the only values its factory uses), or 3^2
+    convs with ``dim=2`` (``UNet2D``, DoubleConv blocks only, as
+    keymorph_tpu's factory builds it);
   * the f_maps ladder ``[f * 2**k]``; 2x max-pool before every encoder but
     the first; DoubleConv decoders join by nearest 2x upsample and
     ``[skip, x]`` concat, residual ones by a transposed conv (3^3, stride 2,
@@ -21,7 +22,12 @@ Port of ``keymorph_tpu/models/unet.py`` in 3D, channel-first
     ``ConvTranspose3d(padding=1, output_padding=1)``) cropped to the skip
     and summed; ``TruncatedUNet3D`` drops the last
     ``num_truncated_layers`` decoders; a final 1x1 conv with bias of bf16
-    operands, fp32 sums and an fp32 bias (keymorph_tpu's ``PointwiseConv``).
+    operands, fp32 sums and an fp32 bias (keymorph_tpu's ``PointwiseConv``);
+  * ``SimpleUnet``, the brain extractor's small U-Net: encoder widths
+    (4, 8, 16, 32), decoder widths (32, 16, 8, 4), each block a 3^3 conv
+    with bias, an instance norm (eps 1e-6, flax's default) and a ReLU, 2x
+    max-pools down and x2 trilinear upsampling up (``ops/resize.py``,
+    ``jax.image.resize``'s weights) with ``[up, skip]`` concats.
 
 Parameter names are the reference unet3d ``state_dict`` keys
 (``encoders.i.basic_module.SingleConv{1,2}.{groupnorm,batchnorm,conv}.*``;
@@ -50,7 +56,15 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from keymorph_tpu_torch.models.layers import GroupNorm, StatelessBatchNorm, acc_dtype, conv_nd
+from keymorph_tpu_torch.models.layers import (
+    GroupNorm,
+    StatelessBatchNorm,
+    acc_dtype,
+    conv_nd,
+    max_pool,
+    per_slice,
+)
+from keymorph_tpu_torch.ops.resize import resize_trilinear
 
 
 def number_of_features_per_level(init_channels: int, num_levels: int):
@@ -79,14 +93,15 @@ class SingleConv(nn.Module):
     """One norm/conv/activation layer in the order ``order``."""
 
     def __init__(self, in_channels: int, out_channels: int, order: str = "gcr",
-                 num_groups: int = 8, dtype: torch.dtype = torch.float32):
+                 num_groups: int = 8, dtype: torch.dtype = torch.float32, dim: int = 3):
         super().__init__()
         if "c" not in order or set(order) - set("gbcrle"):
             raise ValueError(f"layer order {order!r}: 'c' required, chars from 'gbcrle'")
         self.order = order
         self.dtype = dtype
-        self.conv = nn.Conv3d(in_channels, out_channels, 3, padding=1,
-                              bias=not ("g" in order or "b" in order))
+        conv = nn.Conv2d if dim == 2 else nn.Conv3d
+        self.conv = conv(in_channels, out_channels, 3, padding=1,
+                         bias=not ("g" in order or "b" in order))
         for ch in "gb":
             if ch in order:
                 c = in_channels if order.index(ch) < order.index("c") else out_channels
@@ -110,10 +125,10 @@ class SingleConv(nn.Module):
 
 class DoubleConv(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, encoder: bool, order: str = "gcr",
-                 num_groups: int = 8, dtype: torch.dtype = torch.float32):
+                 num_groups: int = 8, dtype: torch.dtype = torch.float32, dim: int = 3):
         super().__init__()
         mid = max(out_channels // 2, in_channels) if encoder else out_channels
-        kw = dict(order=order, num_groups=num_groups, dtype=dtype)
+        kw = dict(order=order, num_groups=num_groups, dtype=dtype, dim=dim)
         self.SingleConv1 = SingleConv(in_channels, mid, **kw)
         self.SingleConv2 = SingleConv(mid, out_channels, **kw)
 
@@ -197,13 +212,14 @@ class ResNetBlock(nn.Module):
 
 
 class Encoder(nn.Module):
-    def __init__(self, in_channels, out_channels, pool: bool, block):
+    def __init__(self, in_channels, out_channels, pool: bool, block, dim: int = 3):
         super().__init__()
         self.pool = pool
+        self.dim = dim
         self.basic_module = block(in_channels, out_channels, True)
 
     def forward(self, x):
-        return self.basic_module(F.max_pool3d(x, 2) if self.pool else x)
+        return self.basic_module(max_pool(x, self.dim) if self.pool else x)
 
 
 class TransposeConvUpsampling(nn.Module):
@@ -246,11 +262,12 @@ class Decoder(nn.Module):
 
 
 class AbstractUNet(nn.Module):
-    """Encoder/decoder U-Net on one-channel volumes (channel-first).
+    """Encoder/decoder U-Net on one-channel volumes or images
+    (channel-first), ``dim`` 3 or 2.
 
     ``basic_module``: ``"double"`` (DoubleConv blocks, upsample + concat),
     ``"resnet"`` or ``"resnetse"`` (ResNetBlocks without or with the scSE
-    gate, transposed conv + sum). keymorph_tpu's segmentation head
+    gate, transposed conv + sum; 3D only). keymorph_tpu's segmentation head
     (``is_segmentation``) is not carried: no backbone of the registration
     pipeline sets it.
     """
@@ -258,10 +275,15 @@ class AbstractUNet(nn.Module):
     def __init__(self, out_channels: int, f_maps: Union[int, Sequence[int]] = 64,
                  layer_order: str = "gcr", num_groups: int = 8, num_levels: int = 4,
                  num_truncated_layers: int = 0, basic_module: str = "double",
-                 dtype: torch.dtype = torch.float32, use_checkpoint: bool = False):
+                 dtype: torch.dtype = torch.float32, use_checkpoint: bool = False,
+                 dim: int = 3):
         super().__init__()
         if basic_module not in ("double", "resnet", "resnetse"):
             raise ValueError(f"basic_module={basic_module!r}")
+        if dim not in (2, 3) or (dim == 2 and basic_module != "double"):
+            raise ValueError(f"dim={dim} with basic_module={basic_module!r}: the residual "
+                             "U-Nets are 3D only, as keymorph_tpu's factory asserts")
+        self.dim = dim
         # block-level gradient checkpointing, here and in the kernel executor
         self.use_checkpoint = use_checkpoint
         if isinstance(f_maps, int):
@@ -279,10 +301,10 @@ class AbstractUNet(nn.Module):
         def block(cin, cout, encoder):
             if residual:
                 return ResNetBlock(cin, cout, encoder, se=basic_module == "resnetse", **kw)
-            return DoubleConv(cin, cout, encoder, **kw)
+            return DoubleConv(cin, cout, encoder, dim=dim, **kw)
 
         self.encoders = nn.ModuleList(
-            Encoder(1 if i == 0 else self.f_maps[i - 1], ch, i > 0, block)
+            Encoder(1 if i == 0 else self.f_maps[i - 1], ch, i > 0, block, dim)
             for i, ch in enumerate(self.f_maps)
         )
         rev = self.f_maps[::-1]
@@ -291,7 +313,8 @@ class AbstractUNet(nn.Module):
             Decoder(rev[i], rev[i + 1], block, residual, dtype)
             for i in range(n_dec)
         )
-        self.final_conv = nn.Conv3d(self.f_maps[num_truncated_layers], out_channels, 1)
+        self.final_conv = (nn.Conv2d if dim == 2 else nn.Conv3d)(
+            self.f_maps[num_truncated_layers], out_channels, 1)
 
     def _run(self, module, *args):
         if self.use_checkpoint and torch.is_grad_enabled():
@@ -299,7 +322,7 @@ class AbstractUNet(nn.Module):
         return module(*args)
 
     def forward(self, x):
-        """(B, 1, Z, Y, X) -> (B, out_channels, Z', Y', X') in ``dtype``."""
+        """(B, 1, *spatial) -> (B, out_channels, *spatial') in ``dtype``."""
         x = x.to(self.dtype)
         skips = []
         for enc in self.encoders:
@@ -309,12 +332,22 @@ class AbstractUNet(nn.Module):
             x = self._run(dec, skip, x)
         acc = acc_dtype(self.dtype)
         w = self.final_conv.weight.to(self.dtype).to(acc)
-        out = F.conv3d(x.to(acc), w) + self.final_conv.bias.to(acc)[:, None, None, None]
-        return out.to(self.dtype)
+        conv = F.conv2d if self.dim == 2 else F.conv3d
+        out = per_slice(lambda t: conv(t, w), x.to(acc), self.dim)
+        bias = self.final_conv.bias.to(acc).reshape(-1, *([1] * (x.dim() - 2)))
+        return (out + bias).to(self.dtype)
 
 
 class UNet3D(AbstractUNet):
     """3D U-Net (all decoders)."""
+
+
+class UNet2D(AbstractUNet):
+    """2D U-Net (all decoders): 3^2 convs, 2x2 max-pools, nearest upsampling
+    to the skip's size."""
+
+    def __init__(self, out_channels: int, **kw):
+        super().__init__(out_channels, dim=2, **kw)
 
 
 class TruncatedUNet3D(AbstractUNet):
@@ -337,6 +370,53 @@ class ResidualUNetSE3D(AbstractUNet):
         super().__init__(out_channels, num_levels=num_levels, basic_module="resnetse", **kw)
 
 
+class SimpleBlock(nn.Module):
+    """3^3 conv with bias -> instance norm (eps 1e-6) -> ReLU."""
+
+    def __init__(self, in_channels: int, out_channels: int, dtype):
+        super().__init__()
+        self.conv = nn.Conv3d(in_channels, out_channels, 3, padding=1)
+        self.norm = GroupNorm(out_channels, out_channels, dtype, eps=1e-6)
+        self.dtype = dtype
+
+    def forward(self, x):
+        return torch.relu(self.norm(conv_nd(x, self.conv, self.dtype, padding=1)))
+
+
+class SimpleUnet(nn.Module):
+    """The brain extractor's U-Net (keymorph_tpu's ``SimpleUnet``):
+    (B, 1, Z, Y, X) -> logits (B, out_channels, Z, Y, X) in ``dtype``; each
+    spatial size must divide by 16. ``blocks.0-3`` encode (a 2x max-pool
+    before each but the first), ``blocks.4`` is the bottleneck after a
+    fourth pool, ``blocks.5-8`` decode (x2 trilinear upsampling, then the
+    concat with the skip), ``final_conv`` a 3^3 conv with bias.
+    keymorph_tpu's ``use_in=False`` (no norm) is not carried: its brain
+    extractor builds the default."""
+
+    def __init__(self, out_channels: int = 1, enc_nf: Sequence[int] = (4, 8, 16, 32),
+                 dec_nf: Sequence[int] = (32, 16, 8, 4), dtype: torch.dtype = torch.float32):
+        super().__init__()
+        e, dn = list(enc_nf), list(dec_nf)
+        widths = [(1, e[0]), (e[0], e[1]), (e[1], e[2]), (e[2], e[3]), (e[3], dn[0]),
+                  (dn[0] + e[3], dn[1]), (dn[1] + e[2], dn[2]), (dn[2] + e[1], dn[3]),
+                  (dn[3] + e[0], out_channels)]
+        self.blocks = nn.ModuleList(SimpleBlock(cin, cout, dtype) for cin, cout in widths)
+        self.final_conv = nn.Conv3d(out_channels, out_channels, 3, padding=1)
+        self.dtype = dtype
+
+    def forward(self, x):
+        x = x.to(self.dtype)
+        skips = []
+        for blk in self.blocks[:4]:
+            x = blk(max_pool(x, 3) if skips else x)
+            skips.append(x)
+        h = self.blocks[4](max_pool(x, 3))
+        for blk, skip in zip(self.blocks[5:], skips[::-1]):
+            up = resize_trilinear(h, [2 * s for s in h.shape[2:]]).to(self.dtype)
+            h = blk(torch.cat([up, skip], dim=1))
+        return conv_nd(h, self.final_conv, self.dtype, padding=1)
+
+
 def init_weights(net: nn.Module, generator: torch.Generator) -> nn.Module:
     """Deterministic init from ``generator`` (on the CPU, so the same seed
     gives the same weights on every device), flax's defaults: conv, transposed
@@ -344,7 +424,7 @@ def init_weights(net: nn.Module, generator: torch.Generator) -> nn.Module:
     norm scales 1 and biases 0."""
     with torch.no_grad():
         for m in net.modules():
-            if isinstance(m, (nn.Conv3d, nn.ConvTranspose3d, nn.Linear)):
+            if isinstance(m, (nn.Conv3d, nn.Conv2d, nn.ConvTranspose3d, nn.Linear)):
                 fan_in = m.weight[0].numel() if not isinstance(m, nn.ConvTranspose3d) \
                     else m.weight.shape[0] * m.weight[0, 0].numel()
                 w = torch.randn(m.weight.shape, generator=generator) / math.sqrt(fan_in)
@@ -360,7 +440,8 @@ def init_weights(net: nn.Module, generator: torch.Generator) -> nn.Module:
 def supports_fast_unet(backbone: Optional[nn.Module]) -> bool:
     """Can the kernel executor (``models/fast_unet.py``) run this backbone?
     keymorph_tpu's predicate: a DoubleConv U-Net in layer order 'gcr' or
-    'cr', in bf16 (its convs are 3^3 with padding 1, and it has no
+    'cr', 3D, in bf16 (its convs are 3^3 with padding 1, and it has no
     segmentation head, as every port U-Net)."""
     return (isinstance(backbone, AbstractUNet) and backbone.basic_module == "double"
+            and backbone.dim == 3
             and backbone.layer_order in ("gcr", "cr") and backbone.dtype == torch.bfloat16)

@@ -48,17 +48,18 @@ def resize_weights(in_size: int, out_size: int, device=None,
 
 
 def resize_trilinear(img: torch.Tensor, size: Sequence[int]) -> torch.Tensor:
-    """(B, C, *spatial) -> (B, C, *size), fp32."""
+    """(B, C, *spatial) -> (B, C, *size), fp32 (float64 for a float64
+    ``img``)."""
     if img.is_cuda and torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError("resize_trilinear needs TF32 off: call "
                            "keymorph_tpu_torch.disable_tf32() first")
-    out = img.float()
+    out = img.to(torch.promote_types(img.dtype, torch.float32))
     spatial = out.shape[2:]
     if len(size) != len(spatial):
         raise ValueError(f"resize {tuple(img.shape)} to {tuple(size)}: wrong rank")
     for axis, (n_in, n_out) in enumerate(zip(spatial, size)):
         if n_in == n_out:
             continue
-        w = resize_weights(n_in, int(n_out), device=out.device)
+        w = resize_weights(n_in, int(n_out), device=out.device, dtype=out.dtype)
         out = torch.tensordot(out.movedim(axis + 2, -1), w, dims=1).movedim(-1, axis + 2)
     return out.contiguous()

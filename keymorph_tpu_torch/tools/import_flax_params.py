@@ -1,8 +1,10 @@
 """Carry keymorph_tpu (flax) KeyMorphNet parameters into the port.
 
-The inverse of ``keymorph_tpu/tools/import_torch_weights.py`` for every 3D
-backbone family: the flax tree becomes the reference ``state_dict`` the
-port's modules use.
+The inverse of ``keymorph_tpu/tools/import_torch_weights.py`` for every
+backbone family, 3D and 2D: the flax tree becomes the reference
+``state_dict`` the port's modules use. A conv kernel (*k, I, O) becomes the
+weight (O, I, *k), whatever its number of window dims (3^3 or, in UNet2D and
+the 2D ConvNet, 3^2).
 
 U-Nets (``DoubleConv_i`` or ``ResNetBlock_i``, encoders first, then
 decoders; ``Checkpoint`` prefixes accepted)::
@@ -24,6 +26,12 @@ ConvNet: ``ConvBlock_k/Conv_0`` -> ``block{k+1}.conv``, its
 ``GroupNorm_0`` or ``StatelessBatchNorm_0`` -> ``block{k+1}.norm``.
 KeyMorphNet: ``backbone`` -> ``backbone.*``, ``regressor/Dense_0`` (the
 linear head) -> ``regressor.fc``, ``scales``/``biases`` as they are.
+
+SimpleUnet (the brain extractor; no reference names, so the port's):
+``Conv_i`` -> ``blocks.i.conv`` (i < 9) and ``Conv_9`` -> ``final_conv``,
+``GroupNorm_i`` -> ``blocks.i.norm``. :func:`unflatten_npz` reads the flat
+``.npz`` of ``/``-joined names that keymorph_tpu's brain-extraction tool
+reads.
 
 :func:`load_adam_state` carries an ``optax.adam`` state (``mu``, ``nu``,
 ``count``) into a ``torch.optim.Adam`` the same way, so that both packages
@@ -48,7 +56,8 @@ _NORMS = {"GroupNorm_0": "groupnorm", "StatelessBatchNorm_0": "batchnorm"}
 
 def _conv(sd, base: str, p: Mapping):
     """A flax conv (kernel (*k, I, O)) -> torch ``base.weight`` (O, I, *k)."""
-    sd[f"{base}.weight"] = np.transpose(np.asarray(p["kernel"]), (4, 3, 0, 1, 2))
+    k = np.asarray(p["kernel"])
+    sd[f"{base}.weight"] = np.transpose(k, (k.ndim - 1, k.ndim - 2, *range(k.ndim - 2)))
     if "bias" in p:
         sd[f"{base}.bias"] = np.asarray(p["bias"])
 
@@ -163,6 +172,37 @@ def state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
         if name in p:
             sd[name] = torch.tensor(np.asarray(p[name], dtype=np.float32))
     return sd
+
+
+def simple_unet_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """keymorph_tpu ``SimpleUnet`` variables (``{"params": {...}}`` or the
+    inner dict) -> the port's ``SimpleUnet`` ``state_dict`` (fp32)."""
+    p = params["params"] if "params" in params else params
+    convs = sorted(int(n.split("_")[1]) for n in p if n.startswith("Conv_"))
+    sd: Dict[str, np.ndarray] = {}
+    for name, sub in p.items():
+        kind, i = name.rsplit("_", 1)
+        if kind == "Conv":
+            _conv(sd, "final_conv" if int(i) == convs[-1] else f"blocks.{i}.conv", sub)
+        elif kind == "GroupNorm":
+            _norm(sd, f"blocks.{i}.norm", sub)
+        else:
+            raise ValueError(f"unsupported SimpleUnet parameter group {name!r}")
+    return {name: torch.tensor(np.ascontiguousarray(v, dtype=np.float32))
+            for name, v in sd.items()}
+
+
+def unflatten_npz(flat: Mapping) -> dict:
+    """A flat mapping of ``/``-joined parameter names (a ``.npz``) -> the
+    nested tree."""
+    tree: dict = {}
+    for key in flat:
+        *path, leaf = key.split("/")
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = np.asarray(flat[key])
+    return tree
 
 
 def load_adam_state(optimizer: torch.optim.Optimizer, net: torch.nn.Module,

@@ -121,10 +121,11 @@ class Config:
 
 
 def build_backbone(config: Config, dtype=None):
-    """Backbone factory, every 3D family of keymorph_tpu's: ``conv`` (the
-    ConvNet with ``config.norm_type``), ``unet``, ``truncatedunet``,
-    ``residualunet`` and ``residualunetse``; bf16 with ``use_amp``, else
-    fp32."""
+    """Backbone factory, every family of keymorph_tpu's: ``conv`` (the
+    ConvNet with ``config.norm_type``, 3D or 2D), ``unet`` (``UNet3D`` with
+    f_maps 32, or ``UNet2D`` with f_maps 64 at ``dim`` 2), and the 3D-only
+    ``truncatedunet``, ``residualunet`` and ``residualunetse``; bf16 with
+    ``use_amp``, else fp32."""
     import torch
 
     from keymorph_tpu_torch.models.convnet import ConvNet
@@ -132,6 +133,7 @@ def build_backbone(config: Config, dtype=None):
         ResidualUNet3D,
         ResidualUNetSE3D,
         TruncatedUNet3D,
+        UNet2D,
         UNet3D,
     )
 
@@ -139,18 +141,21 @@ def build_backbone(config: Config, dtype=None):
     families = ("conv", "unet", "truncatedunet", "residualunet", "residualunetse")
     if config.backbone not in families:
         raise ValueError(f'Invalid keypoint extractor "{config.backbone}"')
-    if config.dim != 3:
-        raise NotImplementedError("2D backbones are not ported (ROADMAP A9: the 2D pipeline)")
     if config.backbone == "conv":
-        return ConvNet(out_dim=config.num_keypoints, norm_type=config.norm_type, dtype=dtype)
-    kw = dict(out_channels=config.num_keypoints, f_maps=32,
-              num_levels=config.num_levels_for_unet, dtype=dtype,
-              use_checkpoint=config.use_checkpoint)
+        return ConvNet(out_dim=config.num_keypoints, norm_type=config.norm_type, dtype=dtype,
+                       dim=config.dim)
+    kw = dict(out_channels=config.num_keypoints, num_levels=config.num_levels_for_unet,
+              dtype=dtype, use_checkpoint=config.use_checkpoint)
+    if config.backbone == "unet" and config.dim == 2:
+        return UNet2D(f_maps=64, **kw)
+    if config.dim != 3:
+        raise ValueError(f'keypoint extractor "{config.backbone}" is 3D only (dim '
+                         f'{config.dim}), as in keymorph_tpu')
     if config.backbone == "truncatedunet":
         return TruncatedUNet3D(
-            num_truncated_layers=config.num_truncated_layers_for_truncatedunet, **kw)
+            f_maps=32, num_truncated_layers=config.num_truncated_layers_for_truncatedunet, **kw)
     return {"unet": UNet3D, "residualunet": ResidualUNet3D,
-            "residualunetse": ResidualUNetSE3D}[config.backbone](**kw)
+            "residualunetse": ResidualUNetSE3D}[config.backbone](f_maps=32, **kw)
 
 
 def build_model(config: Config, device=None):

@@ -40,12 +40,12 @@ def make_pretrain_step(net: nn.Module, config: Config, plain: bool = False):
         step(state, generator, img, ref_points, aug_scale, aff=None, *,
              aug_params=None) -> (state, {"mse", "loss"})
 
-    ``img`` (B, 1, *spatial) and ``ref_points`` (B, K, 3) get one random
+    ``img`` (B, 1, *spatial) and ``ref_points`` (B, K, d) get one random
     affine (``PRETRAIN_MAX_PARAMS`` times the ``aug_scale`` ramp, drawn from
     ``generator``, or ``aug_params`` when given); the loss is the MSE between
     the augmented points and the keypoints the net finds in the augmented
     image. In real-world mode ``ref_points`` are scanner coordinates and
-    ``aff`` the subject's (B, 4, 4) voxel -> world affine. ``plain`` runs the
+    ``aff`` the subject's (B, d+1, d+1) voxel -> world affine. ``plain`` runs the
     kernels' plain versions (the oracle route on a CUDA device).
     """
     rw = bool(config.align_keypoints_in_real_world_coords)
@@ -59,7 +59,7 @@ def make_pretrain_step(net: nn.Module, config: Config, plain: bool = False):
         with torch.no_grad():
             if aug_params is None:
                 aug_params = augment.sample_affine_params(
-                    generator, img.shape[0], 3, PRETRAIN_MAX_PARAMS, float(aug_scale),
+                    generator, img.shape[0], img.dim() - 2, PRETRAIN_MAX_PARAMS, float(aug_scale),
                     device=img.device)
             img_a, tgt_points = augment.affine_augment_with_params(img, aug_params,
                                                                    points=ref_points)
@@ -80,8 +80,8 @@ def pick_reference_subject(loader, config: Config, seed: int = 0, device=None):
     """The pretraining reference: the first image of ``loader``'s first
     batch and ``config.num_keypoints`` points sampled in its support
     (:func:`~keymorph_tpu_torch.utils.sample_valid_coordinates` with
-    ``seed``). Returns (img (1, 1, *S), points (1, K, 3), affine (1, 4, 4) or
-    None) on ``device`` (the CPU when None).
+    ``seed``). Returns (img (1, 1, *S), points (1, K, dim), affine (1, dim+1,
+    dim+1) or None) on ``device`` (the CPU when None).
 
     Normalized mode: the points are sampled in [0, 1] ``xy``, mapped to
     [-1, 1] and flipped to ``ij`` (the pipeline's convention). Real-world
@@ -90,23 +90,26 @@ def pick_reference_subject(loader, config: Config, seed: int = 0, device=None):
     img_t, aff = reference_image(loader, config, device)
     img = img_t.cpu().numpy()
     if aff is not None:
-        pts = sample_valid_coordinates(img, config.num_keypoints, 3, point_space="voxel",
-                                       indexing="ij", seed=seed).to(device)
+        pts = sample_valid_coordinates(img, config.num_keypoints, config.dim,
+                                       point_space="voxel", indexing="ij", seed=seed).to(device)
         return img_t, coords.convert_points_voxel2real(pts, aff), aff
-    pts = sample_valid_coordinates(img, config.num_keypoints, 3, seed=seed) * 2.0 - 1.0
+    pts = sample_valid_coordinates(img, config.num_keypoints, config.dim,
+                                   seed=seed) * 2.0 - 1.0
     return img_t, pts.flip(-1).to(device), None
 
 
 def reference_image(loader, config: Config, device=None):
     """The first image of ``loader``'s first batch, (1, 1, *S) fp32 on
-    ``device``, and in real-world mode its (1, 4, 4) voxel -> world affine
-    (the identity where the batch has none; None in normalized mode)."""
+    ``device``, and in real-world mode its (1, dim+1, dim+1) voxel -> world
+    affine (the identity where the batch has none; None in normalized
+    mode)."""
     batch = next(iter(loader))
     img = torch.tensor(np.asarray(batch["img"], np.float32)[:1], device=device)
     if not config.align_keypoints_in_real_world_coords:
         return img, None
     aff = batch.get("affine")
-    aff = np.eye(4, dtype=np.float32) if aff is None else np.asarray(aff, np.float32)
+    aff = (np.eye(config.dim + 1, dtype=np.float32) if aff is None
+           else np.asarray(aff, np.float32))
     return img, torch.tensor(aff[None] if aff.ndim == 2 else aff, device=device)[:1]
 
 

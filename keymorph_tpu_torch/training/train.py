@@ -4,11 +4,15 @@ backward -> Adam) and the epoch loop.
 Port of ``keymorph_tpu/training/train.py``: ``make_train_step`` (affine,
 rigid and TPS; MSE and Dice; affine augmentation with the ``aug_scale``
 ramp; TPS keypoint subsampling and per-sample lambda; real-world
-coordinates), ``make_kpconsistency_step`` and ``run_train``. TPS in
-normalized coordinates runs the planes-native path
-(``align_pair(compute_grid="planes")`` then ``align_planes``); affine, rigid
-and every real-world step run the grid path (``align_pair(compute_grid=True)``
-then ``align_img``), as keymorph_tpu's step does; ``make_train_step_sameres``
+coordinates; 3D volumes and 2D images), ``make_kpconsistency_step`` and
+``run_train``. TPS in normalized coordinates on volumes runs the
+planes-native path (``align_pair(compute_grid="planes")`` then
+``align_planes``); affine, rigid and every real-world step run the grid
+path (``align_pair(compute_grid=True)`` then ``align_img``), as
+keymorph_tpu's step does. 2D images always take the grid path, where the
+warp is ``ops.resample.grid_sample_2d``: keymorph_tpu's step sends 2D TPS to
+its planes path, which unpacks three sizes and fails, while its
+same-resolution step trains 2D TPS on the grid path; ``make_train_step_sameres``
 extracts keypoints from volumes resized to the model's size and takes the
 loss at the original resolution. On a CUDA device the forward and the
 backward go through the port's kernels (conv and its input gradient, TPS
@@ -38,7 +42,7 @@ from keymorph_tpu_torch.models.keymorph import (
     subsample_keypoints,
 )
 from keymorph_tpu_torch.ops.cuda import resample3d
-from keymorph_tpu_torch.ops.resample import grid_to_planes
+from keymorph_tpu_torch.ops.resample import grid_sample_2d, grid_to_planes
 from keymorph_tpu_torch.ops.resize import resize_trilinear
 from keymorph_tpu_torch.training.config import Config
 from keymorph_tpu_torch.utils import aggregate_dicts, one_hot, one_hot_subsampled_pair
@@ -86,7 +90,7 @@ def make_train_step(net: nn.Module, config: Config, plain: bool = False):
 
     ``seg_f``/``seg_m`` may be None (MSE). ``aug_scale`` is the affine-slope
     ramp factor. With ``config.align_keypoints_in_real_world_coords`` the
-    step needs ``aff_f``/``aff_m``, the (B, 4, 4) voxel -> world affines; the
+    step needs ``aff_f``/``aff_m``, the (B, d+1, d+1) voxel -> world affines; the
     augmentation matrix composes into the moving one (``aff_m @ aug``) and
     the fit runs in scanner coordinates. ``lmbda`` (B,), ``keypoint_idx`` and
     ``aug_params`` (the augmentation's (scale, offset, theta, shear), applied
@@ -119,13 +123,17 @@ def make_train_step_sameres(net: nn.Module, config: Config, plain: bool = False)
 def _make_step(net: nn.Module, config: Config, plain: bool, model_size):
     align_type, lmbda_spec = parse_transform_type(config.transform_type)
     rw = bool(config.align_keypoints_in_real_world_coords)
-    use_planes = align_type == "tps" and not rw and model_size is None
+    planes_path = align_type == "tps" and not rw and model_size is None
     use_dice = config.loss_fn == "dice"
     max_params = tuple(config.max_random_affine_augment_params)
     warp_planes = resample3d.warp_planes_plain if plain else resample3d.warp_planes
 
-    def warp(flow, x):  # align_planes / align_img
-        return warp_planes(x, flow if use_planes else grid_to_planes(flow))
+    def warp(flow, x, use_planes):  # align_planes / align_img
+        if use_planes:
+            return warp_planes(x, flow)
+        if flow.shape[-1] == 2:
+            return grid_sample_2d(x, flow)
+        return warp_planes(x, grid_to_planes(flow))
 
     def loss_fn(generator, img_f, img_m, seg_f, seg_m, aug_scale, aff_f, aff_m, lmbda,
                 keypoint_idx, aug_params):
@@ -163,16 +171,17 @@ def _make_step(net: nn.Module, config: Config, plain: bool, model_size):
         else:
             lmbda = None
 
+        use_planes = planes_path and img_f.dim() == 5
         flow = align_pair(points_f, points_m, align_type, img_f.shape[2:], lmbda=lmbda,
                           weights=weights, compute_grid="planes" if use_planes else True,
                           aff_f=aff_f if rw else None, aff_m=aff_m if rw else None,
                           moving_shape=img_m.shape[2:], plain=plain)
         flow = flow["planes" if use_planes else "grid"]
         if use_dice:
-            loss = soft_dice_loss(warp(flow, seg_m), seg_f)
+            loss = soft_dice_loss(warp(flow, seg_m, use_planes), seg_f)
             metrics = {"softdiceloss": loss, "softdice": 1.0 - loss}
         else:
-            loss = mse_loss(img_f, warp(flow, img_m))
+            loss = mse_loss(img_f, warp(flow, img_m, use_planes))
             metrics = {"mse": loss}
         metrics["loss"] = loss
         return loss, metrics
@@ -223,12 +232,12 @@ def _tensor(x, device, dtype=torch.float32):
         device=device, dtype=dtype)
 
 
-def _affine(batch, batch_size: int, device) -> torch.Tensor:
-    """A batch's (B, 4, 4) voxel -> world affine, the identity without one
-    (a source without headers is in voxel space)."""
+def _affine(batch, batch_size: int, d1: int, device) -> torch.Tensor:
+    """A batch's (B, d1, d1) voxel -> world affine (d1 = dim + 1), the
+    identity without one (a source without headers is in voxel space)."""
     a = batch.get("affine")
     if a is None:
-        return torch.eye(4, device=device).repeat(batch_size, 1, 1)
+        return torch.eye(d1, device=device).repeat(batch_size, 1, 1)
     a = _tensor(a, device)
     return a[None].repeat(batch_size, 1, 1) if a.dim() == 2 else a
 
@@ -302,8 +311,9 @@ def run_train(loader, state: TrainState, step_fn, config: Config, epoch: int,
 
         affines = {}
         if config.align_keypoints_in_real_world_coords:
-            affines = {"aff_f": _affine(b_f, img_f.shape[0], device),
-                       "aff_m": _affine(b_m, img_m.shape[0], device)}
+            d1 = img_f.dim() - 1
+            affines = {"aff_f": _affine(b_f, img_f.shape[0], d1, device),
+                       "aff_m": _affine(b_m, img_m.shape[0], d1, device)}
         state, metrics = step_fn(state, generator, img_f, img_m, seg_f, seg_m, aug_scale,
                                  **affines)
 

@@ -1,5 +1,5 @@
-"""Affine transform primitive: dense flow-field generation (3D) and the
-matrix container.
+"""Affine transform primitive: dense flow-field generation (2D and 3D) and
+the matrix container.
 
 Port of ``keymorph_tpu/transforms/affine.py``.
 """
@@ -19,25 +19,23 @@ def affine_flow(inverse_matrix: torch.Tensor, spatial_shape: Sequence[int]) -> t
     linspace(-1, 1) meshgrid, last axis flipped to ``xy`` for the resampler.
 
     Args:
-        inverse_matrix: (B, 4, 4) fixed -> moving matrix.
-        spatial_shape: (D, H, W).
+        inverse_matrix: (B, d+1, d+1) fixed -> moving matrix.
+        spatial_shape: output spatial sizes, length d.
     Returns:
-        (B, D, H, W, 3) grid in [-1, 1], ``xy``-ordered.
+        (B, *spatial_shape, d) grid in [-1, 1], ``xy``-ordered.
     """
-    if len(spatial_shape) != 3:
-        raise NotImplementedError("affine_flow: only 3D volumes are ported "
-                                  "(ROADMAP A9, 2D pipeline)")
+    d = len(spatial_shape)
     B = inverse_matrix.shape[0]
     grid = coords.flat_norm_grid(spatial_shape, device=inverse_matrix.device)
-    moved = coords.apply_matrix(inverse_matrix, grid.expand(B, -1, 3))
-    return torch.flip(moved.reshape(B, *spatial_shape, 3), dims=(-1,))
+    moved = coords.apply_matrix(inverse_matrix, grid.expand(B, -1, d))
+    return torch.flip(moved.reshape(B, *spatial_shape, d), dims=(-1,))
 
 
 class AffineTransform:
     """Matrix container keeping the forward and inverse matrices consistent:
     ``transform_matrix`` maps moving -> fixed points, and
     ``inverse_transform_matrix`` (fixed -> moving) builds the sampling grid.
-    Give exactly one of ``matrix`` and ``inverse_matrix`` (B, 4, 4)."""
+    Give exactly one of ``matrix`` and ``inverse_matrix`` (B, d+1, d+1)."""
 
     def __init__(self, matrix=None, inverse_matrix=None, dim: int = 3):
         self.dim = dim

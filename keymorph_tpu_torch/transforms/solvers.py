@@ -208,9 +208,13 @@ CHUNK_POINTS = 1 << 20  # bounds the RBF matrix at (B, T, 2^20) fp32
 
 
 def tps_eval_chunked(theta, ctrl, points):
-    """The spline at dense points (B, N, 3), through
+    """The spline at dense points (B, N, d). In 3D through
     ``ops.cuda.tpsflow.tps_flow``: CUDA tensors run the TPS-flow kernel in
-    points mode, CPU tensors :func:`tps_eval_chunked_plain`."""
+    points mode, CPU tensors :func:`tps_eval_chunked_plain`. In 2D, on any
+    device, :func:`tps_eval_chunked_plain` itself: keymorph_tpu's kernel
+    takes d = 3 only and evaluates a 2D spline by its chunked XLA form."""
+    if points.shape[-1] == 2:
+        return tps_eval_chunked_plain(theta, ctrl, points)
     from keymorph_tpu_torch.ops.cuda import tpsflow  # it imports this module
 
     return tpsflow.tps_flow(theta.float().contiguous(), ctrl.float().contiguous(),

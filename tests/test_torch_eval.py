@@ -42,6 +42,7 @@ from keymorph_tpu_torch.ops.resample import align_img
 METRIC_ABS = 1e-5   # the warp's measured distance from keymorph_tpu's (1e-6-1e-5)
 HARDDICE_ABS = 8 * 2.0 ** -24  # up to 8 regions summed in another order, 2^-24 each
 KEYPOINT_ABS = 2e-2
+KEYPOINT_ABS_FP32 = 1e-4
 ALIGNS = ["rigid", "affine", "tps_1"]
 METRICS = ["mse", "softdice", "harddice", "harddiceroi", "hausd", "jdstd", "jdlessthan0"]
 EXACT = ("harddiceroi", "hausd")
@@ -442,15 +443,47 @@ def test_long_eval_keys_and_layout(cli_inputs, tmp_path):
 
 
 def test_register_cli_refuses_unported_backbones(cli_inputs, tmp_path):
-    """Every 3D backbone is ported; the 2D ones are what is left, and the
-    register CLI refuses them (``--dim 2``) naming their ROADMAP item
-    before it reads a scan or writes a file."""
+    """Named for the time the port refused the 2D backbones. ``--dim 2`` is
+    ported as far as keymorph_tpu's CLI runs it: on the 3D scans it reads, a
+    2D backbone runs slice by slice (flax's leading batch axes) and the
+    keypoints and the registration stay 3D; both packages register the pair
+    and agree on every saved keypoint (``KEYPOINT_ABS_FP32``: an fp32 U-Net,
+    the fits on fp32 keypoints). What keymorph_tpu
+    refuses at ``--dim 2`` the port refuses too, before it reads a scan or
+    writes a file: the 3D-only backbones (keymorph_tpu asserts) and the
+    Jacobian metrics (keymorph_tpu's scorer fails to make a number of the
+    determinant reduced over two axes)."""
     args = ["--moving", str(cli_inputs / "img0.nii.gz"), "--fixed", str(cli_inputs / "img1.nii.gz"),
-            "--num_keypoints", "8", "--dim", "2", "--list_of_aligns", "affine"]
-    for backbone in (["--backbone", "conv"], ["--backbone", "unet", "--use_amp"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP A9: the 2D pipeline"):
-            _run_port_cli(args + backbone, tmp_path / "port")
-    assert not (tmp_path / "port").exists() or not any((tmp_path / "port").rglob("*.npy"))
+            "--moving_seg", str(cli_inputs / "seg0.nii.gz"),
+            "--fixed_seg", str(cli_inputs / "seg1.nii.gz"), "--num_keypoints", "8", "--dim", "2",
+            "--size", "16", "--list_of_aligns", "affine", "tps_1"]
+    from keymorph_tpu_torch.models.unet import init_weights
+    from keymorph_tpu_torch.training.config import Config, build_backbone
+
+    backbone = build_backbone(Config(num_keypoints=8, backbone="unet", num_levels_for_unet=2,
+                                     dim=2))
+    init_weights(backbone, torch.Generator().manual_seed(6))
+    torch.save({"state_dict": {"backbone." + k: v for k, v in backbone.state_dict().items()}},
+               tmp_path / "weights2d.pt")
+    run = args + ["--backbone", "unet", "--num_levels_for_unet", "2", "--load_path",
+                  str(tmp_path / "weights2d.pt"), "--list_of_metrics", "mse", "harddice", "hausd"]
+    ours = _run_port_cli(run, tmp_path / "port")
+    ref = _run_jax_cli(run, tmp_path / "jax")
+    assert set(ours) == set(ref) and _files(tmp_path / "port") == _files(tmp_path / "jax")
+    d = tmp_path / "port" / "register" / "0_fixed_moving"
+    for f in ("points_f_0-fixed", "points_m_0-moving-rot0", "points_a_0-fixed-moving-rot0-tps_1"):
+        x = np.load(d / f"{f}.npy")
+        y = np.load(tmp_path / "jax" / "register" / "0_fixed_moving" / f"{f}.npy")
+        assert x.shape == y.shape == (8, 3)
+        print(f"register CLI --dim 2: {f} max |port - keymorph_tpu| {np.abs(x - y).max():.3g}")
+        np.testing.assert_allclose(x, y, atol=KEYPOINT_ABS_FP32, rtol=0)
+    for extra, err in ((["--backbone", "truncatedunet", "--use_amp"], AssertionError),
+                       (["--backbone", "unet", "--list_of_metrics", "jdstd"], TypeError)):
+        with pytest.raises(err):
+            _run_jax_cli(args + extra, tmp_path / "jax_refused")
+        with pytest.raises(ValueError, match="3D only|need --dim 3"):
+            _run_port_cli(args + extra, tmp_path / "refused")
+    assert not (tmp_path / "refused").exists() or not any((tmp_path / "refused").rglob("*.npy"))
 
 
 def test_register_cli_default_and_fp32_backbones_match_jax(cli_inputs, tmp_path):

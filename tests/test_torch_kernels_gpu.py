@@ -743,3 +743,82 @@ def test_keymorph_serves_on_the_card(rng, dev):
     for r in res.values():
         assert r["grid"].shape == (1, *S, 3) and r["grid"].is_cuda
         assert bool(torch.isfinite(r["grid"]).all() and torch.isfinite(r["points_a"]).all())
+
+
+def test_2d_registration_on_the_card_matches_the_cpu(rng, dev):
+    """``KeyMorph(dim=2)`` (an fp32 UNet2D, TF32 off) on the card against the
+    same call on the CPU, on the same weights and images: keypoints within
+    1e-4 (cuDNN's fp32 convs sum in another order), every output on the card
+    and finite. Then the 2D geometry from identical, spread keypoints (an
+    untrained net's cluster, which makes the affine fit ill-conditioned):
+    grids and aligned points within 1e-5, the bilinear warp of the card's
+    grid within 1e-5 and the nearest warp exactly. The 2D route moves no
+    kernel counter and no plain-version counter on either device."""
+    from keymorph_tpu_torch.models.keymorph import KeyMorph, align_pair
+    from keymorph_tpu_torch.models.unet import UNet2D, init_weights
+    from keymorph_tpu_torch.ops import cuda as kernels
+    from keymorph_tpu_torch.ops.resample import align_img
+
+    K, S, types = 8, (40, 36), ["rigid", "affine", "tps_1"]
+    img_f, img_m = (rng.random((2, 1, *S)).astype(np.float32) for _ in range(2))
+    seg = torch.tensor(rng.integers(0, 4, (2, 1, *S)).astype(np.float32))
+    kernels.reset_counters()
+    out = {}
+    for device in ("cpu", dev):
+        net = init_weights(UNet2D(out_channels=K, f_maps=8, num_levels=3),
+                           torch.Generator().manual_seed(0))
+        out[str(device)] = KeyMorph(net, K, dim=2, device=device)(
+            img_f, img_m, transform_type=types, return_aligned_points=True)
+    cpu, card = out["cpu"], out[str(dev)]
+    for t in types:
+        for k in ("points_f", "points_m"):
+            assert (card[t][k].cpu() - cpu[t][k]).abs().max().item() <= 1e-4, (t, k)
+        for v in (card[t]["grid"], card[t]["points_a"]):
+            assert v.is_cuda and bool(torch.isfinite(v).all())
+    pf = torch.tensor(rng.uniform(-0.7, 0.7, (2, K, 2)).astype(np.float32))
+    pm = pf + torch.tensor(rng.normal(0, 0.05, (2, K, 2)).astype(np.float32))
+    for t in types:
+        align_type, lm = t.split("_")[0], (1.0 if t.startswith("tps") else None)
+        got = align_pair(pf.to(dev), pm.to(dev), align_type, S, lmbda=lm,
+                         compute_aligned_points=True)
+        want = align_pair(pf, pm, align_type, S, lmbda=lm, compute_aligned_points=True)
+        for k in ("grid", "points_a"):
+            assert (got[k].cpu() - want[k]).abs().max().item() <= 1e-5, (t, k)
+        grid = got["grid"].cpu()
+        assert (align_img(got["grid"], torch.tensor(img_m, device=dev)).cpu()
+                - align_img(grid, torch.tensor(img_m))).abs().max().item() <= 1e-5, t
+        assert torch.equal(align_img(got["grid"], seg.to(dev), "nearest").cpu(),
+                           align_img(grid, seg, "nearest")), t
+    assert not any(c["launches"] or c["plain_calls"] for c in kernels.counters().values())
+
+
+def test_cuda_wrappers_refuse_2d_tensors(dev):
+    """The warp and TPS-flow wrappers keep refusing a CUDA tensor that is not
+    3D: the 2D route never reaches them, and nothing falls back to them."""
+    from keymorph_tpu_torch.ops.cuda import resample3d, tpsflow
+
+    with pytest.raises(ValueError):
+        resample3d.warp_planes(torch.zeros((1, 1, 8, 8), device=dev),
+                               torch.zeros((1, 2, 8, 8), device=dev))
+    with pytest.raises(ValueError):
+        tpsflow.tps_flow(torch.zeros((1, 7, 2), device=dev), torch.zeros((1, 4, 2), device=dev),
+                         torch.zeros((1, 64, 2), device=dev))
+
+
+def test_simple_unet_and_lc2_on_the_card_match_the_cpu(rng, dev):
+    """The brain extractor's logits at 32^3 and LC2 of 3 odd cubes of 21^3
+    on the card against the CPU: logits within 1e-4 of their largest value,
+    LC2 within 1e-5."""
+    from keymorph_tpu_torch import metrics as M
+    from keymorph_tpu_torch.brain_extract import brain_logits
+    from keymorph_tpu_torch.models.unet import SimpleUnet, init_weights
+
+    x = rng.random((1, 1, 32, 32, 32)).astype(np.float32)
+    model = init_weights(SimpleUnet(), torch.Generator().manual_seed(1))
+    cpu = brain_logits(model, x, device="cpu")
+    card = brain_logits(model, x, device=dev)
+    assert (card.cpu() - cpu).abs().max().item() <= 1e-4 * cpu.abs().max().item()
+    us, mr = (torch.tensor(rng.normal(size=(3, 1, 21, 21, 21)).astype(np.float32))
+              for _ in range(2))
+    lc2 = M.LC2()
+    assert (lc2(us.to(dev), mr.to(dev)).cpu() - lc2(us, mr)).abs().max().item() <= 1e-5

@@ -182,11 +182,22 @@ def test_random_augment_draws_from_the_generator(rng):
     torch.testing.assert_close(m1, a, atol=0, rtol=0)
 
 
-def test_augment_rejects_2d():
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        augment.sample_affine_params(None, 1, dim=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        affine_flow(torch.eye(3)[None], (4, 4))
+def test_augment_rejects_2d(rng):
+    """Named for the time the port refused 2D augmentation; 2D is ported now
+    and nothing of it is refused, as in keymorph_tpu: the 2D draws take
+    keymorph_tpu's parameter layout ((B, 2), (B, 2), (B, 1), (B, 2)) and
+    ranges, and ``affine_flow`` of a (B, 3, 3) matrix is keymorph_tpu's 2D
+    grid (within 1e-6)."""
+    drawn = augment.sample_affine_params(torch.Generator().manual_seed(0), 64, dim=2,
+                                         max_random_params=(0.2, 0.3, 0.4, 0.1))
+    want = jaugment.sample_affine_params(jax.random.PRNGKey(0), 64, 2, (0.2, 0.3, 0.4, 0.1))
+    for t, j, hi in zip(drawn, want, (1.2, 0.3, 0.4, 0.1)):
+        assert t.shape == j.shape and float(t.max()) <= hi
+    m = np.eye(3, dtype=np.float32)[None] + rng.normal(0, 0.1, (2, 3, 3)).astype(np.float32)
+    m[:, 2] = [0, 0, 1]
+    np.testing.assert_allclose(affine_flow(torch.tensor(m), (5, 7)).numpy(),
+                               np.asarray(jaffine_flow(jnp.asarray(m), (5, 7))),
+                               atol=1e-6, rtol=0)
 
 
 # ---------------------------------------------------------------------------

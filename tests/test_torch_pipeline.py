@@ -145,26 +145,26 @@ def test_unported_training_entry_points_name_their_roadmap_item(rng):
     state = train.TrainState.create(net, train.make_optimizer(tps, net))
     km = KeyMorph(TruncatedUNet3D(dtype=torch.bfloat16, **CFG), K, device="cpu")
     cases = [
-        ("A9", lambda: KeyMorph(TruncatedUNet3D(dtype=torch.bfloat16, **CFG), K, dim=2,
-                                device="cpu")),
         ("A9", lambda: km.groupwise_register(np.zeros((2, 1, 8, 8, 8), np.float32),
                                              mesh=object())),
-        ("A9", lambda: build_backbone(Config(backbone="unet", dim=2))),
-        ("A9", lambda: build_backbone(Config(backbone="conv", dim=2))),
-        ("A9", lambda: augment.build_affine_matrix((), dim=2)),
-        ("A9", lambda: augment.fixed_affine_params(1, 2, (0, 0, 0, 0))),
-        ("A9", lambda: augment.random_affine_augment(None, torch.zeros((1, 1, 8, 8)))),
     ]
     for item, call in cases:
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             call()
     assert state.step == 0  # nothing was trained on the way
+    # the 2D pipeline is ported: these ran into NotImplementedError before
+    assert KeyMorph(TruncatedUNet3D(dtype=torch.bfloat16, **CFG), K, dim=2,
+                    device="cpu").dim == 2
+    assert build_backbone(Config(backbone="unet", dim=2)).dim == 2
+    assert build_backbone(Config(backbone="conv", dim=2)).dim == 2
+    assert augment.fixed_affine_params(1, 2, (0, 0, 0, 0))[2].shape == (1, 1)
+    assert augment.random_affine_augment(None, torch.zeros((1, 1, 8, 8))).shape == (1, 1, 8, 8)
 
 
 def test_port_imports_neither_jax_nor_keymorph_tpu():
-    """The port, every one of its modules (the data layer, the metrics, the
-    CLIs, pretraining and the backbones among them) and chip_smoke.py import
-    torch only:
+    """The port, every one of its modules (the data layer, the metrics with
+    LC2, the CLIs, pretraining, the backbones, the brain extractor and its
+    tool among them) and chip_smoke.py import torch only:
     neither jax nor the JAX package may appear in sys.modules (fresh
     interpreter), and no source line imports them."""
     code = textwrap.dedent("""
@@ -183,7 +183,8 @@ def test_port_imports_neither_jax_nor_keymorph_tpu():
                      "data.loader", "native.kmio", "cli.register", "cli.eval_pairwise",
                      "cli.eval_groupwise", "cli.script_utils", "cli.hyperparameters",
                      "cli.run", "training.pretrain", "ops.resize", "models.convnet",
-                     "models.layers", "models.unet"):
+                     "models.layers", "models.unet", "brain_extract",
+                     "tools.extract_brains"):
             assert "keymorph_tpu_torch." + want in names, want
         import chip_smoke
         keymorph_tpu_torch.ops.cuda.counters()
