@@ -154,8 +154,28 @@ Phases (each prints its lines; any failure raises, so the exit code is not 0):
      twice the deeper tensor and the concat-free parts form runs (it must
      launch), held against the plain route under phase 3's yardstick.
 
+ 14. the parallel layer (``keymorph_tpu_torch/parallel``) on
+     torch.distributed, the flagship net with seeded weights: (a) a world of
+     1 on NCCL in this process: the sharded step at 128^3 (phase 5's config,
+     injected lambda and subset) under phase 6's rule against the unsharded
+     kernel step, and one 256^3 pair through ``make_sharded_register_fn``
+     against the single-process kernel path; (b) a world of 2 on cuda:0 over
+     gloo (NCCL refuses two ranks on one card), each rank a process of this
+     script (``--phase14-rank``, joined with a deadline, killed on failure):
+     the 2-rank step at 128^3 (batch 2) and its gradient all-reduce alone,
+     4 pairs at 256^3 through ``make_sharded_register_fn``,
+     ``groupwise_register(mesh=...)`` of 4 subjects at 128^3 (affine,
+     tps_1), and one 256^3 pair through ``make_spatial_register_fn`` at
+     'space' 2 (the U-Net's module path with halo exchanges, then the flow
+     and the warp of each slab), host-clock times by rank; then rank 0 holds
+     the step under phase 6's rule, the register and groupwise keypoints and
+     grids against the single-process kernel path and the spatial pair
+     against the unsplit module path, each within phase 3's yardstick rule,
+     and the spatial slab stages on their own inputs (TPS_ABS, WARP_ABS).
+     Each path's kernels must launch on every rank; no plain version runs.
+
 The line before the last is the kernels' JSON record (``launches`` summed
-over the main paths of phases 2, 5, 9, 10, 11, 12 and 13); the last line is
+over the main paths of phases 2, 5, 9, 10, 11, 12, 13 and 14); the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA it raises before printing
 a result. The script imports neither jax nor keymorph_tpu.
 """
@@ -2702,6 +2722,370 @@ def phase13(torch, dev):
     return parts_counts
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the parallel layer (keymorph_tpu_torch/parallel/) on
+# torch.distributed: (a) a world of 1 on NCCL in this process, (b) a world of
+# 2 on cuda:0 over gloo (NCCL refuses two ranks on one card), each rank a
+# process of this script (``--phase14-rank``)
+# ---------------------------------------------------------------------------
+
+P14_TIMEOUT = 60          # s, every process group's
+P14_DEADLINE = 420        # s, the 2-rank world's join: start, paths, rank 0's references
+P14_TRAIN_BATCH = 2       # 128^3 rows of the 2-rank step, a row a rank
+P14_PAIRS = 4             # 256^3 pairs of the fan-out register, two a rank
+P14_GROUP = 4             # 128^3 subjects of groupwise_register(mesh=...)
+P14_TYPES = ("affine", "tps_1")
+# the kernels each path must launch, on every rank (the spatial path's
+# extraction is the U-Net's module path: no conv kernel)
+P14_PATHS = {
+    "train": TRAIN_PATH_KERNELS,
+    "register": ("conv3x3_fused_flat", "conv3x3_fused_flat_upconv", "tps_flow"),
+    "groupwise": ("conv3x3_fused_flat", "conv3x3_fused_flat_upconv", "tps_flow"),
+    "spatial": ("tps_flow", "warp_planes"),
+}
+
+
+def _p14_net(torch, dev):
+    """The flagship net with phase 14's seeded weights (the same in every
+    process: the generator is the CPU's)."""
+    from keymorph_tpu_torch.models.keymorph import KeyMorphNet
+    from keymorph_tpu_torch.models.unet import TruncatedUNet3D, init_weights
+
+    gen = torch.Generator().manual_seed(SEED + 14)
+    return KeyMorphNet(init_weights(TruncatedUNet3D(dtype=torch.bfloat16, **UNET), gen),
+                       NUM_KEYPOINTS).to(dev)
+
+
+def _p14_inputs(torch, dev):
+    """Phase 14's inputs, the same in every process (seeded numpy): the
+    step's batch at 128^3 (smooth, as phase 5's) with its injected lambdas
+    and keypoint subset, the register's pairs and the spatial pair at 256^3,
+    the group at 128^3."""
+    rng = np.random.default_rng([SEED, 14])
+
+    def batch(spatial, n, noise):
+        return tuple(torch.cat(v) for v in zip(*_make_pairs(torch, rng, dev, spatial, n, noise)))
+
+    return {"train": batch(TRAIN_SPATIAL, P14_TRAIN_BATCH, 0.0),
+            "register": batch(SPATIAL, P14_PAIRS, 0.2),
+            "group": batch(TRAIN_SPATIAL, P14_GROUP, 0.2)[0],
+            "spatial": batch(SPATIAL, 1, 0.2),
+            "lmbda": torch.tensor([0.5, 2.0], device=dev)[:P14_TRAIN_BATCH],
+            "idx": torch.tensor(rng.permutation(NUM_KEYPOINTS)[:TRAIN_KEYPOINTS].copy(),
+                                device=dev)}
+
+
+def _p14_timed(torch, out, label, fn):
+    """``fn()`` on the host clock up to a synchronize, its launches counted
+    from 0 just before and read just after (``out["ms"]``, ``out["counts"]``)."""
+    from keymorph_tpu_torch.ops import cuda as kernels
+
+    torch.cuda.synchronize()
+    kernels.reset_counters()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    out["ms"][label] = (time.perf_counter() - t0) * 1e3
+    out["counts"][label] = kernels.counters()
+    return res
+
+
+def _p14_step_readings(torch, dev, config, inputs, rows, mesh=None, scale=1.0):
+    """One canonical step (phase 14's weights, the injected lambdas and
+    subset) on ``rows`` of the step's batch scaled by ``scale``: sharded over
+    ``mesh``, or the unsharded kernel step. Returns (readings (loss,
+    grad_norm, gradients), the net, the step, the state)."""
+    from keymorph_tpu_torch.parallel import make_sharded_train_step
+    from keymorph_tpu_torch.training.train import TrainState, make_optimizer, make_train_step
+
+    net = _p14_net(torch, dev)
+    state = TrainState.create(net, make_optimizer(config, net))
+    step = (make_train_step(net, config) if mesh is None
+            else make_sharded_train_step(net, config, mesh))
+    img_f, img_m = (v[rows] * scale for v in inputs["train"])
+    state, m = step(state, None, img_f, img_m, None, None, 1.0, lmbda=inputs["lmbda"][rows],
+                    keypoint_idx=inputs["idx"])
+    return (float(m["loss"]), float(m["grad_norm"]), _grads(net)), net, step, state
+
+
+def _p14_hold_step(torch, dev, config, inputs, rows, got, label):
+    """A sharded step's readings under phase 6's rule against the unsharded
+    kernel step on the same rows, its yardstick the unsharded step on the
+    rows moved by PERTURB."""
+    plain = _p14_step_readings(torch, dev, config, inputs, rows)[0]
+    noisy = _p14_step_readings(torch, dev, config, inputs, rows, scale=1.0 + PERTURB)[0]
+    return _hold_readings(label, got, plain, noisy)
+
+
+def _p14_register_single(torch, net, img_f, img_m):
+    """The single-process kernel path, pair by pair: keypoints, then the
+    ``tps_1`` grid of ``align_pair(compute_grid=True)``."""
+    from keymorph_tpu_torch.models.keymorph import align_pair
+
+    outs = []
+    with torch.no_grad():
+        for i in range(img_f.shape[0]):
+            pf, pm, _ = net(img_f[i: i + 1], img_m[i: i + 1])
+            grid = align_pair(pf, pm, "tps", img_f.shape[2:], lmbda=LMBDA)["grid"]
+            outs.append((pf, pm, grid))
+    return tuple(torch.cat(v) for v in zip(*outs))
+
+
+def _p14_dist(a, b):
+    return (a.float() - b.float()).abs().max().item()
+
+
+def _p14_worker(torch, rank, tmp):
+    """One rank of phase 14 (b): the 2-rank step, the fan-out register, the
+    mesh groupwise and the spatial pair, on cuda:0 over gloo; then rank 0
+    alone computes every single-process reference and the distances.
+    Writes ``result_<rank>.pt`` under ``tmp``."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from keymorph_tpu_torch import _build
+    from keymorph_tpu_torch.models.keymorph import KeyMorph, align_pair
+    from keymorph_tpu_torch.models.layers import center_of_mass
+    from keymorph_tpu_torch.models.unet import TruncatedUNet3D
+    from keymorph_tpu_torch.ops.resample import align_img
+    from keymorph_tpu_torch.parallel import (
+        make_mesh, make_sharded_register_fn, make_spatial_register_fn, sharded)
+    from keymorph_tpu_torch.training.config import Config
+
+    km = _import_port()
+    km.disable_tf32()
+    _build.library()
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    timeout = datetime.timedelta(seconds=P14_TIMEOUT)
+    dist.init_process_group("gloo", init_method=f"file://{tmp / 'store'}", rank=rank,
+                            world_size=2, timeout=timeout)
+    inputs = _p14_inputs(torch, dev)
+    out = {"ms": {}, "counts": {}}
+    data = make_mesh(data=2, space=1, device_type="cuda", timeout=timeout)
+    config = _train_config(TRAIN_SPATIAL)
+    rows = slice(0, P14_TRAIN_BATCH)
+
+    # the 2-rank step (the first, then a second), and its gradient all-reduce alone
+    got, net, step, state = _p14_timed(torch, out, "train", lambda: _p14_step_readings(
+        torch, dev, config, inputs, rows, data))
+    img_f, img_m = inputs["train"]
+    _p14_timed(torch, out, "train second", lambda: step(
+        state, None, img_f, img_m, None, None, 1.0, lmbda=inputs["lmbda"],
+        keypoint_idx=inputs["idx"]))
+    for i in range(3):
+        _p14_timed(torch, out, f"grad all-reduce {i}", lambda: sharded._all_reduce_grads(net, data))
+    out["grad_mb"] = sum(p.grad.numel() * 4 for p in net.parameters() if p.grad is not None) / 1e6
+    del net, step, state
+
+    # the fan-out register of the pairs
+    reg_net = _p14_net(torch, dev).eval()
+    fn = make_sharded_register_fn(reg_net, Config(num_keypoints=NUM_KEYPOINTS,
+                                                  transform_type="tps_1"), data)
+    reg = _p14_timed(torch, out, "register", lambda: fn(*inputs["register"]))
+    _p14_timed(torch, out, "register second", lambda: fn(*inputs["register"]))
+
+    # groupwise with the subjects over the ranks
+    model = KeyMorph(TruncatedUNet3D(dtype=torch.bfloat16, **UNET), NUM_KEYPOINTS, device=dev)
+    model.net.load_state_dict(reg_net.state_dict())
+    model.eval()
+    group = _p14_timed(torch, out, "groupwise", lambda: model.groupwise_register(
+        inputs["group"], transform_type=list(P14_TYPES), mesh=data))
+
+    # one pair split over 'space'
+    space = make_mesh(data=1, space=2, device_type="cuda", timeout=timeout)
+    sfn = make_spatial_register_fn(reg_net, Config(num_keypoints=NUM_KEYPOINTS,
+                                                   transform_type="tps_1"), space)
+    spatial = _p14_timed(torch, out, "spatial", lambda: sfn(*inputs["spatial"]))
+    _p14_timed(torch, out, "spatial second", lambda: sfn(*inputs["spatial"]))
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    dist.destroy_process_group()
+
+    if rank == 0:  # the single-process references and the distances
+        out["train"] = got
+        d = out["dist"] = {}
+        grid, pf, pm = reg
+        f, m = inputs["register"]
+        rpf, rpm, rgrid = _p14_register_single(torch, reg_net, f, m)
+        npf, npm, ngrid = _p14_register_single(torch, reg_net, f * (1 + PERTURB),
+                                               m * (1 + PERTURB))
+        d["register keypoints"] = max(_p14_dist(pf, rpf), _p14_dist(pm, rpm))
+        d["register grid"] = _p14_dist(grid, rgrid)
+        d["register yardstick keypoints"] = max(_p14_dist(npf, rpf), _p14_dist(npm, rpm))
+        d["register yardstick grid"] = _p14_dist(ngrid, rgrid)
+        del rgrid, ngrid, grid
+        ref = model.groupwise_register(inputs["group"], transform_type=list(P14_TYPES))
+        moved = model.groupwise_register(inputs["group"] * (1 + PERTURB),
+                                         transform_type=list(P14_TYPES))
+        for name in P14_TYPES:
+            for k in ("grouppoints_m", "grouppoints_a", "groupgrids"):
+                d[f"groupwise {name} {k}"] = _p14_dist(group[name][k], ref[name][k])
+                d[f"groupwise {name} {k} yardstick"] = _p14_dist(moved[name][k], ref[name][k])
+        img_a, sgrid, spf, spm = spatial
+        f, m = inputs["spatial"]
+        with torch.no_grad():
+            def unsplit(scale):
+                kp = [center_of_mass(reg_net.backbone(v * scale).movedim(1, -1)) for v in (f, m)]
+                g = align_pair(*kp, "tps", SPATIAL, lmbda=LMBDA)["grid"]
+                return kp, g, align_img(g, m)
+
+            (upf, upm), ugrid, uimg = unsplit(1.0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            unsplit(1.0)
+            torch.cuda.synchronize()
+            out["unsplit_ms"] = (time.perf_counter() - t0) * 1e3
+            (npf, npm), ngrid, nimg = unsplit(1.0 + PERTURB)
+            own = align_pair(spf, spm, "tps", SPATIAL, lmbda=LMBDA)["grid"]
+            d["spatial stage grid"] = _p14_dist(sgrid, own)
+            d["spatial stage image"] = _p14_dist(img_a, align_img(sgrid, m))
+        d["spatial keypoints"] = max(_p14_dist(spf, upf), _p14_dist(spm, upm))
+        d["spatial grid"] = _p14_dist(sgrid, ugrid)
+        d["spatial image"] = _p14_dist(img_a, uimg)
+        d["spatial yardstick keypoints"] = max(_p14_dist(npf, upf), _p14_dist(npm, upm))
+        d["spatial yardstick grid"] = _p14_dist(ngrid, ugrid)
+        d["spatial yardstick image"] = _p14_dist(nimg, uimg)
+    torch.save(out, tmp / f"result_{rank}.pt")
+
+
+def _p14_spawn(torch, tmp):
+    """The 2-rank world: two processes of this script on cuda:0, joined
+    with a deadline; on a failure or at the deadline every survivor is
+    killed and the ranks' logs are printed to stderr. Returns the ranks'
+    results."""
+    logs = [open(tmp / f"rank{r}.log", "w+") for r in range(2)]
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--seed",
+                               str(SEED), "--phase14-rank", str(r), "--phase14-dir", str(tmp)],
+                              stdout=logs[r], stderr=subprocess.STDOUT, cwd=ROOT)
+             for r in range(2)]
+    end = time.monotonic() + P14_DEADLINE
+    try:
+        while any(p.poll() is None for p in procs):
+            if time.monotonic() > end or any(p.poll() not in (None, 0) for p in procs):
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        for p in procs:
+            p.wait()
+    codes = [p.returncode for p in procs]
+    for r, f in enumerate(logs):
+        f.seek(0)
+        text = f.read()
+        f.close()
+        if any(codes):
+            print(f"phase14 rank {r} (exit {codes[r]}):\n{text[-6000:]}", file=sys.stderr)
+    if any(codes):
+        raise AssertionError(f"phase 14 (b): the 2-rank world failed, exit codes {codes}")
+    return [torch.load(tmp / f"result_{r}.pt", weights_only=False) for r in range(2)]
+
+
+def _p14_single(torch, dev, tmp):
+    """(a) a world of 1 on NCCL: the sharded step at 128^3 (a row of the
+    step's batch) under phase 6's rule against the unsharded kernel step,
+    and one 256^3 pair through the fan-out register against the
+    single-process kernel path. Returns (the launch counts, the
+    readings)."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from keymorph_tpu_torch.parallel import make_mesh, make_sharded_register_fn
+    from keymorph_tpu_torch.training.config import Config
+
+    timeout = datetime.timedelta(seconds=P14_TIMEOUT)
+    dist.init_process_group("nccl", init_method=f"file://{tmp / 'store1'}", rank=0,
+                            world_size=1, timeout=timeout)
+    try:
+        mesh = make_mesh(device_type="cuda", timeout=timeout)
+        inputs = _p14_inputs(torch, dev)
+        config = _train_config(TRAIN_SPATIAL)
+        out = {"ms": {}, "counts": {}}
+        got = _p14_timed(torch, out, "train", lambda: _p14_step_readings(
+            torch, dev, config, inputs, slice(0, 1), mesh))[0]
+        held = _p14_hold_step(torch, dev, config, inputs, slice(0, 1), got,
+                              "phase14 (a) world-1 step")
+        net = _p14_net(torch, dev).eval()
+        fn = make_sharded_register_fn(net, Config(num_keypoints=NUM_KEYPOINTS,
+                                                  transform_type="tps_1"), mesh)
+        f, m = (v[:1] for v in inputs["register"])
+        grid, pf, pm = _p14_timed(torch, out, "register", lambda: fn(f, m))
+        _p14_timed(torch, out, "register second", lambda: fn(f, m))
+        rpf, rpm, rgrid = _p14_register_single(torch, net, f, m)
+        d = {"keypoints": max(_p14_dist(pf, rpf), _p14_dist(pm, rpm)),
+             "grid": _p14_dist(grid, rgrid)}
+    finally:
+        dist.destroy_process_group()
+    print(f"phase14 (a) world of 1 (NCCL): step {out['ms']['train']:.3f} ms (first, with the "
+          f"unsharded step's readings: the rule above), register of one 256^3 pair "
+          f"{out['ms']['register']:.3f} / {out['ms']['register second']:.3f} ms (first / "
+          f"second); vs the single-process kernel path: keypoints {d['keypoints']!r}, grid "
+          f"{d['grid']!r} (tol {KEYPOINT_ABS}, {PLANES_ABS})")
+    for path in ("train", "register"):
+        _expect(f"phase 14 (a) {path}", out["counts"][path], P14_PATHS[path])
+    if not held or d["keypoints"] > KEYPOINT_ABS or d["grid"] > PLANES_ABS:
+        raise AssertionError("phase 14 (a): the world-1 sharded paths disagree with the "
+                             "unsharded ones")
+    counts = None
+    for path in ("train", "register"):
+        counts = _add_counts(counts, out["counts"][path])
+    return counts
+
+
+def phase14(torch, dev):
+    """The parallel layer (module docstring, phase 14). Returns the launch
+    counts of its paths, summed over (a) and every rank of (b)."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="phase14_", dir=ROOT / "build"))
+    counts = _p14_single(torch, dev, tmp)
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    ranks = _p14_spawn(torch, tmp)
+    t2 = time.perf_counter()
+    for r, res in enumerate(ranks):
+        for path, names in P14_PATHS.items():
+            _expect(f"phase 14 (b) rank {r} {path}", res["counts"][path], names)
+            counts = _add_counts(counts, res["counts"][path])
+    ms = {k: [res["ms"][k] for res in ranks] for k in ranks[0]["ms"]}
+    d = ranks[0]["dist"]
+    reduce_ms = [ms[f"grad all-reduce {i}"] for i in range(3)]
+    print(f"phase14 (b) 2 ranks on cuda:0 (gloo), ms by rank, host clock: step "
+          f"{ms['train']} (first), {ms['train second']} (second); its gradient all-reduce "
+          f"({ranks[0]['grad_mb']:.1f} MB fp32) {reduce_ms}; fan-out register of {P14_PAIRS} "
+          f"pairs at 256^3 {ms['register']} / {ms['register second']}; groupwise_register "
+          f"of {P14_GROUP} at 128^3 {ms['groupwise']}; the spatial pair at 256^3 on 'space' 2 "
+          f"{ms['spatial']} / {ms['spatial second']} (unsplit, one process: "
+          f"{ranks[0]['unsplit_ms']:.3f}, second); peak GiB {[r['peak_gib'] for r in ranks]}")
+    held = _p14_hold_step(torch, dev, _train_config(TRAIN_SPATIAL), _p14_inputs(torch, dev),
+                          slice(0, P14_TRAIN_BATCH), ranks[0]["train"], "phase14 (b) 2-rank step")
+    checks = {
+        "register keypoints": max(KEYPOINT_ABS, NOISE_FACTOR * d["register yardstick keypoints"]),
+        "register grid": max(PLANES_ABS, NOISE_FACTOR * d["register yardstick grid"]),
+        "spatial keypoints": max(KEYPOINT_ABS, NOISE_FACTOR * d["spatial yardstick keypoints"]),
+        "spatial grid": max(PLANES_ABS, NOISE_FACTOR * d["spatial yardstick grid"]),
+        "spatial stage grid": TPS_ABS, "spatial stage image": WARP_ABS,
+    }
+    for name in P14_TYPES:
+        key = f"groupwise {name} grouppoints_m"
+        checks[key] = max(KEYPOINT_ABS, NOISE_FACTOR * d[key + " yardstick"])
+    print(f"phase14 (b) vs the single-process kernel path (register, groupwise) and the unsplit "
+          f"module path (spatial), largest differences: {json.dumps(d)}; held (tol): "
+          f"{json.dumps(checks)}; yardstick: the single-process path on its inputs moved by "
+          f"{PERTURB} relative")
+    bad = [k for k, tol in checks.items() if not d[k] <= tol]
+    print(f"phase14 counters (summed over (a) and both ranks of (b)) "
+          f"{json.dumps({k: c['launches'] for k, c in counts.items()})}; (a) "
+          f"{t1 - t0:.3f} s, (b) {t2 - t1:.3f} s, phase 14 {time.perf_counter() - t0:.3f} s")
+    if bad or not held:
+        raise AssertionError(f"phase 14 (b) disagrees: {bad}, step held {held}")
+    return counts
+
+
 # --plant-fault: each fault wraps one kernel's wrapper, so only the kernel
 # route sees it (the plain steps call the plain versions by their own names)
 FAULTS = ("warp_grad_plane", "input_grad_half")
@@ -2760,10 +3144,15 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=SEED)
     ap.add_argument("--plant-fault", choices=FAULTS, default=None)
+    ap.add_argument("--phase14-rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--phase14-dir", type=Path, default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     SEED = args.seed
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; the port has no CPU smoke")
+    if args.phase14_rank is not None:  # one rank of phase 14 (b)'s world
+        _p14_worker(torch, args.phase14_rank, args.phase14_dir)
+        return
     km = _import_port()
     from keymorph_tpu_torch import _build
 
@@ -2827,6 +3216,8 @@ def main():
     run_counts = phase12(torch, np.random.default_rng([SEED, 12]), dev)
     torch.cuda.empty_cache()
     parts_counts = phase13(torch, dev)
+    torch.cuda.empty_cache()
+    parallel_counts = phase14(torch, dev)
 
     def entry(name, key, source):
         # launches: over every main path, each counted from 0 just before it
@@ -2834,11 +3225,14 @@ def main():
         # 9's registration API, phase 10's three steps, phase 11's register
         # CLI, phase 12's CLI runs, kernel steps, 'cr' heatmaps and other
         # backbones' steps, phase 13's extraction at an IXI scan's native
-        # grid, where the parts form runs). Phase 1's launches are kept apart.
+        # grid, where the parts form runs; phase 14's parallel paths, over its
+        # world of 1 and both ranks of its world of 2). Phase 1's launches
+        # are kept apart.
         paths = {"launches_served_3_pairs": serve_counts, "launches_3_train_steps": train_counts,
                  "launches_phase9_api": api_counts, "launches_phase10_steps": api_train_counts,
                  "launches_phase11_register": register_counts,
-                 "launches_phase12_run": run_counts, "launches_phase13_parts": parts_counts}
+                 "launches_phase12_run": run_counts, "launches_phase13_parts": parts_counts,
+                 "launches_phase14": parallel_counts}
         per_path = {k: c[name]["launches"] for k, c in paths.items()}
         return {"name": name, "route": "cuda", "source": f"keymorph_tpu_torch/csrc/{source}",
                 "replaces": REPLACES[key], "launches": sum(per_path.values()), **per_path,

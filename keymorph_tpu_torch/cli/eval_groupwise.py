@@ -11,6 +11,12 @@ The augmentation of each subject draws from a ``torch.Generator`` seeded
 with ``rng_seed``: keymorph_tpu draws from ``jax.random``, so the two
 packages agree on a zero-range augmentation (``rot0``) and not on a random
 one.
+
+With ``args.mesh`` (a ``keymorph_tpu_torch.parallel.Mesh``; every rank runs
+the harness) the subjects' extraction and grids fan out over the mesh
+(``KeyMorph.groupwise_register(mesh=...)``); rank 0 alone writes the
+group's files, warps and scores, as keymorph_tpu's one controller does, and
+holds the metrics (the other ranks' lists stay empty).
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ from keymorph_tpu_torch.augment import random_affine_augment
 from keymorph_tpu_torch.cli.script_utils import parse_test_aug, save_dict_as_json
 from keymorph_tpu_torch.data.loader import ThreadPrefetcher
 from keymorph_tpu_torch.ops.resample import align_img
+from keymorph_tpu_torch.parallel.mesh import require_mesh
 
 
 def _duplicate_files_to_N(directory, N=4):
@@ -42,6 +49,12 @@ def _duplicate_files_to_N(directory, N=4):
         new_path = os.path.join(directory, f"{files[0][:3]}_m_{len(files):03}.npz")
         shutil.copy(first, new_path)
         files.append(os.path.basename(new_path))
+
+
+def _is_main(args) -> bool:
+    """Does this process write and score (no mesh, or rank 0 of one)?"""
+    mesh = getattr(args, "mesh", None)
+    return mesh is None or require_mesh(mesh).is_main
 
 
 def _save_group_subjects(loader, group_size, aug_params, seg_available, groupimg_m_dir,
@@ -92,6 +105,8 @@ def _run_group_eval_dir(group_dir, registration_model, list_of_eval_metrics,
     group_dir = Path(group_dir)
     seg_available = getattr(args, "seg_available", False)
     device = resolve_device(getattr(registration_model, "device", None))
+    mesh = getattr(args, "mesh", None)
+    main = _is_main(args)
     groupimg_m_dir = group_dir / "img_m"
     groupseg_m_dir = group_dir / "seg_m"
     registration_results_dir = group_dir / "registration_results"
@@ -103,10 +118,12 @@ def _run_group_eval_dir(group_dir, registration_model, list_of_eval_metrics,
         os.makedirs(groupimg_a_dir[align], exist_ok=True)
         os.makedirs(groupseg_a_dir[align], exist_ok=True)
 
-    if duplicate_files:
+    if duplicate_files and main:
         _duplicate_files_to_N(groupimg_m_dir, 4)
         if seg_available:
             _duplicate_files_to_N(groupseg_m_dir, 4)
+    if mesh is not None:
+        mesh.barrier()  # rank 0 has written the group's subjects
 
     groupimg_m_paths = sorted(str(groupimg_m_dir / f) for f in os.listdir(groupimg_m_dir))
     groupseg_m_paths = (sorted(str(groupseg_m_dir / f) for f in os.listdir(groupseg_m_dir))
@@ -120,8 +137,10 @@ def _run_group_eval_dir(group_dir, registration_model, list_of_eval_metrics,
         save_dir=str(registration_results_dir),
         num_iters=5,
         log_to_console=True,
-        mesh=getattr(args, "mesh", None),
+        mesh=mesh,
     )
+    if not main:
+        return registration_results
 
     for align, res_dict in registration_results.items():
         # exact-prefix match: a bare startswith(align) would mix tps_1 with
@@ -208,14 +227,15 @@ def run_group_eval(group_loader, registration_model, list_of_eval_metrics, list_
                 groupseg_m_dir = group_dir / "seg_m"
                 os.makedirs(groupimg_m_dir, exist_ok=True)
                 os.makedirs(groupseg_m_dir, exist_ok=True)
-                _save_group_subjects(group_loader[dataset_name], group_size, parse_test_aug(aug),
-                                     seg_available, str(groupimg_m_dir), str(groupseg_m_dir),
-                                     device=device)
+                if _is_main(args):
+                    _save_group_subjects(group_loader[dataset_name], group_size,
+                                         parse_test_aug(aug), seg_available, str(groupimg_m_dir),
+                                         str(groupseg_m_dir), device=device)
                 results = _run_group_eval_dir(group_dir, registration_model,
                                               list_of_eval_metrics, list_of_eval_kp_aligns, aug,
                                               args, duplicate_files)
                 for align, res in results.items():
-                    for m in list_of_eval_metrics:
+                    for m in list_of_eval_metrics if _is_main(args) else ():
                         test_metrics[f"{m}:{dataset_name}:{aug}:{align}:{group_size}"].append(
                             res["metrics"][m])
     return test_metrics
@@ -248,13 +268,14 @@ def run_long_eval(group_loader, registration_model, list_of_eval_metrics, list_o
                 groupseg_m_dir = group_dir / "seg_m"
                 os.makedirs(groupimg_m_dir, exist_ok=True)
                 os.makedirs(groupseg_m_dir, exist_ok=True)
-                _save_group_subjects(group, len(group), aug_params, seg_available,
-                                     str(groupimg_m_dir), str(groupseg_m_dir), device=device)
+                if _is_main(args):
+                    _save_group_subjects(group, len(group), aug_params, seg_available,
+                                         str(groupimg_m_dir), str(groupseg_m_dir), device=device)
                 results = _run_group_eval_dir(group_dir, registration_model,
                                               list_of_eval_metrics, list_of_eval_kp_aligns, aug,
                                               args, duplicate_files)
                 for align, res in results.items():
-                    for m in list_of_eval_metrics:
+                    for m in list_of_eval_metrics if _is_main(args) else ():
                         test_metrics[f"{m}:{dataset_name}:{aug}:{align}"].append(
                             res["metrics"][m])
     return test_metrics

@@ -14,8 +14,11 @@ card, except the Hausdorff distance (host scipy on the uint8 channel-0
 masks). Each align's warped one-hot segmentation is reduced to its labels
 and freed before the next align is warped.
 
-Pairs may be batched (``batch_pairs``) on the one card; keymorph_tpu's
-``mesh`` fan-out over several devices is not ported (ROADMAP A9).
+Pairs may be batched (``batch_pairs``). With a ``mesh``
+(``keymorph_tpu_torch.parallel``, one process per GPU) the pairs fan out
+over its data-parallel axes as in keymorph_tpu: each rank registers, scores
+and saves its own pairs under the sequential run's file names, and the
+metrics are gathered to every rank in the sequential order.
 """
 
 from __future__ import annotations
@@ -219,14 +222,21 @@ def run_eval(loader, registration_model, list_of_eval_metrics, list_of_eval_name
     """Returns the test_metrics dict keyed ``metric:mod1:mod2:aug:align``.
 
     ``device``: where the pairs are registered and scored (None: the
-    registration model's ``device``, else the card). ``stage_times``: a dict
+    registration model's ``device``, else the card). ``mesh``: a
+    ``keymorph_tpu_torch.parallel.Mesh`` over which every rank calls this
+    with the same loader and model; ``batch_pairs`` then defaults to its
+    data-parallel size and must be a multiple of it, each rank registers
+    its rows of each batch and writes their artifacts and metric JSONs
+    (ranks off the first 'space' index write nothing), and every rank
+    returns the whole metrics dict. ``stage_times``: a dict
     that receives wall seconds per stage ("prep" one-hot and augmentation,
     "extract", "align", "warp_score", "hausdorff", "artifacts"), for a caller
     that profiles the run; the device stages then synchronize the card.
     """
     if mesh is not None:
-        raise NotImplementedError("run_eval(mesh=...): multi-device fan-out is not ported "
-                                  "(ROADMAP A9: parallel/); the port scores on one card")
+        from keymorph_tpu_torch.parallel import mesh as pmesh
+
+        mesh = pmesh.require_mesh(mesh)
     if getattr(args, "visualize", False):
         raise NotImplementedError("run_eval with visualize: the panels are not ported "
                                   "(ROADMAP A9: viz.py)")
@@ -240,7 +250,11 @@ def run_eval(loader, registration_model, list_of_eval_metrics, list_of_eval_name
     seg_available = getattr(args, "seg_available", False)
     device = resolve_device(device if device is not None
                             else getattr(registration_model, "device", None))
-    batch_pairs = batch_pairs or 1
+    batch_pairs = batch_pairs or (mesh.data_size if mesh is not None else 1)
+    if mesh is not None and batch_pairs % mesh.data_size:
+        raise ValueError(f"batch_pairs={batch_pairs} must be a multiple of the mesh's "
+                         f"data-parallel size ({mesh.data_size})")
+    writes = mesh is None or mesh.space_index == 0
     stages = _Stages(stage_times, device)
     need_vols = getattr(args, "save_eval_artifacts", True)
     score_fn = make_batch_score_fn(list_of_eval_aligns, list_of_eval_metrics, seg_available,
@@ -250,10 +264,17 @@ def run_eval(loader, registration_model, list_of_eval_metrics, list_of_eval_name
         """Register and score a buffer of pending pairs for every aug."""
         for aug in list_of_eval_augs:
             param = parse_test_aug(aug)
+            done = [bool(args.skip_if_completed) and all(
+                p.exists() for p in entry["metrics_paths"][aug].values()) for entry in pending]
+            if mesh is not None:
+                # every rank looks before any writes this aug's files: the
+                # collective orders the looks before the writes, and makes
+                # every rank take the same pairs
+                agreed = torch.tensor(done, dtype=torch.int32, device=mesh.device)
+                done = (pmesh.all_reduce(agreed, mesh.world_group) == mesh.size).tolist()
             work = []
-            for entry in pending:
-                if args.skip_if_completed and all(
-                        p.exists() for p in entry["metrics_paths"][aug].values()):
+            for entry, skip in zip(pending, done):
+                if skip:
                     print("Found metrics for all alignments, skipping registration...")
                     _record(entry, aug, {k: load_dict_from_json(v)
                                          for k, v in entry["metrics_paths"][aug].items()})
@@ -264,6 +285,10 @@ def run_eval(loader, registration_model, list_of_eval_metrics, list_of_eval_name
 
             n_work = len(work)
             batch = work + [work[-1]] * (batch_pairs - n_work)
+            rows = (pmesh.local_rows(mesh, batch_pairs) if mesh is not None
+                    else slice(0, batch_pairs))
+            batch = batch[rows]
+            mine = list(range(rows.start, min(rows.stop, n_work)))  # this rank's pairs
             stages.sync()
             t0 = time.perf_counter()
             img_f = _tensor(np.concatenate([e["img_f"] for e in batch]), device)
@@ -308,10 +333,12 @@ def run_eval(loader, registration_model, list_of_eval_metrics, list_of_eval_name
             stages.add("warp_score", time.perf_counter() - t1)
             batch_time = time.perf_counter() - t0
 
-            for j, entry in enumerate(work):
+            gathered = []
+            for j, w in enumerate(mine):
+                entry = work[w]
                 sl = slice(j, j + 1)
                 n_cls_j = entry["n_cls"] if seg_available else 0
-                if need_vols:
+                if need_vols and writes:
                     t1 = time.perf_counter()
                     _save_pair_common(
                         entry, aug, img_f[sl], img_m[sl],
@@ -350,13 +377,19 @@ def run_eval(loader, registration_model, list_of_eval_metrics, list_of_eval_name
                     print(f"-> {align}: align_time={float(res.get('time', float('nan'))):.3f}s "
                           f"batch_time={batch_time:.3f}s/{n_work}pairs", metrics)
                     t1 = time.perf_counter()
-                    save_dict_as_json(metrics, entry["metrics_paths"][aug][align])
-                    if need_vols:
+                    if writes:
+                        save_dict_as_json(metrics, entry["metrics_paths"][aug][align])
+                    if need_vols and writes:
                         img_a, labels_a = vols[align]
                         _save_pair_align(entry, aug, align, res, sl, res["grid"][sl], img_a[sl],
                                          labels_a[sl] if seg_available else None)
                     stages.add("artifacts", time.perf_counter() - t1)
-                _record(entry, aug, all_metrics)
+                gathered.append([w, all_metrics])
+            if mesh is not None:  # each rank's pairs, in rank order: the sequential order
+                gathered = [g for part in pmesh.gather_json(gathered, mesh.data_group,
+                                                            mesh.device) for g in part]
+            for w, all_metrics in gathered:
+                _record(work[w], aug, all_metrics)
             del results, grids, vols, img_f, img_m, seg_f, seg_m
 
     def _record(entry, aug, all_metrics):

@@ -30,6 +30,12 @@ keymorph_tpu (Orbax) checkpoint directory is refused: load it with
 keymorph_tpu and carry its parameters over with
 ``keymorph_tpu_torch/tools/import_flax_params.py``
 (``KeyMorph.load_flax_params``).
+
+On several GPUs, one process each (``torchrun --nproc_per_node N -m
+keymorph_tpu_torch.cli.register ...``), the pairs fan out over the
+processes (``eval_pairwise.run_eval(mesh=...)``) and a group's extraction
+and grids over them (``KeyMorph.groupwise_register(mesh=...)``); rank 0
+alone prints the final metrics.
 """
 
 from __future__ import annotations
@@ -169,9 +175,11 @@ def main(argv=None, stage_times=None):
     from keymorph_tpu_torch.cli.eval_pairwise import run_eval
     from keymorph_tpu_torch.data import ThreadPrefetcher
     from keymorph_tpu_torch.data.datasets import DataLoader, PairedDataset, SingleDataset, Subject
+    from keymorph_tpu_torch.parallel.mesh import launch_mesh
     from keymorph_tpu_torch.training.config import Config, build_model
 
-    device = resolve_device(args.device)
+    mesh = launch_mesh(args.device)
+    device = mesh.device if mesh is not None else resolve_device(args.device)
     if device.type == "cuda":  # fp32 backbones run cuDNN in full fp32
         disable_tf32()
     size = args.size or (128 if args.half_resolution else 256)
@@ -226,7 +234,7 @@ def main(argv=None, stage_times=None):
         subjects = [Subject(img_path=p, seg_path=s, modality="group")
                     for p, s in zip(moving_paths, seg_paths)]
         ea.seg_available = args.moving_seg is not None
-        ea.mesh = None
+        ea.mesh = mesh
         loader = {"group": SingleDataset(subjects, transform)}
         metrics = run_group_eval(loader, model, args.list_of_metrics, ["group"],
                                  args.list_of_augs, args.list_of_aligns,
@@ -243,12 +251,14 @@ def main(argv=None, stage_times=None):
         loader = ThreadPrefetcher(loader, depth=2)
         metrics = run_eval(loader, model, args.list_of_metrics, [("fixed", "moving")],
                            args.list_of_augs, args.list_of_aligns, ea,
-                           save_dir_prefix="register", device=device, stage_times=stage_times)
+                           save_dir_prefix="register", mesh=mesh, device=device,
+                           stage_times=stage_times)
 
-    print("\nFinal metrics:")
-    for k, v in metrics.items():
-        if v:
-            print(f"  {k}: {np.mean([np.mean(x) for x in v]):.5f}")
+    if mesh is None or mesh.is_main:
+        print("\nFinal metrics:")
+        for k, v in metrics.items():
+            if v:
+                print(f"  {k}: {np.mean([np.mean(x) for x in v]):.5f}")
     return metrics
 
 

@@ -26,6 +26,12 @@ As in keymorph_tpu, the volumes are resized to ``--img_size`` when they are
 loaded, whatever ``--train_same_resolution`` says, so through this CLI the
 same-resolution step's own resize is the identity. ``--visualize`` and
 ``--use_wandb`` are not ported (ROADMAP A9) and raise.
+
+``--run_mode eval`` on several GPUs, one process each (``torchrun
+--nproc_per_node N -m keymorph_tpu_torch.cli.run --run_mode eval ...``),
+fans the pairs out over the processes (``eval_pairwise.run_eval(mesh=...)``);
+rank 0 alone writes ``args.json`` and the summaries. Training and
+pretraining run in one process, as keymorph_tpu's CLI trains on one device.
 """
 
 from __future__ import annotations
@@ -120,7 +126,14 @@ def main(argv=None):
 
     if config.use_wandb:
         su.initialize_wandb(config)  # raises: not ported
-    device = keymorph_tpu_torch.resolve_device(device_arg)
+    from keymorph_tpu_torch.parallel.mesh import launch_mesh, world_size
+
+    if world_size() > 1 and config.run_mode != "eval":
+        raise ValueError(f"--run_mode {config.run_mode} runs in one process (keymorph_tpu's "
+                         "CLI trains on one device); launch several only for --run_mode eval")
+    mesh = launch_mesh(device_arg)
+    main_rank = mesh is None or mesh.is_main
+    device = mesh.device if mesh is not None else keymorph_tpu_torch.resolve_device(device_arg)
     if device.type == "cuda":
         keymorph_tpu_torch.disable_tf32()
 
@@ -129,7 +142,8 @@ def main(argv=None):
     eval_dir = model_dir / "eval"
     for d in (model_dir, ckpt_dir, eval_dir):
         os.makedirs(d, exist_ok=True)
-    config.save(str(model_dir / "args.json"))
+    if main_rank:
+        config.save(str(model_dir / "args.json"))
 
     np.random.seed(config.seed)
     generator = torch.Generator(device=device).manual_seed(config.seed)
@@ -237,12 +251,13 @@ def main(argv=None):
         for suite, names in (("unimodal", hp.EVAL_UNI_NAMES),
                              ("multimodal", hp.EVAL_MULTI_NAMES)):
             raw = run_eval(eval_loader, model, metrics, names, augs, aligns, ea,
-                           save_dir_prefix=f"eval_{suite}", device=device)
-            summary = {k: (float(np.mean([np.mean(x) for x in v])) if v else None)
-                       for k, v in raw.items()}
-            out_path = eval_dir / f"summary_{suite}.json"
-            su.save_dict_as_json(summary, out_path)
-            print("Eval summary written to", out_path)
+                           save_dir_prefix=f"eval_{suite}", mesh=mesh, device=device)
+            if main_rank:
+                summary = {k: (float(np.mean([np.mean(x) for x in v])) if v else None)
+                           for k, v in raw.items()}
+                out_path = eval_dir / f"summary_{suite}.json"
+                su.save_dict_as_json(summary, out_path)
+                print("Eval summary written to", out_path)
     else:
         raise ValueError(f"Unknown run_mode {config.run_mode}")
 

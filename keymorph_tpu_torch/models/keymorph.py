@@ -545,27 +545,61 @@ class KeyMorph:
         weights. Chunks are not padded to one size (nothing is compiled per
         shape), which leaves every result as keymorph_tpu's.
 
+        ``mesh`` (a ``keymorph_tpu_torch.parallel.Mesh``; every rank calls
+        with the same inputs): the subjects of each chunk are split over the
+        mesh's data-parallel axes, each rank extracting its own and
+        computing its own grids, and every rank gets the whole result back
+        (all-gathered). ``kp_batch`` and ``grid_batch`` then default to the
+        data-parallel size and must be multiples of it; the last chunk is
+        padded with its last subject. Only rank 0 saves grids to disk.
+
         Returns ``{type: {time, grouppoints_m (N, K, d), grouppoints_a,
         [grouppoints_weights (N, K)], [groupgrids (N, *spatial, d)]}}``.
         """
-        if kwargs.get("mesh") is not None:
-            raise NotImplementedError(
-                "groupwise_register(mesh=...) is not ported (ROADMAP A9: parallel/)")
         num_iters = int(kwargs.get("num_iters", 5))
         log = kwargs.get("log_to_console", False)
-        save = kwargs.get("save_results_to_disk", False) and kwargs.get("save_dir")
+        to_disk = kwargs.get("save_results_to_disk", False) and kwargs.get("save_dir")
         if not isinstance(transform_type, (list, tuple)):
             transform_type = [transform_type]
         num_subjects, loader = self._subjects(inputs)
-        kp_batch = int(kwargs.get("kp_batch", min(4, num_subjects)))
+        mesh = kwargs.get("mesh")
+        if mesh is not None:
+            from keymorph_tpu_torch.parallel import mesh as pmesh
 
+            mesh = pmesh.require_mesh(mesh)
+        save = to_disk and (mesh is None or mesh.is_main)
+
+        def batch_size(key):
+            if mesh is None:
+                return int(kwargs.get(key, min(4, num_subjects)))
+            size = int(kwargs.get(key, mesh.data_size))
+            if size % mesh.data_size:
+                raise ValueError(f"{key}={size} must be a multiple of the mesh's data-parallel "
+                                 f"size ({mesh.data_size})")
+            return size
+
+        def fan_out(fn, size, *rows):
+            """``fn`` (returning a tuple) of a chunk of subjects' ``rows``; on
+            a mesh the chunk is padded to ``size``, each rank takes its
+            share and the outputs are gathered whole on every rank."""
+            if mesh is None:
+                return fn(*rows)
+            n, local = rows[0].shape[0], pmesh.local_rows(mesh, size)
+            rows = [torch.cat([t, t[-1:].expand(size - n, *t.shape[1:])])[local] for t in rows]
+            return tuple(pmesh.gather_cat(o, mesh.data_group)[:n] for o in fn(*rows))
+
+        kp_batch = batch_size("kp_batch")
         points, weights, chunk, spatial = [], [], [], None
 
+        def extract(imgs):
+            pts, feat = self.get_keypoints(imgs, return_feat=True)
+            return (pts, self._subject_weights(feat)) if self.weight_keypoints else (pts,)
+
         def flush(chunk):
-            feat_points = self.get_keypoints(torch.cat(chunk), return_feat=True)
-            points.append(feat_points[0])
+            out = fan_out(extract, kp_batch, torch.cat(chunk))
+            points.append(out[0])
             if self.weight_keypoints:
-                weights.append(self._subject_weights(feat_points[1]))
+                weights.append(out[1])
 
         with torch.no_grad():
             for i, img in enumerate(loader):
@@ -602,15 +636,18 @@ class KeyMorph:
                        "grouppoints_a": curr}
                 if group_weights is not None:
                     res["grouppoints_weights"] = group_weights
-                grid_batch = int(kwargs.get("grid_batch", min(4, num_subjects)))
+                grid_batch = batch_size("grid_batch")
                 grids = []
                 for s in range(0, num_subjects, grid_batch):
                     e = min(s + grid_batch, num_subjects)
-                    g = _groupwise_grids(
-                        mean_points, group_points[s:e],
-                        lmbda.expand(e - s) if lmbda is not None else None,
-                        group_weights[s:e] if group_weights is not None else None,
-                        align_type, spatial, self.num_subgrids)
+
+                    def chunk_grids(pts, w=None):
+                        return (_groupwise_grids(
+                            mean_points, pts, lmbda.expand(pts.shape[0]) if lmbda is not None
+                            else None, w, align_type, spatial, self.num_subgrids),)
+
+                    g = fan_out(chunk_grids, grid_batch, group_points[s:e],
+                                *([] if group_weights is None else [group_weights[s:e]]))[0]
                     if save:
                         g_host = g.cpu().numpy()
                         for j in range(e - s):
@@ -618,7 +655,7 @@ class KeyMorph:
                             np.save(path, g_host[j: j + 1])
                             if log:
                                 print(f"-> Saved grid {s + j + 1}/{num_subjects} to {path}")
-                    else:
+                    elif not to_disk:
                         grids.append(g)
                 if grids:
                     res["groupgrids"] = torch.cat(grids)

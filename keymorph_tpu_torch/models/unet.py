@@ -330,6 +330,11 @@ class AbstractUNet(nn.Module):
             skips.append(x)
         for dec, skip in zip(self.decoders, skips[:-1][::-1]):
             x = self._run(dec, skip, x)
+        return self.head(x)
+
+    def head(self, x):
+        """The final 1x1 conv with bias (bf16 operands, fp32 sums, an fp32
+        bias), the result in ``dtype``."""
         acc = acc_dtype(self.dtype)
         w = self.final_conv.weight.to(self.dtype).to(acc)
         conv = F.conv2d if self.dim == 2 else F.conv3d

@@ -93,7 +93,9 @@ class Config:
     wandb_kwargs: dict = dataclasses.field(default_factory=dict)
 
     # devices
-    num_devices: Optional[int] = None  # data-parallel devices (None = all)
+    # data-parallel devices (None = all): parallel.make_mesh's num_devices,
+    # which is the number of processes the launcher started
+    num_devices: Optional[int] = None
 
     # derived
     @property

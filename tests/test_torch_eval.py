@@ -305,9 +305,11 @@ def test_run_eval_matches_jax(tmp_path, batch_pairs):
 
 
 def test_run_eval_refuses_what_is_not_ported(tmp_path):
+    """visualize is not ported (ROADMAP A9); the mesh fan-out is, and a
+    non-mesh object is a TypeError."""
     args = _Args()
     args.model_eval_dir = tmp_path
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+    with pytest.raises(TypeError, match="Mesh"):
         teval.run_eval([], _Stub((8,) * 3, "cpu"), ["mse"], [("a", "b")], ["rot0"], ["affine"],
                        args, mesh=object())
     args.visualize = True

@@ -134,8 +134,11 @@ def test_unported_alignment_raises():
 
 def test_unported_training_entry_points_name_their_roadmap_item(rng):
     """Every NotImplementedError of the ported entry points says which
-    ROADMAP item will port what was asked for."""
+    ROADMAP item will port what was asked for (the run CLI's --visualize).
+    The mesh of groupwise registration is ported: a non-mesh object is a
+    TypeError."""
     from keymorph_tpu_torch import augment
+    from keymorph_tpu_torch.cli import run
     from keymorph_tpu_torch.models.keymorph import KeyMorph
     from keymorph_tpu_torch.training import train
     from keymorph_tpu_torch.training.config import Config, build_backbone
@@ -145,12 +148,13 @@ def test_unported_training_entry_points_name_their_roadmap_item(rng):
     state = train.TrainState.create(net, train.make_optimizer(tps, net))
     km = KeyMorph(TruncatedUNet3D(dtype=torch.bfloat16, **CFG), K, device="cpu")
     cases = [
-        ("A9", lambda: km.groupwise_register(np.zeros((2, 1, 8, 8, 8), np.float32),
-                                             mesh=object())),
+        ("A9", lambda: run.main(["--visualize", "--device", "cpu"])),
     ]
     for item, call in cases:
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             call()
+    with pytest.raises(TypeError, match="Mesh"):
+        km.groupwise_register(np.zeros((2, 1, 8, 8, 8), np.float32), mesh=object())
     assert state.step == 0  # nothing was trained on the way
     # the 2D pipeline is ported: these ran into NotImplementedError before
     assert KeyMorph(TruncatedUNet3D(dtype=torch.bfloat16, **CFG), K, dim=2,
@@ -164,7 +168,7 @@ def test_unported_training_entry_points_name_their_roadmap_item(rng):
 def test_port_imports_neither_jax_nor_keymorph_tpu():
     """The port, every one of its modules (the data layer, the metrics with
     LC2, the CLIs, pretraining, the backbones, the brain extractor and its
-    tool among them) and chip_smoke.py import torch only:
+    tool, the parallel layer among them) and chip_smoke.py import torch only:
     neither jax nor the JAX package may appear in sys.modules (fresh
     interpreter), and no source line imports them."""
     code = textwrap.dedent("""
@@ -184,7 +188,8 @@ def test_port_imports_neither_jax_nor_keymorph_tpu():
                      "cli.eval_groupwise", "cli.script_utils", "cli.hyperparameters",
                      "cli.run", "training.pretrain", "ops.resize", "models.convnet",
                      "models.layers", "models.unet", "brain_extract",
-                     "tools.extract_brains"):
+                     "tools.extract_brains", "parallel", "parallel.mesh", "parallel.sharded",
+                     "parallel.halo"):
             assert "keymorph_tpu_torch." + want in names, want
         import chip_smoke
         keymorph_tpu_torch.ops.cuda.counters()
