@@ -159,7 +159,10 @@ Phases (each prints its lines; any failure raises, so the exit code is not 0):
      1 on NCCL in this process: the sharded step at 128^3 (phase 5's config,
      injected lambda and subset) under phase 6's rule against the unsharded
      kernel step, and one 256^3 pair through ``make_sharded_register_fn``
-     against the single-process kernel path; (b) a world of 2 on cuda:0 over
+     against the single-process kernel path, and a batch of 2 of those pairs
+     against the pairs one by one, stage by stage on the same inputs
+     (heatmaps, keypoints, the TPS fit, the flow, the warp; printed, not
+     held); (b) a world of 2 on cuda:0 over
      gloo (NCCL refuses two ranks on one card), each rank a process of this
      script (``--phase14-rank``, joined with a deadline, killed on failure):
      the 2-rank step at 128^3 (batch 2) and its gradient all-reduce alone,
@@ -174,8 +177,26 @@ Phases (each prints its lines; any failure raises, so the exit code is not 0):
      and the spatial slab stages on their own inputs (TPS_ABS, WARP_ABS).
      Each path's kernels must launch on every rank; no plain version runs.
 
+ 15. the tools and the panels: (a) ``python -m keymorph_tpu_torch.cli.register``
+     on phase 11's files with ``--visualize`` as a subprocess: without
+     matplotlib (the card's machine has none) it must exit non-zero within
+     30 s, naming matplotlib, having written no metric; with it, the panel;
+     then ``viz._panel_arrays`` (the panels' device part: registration and
+     warp) on one flagship 256^3 pair, bit for bit the same model's
+     ``KeyMorph.forward`` + ``align_img``; (b) ``tools/tps_approx_bench`` at
+     its defaults (256^3, K = 512, S = 128, 256) and ``--ranked`` at 128^3;
+     (c) ``tools/warp_channels_bench`` at 256^3, C = 1, 6, 14 (the kernel
+     against ``F.grid_sample`` and the byte bound, bit for bit its plain
+     version); (d) ``tools/make_synthetic_dataset`` (4 subjects at 128^3) ->
+     ``tools/center_volumes`` on the card and on the CPU (the volumes within
+     ``WARP_ABS``, every centroid closer to the reference's); (e)
+     ``tools/flops``: the flagship extraction's FLOPs and the MFU of phase
+     2's steady extraction against 989 TFLOP/s. Each device path's kernels
+     must launch and no plain version runs on it. The tools run at their
+     own defaults and seeds; ``--seed`` moves the panels' pair and weights.
+
 The line before the last is the kernels' JSON record (``launches`` summed
-over the main paths of phases 2, 5, 9, 10, 11, 12, 13 and 14); the last line is
+over the main paths of phases 2, 5, 9, 10, 11, 12, 13, 14 and 15); the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA it raises before printing
 a result. The script imports neither jax nor keymorph_tpu.
 """
@@ -316,14 +337,6 @@ def _import_port():
     if pkg.parent != ROOT:
         raise RuntimeError(f"keymorph_tpu_torch imported from {pkg}, not from {ROOT}")
     return keymorph_tpu_torch
-
-
-def _smi() -> str:
-    r = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return r.stdout.strip().splitlines()[0]
 
 
 def _cuda_ms(fn, reps):
@@ -934,50 +947,26 @@ PORT_KERNELS = ("conv3x3_mma_kernel", "conv3x3_fma_kernel", "tps_planes_kernel",
                 "warp_planes_grad_kernel")
 
 
-def _profiled(torch, fn):
-    """Run ``fn`` under torch.profiler. Returns (its result, host wall µs,
-    device busy µs: the union of the device's kernel and copy intervals, or
-    None where the profiler recorded no device activity, {kernel name:
-    (count, µs)})."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not events:  # a measurement gap, not a failure of the port
-        return out, wall_us, None, {}
-    busy, end = 0.0, float("-inf")
-    for s, e in sorted((e.time_range.start, e.time_range.end) for e in events):
-        busy += max(0.0, e - max(s, end))
-        end = max(end, e)
-    by_name = {}
-    for e in events:
-        n, t = by_name.get(e.name, (0, 0.0))
-        by_name[e.name] = (n + 1, t + e.time_range.end - e.time_range.start)
-    return out, wall_us, busy, by_name
-
-
 def _profile(torch, label, fn):
-    """Run ``fn`` under torch.profiler and print the host wall time, the
-    device busy time, the device's idle share, and device time by kernel
-    name."""
-    _, wall_us, busy, by_name = _profiled(torch, fn)
+    """Run ``fn`` under torch.profiler (``tools/trace_summary.py:profile_fn``:
+    device busy is the union of the device's kernel and copy intervals) and
+    print the host wall time, the device busy time, the device's idle share,
+    and device time by kernel name."""
+    from keymorph_tpu_torch.tools.trace_summary import profile_fn
+
+    _, prof = profile_fn(fn)
+    busy = prof["busy_ms"]
     if busy is None:
-        print(f"{label}: host wall {wall_us / 1e3:.3f} ms; torch.profiler recorded "
+        print(f"{label}: host wall {prof['wall_ms']:.3f} ms; torch.profiler recorded "
               f"no device activity, device idle share not measured")
         return
-    print(f"{label}: host wall {wall_us / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms, "
-          f"device idle share {1 - busy / wall_us:.4f}")
+    print(f"{label}: host wall {prof['wall_ms']:.3f} ms, device busy {busy:.3f} ms, "
+          f"device idle share {prof['idle_share']:.4f}")
     tag = label.split()[0]
     # the 18 largest entries, and the port's own kernels wherever they rank
-    for rank, (name, (n, t)) in enumerate(sorted(by_name.items(), key=lambda kv: -kv[1][1])):
+    for rank, (name, ms, n) in enumerate(prof["ops"]):
         if rank < 18 or any(k in name for k in PORT_KERNELS):
-            print(f"{tag} {t / 1e3:.3f} ms {n}x share_of_busy {t / busy:.4f} {name[:110]}")
+            print(f"{tag} {ms:.3f} ms {n}x share_of_busy {ms / busy:.4f} {name[:110]}")
 
 
 def phase4(torch, net, pairs):
@@ -1661,7 +1650,9 @@ def phase11(torch, dev):
     seeded weights, from a reference-format checkpoint; every kernel stage
     then held against its plain version on the CLI's own outputs, every
     metric against a float64 recomputation, the keypoints against the plain
-    route. Returns the path's launch counts."""
+    route. Returns the path's launch counts and the directory of its inputs
+    (the .nii.gz scans and ``weights.pt``), which phase 15 reuses and the
+    caller removes."""
     import shutil
     import tempfile
 
@@ -1678,6 +1669,7 @@ def phase11(torch, dev):
     from keymorph_tpu_torch.ops import cuda as kernels
     from keymorph_tpu_torch.ops import resample
     from keymorph_tpu_torch.ops.cuda import resample3d
+    from keymorph_tpu_torch.tools.trace_summary import profile_fn
     from keymorph_tpu_torch.transforms.affine import affine_flow
 
     size = SPATIAL[0]
@@ -1727,22 +1719,21 @@ def phase11(torch, dev):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             kernels.reset_counters()
-            metrics, wall_us, busy_us, by_name = _profiled(
-                torch, lambda: register.main(argv, stage_times=stages))
+            metrics, prof = profile_fn(lambda: register.main(argv, stage_times=stages))
             counts = kernels.counters()
         finally:
             resample.grid_sample = real
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        wall = wall_us / 1e6
         print("phase11 stages (s): " + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
-              + f"; the run's wall {wall:.3f} (decode and preprocess run in the prefetch "
-              f"thread; the rest is building the model and loading the weights)")
-        busy = "not measured (torch.profiler recorded no device activity)" if busy_us is None \
-            else f"{busy_us / 1e6:.3f} s, {busy_us / wall_us:.4f} of the run's wall"
+              + f"; the run's wall {prof['wall_ms'] / 1e3:.3f} (decode and preprocess run in "
+              f"the prefetch thread; the rest is building the model and loading the weights)")
+        busy = ("not measured (torch.profiler recorded no device activity)"
+                if prof["busy_ms"] is None else f"{prof['busy_ms'] / 1e3:.3f} s, "
+                f"{prof['busy_ms'] / prof['wall_ms']:.4f} of the run's wall")
         print(f"phase11 device busy {busy}; peak device memory {peak:.3f} GiB; gzip reader "
               f"{gzip_reader()}")
-        for name, (n, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]:
-            print(f"phase11 {t / 1e3:.3f} ms {n}x {name[:110]}")
+        for name, ms, n in prof["ops"][:12]:
+            print(f"phase11 {ms:.3f} ms {n}x {name[:110]}")
         print(f"phase11 counters {json.dumps(counts)}; warp_planes launches by (mode, C) "
               f"{json.dumps(warps)}")
 
@@ -1867,9 +1858,12 @@ def phase11(torch, dev):
         if not ok:
             raise AssertionError("phase 11: the register CLI's outputs disagree with the plain "
                                  "versions or the float64 metrics")
-        return counts
-    finally:
+        return counts, tmp
+    except BaseException:
         shutil.rmtree(tmp, ignore_errors=True)
+        raise
+    finally:
+        shutil.rmtree(tmp / "out", ignore_errors=True)
 
 
 # phase 12: the main CLI, pretraining, the same-resolution step and the
@@ -1896,11 +1890,13 @@ def _add_counts(total, counts):
         k: {c: total[k][c] + v[c] for c in v} for k, v in counts.items()}
 
 
-def _expect(label, counts, names):
+def _expect(label, counts, names, plain_ok=False):
+    """Every kernel of ``names`` launched; no plain version ran unless
+    ``plain_ok`` (a path that holds a kernel against its plain version)."""
     for name in names:
         if counts[name]["launches"] <= 0:
             raise AssertionError(f"{label} never launched the {name} kernel")
-    if any(c["plain_calls"] for c in counts.values()):
+    if not plain_ok and any(c["plain_calls"] for c in counts.values()):
         raise AssertionError(f"{label} ran a plain version: {counts}")
 
 
@@ -2775,7 +2771,7 @@ def _p14_inputs(torch, dev):
                                 device=dev)}
 
 
-def _p14_timed(torch, out, label, fn):
+def _timed(torch, out, label, fn):
     """``fn()`` on the host clock up to a synchronize, its launches counted
     from 0 just before and read just after (``out["ms"]``, ``out["counts"]``)."""
     from keymorph_tpu_torch.ops import cuda as kernels
@@ -2835,6 +2831,45 @@ def _p14_dist(a, b):
     return (a.float() - b.float()).abs().max().item()
 
 
+def _p14_batch_stages(torch, net, img_f, img_m):
+    """A batch of pairs through the single-process kernel path at once
+    against pair by pair, stage by stage: each stage runs on the whole
+    batch and on each row alone, on the same inputs (the rows' outputs of
+    the stage before it), so a difference belongs to that stage. Returns
+    {stage: largest |difference|}: the heatmaps (the conv kernels and the
+    executor's glue), the keypoints (``center_of_mass``), the TPS fit
+    (``fit_tps``'s theta, ``solve_ex``), the flow (``tps_flow`` at every
+    voxel centre) and the warped moving image (``warp_planes``)."""
+    from keymorph_tpu_torch.ops import coords
+    from keymorph_tpu_torch.ops.cuda.tpsflow import tps_flow
+    from keymorph_tpu_torch.ops.resample import align_img
+    from keymorph_tpu_torch.transforms.solvers import fit_tps
+
+    B = img_f.shape[0]
+    d = {}
+
+    def stage(name, fn, *inputs):
+        whole = fn(*inputs)
+        rows = torch.cat([fn(*(x[i: i + 1] for x in inputs)) for i in range(B)])
+        d[name] = max(d.get(name, 0.0), _p14_dist(whole, rows))
+        return rows
+
+    with torch.no_grad():
+        heat = [stage("heatmaps", net.features, v) for v in (img_f, img_m)]
+        pf, pm = (stage("keypoints", net.keypoints_from_features, h) for h in heat)
+        del heat
+        lmbda = torch.full((B,), LMBDA, device=img_f.device)
+        theta = stage("fit", fit_tps, pf, pm, lmbda)
+        points = coords.flat_norm_grid(SPATIAL, device=img_f.device).expand(B, -1, 3).contiguous()
+        flow = stage("flow", lambda t, c, x: tps_flow(t.contiguous(), c.contiguous(), x),
+                     theta, pf, points)
+        del points
+        grid = torch.flip(flow.reshape(B, *SPATIAL, 3), dims=(-1,))
+        del flow
+        stage("warp", align_img, grid, img_m)
+    return d
+
+
 def _p14_worker(torch, rank, tmp):
     """One rank of phase 14 (b): the 2-rank step, the fan-out register, the
     mesh groupwise and the spatial pair, on cuda:0 over gloo; then rank 0
@@ -2868,14 +2903,14 @@ def _p14_worker(torch, rank, tmp):
     rows = slice(0, P14_TRAIN_BATCH)
 
     # the 2-rank step (the first, then a second), and its gradient all-reduce alone
-    got, net, step, state = _p14_timed(torch, out, "train", lambda: _p14_step_readings(
+    got, net, step, state = _timed(torch, out, "train", lambda: _p14_step_readings(
         torch, dev, config, inputs, rows, data))
     img_f, img_m = inputs["train"]
-    _p14_timed(torch, out, "train second", lambda: step(
+    _timed(torch, out, "train second", lambda: step(
         state, None, img_f, img_m, None, None, 1.0, lmbda=inputs["lmbda"],
         keypoint_idx=inputs["idx"]))
     for i in range(3):
-        _p14_timed(torch, out, f"grad all-reduce {i}", lambda: sharded._all_reduce_grads(net, data))
+        _timed(torch, out, f"grad all-reduce {i}", lambda: sharded._all_reduce_grads(net, data))
     out["grad_mb"] = sum(p.grad.numel() * 4 for p in net.parameters() if p.grad is not None) / 1e6
     del net, step, state
 
@@ -2883,22 +2918,22 @@ def _p14_worker(torch, rank, tmp):
     reg_net = _p14_net(torch, dev).eval()
     fn = make_sharded_register_fn(reg_net, Config(num_keypoints=NUM_KEYPOINTS,
                                                   transform_type="tps_1"), data)
-    reg = _p14_timed(torch, out, "register", lambda: fn(*inputs["register"]))
-    _p14_timed(torch, out, "register second", lambda: fn(*inputs["register"]))
+    reg = _timed(torch, out, "register", lambda: fn(*inputs["register"]))
+    _timed(torch, out, "register second", lambda: fn(*inputs["register"]))
 
     # groupwise with the subjects over the ranks
     model = KeyMorph(TruncatedUNet3D(dtype=torch.bfloat16, **UNET), NUM_KEYPOINTS, device=dev)
     model.net.load_state_dict(reg_net.state_dict())
     model.eval()
-    group = _p14_timed(torch, out, "groupwise", lambda: model.groupwise_register(
+    group = _timed(torch, out, "groupwise", lambda: model.groupwise_register(
         inputs["group"], transform_type=list(P14_TYPES), mesh=data))
 
     # one pair split over 'space'
     space = make_mesh(data=1, space=2, device_type="cuda", timeout=timeout)
     sfn = make_spatial_register_fn(reg_net, Config(num_keypoints=NUM_KEYPOINTS,
                                                    transform_type="tps_1"), space)
-    spatial = _p14_timed(torch, out, "spatial", lambda: sfn(*inputs["spatial"]))
-    _p14_timed(torch, out, "spatial second", lambda: sfn(*inputs["spatial"]))
+    spatial = _timed(torch, out, "spatial", lambda: sfn(*inputs["spatial"]))
+    _timed(torch, out, "spatial second", lambda: sfn(*inputs["spatial"]))
     out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
     dist.destroy_process_group()
 
@@ -3004,7 +3039,7 @@ def _p14_single(torch, dev, tmp):
         inputs = _p14_inputs(torch, dev)
         config = _train_config(TRAIN_SPATIAL)
         out = {"ms": {}, "counts": {}}
-        got = _p14_timed(torch, out, "train", lambda: _p14_step_readings(
+        got = _timed(torch, out, "train", lambda: _p14_step_readings(
             torch, dev, config, inputs, slice(0, 1), mesh))[0]
         held = _p14_hold_step(torch, dev, config, inputs, slice(0, 1), got,
                               "phase14 (a) world-1 step")
@@ -3012,11 +3047,13 @@ def _p14_single(torch, dev, tmp):
         fn = make_sharded_register_fn(net, Config(num_keypoints=NUM_KEYPOINTS,
                                                   transform_type="tps_1"), mesh)
         f, m = (v[:1] for v in inputs["register"])
-        grid, pf, pm = _p14_timed(torch, out, "register", lambda: fn(f, m))
-        _p14_timed(torch, out, "register second", lambda: fn(f, m))
+        grid, pf, pm = _timed(torch, out, "register", lambda: fn(f, m))
+        _timed(torch, out, "register second", lambda: fn(f, m))
         rpf, rpm, rgrid = _p14_register_single(torch, net, f, m)
         d = {"keypoints": max(_p14_dist(pf, rpf), _p14_dist(pm, rpm)),
              "grid": _p14_dist(grid, rgrid)}
+        del grid, rgrid
+        stages = _p14_batch_stages(torch, net, *(v[:2] for v in inputs["register"]))
     finally:
         dist.destroy_process_group()
     print(f"phase14 (a) world of 1 (NCCL): step {out['ms']['train']:.3f} ms (first, with the "
@@ -3024,6 +3061,9 @@ def _p14_single(torch, dev, tmp):
           f"{out['ms']['register']:.3f} / {out['ms']['register second']:.3f} ms (first / "
           f"second); vs the single-process kernel path: keypoints {d['keypoints']!r}, grid "
           f"{d['grid']!r} (tol {KEYPOINT_ABS}, {PLANES_ABS})")
+    print(f"phase14 (a) a batch of 2 pairs at 256^3 against the 2 pairs one by one, single-process "
+          f"kernel path, largest difference by stage (each on the same inputs; read, not held): "
+          f"{json.dumps(stages)}")
     for path in ("train", "register"):
         _expect(f"phase 14 (a) {path}", out["counts"][path], P14_PATHS[path])
     if not held or d["keypoints"] > KEYPOINT_ABS or d["grid"] > PLANES_ABS:
@@ -3083,6 +3123,164 @@ def phase14(torch, dev):
           f"{t1 - t0:.3f} s, (b) {t2 - t1:.3f} s, phase 14 {time.perf_counter() - t0:.3f} s")
     if bad or not held:
         raise AssertionError(f"phase 14 (b) disagrees: {bad}, step held {held}")
+    return counts
+
+
+# phase 15: the tools and the panels
+P15_REFUSE_S = 30             # s: --visualize without matplotlib refuses within
+P15_SUBJECTS = 4              # make_synthetic_dataset's subjects
+P15_SIZE = 128                # and their size
+P15_PANEL_PATH = ("conv3x3_fused_flat", "conv3x3_fused_flat_upconv", "tps_flow", "warp_planes")
+
+
+def _p15_visualize(torch, dev, reg_dir, out):
+    """(a) ``--visualize`` of the register CLI on phase 11's files as a
+    subprocess: without matplotlib it must refuse within P15_REFUSE_S,
+    naming matplotlib, and write no metric; with it, the panel. Then the
+    panels' device part, ``viz._panel_arrays``, on one flagship 256^3 pair:
+    its image and keypoints bit for bit those of the same model's
+    ``KeyMorph.forward`` + ``align_img``."""
+    import importlib.util
+
+    from keymorph_tpu_torch import viz
+    from keymorph_tpu_torch.models.keymorph import KeyMorph
+    from keymorph_tpu_torch.models.unet import TruncatedUNet3D, init_weights
+    from keymorph_tpu_torch.ops.resample import align_img
+
+    has_mpl = importlib.util.find_spec("matplotlib") is not None
+    save_dir = reg_dir / "viz_out"
+    argv = [sys.executable, "-m", "keymorph_tpu_torch.cli.register",
+            "--moving", str(reg_dir / "moving.nii.gz"), "--fixed", str(reg_dir / "fixed.nii.gz"),
+            "--moving_seg", str(reg_dir / "moving_seg.nii.gz"),
+            "--fixed_seg", str(reg_dir / "fixed_seg.nii.gz"), "--backbone", "truncatedunet",
+            "--use_amp", "--num_keypoints", str(NUM_KEYPOINTS), "--size", str(SPATIAL[0]),
+            "--list_of_aligns", "tps_1", "--list_of_metrics", "mse", "--list_of_augs", "rot0",
+            "--load_path", str(reg_dir / "weights.pt"), "--save_dir", str(save_dir),
+            "--visualize"]
+    t0 = time.perf_counter()
+    r = subprocess.run(argv, capture_output=True, text=True, cwd=ROOT,
+                       timeout=P15_REFUSE_S if not has_mpl else 600)
+    wall = time.perf_counter() - t0
+    written = sorted(p.name for p in save_dir.rglob("*")) if save_dir.exists() else []
+    if has_mpl:
+        ok = r.returncode == 0 and "panel-rot0-tps_1.png" in written
+        what = f"matplotlib present: exit {r.returncode}, panels written {ok}"
+    else:
+        ok = (r.returncode != 0 and "matplotlib" in r.stderr
+              and not any(n.startswith("metrics-") for n in written))
+        what = (f"matplotlib absent: exit {r.returncode} in {wall:.3f} s (limit {P15_REFUSE_S}), "
+                f"stderr names matplotlib {'matplotlib' in r.stderr}, files written {written}; "
+                f"last stderr line: {r.stderr.strip().splitlines()[-1][:160] if r.stderr else ''}")
+    print(f"phase15 (a) python -m keymorph_tpu_torch.cli.register ... --visualize: {what}")
+    if not ok:
+        raise AssertionError(f"phase 15 (a): --visualize did not behave: {r.stderr[-3000:]}")
+
+    model = KeyMorph(TruncatedUNet3D(dtype=torch.bfloat16, **UNET), NUM_KEYPOINTS, device=dev)
+    model.net.backbone.load_state_dict(init_weights(
+        TruncatedUNet3D(dtype=torch.bfloat16, **UNET), torch.Generator().manual_seed(SEED)
+    ).state_dict())
+    img_f, img_m = _make_pairs(torch, np.random.default_rng([SEED, 15]), dev, SPATIAL, 1)[0]
+    viz._panel_arrays(model, img_f, img_m, "tps_1")  # a first call
+    arrays = _timed(torch, out, "panels", lambda: viz._panel_arrays(
+        model, img_f, img_m, "tps_1"))
+    with torch.no_grad():
+        res = model(img_f, img_m, transform_type="tps_1", return_aligned_points=True)["tps_1"]
+        img_a = align_img(res["grid"], img_m)[0, 0].cpu().numpy()
+    same_img = np.array_equal(arrays["img"][2], img_a)
+    same_pts = all(np.array_equal(a, res[k][0].cpu().numpy())
+                   for a, k in zip(arrays["points"], ("points_m", "points_f", "points_a")))
+    print(f"phase15 (a) viz._panel_arrays of one {SPATIAL[0]}^3 pair (tps_1): {out['ms']['panels']:.3f} "
+          f"ms (second call, host clock), launches "
+          f"{json.dumps({k: c['launches'] for k, c in out['counts']['panels'].items()})}; "
+          f"bit for bit KeyMorph.forward + align_img: image {same_img}, keypoints {same_pts}")
+    _expect("phase 15 (a) panels", out["counts"]["panels"], P15_PANEL_PATH)
+    if not (same_img and same_pts):
+        raise AssertionError("phase 15 (a): _panel_arrays differs from forward + align_img")
+
+
+def _p15_tools(torch, out, reg_dir, extract_s):
+    """(b) tps_approx_bench at its defaults and --ranked at 128^3; (c)
+    warp_channels_bench at C = 1, 6, 14; (d) make_synthetic_dataset ->
+    center_volumes on the card and on the CPU; (e) the flagship extraction's
+    FLOPs and phase 2's steady extraction's MFU."""
+    import os
+
+    from keymorph_tpu_torch.data.nifti import load_nifti
+    from keymorph_tpu_torch.tools import (center_volumes, flops, make_synthetic_dataset,
+                                          tps_approx_bench, warp_channels_bench)
+
+    rec = _timed(torch, out, "tps_approx", lambda: tps_approx_bench.main([]))
+    ranked = _timed(torch, out, "tps_approx ranked",
+                        lambda: tps_approx_bench.main(["--ranked", "128"]))
+    vals = list(rec["ms"].values()) + list(rec["max_abs_d"].values())
+    vals += [r[k] for r in ranked["rows"] for k in ("max_abs_d", "mean_abs_d")]
+    dice = [r["dice_vs_exact"] for r in ranked["rows"]]
+    print(f"phase15 (b) tps_approx_bench {rec['size']}^3 K={rec['K']}: ms {json.dumps(rec['ms'])}, speedup "
+          f"{json.dumps(rec['speedup'])}, max |d| from exact {json.dumps(rec['max_abs_d'])}; "
+          f"--ranked {ranked['size']}^3 K={ranked['K']}: {len(ranked['rows'])} rows, dice vs exact {dice}")
+    if not (np.all(np.isfinite(vals)) and all(0.0 <= x <= 1.0 for x in dice)):
+        raise AssertionError("phase 15 (b): tps_approx_bench read a non-finite value")
+    _expect("phase 15 (b)", out["counts"]["tps_approx"], ("tps_planes",))
+    _expect("phase 15 (b) ranked", out["counts"]["tps_approx ranked"],
+            ("conv3x3_fused_flat", "conv3x3_fused_flat_upconv", "tps_planes", "warp_planes"))
+
+    warp = _timed(torch, out, "warp_channels", lambda: warp_channels_bench.main([]))
+    print(f"phase15 (c) warp_channels_bench {warp['S']}^3: " + "; ".join(
+        f"C={r['C']} kernel {r['ms']:.4f} ms, F.grid_sample {r['grid_sample_ms']:.4f}, bound "
+        f"{r['bound_ms']:.4f}, vs plain {r['max_abs_err_vs_plain']!r}" for r in warp["rows"]))
+    _expect("phase 15 (c)", out["counts"]["warp_channels"], ("warp_planes",), plain_ok=True)
+
+    data = reg_dir / "p15_data"
+    t0 = time.perf_counter()
+    make_synthetic_dataset.main(["--out", str(data), "--n", str(P15_SUBJECTS),
+                                 "--size", str(P15_SIZE)])
+    made_s = time.perf_counter() - t0
+    imgs = data / "imgs"
+    imgs.mkdir()
+    for f in sorted(data.glob("img*.nii.gz")):
+        os.link(f, imgs / f.name)
+    argv = ["--img_dir", str(imgs), "--reference", str(imgs / "img0_T1.nii.gz")]
+    _timed(torch, out, "center_volumes", lambda: center_volumes.main(
+        argv + ["--out_dir", str(data / "card")]))
+    t0 = time.perf_counter()
+    center_volumes.main(argv + ["--out_dir", str(data / "cpu"), "--device", "cpu"])
+    cpu_s = time.perf_counter() - t0
+    names = sorted(p.name for p in imgs.iterdir())
+    d_vol = max(float(np.abs(load_nifti(str(data / "card" / n)).data
+                             - load_nifti(str(data / "cpu" / n)).data).max()) for n in names)
+    ref_c = center_volumes.intensity_centroid_voxel(load_nifti(str(imgs / names[0])).data)
+    moved = [float(np.linalg.norm(center_volumes.intensity_centroid_voxel(
+        load_nifti(str(d / n)).data) - ref_c)) for n in names[1:] for d in (imgs, data / "card")]
+    print(f"phase15 (d) make_synthetic_dataset {P15_SUBJECTS} x {P15_SIZE}^3 {made_s:.3f} s; "
+          f"center_volumes on the card {out['ms']['center_volumes'] / 1e3:.3f} s, on the CPU "
+          f"{cpu_s:.3f} s; card vs CPU volumes {d_vol!r} (tol {WARP_ABS}); centroid distance "
+          f"from the reference's before / after, voxels: {moved}")
+    _expect("phase 15 (d)", out["counts"]["center_volumes"], ("warp_planes",))
+    if not (d_vol <= WARP_ABS and all(a > b for a, b in zip(moved[::2], moved[1::2]))):
+        raise AssertionError("phase 15 (d): center_volumes on the card differs from the CPU's "
+                             "or moved a centroid away")
+
+    flop = flops.unet_extract_flops(SPATIAL, NUM_KEYPOINTS, UNET["f_maps"], UNET["num_levels"],
+                                    UNET["num_truncated_layers"])
+    print(f"phase15 (e) flops: the flagship extraction at {SPATIAL[0]}^3 {flop:.6e} FLOP; phase 2's steady "
+          f"extraction {extract_s * 1e3:.3f} ms a volume, MFU "
+          f"{flops.mfu(flop, extract_s):.4f} of {flops.H100_BF16_PEAK_FLOPS:.3e} FLOP/s bf16")
+
+
+def phase15(torch, dev, reg_dir, extract_s):
+    """The tools and the panels (module docstring, phase 15). Returns the
+    launch counts of their device paths."""
+    t0 = time.perf_counter()
+    out = {"ms": {}, "counts": {}}
+    _p15_visualize(torch, dev, reg_dir, out)
+    torch.cuda.empty_cache()
+    _p15_tools(torch, out, reg_dir, extract_s)
+    counts = None
+    for c in out["counts"].values():
+        counts = _add_counts(counts, c)
+    print(f"phase15 counters (summed over its device paths) "
+          f"{json.dumps({k: c['launches'] for k, c in counts.items()})}; phase 15 "
+          f"{time.perf_counter() - t0:.3f} s")
     return counts
 
 
@@ -3158,7 +3356,9 @@ def main():
 
     km.disable_tf32()
     dev = torch.device("cuda", 0)
-    smi = _smi()
+    from keymorph_tpu_torch.tools import card
+
+    smi = card()
     t0 = time.perf_counter()
     _build.library()
     build_s = time.perf_counter() - t0
@@ -3186,7 +3386,7 @@ def main():
                       NUM_KEYPOINTS).to(dev).eval()
     pairs = _make_pairs(torch, rng, dev)
     with torch.no_grad():  # serving keeps nothing for a backward
-        outs, serve_counts, _ = phase2(torch, net, pairs)
+        outs, serve_counts, serve_times = phase2(torch, net, pairs)
         phase3(torch, net, pairs, outs)
         phase4(torch, net, pairs)
     del outs
@@ -3211,13 +3411,22 @@ def main():
                              f"{[k for k, ok in held.items() if not ok]}")
     del net
     torch.cuda.empty_cache()
-    register_counts = phase11(torch, dev)
+    register_counts, reg_dir = phase11(torch, dev)
     torch.cuda.empty_cache()
     run_counts = phase12(torch, np.random.default_rng([SEED, 12]), dev)
     torch.cuda.empty_cache()
     parts_counts = phase13(torch, dev)
     torch.cuda.empty_cache()
     parallel_counts = phase14(torch, dev)
+    torch.cuda.empty_cache()
+    # a volume's steady extraction: phase 2's pairs 1 and 2 extract two volumes each
+    extract_s = float(np.mean([t[0] for t in serve_times[1:]])) / 2
+    try:
+        tools_counts = phase15(torch, dev, reg_dir, extract_s)
+    finally:
+        import shutil
+
+        shutil.rmtree(reg_dir, ignore_errors=True)
 
     def entry(name, key, source):
         # launches: over every main path, each counted from 0 just before it
@@ -3226,13 +3435,13 @@ def main():
         # CLI, phase 12's CLI runs, kernel steps, 'cr' heatmaps and other
         # backbones' steps, phase 13's extraction at an IXI scan's native
         # grid, where the parts form runs; phase 14's parallel paths, over its
-        # world of 1 and both ranks of its world of 2). Phase 1's launches
-        # are kept apart.
+        # world of 1 and both ranks of its world of 2; phase 15's tools and
+        # panels). Phase 1's launches are kept apart.
         paths = {"launches_served_3_pairs": serve_counts, "launches_3_train_steps": train_counts,
                  "launches_phase9_api": api_counts, "launches_phase10_steps": api_train_counts,
                  "launches_phase11_register": register_counts,
                  "launches_phase12_run": run_counts, "launches_phase13_parts": parts_counts,
-                 "launches_phase14": parallel_counts}
+                 "launches_phase14": parallel_counts, "launches_phase15_tools": tools_counts}
         per_path = {k: c[name]["launches"] for k, c in paths.items()}
         return {"name": name, "route": "cuda", "source": f"keymorph_tpu_torch/csrc/{source}",
                 "replaces": REPLACES[key], "launches": sum(per_path.values()), **per_path,

@@ -57,6 +57,15 @@ def _is_main(args) -> bool:
     return mesh is None or require_mesh(mesh).is_main
 
 
+def _require_viz(args):
+    """With ``args.visualize``, refuse (naming matplotlib) before any work
+    where the montage cannot be drawn."""
+    if getattr(args, "visualize", False):
+        from keymorph_tpu_torch.viz import require_matplotlib
+
+        require_matplotlib()
+
+
 def _save_group_subjects(loader, group_size, aug_params, seg_available, groupimg_m_dir,
                          groupseg_m_dir, rng_seed=0, device=None):
     """Stream up to ``group_size`` subjects: augment on ``device`` (None:
@@ -98,10 +107,8 @@ def _save_group_subjects(loader, group_size, aug_params, seg_available, groupimg
 def _run_group_eval_dir(group_dir, registration_model, list_of_eval_metrics,
                         list_of_eval_kp_aligns, aug, args, duplicate_files=False):
     """Groupwise-register a directory; warp, save, and compute all-pairs
-    metrics."""
-    if getattr(args, "visualize", False):
-        raise NotImplementedError("groupwise evaluation with visualize: the montage is not "
-                                  "ported (ROADMAP A9: viz.py)")
+    metrics; with ``args.visualize``, the before/after centre-slice montage
+    ``groupwise_{align}.png``."""
     group_dir = Path(group_dir)
     seg_available = getattr(args, "seg_available", False)
     device = resolve_device(getattr(registration_model, "device", None))
@@ -164,6 +171,19 @@ def _run_group_eval_dir(group_dir, registration_model, list_of_eval_metrics,
                     np.save(seg_path, seg_a.cpu().numpy())
                     seg_a_paths.append(seg_path)
 
+            if getattr(args, "visualize", False):
+                from keymorph_tpu_torch.viz import plot_groupwise_register
+
+                before, after = [], []
+                for img_path, a_path in zip(groupimg_m_paths, img_a_paths):
+                    b = np.load(img_path)["img"][0, 0]
+                    a = np.load(a_path)[0, 0]
+                    before.append(b[b.shape[0] // 2])
+                    after.append(a[a.shape[0] // 2])
+                montage = str(group_dir / f"groupwise_{align}.png")
+                plot_groupwise_register(before, after, save_path=montage)
+                print(f"-> visualize: {montage}")
+
             metrics = {}
             img_metric_names, grid_metric_names = [], []
             for m in list_of_eval_metrics:
@@ -206,6 +226,7 @@ def run_group_eval(group_loader, registration_model, list_of_eval_metrics, list_
                    list_of_eval_augs, list_of_eval_kp_aligns, list_of_group_sizes, args,
                    save_dir_prefix="group_eval", duplicate_files=False):
     """Metric keys: ``metric:name:aug:align:group_size``."""
+    _require_viz(args)
     test_metrics = {
         f"{m}:{n}:{a}:{k}:{g}": []
         for m in list_of_eval_metrics
@@ -246,6 +267,7 @@ def run_long_eval(group_loader, registration_model, list_of_eval_metrics, list_o
                   duplicate_files=False):
     """Longitudinal variant: each loader item is one subject's time series,
     registered groupwise. Metric keys: ``metric:name:aug:align``."""
+    _require_viz(args)
     test_metrics = {
         f"{m}:{n}:{a}:{k}": []
         for m in list_of_eval_metrics

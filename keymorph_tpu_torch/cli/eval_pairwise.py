@@ -232,14 +232,20 @@ def run_eval(loader, registration_model, list_of_eval_metrics, list_of_eval_name
     that receives wall seconds per stage ("prep" one-hot and augmentation,
     "extract", "align", "warp_score", "hausdorff", "artifacts"), for a caller
     that profiles the run; the device stages then synchronize the card.
+    ``args.visualize``: a moving/fixed/aligned panel ``panel-{aug}-{align}.png``
+    a pair in its ``save_dir``, by the rank that writes its JSONs (refused
+    before any work where matplotlib is not installed).
     """
     if mesh is not None:
         from keymorph_tpu_torch.parallel import mesh as pmesh
 
         mesh = pmesh.require_mesh(mesh)
-    if getattr(args, "visualize", False):
-        raise NotImplementedError("run_eval with visualize: the panels are not ported "
-                                  "(ROADMAP A9: viz.py)")
+    visualize = getattr(args, "visualize", False)
+    if visualize:
+        from keymorph_tpu_torch import viz
+
+        viz.require_matplotlib()
+        show = viz.imshow_registration_2d if args.dim == 2 else viz.imshow_registration_3d
     jd = sorted({"jdstd", "jdlessthan0"} & set(list_of_eval_metrics))
     if jd and args.dim != 3:
         # keymorph_tpu's scorer reduces the 3D determinant over `dim` axes and
@@ -256,9 +262,9 @@ def run_eval(loader, registration_model, list_of_eval_metrics, list_of_eval_name
                          f"data-parallel size ({mesh.data_size})")
     writes = mesh is None or mesh.space_index == 0
     stages = _Stages(stage_times, device)
-    need_vols = getattr(args, "save_eval_artifacts", True)
+    save_artifacts = getattr(args, "save_eval_artifacts", True)
     score_fn = make_batch_score_fn(list_of_eval_aligns, list_of_eval_metrics, seg_available,
-                                   args.dim, align_img, need_vols)
+                                   args.dim, align_img, save_artifacts or visualize)
 
     def _flush(pending):
         """Register and score a buffer of pending pairs for every aug."""
@@ -338,7 +344,7 @@ def run_eval(loader, registration_model, list_of_eval_metrics, list_of_eval_name
                 entry = work[w]
                 sl = slice(j, j + 1)
                 n_cls_j = entry["n_cls"] if seg_available else 0
-                if need_vols and writes:
+                if save_artifacts and writes:
                     t1 = time.perf_counter()
                     _save_pair_common(
                         entry, aug, img_f[sl], img_m[sl],
@@ -379,10 +385,17 @@ def run_eval(loader, registration_model, list_of_eval_metrics, list_of_eval_name
                     t1 = time.perf_counter()
                     if writes:
                         save_dict_as_json(metrics, entry["metrics_paths"][aug][align])
-                    if need_vols and writes:
+                    if save_artifacts and writes:
                         img_a, labels_a = vols[align]
                         _save_pair_align(entry, aug, align, res, sl, res["grid"][sl], img_a[sl],
                                          labels_a[sl] if seg_available else None)
+                    if visualize and writes:  # moving/fixed/aligned panel a pair, aug and align
+                        p_a = res.get("points_a")
+                        show(_host(img_m[sl])[0, 0], _host(img_f[sl])[0, 0],
+                             _host(vols[align][0][sl])[0, 0], _host(res["points_m"][sl])[0],
+                             _host(res["points_f"][sl])[0],
+                             _host(p_a[sl])[0] if p_a is not None else None,
+                             save_path=str(entry["save_dir"] / f"panel-{aug}-{align}.png"))
                     stages.add("artifacts", time.perf_counter() - t1)
                 gathered.append([w, all_metrics])
             if mesh is not None:  # each rank's pairs, in rank order: the sequential order

@@ -169,6 +169,10 @@ def main(argv=None, stage_times=None):
     ``eval_pairwise.run_eval``'s stages), for a caller that profiles the
     run."""
     args = parse_args(argv)
+    if args.visualize:
+        from keymorph_tpu_torch.viz import require_matplotlib
+
+        require_matplotlib()
 
     from keymorph_tpu_torch import disable_tf32, resolve_device
     from keymorph_tpu_torch.cli.eval_groupwise import run_group_eval

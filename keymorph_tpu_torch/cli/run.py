@@ -24,8 +24,11 @@ keypoints (``ref_points``), which a resumed pretraining reuses.
 
 As in keymorph_tpu, the volumes are resized to ``--img_size`` when they are
 loaded, whatever ``--train_same_resolution`` says, so through this CLI the
-same-resolution step's own resize is the identity. ``--visualize`` and
-``--use_wandb`` are not ported (ROADMAP A9) and raise.
+same-resolution step's own resize is the identity. ``--visualize`` renders
+moving/fixed/aligned panels of one training batch (``<model_dir>/img/``) at
+epochs 1, the last and every ``log_interval``-th, and refuses before any
+work where matplotlib is not installed; ``--use_wandb`` logs each epoch's
+stats to Weights & Biases, or to stdout alone where wandb is not installed.
 
 ``--run_mode eval`` on several GPUs, one process each (``torchrun
 --nproc_per_node N -m keymorph_tpu_torch.cli.run --run_mode eval ...``),
@@ -113,7 +116,9 @@ def main(argv=None):
         config.steps_per_epoch = 3
         config.early_stop_eval_subjects = 1
     if config.visualize:
-        raise NotImplementedError("--visualize: the panels are not ported (ROADMAP A9: viz.py)")
+        from keymorph_tpu_torch.viz import require_matplotlib
+
+        require_matplotlib()
 
     import torch
 
@@ -124,8 +129,6 @@ def main(argv=None):
     from keymorph_tpu_torch.training.config import build_model
     from keymorph_tpu_torch.training.train import TrainState, make_optimizer
 
-    if config.use_wandb:
-        su.initialize_wandb(config)  # raises: not ported
     from keymorph_tpu_torch.parallel.mesh import launch_mesh, world_size
 
     if world_size() > 1 and config.run_mode != "eval":
@@ -174,6 +177,7 @@ def main(argv=None):
             ref_points = payload["ref_points"].to(device)
         print(f"Loaded checkpoint {load_path} (epoch {int(payload['epoch'])})")
 
+    wandb = su.initialize_wandb(config) if config.use_wandb else None
     epochs = config.epochs if not config.debug_mode else 2
     if config.run_mode == "train":
         from keymorph_tpu_torch.training.train import (
@@ -204,6 +208,21 @@ def main(argv=None):
                 modality_datasets=modality_datasets, device=device)
             print(f"Epoch {epoch}/{epochs}:", stats)
             _log_epoch(model_dir, epoch, stats)
+            if wandb:
+                wandb.log(stats)
+            if config.visualize and (epoch % config.log_interval == 0 or epoch in (1, epochs)):
+                # moving/fixed/aligned panels of one training batch
+                from keymorph_tpu_torch.viz import render_registration_panels
+
+                b_f, b_m = next(iter(train_loader))
+                seg_kw = {}
+                if config.loss_fn == "dice":
+                    seg_kw = {"seg_f": np.asarray(b_f["seg"]), "seg_m": np.asarray(b_m["seg"])}
+                paths = render_registration_panels(
+                    model, np.asarray(b_f["img"], np.float32), np.asarray(b_m["img"], np.float32),
+                    config.transform_type, str(model_dir / "img"), f"epoch{epoch}",
+                    dim=config.dim, **seg_kw)
+                print("-> visualize:", ", ".join(paths))
             if epoch % config.log_interval == 0 or epoch == epochs:
                 ckpt.save_checkpoint(str(ckpt_dir), epoch, state)
     elif config.run_mode == "pretrain":
@@ -225,6 +244,8 @@ def main(argv=None):
                                                    epoch, generator, aff=aff)
             print(f"Pretrain epoch {epoch}/{epochs}:", stats)
             _log_epoch(model_dir, epoch, stats)
+            if wandb:
+                wandb.log(stats)
             if epoch % config.log_interval == 0 or epoch == epochs:
                 ckpt.save_checkpoint(str(ckpt_dir), epoch, state, ref_points=ref_points)
     elif config.run_mode == "eval":

@@ -47,6 +47,16 @@ def summary(model):
 
 
 def initialize_wandb(config):
-    """Weights & Biases logging is not ported (ROADMAP A9)."""
-    raise NotImplementedError("wandb logging is not ported (ROADMAP A9): the port logs "
-                              "to stdout")
+    """Optional Weights & Biases init: returns the ``wandb`` module after
+    ``wandb.init``, or None (printing so) where wandb is not installed, and
+    the run logs to stdout and ``train_log.jsonl`` alone."""
+    try:
+        import wandb
+    except ImportError:
+        print("wandb not available; logging to stdout only")
+        return None
+    if config.wandb_api_key_path:
+        with open(config.wandb_api_key_path) as fh:
+            os.environ["WANDB_API_KEY"] = fh.read().strip()
+    wandb.init(name=config.job_name, config=config.__dict__, **(config.wandb_kwargs or {}))
+    return wandb

@@ -19,7 +19,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import time
 
 import numpy as np
@@ -56,6 +55,7 @@ def main(argv=None):
 
     import keymorph_tpu_torch
     from keymorph_tpu_torch.ops import cuda as kernels
+    from keymorph_tpu_torch.tools import card
     from keymorph_tpu_torch.training.train import make_train_step
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -88,11 +88,8 @@ def main(argv=None):
         torch.cuda.synchronize()
         wall_ms.append((time.perf_counter() - t0) * 1e3)
         event_ms.append(a.elapsed_time(b))
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         timeout=60).stdout.strip()
     print(json.dumps({
-        "card": smi, "device": torch.cuda.get_device_name(0), "size": args.size,
+        "card": card(), "device": torch.cuda.get_device_name(0), "size": args.size,
         "keypoints": args.keypoints, "checkpoint": args.checkpoint, "plain": args.plain,
         "step_ms_cuda_events": event_ms, "step_ms_host": wall_ms,
         "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),

@@ -22,6 +22,7 @@ CLI against keymorph_tpu's, at 16^3-24^3.
 """
 
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -305,17 +306,34 @@ def test_run_eval_matches_jax(tmp_path, batch_pairs):
 
 
 def test_run_eval_refuses_what_is_not_ported(tmp_path):
-    """visualize is not ported (ROADMAP A9); the mesh fan-out is, and a
-    non-mesh object is a TypeError."""
+    """A non-mesh object is a TypeError. visualize is ported: both harnesses
+    over one pair write the same files, among them keymorph_tpu's
+    ``panel-{aug}-{align}.png``; without the artifacts the port still
+    draws the panel (and saves no volume)."""
     args = _Args()
     args.model_eval_dir = tmp_path
     with pytest.raises(TypeError, match="Mesh"):
         teval.run_eval([], _Stub((8,) * 3, "cpu"), ["mse"], [("a", "b")], ["rot0"], ["affine"],
                        args, mesh=object())
-    args.visualize = True
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        teval.run_eval([], _Stub((8,) * 3, "cpu"), ["mse"], [("a", "b")], ["rot0"], ["affine"],
-                       args)
+    size = 16
+    paths = _pairs_on_disk(tmp_path, (12, 14, 16))
+    for name, mod, prep, run in (
+            ("jax", jdatasets, jpreprocess.Preprocessor, jeval.run_eval),
+            ("port", tdatasets, tpreprocess.Preprocessor, teval.run_eval),
+            ("port_panels_only", tdatasets, tpreprocess.Preprocessor, teval.run_eval)):
+        args = _Args()
+        args.model_eval_dir = tmp_path / name
+        args.visualize = True
+        args.early_stop_eval_subjects = 1
+        args.save_eval_artifacts = name != "port_panels_only"
+        kw = {"device": "cpu"} if name.startswith("port") else {}
+        run(_loader(mod, paths, size, prep), _Stub((size,) * 3), ["mse"], [("fixed", "moving")],
+            ["rot0"], ["affine"], args, **kw)
+    files = _files(tmp_path / "port")
+    assert files == _files(tmp_path / "jax")
+    assert "eval/0_fixed_moving/panel-rot0-affine.png" in files
+    assert _files(tmp_path / "port_panels_only") == [
+        "eval/0_fixed_moving/metrics-rot0-affine.json", "eval/0_fixed_moving/panel-rot0-affine.png"]
 
 
 # ---------------------------------------------------------------------------
@@ -563,7 +581,7 @@ def test_load_weights_is_strict(cli_inputs, tmp_path):
         load_weights(model, str(tmp_path / "orbax"))
 
 
-def test_script_utils_and_hyperparameters():
+def test_script_utils_and_hyperparameters(monkeypatch, capsys):
     from keymorph_tpu.cli import hyperparameters as jhp
     from keymorph_tpu.cli import script_utils as jsu
     from keymorph_tpu_torch.cli import hyperparameters as hp
@@ -580,5 +598,8 @@ def test_script_utils_and_hyperparameters():
     model = build_model(Config(num_keypoints=8, backbone="unet", num_levels_for_unet=2,
                                use_amp=True), device="cpu")
     assert su.summary(model) == sum(p.numel() for p in model.net.parameters())
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        su.initialize_wandb(Config())
+    # without wandb: keymorph_tpu's stdout fallback (tests/test_torch_viz.py
+    # holds the calls made with it)
+    monkeypatch.setitem(sys.modules, "wandb", None)  # the import raises ImportError
+    assert su.initialize_wandb(Config()) is None
+    assert capsys.readouterr().out.endswith("wandb not available; logging to stdout only\n")

@@ -13,6 +13,7 @@ on the same command lines.
 import dataclasses
 import json
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -180,7 +181,17 @@ def test_run_cli_eval_writes_keymorph_tpu_summaries(tiny_dataset, tmp_path):
     assert (eval_dir / "eval_unimodal").is_dir()
 
 
-def test_run_cli_refuses_what_is_not_ported(tiny_dataset, tmp_path):
-    for flag in ("--visualize", "--use_wandb"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-            run.main(_args(tiny_dataset, tmp_path, "--run_mode", "train", flag))
+def test_run_cli_refuses_what_is_not_ported(tiny_dataset, tmp_path, monkeypatch, capsys):
+    """Both flags are ported. ``--visualize`` renders keymorph_tpu's panels
+    of a training batch at epochs 1 and 2 (every ``log_interval``-th and the
+    last; with the dice loss also the segmentations); ``--use_wandb``
+    without wandb prints keymorph_tpu's fallback line and trains on."""
+    monkeypatch.setitem(sys.modules, "wandb", None)  # the import raises ImportError
+    run.main(_args(tiny_dataset, tmp_path / "viz", *FLAGSHIP, "--run_mode", "train",
+                   "--debug_mode", "--visualize", "--loss_fn", "dice"))
+    assert sorted(os.listdir(tmp_path / "viz" / "keymorph" / "img")) == [
+        "img_epoch1.png", "img_epoch2.png", "seg_epoch1.png", "seg_epoch2.png"]
+    run.main(_args(tiny_dataset, tmp_path / "wandb", *FLAGSHIP, "--run_mode", "train",
+                   "--debug_mode", "--use_wandb"))
+    assert "wandb not available; logging to stdout only" in capsys.readouterr().out
+    assert [r["epoch"] for r in _log(tmp_path / "wandb" / "keymorph")] == [1, 2]
