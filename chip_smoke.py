@@ -37,7 +37,11 @@ Phases (each prints its lines; any failure raises, so the exit code is not 0):
      gradient at 128^3 C=1, 4 and 14, each timed with the L2 cleared before
      every call (the time held against the bound) and warm; the register
      CLI's shapes: ``tps_flow`` at every voxel centre of 256^3 (T = 128) and
-     the warp at 256^3 C=14;
+     the warp at 256^3 C=14; past the wrappers' old limits: the TPS kernels
+     at T = 4096 (``tps_planes`` on a 64^3 grid, ``tps_flow`` and the
+     backward on 32^3 points; the forward kernels held against float64, as
+     the T = 128 rows also are) and ``tps_flow`` and the warp at B = 70000
+     on 4^3 volumes;
   2. end to end: the flagship config (TruncatedUNet3D f_maps=32, 4 levels,
      1 truncated, bf16; 128 keypoints; TPS lmbda=1) at 256^3 with seeded
      random weights serves 3 pairs through the kernels: extract fixed and
@@ -170,10 +174,15 @@ Phases (each prints its lines; any failure raises, so the exit code is not 0):
      ``groupwise_register(mesh=...)`` of 4 subjects at 128^3 (affine,
      tps_1), and one 256^3 pair through ``make_spatial_register_fn`` at
      'space' 2 (the U-Net's module path with halo exchanges, then the flow
-     and the warp of each slab), host-clock times by rank; then rank 0 holds
+     and the warp of each slab), and one pair each for the other backbones,
+     heads and extents on 'space' 2 (P14_SPATIAL: the fp32 ConvNet at 256^3,
+     the fp32 ResidualUNetSE3D at 128^3, the flagship with variance
+     weighting at 256^3, the flagship at 150 x 256 x 256, whose far slab
+     holds the remainder of its block of 8), host-clock times and peak
+     memory by rank; then rank 0 holds
      the step under phase 6's rule, the register and groupwise keypoints and
-     grids against the single-process kernel path and the spatial pair
-     against the unsplit module path, each within phase 3's yardstick rule,
+     grids against the single-process kernel path and every spatial pair
+     against its unsplit module path, each within phase 3's yardstick rule,
      and the spatial slab stages on their own inputs (TPS_ABS, WARP_ABS).
      Each path's kernels must launch on every rank; no plain version runs.
 
@@ -191,8 +200,11 @@ Phases (each prints its lines; any failure raises, so the exit code is not 0):
      ``tools/center_volumes`` on the card and on the CPU (the volumes within
      ``WARP_ABS``, every centroid closer to the reference's); (e)
      ``tools/flops``: the flagship extraction's FLOPs and the MFU of phase
-     2's steady extraction against 989 TFLOP/s. Each device path's kernels
-     must launch and no plain version runs on it. The tools run at their
+     2's steady extraction against 989 TFLOP/s; (f)
+     ``tools/conv_microbench --size 256 --reps 3``: every conv stage of the
+     flagship at its size, the kernel against bf16 ``F.conv3d`` and the
+     bound. Each device path's kernels must launch and no plain version runs
+     on it. The tools run at their
      own defaults and seeds; ``--seed`` moves the panels' pair and weights.
 
 The line before the last is the kernels' JSON record (``launches`` summed
@@ -783,8 +795,114 @@ def phase1(torch, rng, dev):
         if C == 14:
             for mode in ("bilinear", "nearest"):
                 warp_case(vol, planes, mode)
+    del vol, g, planes
+    _phase1_past_the_old_limits(torch, dev, record, flush)
     del flush
     return results
+
+
+LIMIT_T = 4096     # control points past the 2048 the TPS wrappers once took
+LIMIT_B = 70000    # batch items past the grid's 65535 rows
+
+
+def _phase1_past_the_old_limits(torch, dev, record, flush):
+    """Phase 1's TPS kernels at T = LIMIT_T (B4 on a 64^3 grid, B4p and B7
+    on 32^3 points, from a real fit) and ``tps_flow`` and ``warp_planes`` at
+    B = LIMIT_B on 4^3 volumes, each against its plain version (from a
+    generator of its own: the phases after this one keep their inputs).
+    Over 4096 control points the kernels' and the plain versions' fp32 sums
+    of the spline each lie about TPS_ABS from float64 or more, in other
+    orders, so B4 and B4p are held as phase 1 holds every TPS kernel against
+    float64: no farther from it than FLOAT64_FACTOR x their plain version,
+    or TPS_ABS; the three distances are printed.
+    B7 sums over grid points, not control points: TPS_BWD_REL x max. The
+    warp: WARP_ABS."""
+    import torch.nn.functional as F
+
+    from keymorph_tpu_torch.ops.cuda import resample3d, tpsflow
+    from keymorph_tpu_torch.transforms import solvers
+
+    rng = np.random.default_rng([SEED, 5])
+    T = LIMIT_T
+    src = torch.tensor(rng.uniform(-0.8, 0.8, (1, T, 3)).astype(np.float32), device=dev)
+    dst = src + torch.tensor(rng.normal(0, 0.03, (1, T, 3)).astype(np.float32), device=dev)
+    theta = solvers.fit_tps(src, dst, LMBDA).contiguous()
+
+    def dist(a, b):
+        return (a.double() - b.double()).abs().max().item()
+
+    def held64(name, k, p, r, ms, pms, bound, what):
+        dk, dp = dist(k, r), dist(p, r)
+        tol = max(TPS_ABS, FLOAT64_FACTOR * dp)
+        record(name, dist(k, p), ms, pms, None, bound, what,
+               f"from float64 <= max({TPS_ABS}, {FLOAT64_FACTOR} x the plain version's)",
+               dk <= tol, extra={"kernel_vs_float64": dk, "plain_vs_float64": dp})
+
+    # B4 on a 64^3 grid; float64 on 4 of its 64 planes (the whole grid in
+    # float64 would take 48 GB)
+    sp = (64, 64, 64)
+    k = tpsflow.tps_planes(theta, src, sp)
+    p = tpsflow.tps_planes_plain(theta, src, sp)
+    zs = torch.tensor([0, 21, 42, 63], device=dev)
+    pts = tpsflow._grid_points(sp, dev).reshape(64, -1, 3)[zs].reshape(1, -1, 3)
+    r = tpsflow.tps_flow_plain(theta, src, pts, dtype=torch.float64)
+    r = r.transpose(1, 2).reshape(1, 3, 4, 64, 64)
+    n = 64 ** 3
+    held64("tps_planes", k[:, :, zs], p[:, :, zs], r,
+           _cuda_ms(lambda: tpsflow.tps_planes(theta, src, sp), 3),
+           _cuda_ms(lambda: tpsflow.tps_planes_plain(theta, src, sp), 1),
+           _tps_bound(n, T, 12 * n, 2, 20), f"tps_planes 64^3 T={T}")
+    del k, p, r, pts
+
+    # B4p and B7 on 32^3 points
+    n = 32 ** 3
+    pts = torch.tensor(rng.uniform(-1, 1, (1, n, 3)).astype(np.float32), device=dev)
+    held64("tps_flow", tpsflow.tps_flow(theta, src, pts), tpsflow.tps_flow_plain(theta, src, pts),
+           tpsflow.tps_flow_plain(theta, src, pts, dtype=torch.float64),
+           _cuda_ms(lambda: tpsflow.tps_flow(theta, src, pts), 3),
+           _cuda_ms(lambda: tpsflow.tps_flow_plain(theta, src, pts), 1),
+           _tps_bound(n, T, 24 * n, 2, 20), f"tps_flow N=32^3 points T={T}")
+    sp = (32, 32, 32)
+    g = torch.tensor(rng.normal(size=(1, 3, *sp)).astype(np.float32), device=dev)
+    kt, kc = tpsflow.tps_planes_bwd(theta, src, sp, g)
+    pt, pc = tpsflow.tps_planes_bwd_plain(theta, src, sp, g)
+    torch.cuda.synchronize()
+    ok = bool((kt - pt).abs().max() <= TPS_BWD_REL * pt.abs().max()
+              and (kc - pc).abs().max() <= TPS_BWD_REL * pc.abs().max())
+    record("tps_planes_bwd", max(dist(kt, pt), dist(kc, pc)),
+           _cuda_ms(lambda: tpsflow.tps_planes_bwd(theta, src, sp, g), 3),
+           _cuda_ms(lambda: tpsflow.tps_planes_bwd_plain(theta, src, sp, g), 1), None,
+           _tps_bound(n, T, 12 * n, 3, 36),
+           f"tps_planes backward 32^3 T={T}, random cotangent (max |g_theta| "
+           f"{pt.abs().max().item():.4g}, max |g_ctrl| {pc.abs().max().item():.4g})",
+           f"tol {TPS_BWD_REL} x max", ok)
+    del theta, src, dst, pts, g, kt, kc, pt, pc
+
+    # B = LIMIT_B: tps_flow (T = 8, each item its own fit) and warp_planes
+    B, sp, T = LIMIT_B, (4, 4, 4), 8
+    n = 64
+    src = torch.tensor(rng.uniform(-0.8, 0.8, (B, T, 3)).astype(np.float32), device=dev)
+    dst = src + torch.tensor(rng.normal(0, 0.05, (B, T, 3)).astype(np.float32), device=dev)
+    theta = solvers.fit_tps(src, dst, LMBDA).contiguous()
+    pts = torch.tensor(rng.uniform(-1, 1, (B, n, 3)).astype(np.float32), device=dev)
+    err = dist(tpsflow.tps_flow(theta, src, pts), tpsflow.tps_flow_plain(theta, src, pts))
+    record("tps_flow", err, _cuda_ms(lambda: tpsflow.tps_flow(theta, src, pts), 3),
+           _cuda_ms(lambda: tpsflow.tps_flow_plain(theta, src, pts), 1), None,
+           _tps_bound(B * n, T, B * (24 * n + 12 * (2 * T + 4)), 2, 20),
+           f"tps_flow B={B} x {n} points T={T}", f"tol {TPS_ABS}", err <= TPS_ABS)
+    vol = torch.tensor(rng.random((B, 1, *sp), dtype=np.float32), device=dev)
+    planes = torch.tensor(rng.uniform(-1.2, 1.2, (B, 3, *sp)).astype(np.float32), device=dev)
+    grid = torch.flip(planes.movedim(1, -1), dims=(-1,)).contiguous()
+    for mode in ("bilinear", "nearest"):
+        err = dist(resample3d.warp_planes(vol, planes, mode),
+                   resample3d.warp_planes_plain(vol, planes, mode))
+        lib = lambda: F.grid_sample(vol, grid, mode=mode, padding_mode="border",
+                                    align_corners=False)
+        record("warp_planes", err, _call_ms(lambda: resample3d.warp_planes(vol, planes, mode), 5,
+                                            flush),
+               _cuda_ms(lambda: resample3d.warp_planes_plain(vol, planes, mode), 1),
+               _call_ms(lib, 5, flush), _bound(4 * B * (n + 3 * n) + 4 * B * n, 0.0),
+               f"warp_planes {mode} B={B} x 4^3 C=1", f"tol {WARP_ABS}", err <= WARP_ABS)
 
 
 def _make_pairs(torch, rng, dev, spatial=SPATIAL, n_pairs=N_PAIRS, noise_amp=0.2):
@@ -2731,6 +2849,14 @@ P14_TRAIN_BATCH = 2       # 128^3 rows of the 2-rank step, a row a rank
 P14_PAIRS = 4             # 256^3 pairs of the fan-out register, two a rank
 P14_GROUP = 4             # 128^3 subjects of groupwise_register(mesh=...)
 P14_TYPES = ("affine", "tps_1")
+# the spatial path on the other backbones, heads and extents, each one pair on
+# 'space' 2: name -> (build_backbone family, bf16, (D, H, W), weight_keypoints)
+P14_SPATIAL = {
+    "convnet": ("conv", False, SPATIAL, None),                 # fp32, instance norm
+    "residualunetse": ("residualunetse", False, TRAIN_SPATIAL, None),  # fp32, 5 levels
+    "variance": ("truncatedunet", True, SPATIAL, "variance"),  # the flagship, weighted
+    "d150": ("truncatedunet", True, (150, 256, 256), None),    # an IXI scan's 150 slices
+}
 # the kernels each path must launch, on every rank (the spatial path's
 # extraction is the U-Net's module path: no conv kernel)
 P14_PATHS = {
@@ -2738,6 +2864,7 @@ P14_PATHS = {
     "register": ("conv3x3_fused_flat", "conv3x3_fused_flat_upconv", "tps_flow"),
     "groupwise": ("conv3x3_fused_flat", "conv3x3_fused_flat_upconv", "tps_flow"),
     "spatial": ("tps_flow", "warp_planes"),
+    **{f"spatial {name}": ("tps_flow", "warp_planes") for name in P14_SPATIAL},
 }
 
 
@@ -2750,6 +2877,41 @@ def _p14_net(torch, dev):
     gen = torch.Generator().manual_seed(SEED + 14)
     return KeyMorphNet(init_weights(TruncatedUNet3D(dtype=torch.bfloat16, **UNET), gen),
                        NUM_KEYPOINTS).to(dev)
+
+
+def _p14_spatial_net(torch, dev, name):
+    """P14_SPATIAL's net ``name`` with seeded weights (the same in every
+    process): the family as ``build_backbone`` makes it (the flagship's
+    widths for the TruncatedUNet3D), the variance weighting's scales and
+    biases drawn as a trained net's are not 1 and 0."""
+    from keymorph_tpu_torch.models.keymorph import KeyMorphNet
+    from keymorph_tpu_torch.models.unet import init_weights
+    from keymorph_tpu_torch.training.config import Config, build_backbone
+
+    family, amp, _, weighting = P14_SPATIAL[name]
+    gen = torch.Generator().manual_seed(SEED + 140 + list(P14_SPATIAL).index(name))
+    backbone = build_backbone(Config(num_keypoints=NUM_KEYPOINTS, backbone=family,
+                                     norm_type="instance", use_amp=amp))
+    net = KeyMorphNet(init_weights(backbone, gen), NUM_KEYPOINTS, weighting)
+    if weighting == "variance":
+        with torch.no_grad():
+            net.scales.copy_(torch.rand(NUM_KEYPOINTS, generator=gen) + 0.5)
+            net.biases.copy_(torch.rand(NUM_KEYPOINTS, generator=gen) * 0.1)
+    return net.to(dev).eval()
+
+
+def _p14_spatial_unsplit(torch, net, f, m, scale):
+    """The unsplit module path of one pair, volumes scaled by ``scale``:
+    (keypoints, the weighted ``tps_1`` grid, the warped moving volume)."""
+    from keymorph_tpu_torch.models.keymorph import align_pair
+    from keymorph_tpu_torch.ops.resample import align_img
+
+    feats = [net.backbone(v * scale).movedim(1, -1) for v in (f, m)]
+    kp = [net.keypoints_from_features(x) for x in feats]
+    weights = (net.weight_by_variance(*feats) if net.weight_keypoints == "variance"
+               else None)
+    grid = align_pair(*kp, "tps", f.shape[2:], lmbda=LMBDA, weights=weights)["grid"]
+    return kp, grid, align_img(grid, m)
 
 
 def _p14_inputs(torch, dev):
@@ -2935,6 +3097,20 @@ def _p14_worker(torch, rank, tmp):
     spatial = _timed(torch, out, "spatial", lambda: sfn(*inputs["spatial"]))
     _timed(torch, out, "spatial second", lambda: sfn(*inputs["spatial"]))
     out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    # one pair on 'space' 2 per P14_SPATIAL net (the same inputs in every process)
+    others, out["spatial_peak_gib"] = {}, {}
+    for i, (name, (_, _, shape, _)) in enumerate(P14_SPATIAL.items()):
+        pair = _make_pairs(torch, np.random.default_rng([SEED, 14, i]), dev, shape, 1)[0]
+        snet = _p14_spatial_net(torch, dev, name)
+        sfn = make_spatial_register_fn(snet, Config(num_keypoints=NUM_KEYPOINTS,
+                                                    transform_type="tps_1"), space)
+        torch.cuda.reset_peak_memory_stats()
+        res = _timed(torch, out, f"spatial {name}", lambda: sfn(*pair))
+        out["spatial_peak_gib"][name] = torch.cuda.max_memory_allocated() / 2 ** 30
+        others[name] = (snet, pair, res)
+        del sfn
+        torch.cuda.empty_cache()
     dist.destroy_process_group()
 
     if rank == 0:  # the single-process references and the distances
@@ -2981,6 +3157,23 @@ def _p14_worker(torch, rank, tmp):
         d["spatial yardstick keypoints"] = max(_p14_dist(npf, upf), _p14_dist(npm, upm))
         d["spatial yardstick grid"] = _p14_dist(ngrid, ugrid)
         d["spatial yardstick image"] = _p14_dist(nimg, uimg)
+        del ugrid, ngrid, uimg, nimg, sgrid, img_a, own
+        t0 = time.perf_counter()
+        for name, (snet, (f, m), (img_a, sgrid, spf, spm)) in others.items():
+            with torch.no_grad():
+                (upf, upm), ugrid, uimg = _p14_spatial_unsplit(torch, snet, f, m, 1.0)
+                (npf, npm), ngrid, nimg = _p14_spatial_unsplit(torch, snet, f, m, 1.0 + PERTURB)
+                d[f"spatial {name} stage image"] = _p14_dist(img_a, align_img(sgrid, m))
+            d[f"spatial {name} keypoints"] = max(_p14_dist(spf, upf), _p14_dist(spm, upm))
+            d[f"spatial {name} grid"] = _p14_dist(sgrid, ugrid)
+            d[f"spatial {name} image"] = _p14_dist(img_a, uimg)
+            d[f"spatial {name} yardstick keypoints"] = max(_p14_dist(npf, upf),
+                                                           _p14_dist(npm, upm))
+            d[f"spatial {name} yardstick grid"] = _p14_dist(ngrid, ugrid)
+            d[f"spatial {name} yardstick image"] = _p14_dist(nimg, uimg)
+            del ugrid, ngrid, uimg, nimg
+            torch.cuda.empty_cache()
+        out["spatial_references_s"] = time.perf_counter() - t0
     torch.save(out, tmp / f"result_{rank}.pt")
 
 
@@ -3101,6 +3294,14 @@ def phase14(torch, dev):
           f"of {P14_GROUP} at 128^3 {ms['groupwise']}; the spatial pair at 256^3 on 'space' 2 "
           f"{ms['spatial']} / {ms['spatial second']} (unsplit, one process: "
           f"{ranks[0]['unsplit_ms']:.3f}, second); peak GiB {[r['peak_gib'] for r in ranks]}")
+    print("phase14 (b) the spatial path on 'space' 2, one pair each, host clock ms by rank (first "
+          "call) and peak GiB by rank: " + "; ".join(
+              f"{name} ({P14_SPATIAL[name][0]}{', bf16' if P14_SPATIAL[name][1] else ', fp32'}, "
+              f"{'x'.join(map(str, P14_SPATIAL[name][2]))}"
+              f"{', ' + P14_SPATIAL[name][3] + ' weighting' if P14_SPATIAL[name][3] else ''}) "
+              f"{ms['spatial ' + name]} ms, {[r['spatial_peak_gib'][name] for r in ranks]} GiB"
+              for name in P14_SPATIAL)
+          + f"; rank 0's unsplit references {ranks[0]['spatial_references_s']:.3f} s")
     held = _p14_hold_step(torch, dev, _train_config(TRAIN_SPATIAL), _p14_inputs(torch, dev),
                           slice(0, P14_TRAIN_BATCH), ranks[0]["train"], "phase14 (b) 2-rank step")
     checks = {
@@ -3113,6 +3314,11 @@ def phase14(torch, dev):
     for name in P14_TYPES:
         key = f"groupwise {name} grouppoints_m"
         checks[key] = max(KEYPOINT_ABS, NOISE_FACTOR * d[key + " yardstick"])
+    for name in P14_SPATIAL:
+        for what, floor in (("keypoints", KEYPOINT_ABS), ("grid", PLANES_ABS)):
+            key = f"spatial {name} {what}"
+            checks[key] = max(floor, NOISE_FACTOR * d[f"spatial {name} yardstick {what}"])
+        checks[f"spatial {name} stage image"] = WARP_ABS
     print(f"phase14 (b) vs the single-process kernel path (register, groupwise) and the unsplit "
           f"module path (spatial), largest differences: {json.dumps(d)}; held (tol): "
           f"{json.dumps(checks)}; yardstick: the single-process path on its inputs moved by "
@@ -3202,7 +3408,8 @@ def _p15_tools(torch, out, reg_dir, extract_s):
     """(b) tps_approx_bench at its defaults and --ranked at 128^3; (c)
     warp_channels_bench at C = 1, 6, 14; (d) make_synthetic_dataset ->
     center_volumes on the card and on the CPU; (e) the flagship extraction's
-    FLOPs and phase 2's steady extraction's MFU."""
+    FLOPs and phase 2's steady extraction's MFU; (f) conv_microbench at
+    256^3."""
     import os
 
     from keymorph_tpu_torch.data.nifti import load_nifti
@@ -3259,6 +3466,21 @@ def _p15_tools(torch, out, reg_dir, extract_s):
     if not (d_vol <= WARP_ABS and all(a > b for a, b in zip(moved[::2], moved[1::2]))):
         raise AssertionError("phase 15 (d): center_volumes on the card differs from the CPU's "
                              "or moved a centroid away")
+
+    from keymorph_tpu_torch.tools import conv_microbench
+
+    rows, total = _timed(torch, out, "conv_microbench", lambda: conv_microbench.main(
+        ["--size", str(SPATIAL[0]), "--reps", "3"]))
+    print(f"phase15 (f) conv_microbench --size {SPATIAL[0]} --reps 3 (its lines above; CUDA events): "
+          f"{total['stages']} stages, kernel {total['kernel_ms']:.4f} ms, F.conv3d bf16 "
+          f"{total['library_ms']:.4f} ms, bound {total['bound_ms']:.4f} ms in all; " + ", ".join(
+              f"{r['stage']} {r['kernel']} {r['kernel_ms']:.4f} / {r['library_ms']:.4f} / "
+              f"{r['bound_ms']:.4f} ({r['bound_by']})" for r in rows))
+    vals = [r[k] for r in rows for k in ("kernel_ms", "library_ms", "bound_ms")]
+    if len(rows) != 13 or not all(np.isfinite(v) and v > 0 for v in vals):
+        raise AssertionError("phase 15 (f): conv_microbench read a missing or non-finite time")
+    _expect("phase 15 (f)", out["counts"]["conv_microbench"],
+            ("conv3x3_fused_flat", "conv3x3_fused_flat_upconv"))
 
     flop = flops.unet_extract_flops(SPATIAL, NUM_KEYPOINTS, UNET["f_maps"], UNET["num_levels"],
                                     UNET["num_truncated_layers"])

@@ -15,4 +15,8 @@ namespace km {
 
 inline int ceil_div(long long a, long long b) { return static_cast<int>((a + b - 1) / b); }
 
+// The most blocks a grid's y (or z) dimension takes; kernels that put the
+// batch there walk batch items blockIdx.y, blockIdx.y + gridDim.y, ...
+constexpr int kMaxGridY = 65535;
+
 }  // namespace km

@@ -56,7 +56,9 @@
 //  - Offsets within one channel are 32-bit (the wrapper refuses 2^31 voxels
 //    a channel); the batch and channel bases are formed once in 64 bits.
 //  - Every shape takes the same path: the ragged last tile is masked, and no
-//    access needs more than 4-byte alignment.
+//    access needs more than 4-byte alignment. The batch is the grid's y
+//    dimension, at most 65535 blocks: a larger batch is walked in steps of
+//    that, so any B runs in one launch.
 // The forward rounds every operation explicitly (no FMA contraction) in the
 // plain version's order, so kernel and plain results agree bit for bit. The
 // gradient is the same fp32 terms, FMA-contracted. Every output element has
@@ -215,15 +217,16 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
     warp_planes_kernel(const float* __restrict__ img,     // (B, C, Z, Y, X)
                        const float* __restrict__ planes,  // (B, 3, N)
                        float* __restrict__ out,           // (B, C, N)
-                       int C, int Z, int Y, int X, long long N) {
-  const int b = blockIdx.y;
+                       int B, int C, int Z, int Y, int X, long long N) {
   const long long V = static_cast<long long>(Z) * Y * X;
-  const float* pb = planes + static_cast<long long>(b) * 3 * N;
-  const float* src = img + static_cast<long long>(b) * C * V;
-  float* dst = out + static_cast<long long>(b) * C * N;
-  walk(pb, N, [&](const float (&p)[3][kVox], long long n0) {
-    warp_tile<kNearest>(src, dst, p, n0, C, Z, Y, X, N, V);
-  });
+  for (int b = blockIdx.y; b < B; b += gridDim.y) {  // one pass unless B > kMaxGridY
+    const float* pb = planes + static_cast<long long>(b) * 3 * N;
+    const float* src = img + static_cast<long long>(b) * C * V;
+    float* dst = out + static_cast<long long>(b) * C * N;
+    walk(pb, N, [&](const float (&p)[3][kVox], long long n0) {
+      warp_tile<kNearest>(src, dst, p, n0, C, Z, Y, X, N, V);
+    });
+  }
 }
 
 // d clamp(v, 0, n - 1) / dv with jnp.clip's tie convention, times dv/dp = n/2
@@ -285,16 +288,17 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
                             const float* __restrict__ g,       // (B, C, N)
                             const float* __restrict__ planes,  // (B, 3, N)
                             float* __restrict__ out,           // (B, 3, N)
-                            int C, int Z, int Y, int X, long long N) {
-  const int b = blockIdx.y;
+                            int B, int C, int Z, int Y, int X, long long N) {
   const long long V = static_cast<long long>(Z) * Y * X;
-  const float* pb = planes + static_cast<long long>(b) * 3 * N;
-  const float* src = img + static_cast<long long>(b) * C * V;
-  const float* gb = g + static_cast<long long>(b) * C * N;
-  float* ob = out + static_cast<long long>(b) * 3 * N;
-  walk(pb, N, [&](const float (&p)[3][kVox], long long n0) {
-    grad_tile(src, gb, ob, p, n0, C, Z, Y, X, N, V);
-  });
+  for (int b = blockIdx.y; b < B; b += gridDim.y) {  // one pass unless B > kMaxGridY
+    const float* pb = planes + static_cast<long long>(b) * 3 * N;
+    const float* src = img + static_cast<long long>(b) * C * V;
+    const float* gb = g + static_cast<long long>(b) * C * N;
+    float* ob = out + static_cast<long long>(b) * 3 * N;
+    walk(pb, N, [&](const float (&p)[3][kVox], long long n0) {
+      grad_tile(src, gb, ob, p, n0, C, Z, Y, X, N, V);
+    });
+  }
 }
 
 // Blocks of K resident on the device at once (SMs x blocks a SM), once per
@@ -315,12 +319,14 @@ int resident_blocks() {
   return blocks[dev];
 }
 
-// (blocks a batch item, B): the resident blocks shared among the batch items,
-// never more than a batch item has tiles
+// (blocks a batch item, batch items at once): the resident blocks shared
+// among the batch items, never more than a batch item has tiles; past
+// kMaxGridY batch items a block takes items blockIdx.y, blockIdx.y +
+// kMaxGridY, ...
 dim3 walk_grid(int resident, long long N, int B) {
   const long long tiles = (N + kTile - 1) / kTile;
   const long long per_item = (resident + B - 1) / B;
-  return dim3(static_cast<unsigned>(max(1LL, min(tiles, per_item))), B);
+  return dim3(static_cast<unsigned>(max(1LL, min(tiles, per_item))), min(B, km::kMaxGridY));
 }
 
 template <bool kNearest>
@@ -329,7 +335,7 @@ int launch_warp(const float* img, const float* planes, float* out, int B, int C,
   const int resident = resident_blocks<&warp_planes_kernel<kNearest>>();
   if (resident <= 0) return static_cast<int>(cudaErrorInvalidDevice);
   warp_planes_kernel<kNearest><<<walk_grid(resident, N, B), kThreads, 0, stream>>>(
-      img, planes, out, C, Z, Y, X, N);
+      img, planes, out, B, C, Z, Y, X, N);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -345,7 +351,7 @@ KM_EXPORT int km_warp_planes_grad(const void* img, const void* g, const void* pl
   warp_planes_grad_kernel<<<walk_grid(resident, N, B), kThreads, 0,
                             static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(img), static_cast<const float*>(g),
-      static_cast<const float*>(planes), static_cast<float*>(out), C, Z, Y, X, N);
+      static_cast<const float*>(planes), static_cast<float*>(out), B, C, Z, Y, X, N);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -41,7 +41,10 @@
 //     (7e-7 at lmbda 1, 4e-5 at lmbda 1e-4, where the spline's weights are
 //     large and cancel): the error is the fp32 sum's, not the functions'.
 // T is walked in tiles of T_TILE control points, so any T fits the static
-// shared memory. The (T, N) RBF matrix never exists anywhere.
+// shared memory. The (T, N) RBF matrix never exists anywhere. The batch is
+// the grid's y dimension, at most 65535 blocks: past that a block takes batch
+// items blockIdx.y, blockIdx.y + gridDim.y, ... (all three kernels), so any B
+// runs in one launch.
 //
 // Backward kernel. Replaces keymorph_tpu/ops/pallas/tpsflow.py:_bwd_kernel
 // (reached through _tps_planes_bwd_pallas <- _tps_planes_bwd). For every
@@ -67,7 +70,9 @@
 // groups; then the warps' sums are added in a fixed order and the block
 // writes one row of partial sums, at most BWD_BLOCKS_MAX rows whatever the
 // volume; the wrapper adds the rows in a second pass. No atomics: the result
-// is deterministic.
+// is deterministic. The control points are walked in tiles of 32 * TC, so T
+// bounds only the rows' width (7 T + 12): past T = 2048 the rows are fewer
+// (BWD_PART_FLOATS), which keeps them near 121 MB a batch item at any T.
 #include "common.cuh"
 
 namespace {
@@ -158,13 +163,9 @@ __global__ void __launch_bounds__(FWD_THREADS)
 tps_planes_kernel(const float* __restrict__ theta,  // (B, T+4, 3)
                   const float* __restrict__ ctrl,   // (B, T, 3)
                   float* __restrict__ out,          // (B, 3, N)
-                  int T, int D, int H, int W, float sd, float sh, float sw) {
+                  int B, int T, int D, int H, int W, float sd, float sh, float sw) {
   __shared__ float4 cw_s[T_TILE];
   __shared__ float2 ww_s[T_TILE];
-  const int b = blockIdx.y;
-  const float* th = theta + static_cast<long long>(b) * (T + 4) * 3;
-  const float* cb = ctrl + static_cast<long long>(b) * T * 3;
-
   const int per_row = (W + P - 1) / P;  // threads along one row
   const long long rows = static_cast<long long>(D) * H;
   const long long item = static_cast<long long>(blockIdx.x) * FWD_THREADS + threadIdx.x;
@@ -175,56 +176,62 @@ tps_planes_kernel(const float* __restrict__ theta,  // (B, T+4, 3)
   const int ix = live ? static_cast<int>(item % per_row) * P : 0;
   const float p0 = grid_coord(static_cast<int>(row / H), sd);
   const float p1 = grid_coord(static_cast<int>(row % H), sh);
-  float p2[P], acc[P][3];
+  float p2[P];
 #pragma unroll
-  for (int j = 0; j < P; ++j) {
-    p2[j] = grid_coord(ix + j, sw);
-    acc[j][0] = acc[j][1] = acc[j][2] = 0.f;
-  }
+  for (int j = 0; j < P; ++j) p2[j] = grid_coord(ix + j, sw);
+  const long long N = rows * W;
 
-  for (int t0 = 0; t0 < T; t0 += T_TILE) {
-    const int tn = min(T_TILE, T - t0);
-    if (t0) __syncthreads();  // the tile before is used up
-    stage_spline(th, cb, t0, tn, cw_s, ww_s);
-    __syncthreads();
-#pragma unroll 2
-    for (int t = 0; t < tn; ++t) {
-      const float4 cw = cw_s[t];
-      const float2 ww = ww_s[t];
-      const float d0 = cw.x - p0, d1 = cw.y - p1;
-      const float dd = __fadd_rn(__fmul_rn(d0, d0), __fmul_rn(d1, d1));
+  // one pass unless B > kMaxGridY
+  for (int b = blockIdx.y; b < B; b += gridDim.y) {
+    const float* th = theta + static_cast<long long>(b) * (T + 4) * 3;
+    const float* cb = ctrl + static_cast<long long>(b) * T * 3;
+    float acc[P][3];
 #pragma unroll
-      for (int j = 0; j < P; ++j) {
-        const float d2 = cw.z - p2[j];
-        float unused;
-        const float u = rbf<false>(__fadd_rn(dd, __fmul_rn(d2, d2)), unused);
-        acc[j][0] = fmaf(cw.w, u, acc[j][0]);
-        acc[j][1] = fmaf(ww.x, u, acc[j][1]);
-        acc[j][2] = fmaf(ww.y, u, acc[j][2]);
+    for (int j = 0; j < P; ++j) acc[j][0] = acc[j][1] = acc[j][2] = 0.f;
+
+    for (int t0 = 0; t0 < T; t0 += T_TILE) {
+      const int tn = min(T_TILE, T - t0);
+      if (t0 || b != static_cast<int>(blockIdx.y)) __syncthreads();  // the tile before is used up
+      stage_spline(th, cb, t0, tn, cw_s, ww_s);
+      __syncthreads();
+#pragma unroll 2
+      for (int t = 0; t < tn; ++t) {
+        const float4 cw = cw_s[t];
+        const float2 ww = ww_s[t];
+        const float d0 = cw.x - p0, d1 = cw.y - p1;
+        const float dd = __fadd_rn(__fmul_rn(d0, d0), __fmul_rn(d1, d1));
+#pragma unroll
+        for (int j = 0; j < P; ++j) {
+          const float d2 = cw.z - p2[j];
+          float unused;
+          const float u = rbf<false>(__fadd_rn(dd, __fmul_rn(d2, d2)), unused);
+          acc[j][0] = fmaf(cw.w, u, acc[j][0]);
+          acc[j][1] = fmaf(ww.x, u, acc[j][1]);
+          acc[j][2] = fmaf(ww.y, u, acc[j][2]);
+        }
       }
     }
-  }
-  if (!live) return;
+    if (!live) continue;
 
-  const long long N = rows * W;
-  float z[P][3];
+    float z[P][3];
 #pragma unroll
-  for (int j = 0; j < P; ++j) add_affine(th + 3 * T, p0, p1, p2[j], acc[j], z[j]);
-  float* ob = out + static_cast<long long>(b) * 3 * N + row * W + ix;
+    for (int j = 0; j < P; ++j) add_affine(th + 3 * T, p0, p1, p2[j], acc[j], z[j]);
+    float* ob = out + static_cast<long long>(b) * 3 * N + row * W + ix;
 #pragma unroll
-  for (int k = 0; k < 3; ++k) {
+    for (int k = 0; k < 3; ++k) {
 #pragma unroll
-    for (int q = 0; q < P; q += 4) {
-      // W % 4 == 0: every address below is a multiple of 4 floats and a group
-      // of four lies inside the row or outside it
-      if (W % 4 == 0 && P % 4 == 0) {
-        if (ix + q < W)
-          *reinterpret_cast<float4*>(ob + k * N + q) =
-              make_float4(z[q][k], z[q + 1][k], z[q + 2][k], z[q + 3][k]);
-      } else {
+      for (int q = 0; q < P; q += 4) {
+        // W % 4 == 0: every address below is a multiple of 4 floats and a group
+        // of four lies inside the row or outside it
+        if (W % 4 == 0 && P % 4 == 0) {
+          if (ix + q < W)
+            *reinterpret_cast<float4*>(ob + k * N + q) =
+                make_float4(z[q][k], z[q + 1][k], z[q + 2][k], z[q + 3][k]);
+        } else {
 #pragma unroll
-        for (int j = q; j < q + 4 && j < P; ++j)
-          if (ix + j < W) ob[k * N + j] = z[j][k];
+          for (int j = q; j < q + 4 && j < P; ++j)
+            if (ix + j < W) ob[k * N + j] = z[j][k];
+        }
       }
     }
   }
@@ -238,56 +245,58 @@ tps_flow_kernel(const float* __restrict__ theta,   // (B, T+4, 3)
                 const float* __restrict__ ctrl,    // (B, T, 3)
                 const float* __restrict__ points,  // (B, N, 3)
                 float* __restrict__ out,           // (B, N, 3)
-                int T, long long N) {
+                int B, int T, long long N) {
   __shared__ float4 cw_s[T_TILE];
   __shared__ float2 ww_s[T_TILE];
-  const int b = blockIdx.y;
-  const float* th = theta + static_cast<long long>(b) * (T + 4) * 3;
-  const float* cb = ctrl + static_cast<long long>(b) * T * 3;
-
   const long long n0 = static_cast<long long>(blockIdx.x) * (FWD_THREADS * P) + threadIdx.x;
-  float p[P][3], acc[P][3];
-#pragma unroll
-  for (int j = 0; j < P; ++j) {
-    const long long n = n0 + j * FWD_THREADS;
-    const float* pp = points + (static_cast<long long>(b) * N + n) * 3;
-#pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      p[j][k] = n < N ? pp[k] : 0.f;  // past the end: computed, not stored
-      acc[j][k] = 0.f;
-    }
-  }
 
-  for (int t0 = 0; t0 < T; t0 += T_TILE) {
-    const int tn = min(T_TILE, T - t0);
-    if (t0) __syncthreads();
-    stage_spline(th, cb, t0, tn, cw_s, ww_s);
-    __syncthreads();
-#pragma unroll 2
-    for (int t = 0; t < tn; ++t) {
-      const float4 cw = cw_s[t];
-      const float2 ww = ww_s[t];
+  // one pass unless B > kMaxGridY
+  for (int b = blockIdx.y; b < B; b += gridDim.y) {
+    const float* th = theta + static_cast<long long>(b) * (T + 4) * 3;
+    const float* cb = ctrl + static_cast<long long>(b) * T * 3;
+    float p[P][3], acc[P][3];
 #pragma unroll
-      for (int j = 0; j < P; ++j) {
-        float unused;
-        const float u =
-            rbf<false>(sq_dist(cw.x, cw.y, cw.z, p[j][0], p[j][1], p[j][2]), unused);
-        acc[j][0] = fmaf(cw.w, u, acc[j][0]);
-        acc[j][1] = fmaf(ww.x, u, acc[j][1]);
-        acc[j][2] = fmaf(ww.y, u, acc[j][2]);
+    for (int j = 0; j < P; ++j) {
+      const long long n = n0 + j * FWD_THREADS;
+      const float* pp = points + (static_cast<long long>(b) * N + n) * 3;
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        p[j][k] = n < N ? pp[k] : 0.f;  // past the end: computed, not stored
+        acc[j][k] = 0.f;
       }
     }
-  }
+
+    for (int t0 = 0; t0 < T; t0 += T_TILE) {
+      const int tn = min(T_TILE, T - t0);
+      if (t0 || b != static_cast<int>(blockIdx.y)) __syncthreads();
+      stage_spline(th, cb, t0, tn, cw_s, ww_s);
+      __syncthreads();
+#pragma unroll 2
+      for (int t = 0; t < tn; ++t) {
+        const float4 cw = cw_s[t];
+        const float2 ww = ww_s[t];
+#pragma unroll
+        for (int j = 0; j < P; ++j) {
+          float unused;
+          const float u =
+              rbf<false>(sq_dist(cw.x, cw.y, cw.z, p[j][0], p[j][1], p[j][2]), unused);
+          acc[j][0] = fmaf(cw.w, u, acc[j][0]);
+          acc[j][1] = fmaf(ww.x, u, acc[j][1]);
+          acc[j][2] = fmaf(ww.y, u, acc[j][2]);
+        }
+      }
+    }
 
 #pragma unroll
-  for (int j = 0; j < P; ++j) {
-    const long long n = n0 + j * FWD_THREADS;
-    if (n >= N) continue;
-    float z[3];
-    add_affine(th + 3 * T, p[j][0], p[j][1], p[j][2], acc[j], z);
-    float* ob = out + (static_cast<long long>(b) * N + n) * 3;
+    for (int j = 0; j < P; ++j) {
+      const long long n = n0 + j * FWD_THREADS;
+      if (n >= N) continue;
+      float z[3];
+      add_affine(th + 3 * T, p[j][0], p[j][1], p[j][2], acc[j], z);
+      float* ob = out + (static_cast<long long>(b) * N + n) * 3;
 #pragma unroll
-    for (int k = 0; k < 3; ++k) ob[k] = z[k];
+      for (int k = 0; k < 3; ++k) ob[k] = z[k];
+    }
   }
 }
 
@@ -299,6 +308,11 @@ constexpr int BWD_ROWS_MAX = 32;      // rows of a group, at most
 constexpr int BWD_BLOCKS_MAX = 2112;  // blocks (rows of partial sums) per batch item, at most
 constexpr int BWD_AFF = 12;           // sums of the affine rows' cotangent
 constexpr int BWD_TC_MAX = 4;         // control points per lane, at most
+// The rows of partial sums hold at most as many floats as 2112 rows of
+// T = 2048 take (121 MB a batch item): past that T the rows are fewer, and
+// each block takes more groups. Every T at or below 2048 keeps 2112 rows.
+constexpr long long BWD_PART_FLOATS = 2112LL * (7 * 2048 + 12);
+constexpr int BWD_BLOCKS_MIN = 264;   // two blocks a SM, whatever T
 
 // How the backward cuts the grid: a group is R rows x XC x positions (nxc
 // such chunks cover a row), and each of its rows is walked in S pieces of L x
@@ -308,7 +322,7 @@ struct BwdPlan {
   int nxc, XC, R, S, L, groups, blocks;
 };
 
-inline BwdPlan bwd_plan(int D, int H, int W) {
+inline BwdPlan bwd_plan(int D, int H, int W, int T) {
   BwdPlan p;
   p.nxc = km::ceil_div(W, BWD_XC_MAX);
   p.XC = km::ceil_div(W, p.nxc);
@@ -317,7 +331,10 @@ inline BwdPlan bwd_plan(int D, int H, int W) {
   p.S = p.R >= BWD_WARPS ? 1 : BWD_WARPS / p.R;
   p.L = km::ceil_div(p.XC, p.S);
   p.groups = km::ceil_div(static_cast<long long>(D) * H, p.R) * p.nxc;
-  p.blocks = p.groups < BWD_BLOCKS_MAX ? p.groups : BWD_BLOCKS_MAX;
+  long long cap = BWD_PART_FLOATS / (7LL * T + BWD_AFF);
+  if (cap > BWD_BLOCKS_MAX) cap = BWD_BLOCKS_MAX;
+  if (cap < BWD_BLOCKS_MIN) cap = BWD_BLOCKS_MIN;
+  p.blocks = p.groups < cap ? p.groups : static_cast<int>(cap);
   return p;
 }
 
@@ -333,157 +350,161 @@ tps_planes_bwd_kernel(const float* __restrict__ theta,  // (B, T+4, 3)
                       const float* __restrict__ ctrl,   // (B, T, 3)
                       const float* __restrict__ g,      // (B, 3, N)
                       float* __restrict__ part,         // (B, blocks, 7T + 12)
-                      int T, int D, int H, int W, float sd, float sh, float sw,
+                      int B, int T, int D, int H, int W, float sd, float sh, float sw,
                       BwdPlan plan) {
   __shared__ float4 pt_s[BWD_POINTS];     // p2, g0, g1, g2
   __shared__ float2 row_s[BWD_ROWS_MAX];  // p0, p1
   __shared__ float red_s[BWD_WARPS][7 * TC][32];
   __shared__ float aff_s[BWD_WARPS][BWD_AFF];
   const int XC = plan.XC, R = plan.R, S = plan.S, L = plan.L;
-  const int b = blockIdx.y;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const long long rows = static_cast<long long>(D) * H;
   const long long N = rows * W;
-  const float* gb = g + static_cast<long long>(b) * 3 * N;
-  const float* th = theta + static_cast<long long>(b) * (T + 4) * 3;
-  const float* cb = ctrl + static_cast<long long>(b) * T * 3;
-  float* pout = part + (static_cast<long long>(b) * gridDim.x + blockIdx.x) * (7 * T + BWD_AFF);
   const int units = R * S;  // pieces of a group's rows; warp w takes pieces w, w + 8, ...
 
-  // The control points are walked in tiles of 32 * TC, and for each tile the
-  // block's groups are staged anew (T <= 128 is one tile). The affine rows'
-  // sums are taken while the first tile stages.
-  float aff[BWD_AFF];
-#pragma unroll
-  for (int k = 0; k < BWD_AFF; ++k) aff[k] = 0.f;
-  for (int t0 = 0; t0 < T || t0 == 0; t0 += 32 * TC) {
-    // lane l owns control points t0 + 32 j + l; one past T sums garbage that
-    // is never written
-    float c0[TC], c1[TC], c2[TC], w0[TC], w1[TC], w2[TC];
-    float gu[TC][3], am[TC], a0[TC], a1[TC], a2[TC];
-#pragma unroll
-    for (int j = 0; j < TC; ++j) {
-      const int t = t0 + 32 * j + lane;
-      const bool on = t < T;
-      c0[j] = on ? cb[3 * t + 0] : 0.f;
-      c1[j] = on ? cb[3 * t + 1] : 0.f;
-      c2[j] = on ? cb[3 * t + 2] : 0.f;
-      w0[j] = on ? th[3 * t + 0] : 0.f;
-      w1[j] = on ? th[3 * t + 1] : 0.f;
-      w2[j] = on ? th[3 * t + 2] : 0.f;
-      gu[j][0] = gu[j][1] = gu[j][2] = am[j] = a0[j] = a1[j] = a2[j] = 0.f;
-    }
+  // one pass unless B > kMaxGridY; every pass begins behind the staging
+  // barrier of its first group
+  for (int b = blockIdx.y; b < B; b += gridDim.y) {
+    const float* gb = g + static_cast<long long>(b) * 3 * N;
+    const float* th = theta + static_cast<long long>(b) * (T + 4) * 3;
+    const float* cb = ctrl + static_cast<long long>(b) * T * 3;
+    float* pout = part + (static_cast<long long>(b) * gridDim.x + blockIdx.x) * (7 * T + BWD_AFF);
 
-    for (int grp = blockIdx.x; grp < plan.groups; grp += gridDim.x) {
-      const long long r0 = static_cast<long long>(grp / plan.nxc) * R;
-      const int x0 = (grp % plan.nxc) * XC;
-      __syncthreads();  // the group before is used up
-      // stage the group's points; a point past the end of a row or of the
-      // grid gets a zero cotangent, which adds 0 to every sum
-      if (threadIdx.x < R) {
-        const long long row = min(r0 + threadIdx.x, rows - 1);
-        row_s[threadIdx.x] = make_float2(grid_coord(static_cast<int>(row / H), sd),
-                                         grid_coord(static_cast<int>(row % H), sh));
-      }
-      for (int i = threadIdx.x; i < R * XC; i += BWD_THREADS) {
-        const int rr = i / XC, xx = i - rr * XC;
-        const long long row = r0 + rr;
-        const int x = x0 + xx;
-        float4 q = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (row < rows && x < W) {
-          const long long n = row * W + x;
-          q = make_float4(grid_coord(x, sw), gb[n], gb[N + n], gb[2 * N + n]);
-          if (t0 == 0) {
-            const float p0 = grid_coord(static_cast<int>(row / H), sd);
-            const float p1 = grid_coord(static_cast<int>(row % H), sh);
-            const float gk[3] = {q.y, q.z, q.w};
+    // The control points are walked in tiles of 32 * TC, and for each tile the
+    // block's groups are staged anew (T <= 128 is one tile). The affine rows'
+    // sums are taken while the first tile stages.
+    float aff[BWD_AFF];
 #pragma unroll
-            for (int k = 0; k < 3; ++k) {
-              aff[k] += gk[k];
-              aff[3 + k] = fmaf(p0, gk[k], aff[3 + k]);
-              aff[6 + k] = fmaf(p1, gk[k], aff[6 + k]);
-              aff[9 + k] = fmaf(q.x, gk[k], aff[9 + k]);
+    for (int k = 0; k < BWD_AFF; ++k) aff[k] = 0.f;
+    for (int t0 = 0; t0 < T || t0 == 0; t0 += 32 * TC) {
+      // lane l owns control points t0 + 32 j + l; one past T sums garbage that
+      // is never written
+      float c0[TC], c1[TC], c2[TC], w0[TC], w1[TC], w2[TC];
+      float gu[TC][3], am[TC], a0[TC], a1[TC], a2[TC];
+#pragma unroll
+      for (int j = 0; j < TC; ++j) {
+        const int t = t0 + 32 * j + lane;
+        const bool on = t < T;
+        c0[j] = on ? cb[3 * t + 0] : 0.f;
+        c1[j] = on ? cb[3 * t + 1] : 0.f;
+        c2[j] = on ? cb[3 * t + 2] : 0.f;
+        w0[j] = on ? th[3 * t + 0] : 0.f;
+        w1[j] = on ? th[3 * t + 1] : 0.f;
+        w2[j] = on ? th[3 * t + 2] : 0.f;
+        gu[j][0] = gu[j][1] = gu[j][2] = am[j] = a0[j] = a1[j] = a2[j] = 0.f;
+      }
+
+      for (int grp = blockIdx.x; grp < plan.groups; grp += gridDim.x) {
+        const long long r0 = static_cast<long long>(grp / plan.nxc) * R;
+        const int x0 = (grp % plan.nxc) * XC;
+        __syncthreads();  // the group before is used up
+        // stage the group's points; a point past the end of a row or of the
+        // grid gets a zero cotangent, which adds 0 to every sum
+        if (threadIdx.x < R) {
+          const long long row = min(r0 + threadIdx.x, rows - 1);
+          row_s[threadIdx.x] = make_float2(grid_coord(static_cast<int>(row / H), sd),
+                                           grid_coord(static_cast<int>(row % H), sh));
+        }
+        for (int i = threadIdx.x; i < R * XC; i += BWD_THREADS) {
+          const int rr = i / XC, xx = i - rr * XC;
+          const long long row = r0 + rr;
+          const int x = x0 + xx;
+          float4 q = make_float4(0.f, 0.f, 0.f, 0.f);
+          if (row < rows && x < W) {
+            const long long n = row * W + x;
+            q = make_float4(grid_coord(x, sw), gb[n], gb[N + n], gb[2 * N + n]);
+            if (t0 == 0) {
+              const float p0 = grid_coord(static_cast<int>(row / H), sd);
+              const float p1 = grid_coord(static_cast<int>(row % H), sh);
+              const float gk[3] = {q.y, q.z, q.w};
+#pragma unroll
+              for (int k = 0; k < 3; ++k) {
+                aff[k] += gk[k];
+                aff[3 + k] = fmaf(p0, gk[k], aff[3 + k]);
+                aff[6 + k] = fmaf(p1, gk[k], aff[6 + k]);
+                aff[9 + k] = fmaf(q.x, gk[k], aff[9 + k]);
+              }
             }
           }
+          pt_s[i] = q;
         }
-        pt_s[i] = q;
-      }
-      __syncthreads();
+        __syncthreads();
 
-      for (int u = warp; u < units; u += BWD_WARPS) {
-        const int rr = u / S, sub = u - rr * S;
-        const int xa = sub * L, xb = min(XC, xa + L);
-        const float2 p01 = row_s[rr];
-        const float4* q_s = pt_s + rr * XC;
-        float dd[TC], rm[TC];
-#pragma unroll
-        for (int j = 0; j < TC; ++j) {
-          const float d0 = c0[j] - p01.x, d1 = c1[j] - p01.y;
-          dd[j] = __fadd_rn(__fmul_rn(d0, d0), __fmul_rn(d1, d1));
-          rm[j] = 0.f;
-        }
-        for (int xx = xa; xx < xb; ++xx) {
-          const float4 q = q_s[xx];  // all lanes read one point: a broadcast
+        for (int u = warp; u < units; u += BWD_WARPS) {
+          const int rr = u / S, sub = u - rr * S;
+          const int xa = sub * L, xb = min(XC, xa + L);
+          const float2 p01 = row_s[rr];
+          const float4* q_s = pt_s + rr * XC;
+          float dd[TC], rm[TC];
 #pragma unroll
           for (int j = 0; j < TC; ++j) {
-            const float d2 = c2[j] - q.x;
-            float du;
-            const float uu = rbf<true>(__fadd_rn(dd[j], __fmul_rn(d2, d2)), du);
-            const float m = (w0[j] * q.y + w1[j] * q.z + w2[j] * q.w) * du;
-            gu[j][0] = fmaf(q.y, uu, gu[j][0]);
-            gu[j][1] = fmaf(q.z, uu, gu[j][1]);
-            gu[j][2] = fmaf(q.w, uu, gu[j][2]);
-            rm[j] += m;
-            a2[j] = fmaf(m, q.x, a2[j]);
+            const float d0 = c0[j] - p01.x, d1 = c1[j] - p01.y;
+            dd[j] = __fadd_rn(__fmul_rn(d0, d0), __fmul_rn(d1, d1));
+            rm[j] = 0.f;
+          }
+          for (int xx = xa; xx < xb; ++xx) {
+            const float4 q = q_s[xx];  // all lanes read one point: a broadcast
+#pragma unroll
+            for (int j = 0; j < TC; ++j) {
+              const float d2 = c2[j] - q.x;
+              float du;
+              const float uu = rbf<true>(__fadd_rn(dd[j], __fmul_rn(d2, d2)), du);
+              const float m = (w0[j] * q.y + w1[j] * q.z + w2[j] * q.w) * du;
+              gu[j][0] = fmaf(q.y, uu, gu[j][0]);
+              gu[j][1] = fmaf(q.z, uu, gu[j][1]);
+              gu[j][2] = fmaf(q.w, uu, gu[j][2]);
+              rm[j] += m;
+              a2[j] = fmaf(m, q.x, a2[j]);
+            }
+          }
+#pragma unroll
+          for (int j = 0; j < TC; ++j) {
+            am[j] += rm[j];
+            a0[j] = fmaf(p01.x, rm[j], a0[j]);
+            a1[j] = fmaf(p01.y, rm[j], a1[j]);
           }
         }
+      }
+
+      // add the eight warps' sums in a fixed order; warp w adds values w, w + 8, ...
 #pragma unroll
-        for (int j = 0; j < TC; ++j) {
-          am[j] += rm[j];
-          a0[j] = fmaf(p01.x, rm[j], a0[j]);
-          a1[j] = fmaf(p01.y, rm[j], a1[j]);
+      for (int j = 0; j < TC; ++j) {
+        red_s[warp][7 * j + 0][lane] = gu[j][0];
+        red_s[warp][7 * j + 1][lane] = gu[j][1];
+        red_s[warp][7 * j + 2][lane] = gu[j][2];
+        red_s[warp][7 * j + 3][lane] = am[j];
+        red_s[warp][7 * j + 4][lane] = a0[j];
+        red_s[warp][7 * j + 5][lane] = a1[j];
+        red_s[warp][7 * j + 6][lane] = a2[j];
+      }
+      if (t0 == 0) {
+#pragma unroll
+        for (int k = 0; k < BWD_AFF; ++k) {
+          float v = aff[k];
+#pragma unroll
+          for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+          if (lane == 0) aff_s[warp][k] = v;
         }
       }
-    }
-
-    // add the eight warps' sums in a fixed order; warp w adds values w, w + 8, ...
+      // red_s is written again only behind the next tile's staging barriers
+      __syncthreads();
+      if (t0 == 0 && threadIdx.x < BWD_AFF) {
+        float s = 0.f;
 #pragma unroll
-    for (int j = 0; j < TC; ++j) {
-      red_s[warp][7 * j + 0][lane] = gu[j][0];
-      red_s[warp][7 * j + 1][lane] = gu[j][1];
-      red_s[warp][7 * j + 2][lane] = gu[j][2];
-      red_s[warp][7 * j + 3][lane] = am[j];
-      red_s[warp][7 * j + 4][lane] = a0[j];
-      red_s[warp][7 * j + 5][lane] = a1[j];
-      red_s[warp][7 * j + 6][lane] = a2[j];
-    }
-    if (t0 == 0) {
-#pragma unroll
-      for (int k = 0; k < BWD_AFF; ++k) {
-        float v = aff[k];
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-        if (lane == 0) aff_s[warp][k] = v;
+        for (int q = 0; q < BWD_WARPS; ++q) s += aff_s[q][threadIdx.x];
+        pout[3 * T + threadIdx.x] = s;
       }
-    }
-    // red_s is written again only behind the next tile's staging barriers
-    __syncthreads();
-    if (t0 == 0 && threadIdx.x < BWD_AFF) {
-      float s = 0.f;
+      for (int v = warp; v < 7 * TC; v += BWD_WARPS) {
+        float s = 0.f;
 #pragma unroll
-      for (int q = 0; q < BWD_WARPS; ++q) s += aff_s[q][threadIdx.x];
-      pout[3 * T + threadIdx.x] = s;
-    }
-    for (int v = warp; v < 7 * TC; v += BWD_WARPS) {
-      float s = 0.f;
-#pragma unroll
-      for (int q = 0; q < BWD_WARPS; ++q) s += red_s[q][v][lane];
-      const int j = v / 7, k = v - 7 * j;
-      const int t = t0 + 32 * j + lane;
-      if (t >= T) continue;
-      if (k < 3) pout[3 * t + k] = s;
-      else if (k == 3) pout[3 * T + BWD_AFF + t] = 2.0f * s;
-      else pout[4 * T + BWD_AFF + 3 * t + (k - 4)] = -2.0f * s;
+        for (int q = 0; q < BWD_WARPS; ++q) s += red_s[q][v][lane];
+        const int j = v / 7, k = v - 7 * j;
+        const int t = t0 + 32 * j + lane;
+        if (t >= T) continue;
+        if (k < 3) pout[3 * t + k] = s;
+        else if (k == 3) pout[3 * T + BWD_AFF + t] = 2.0f * s;
+        else pout[4 * T + BWD_AFF + 3 * t + (k - 4)] = -2.0f * s;
+      }
     }
   }
 }
@@ -491,9 +512,10 @@ tps_planes_bwd_kernel(const float* __restrict__ theta,  // (B, T+4, 3)
 template <int TC>
 int launch_bwd(const float* theta, const float* ctrl, const float* g, float* part, int B, int T,
                int D, int H, int W, float sd, float sh, float sw, cudaStream_t stream) {
-  const BwdPlan plan = bwd_plan(D, H, W);
-  tps_planes_bwd_kernel<TC><<<dim3(plan.blocks, B), BWD_THREADS, 0, stream>>>(
-      theta, ctrl, g, part, T, D, H, W, sd, sh, sw, plan);
+  const BwdPlan plan = bwd_plan(D, H, W, T);
+  const dim3 grid(plan.blocks, min(B, km::kMaxGridY));
+  tps_planes_bwd_kernel<TC><<<grid, BWD_THREADS, 0, stream>>>(theta, ctrl, g, part, B, T, D, H,
+                                                               W, sd, sh, sw, plan);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -503,24 +525,26 @@ KM_EXPORT int km_tps_planes(const void* theta, const void* ctrl, void* out,
                             int B, int T, int D, int H, int W,
                             float sd, float sh, float sw, void* stream) {
   const long long items = static_cast<long long>(D) * H * km::ceil_div(W, PLANES_P);
-  dim3 grid(km::ceil_div(items, FWD_THREADS), B);
+  dim3 grid(km::ceil_div(items, FWD_THREADS), min(B, km::kMaxGridY));
   tps_planes_kernel<PLANES_P><<<grid, FWD_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(theta), static_cast<const float*>(ctrl),
-      static_cast<float*>(out), T, D, H, W, sd, sh, sw);
+      static_cast<float*>(out), B, T, D, H, W, sd, sh, sw);
   return static_cast<int>(cudaGetLastError());
 }
 
 KM_EXPORT int km_tps_flow(const void* theta, const void* ctrl, const void* points,
                           void* out, int B, int T, long long N, void* stream) {
-  dim3 grid(km::ceil_div(N, FWD_THREADS * FLOW_P), B);
+  dim3 grid(km::ceil_div(N, FWD_THREADS * FLOW_P), min(B, km::kMaxGridY));
   tps_flow_kernel<FLOW_P><<<grid, FWD_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(theta), static_cast<const float*>(ctrl),
-      static_cast<const float*>(points), static_cast<float*>(out), T, N);
+      static_cast<const float*>(points), static_cast<float*>(out), B, T, N);
   return static_cast<int>(cudaGetLastError());
 }
 
 // Number of rows of partial sums the backward writes per batch item.
-KM_EXPORT int km_tps_planes_bwd_blocks(int D, int H, int W) { return bwd_plan(D, H, W).blocks; }
+KM_EXPORT int km_tps_planes_bwd_blocks(int D, int H, int W, int T) {
+  return bwd_plan(D, H, W, T).blocks;
+}
 
 // part: (B, km_tps_planes_bwd_blocks, 7 T + 12) fp32, every element written.
 KM_EXPORT int km_tps_planes_bwd(const void* theta, const void* ctrl, const void* g,

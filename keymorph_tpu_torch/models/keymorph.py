@@ -155,6 +155,10 @@ class KeyMorphNet(nn.Module):
         axes = tuple(range(1, feat1.dim() - 1))
         var1 = torch.var(torch.relu(feat1.float()), dim=axes, unbiased=False)
         var2 = torch.var(torch.relu(feat2.float()), dim=axes, unbiased=False)
+        return self.weights_from_variances(var1, var2)
+
+    def weights_from_variances(self, var1, var2):
+        """:meth:`weight_by_variance` from the heatmaps' variances (B, K)."""
         w1 = 1.0 / (self.scales * var1 + self.biases + 1e-8)
         w2 = 1.0 / (self.scales * var2 + self.biases + 1e-8)
         w = w1 * w2

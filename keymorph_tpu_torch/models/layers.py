@@ -79,7 +79,10 @@ class LinearRegressor(nn.Module):
         self.fc = nn.Linear(in_channels, num_keypoints * dim)
 
     def forward(self, feat: torch.Tensor) -> torch.Tensor:
-        pooled = feat.float().mean(dim=tuple(range(1, feat.dim() - 1)))
+        return self.regress(feat.float().mean(dim=tuple(range(1, feat.dim() - 1))))
+
+    def regress(self, pooled: torch.Tensor) -> torch.Tensor:
+        """The keypoints (B, K, dim) from the pooled heatmaps (B, C) fp32."""
         out = torch.sigmoid(F.linear(pooled, self.fc.weight.float(), self.fc.bias.float()))
         return (out * 2.0 - 1.0).reshape(-1, self.num_keypoints, self.dim)
 

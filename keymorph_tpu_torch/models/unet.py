@@ -154,10 +154,13 @@ class ChannelSE(nn.Module):
         self.fc2 = nn.Linear(max(channels // reduction_ratio, 1), channels)
         self.dtype = dtype
 
+    def gate(self, s: torch.Tensor) -> torch.Tensor:
+        """The per-channel gate (B, C) from the spatial mean ``s``."""
+        return torch.sigmoid(_linear(torch.relu(_linear(s, self.fc1, self.dtype)), self.fc2,
+                                     self.dtype))
+
     def forward(self, x):
-        s = x.to(acc_dtype(self.dtype)).mean(dim=tuple(range(2, x.dim())))
-        s = torch.sigmoid(_linear(torch.relu(_linear(s, self.fc1, self.dtype)), self.fc2,
-                                  self.dtype))
+        s = self.gate(x.to(acc_dtype(self.dtype)).mean(dim=tuple(range(2, x.dim()))))
         return x * s.reshape(*s.shape, *([1] * (x.dim() - 2)))
 
 

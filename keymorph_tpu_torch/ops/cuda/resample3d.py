@@ -138,6 +138,9 @@ MAX_CHANNEL_VOXELS = 2 ** 31 - 1
 
 
 def _check(name, img, planes):
+    """The sizes (B, C, Z, Y, X, D, H, W) of a warp the kernels take: fewer
+    than 2^31 voxels a channel, on one CUDA device, float32, contiguous, any
+    B (the kernels walk the batch past the grid's 65535 rows)."""
     if img.dim() != 5 or planes.dim() != 5 or planes.shape[1] != 3:
         raise ValueError(f"{name}: img {tuple(img.shape)} / planes "
                          f"{tuple(planes.shape)} are not (B, C, Z, Y, X) / (B, 3, D, H, W)")
@@ -153,8 +156,6 @@ def _check(name, img, planes):
         raise TypeError(f"{name}: img and planes must be float32")
     if not (img.is_contiguous() and planes.is_contiguous()):
         raise ValueError(f"{name}: img and planes must be contiguous")
-    if img.shape[0] > 65535:
-        raise ValueError(f"{name}: B={img.shape[0]} > 65535")
     return tuple(int(s) for s in img.shape) + tuple(int(s) for s in planes.shape[2:])
 
 

@@ -33,7 +33,6 @@ import torch
 from keymorph_tpu_torch import _build
 from keymorph_tpu_torch.transforms import solvers
 
-_MAX_T = 2048  # the most control points the wrappers take (the kernels tile T)
 _BWD_CHUNK = 1 << 18  # grid points per chunk of the plain backward and of _spline
 _BWD_AFFINE = 12  # the backward kernel's sums for g_theta's affine rows
 
@@ -172,18 +171,20 @@ tps_flow_plain.calls = 0
 
 
 def _check_spline(name, theta, ctrl):
+    """(B, T) of a spline the kernels take: (B, T+4, 3) and (B, T, 3),
+    float32, contiguous, any B and T (the kernels tile the control points
+    and walk the batch past the grid's 65535 rows), on one CUDA device (the
+    last check: CPU tensors that raise for it passed every other)."""
     B, T, d = ctrl.shape
     if d != 3 or theta.shape != (B, T + 4, 3):
         raise ValueError(f"{name}: theta {tuple(theta.shape)} / ctrl "
                          f"{tuple(ctrl.shape)} are not (B, T+4, 3) / (B, T, 3)")
-    if theta.device != ctrl.device or theta.device.type != "cuda":
-        raise ValueError(f"{name}: theta and ctrl must be on one CUDA device")
     if theta.dtype != torch.float32 or ctrl.dtype != torch.float32:
         raise TypeError(f"{name}: theta and ctrl must be float32")
     if not (theta.is_contiguous() and ctrl.is_contiguous()):
         raise ValueError(f"{name}: theta and ctrl must be contiguous")
-    if T > _MAX_T or B > 65535:
-        raise ValueError(f"{name}: T={T} > {_MAX_T} or B={B} > 65535")
+    if theta.device != ctrl.device or theta.device.type != "cuda":
+        raise ValueError(f"{name}: theta and ctrl must be on one CUDA device")
     return B, T
 
 
@@ -216,7 +217,7 @@ def tps_planes_bwd(theta, ctrl, spatial, g):
         raise ValueError(f"tps_planes_bwd: g {tuple(g.shape)} {g.dtype} is not a "
                          f"contiguous float32 (B, 3, D, H, W) tensor on {theta.device}")
     lib = _fn()
-    nblk = lib.km_tps_planes_bwd_blocks(D, H, W)
+    nblk = lib.km_tps_planes_bwd_blocks(D, H, W, T)
     part = torch.empty((B, nblk, 7 * T + _BWD_AFFINE), dtype=torch.float32, device=g.device)
     sd, sh, sw = _steps(spatial)
     err = lib.km_tps_planes_bwd(theta.data_ptr(), ctrl.data_ptr(), g.data_ptr(),
@@ -334,7 +335,7 @@ def _fn():
         f.restype = ctypes.c_int
         lib.km_tps_flow.argtypes = [vp, vp, vp, vp, i, i, ctypes.c_longlong, vp]
         lib.km_tps_flow.restype = ctypes.c_int
-        lib.km_tps_planes_bwd_blocks.argtypes = [i, i, i]
+        lib.km_tps_planes_bwd_blocks.argtypes = [i, i, i, i]
         lib.km_tps_planes_bwd_blocks.restype = ctypes.c_int
         lib.km_tps_planes_bwd.argtypes = [vp, vp, vp, vp, i, i, i, i, i, fl, fl, fl, vp]
         lib.km_tps_planes_bwd.restype = ctypes.c_int

@@ -192,14 +192,15 @@ def shard_batch(mesh: Mesh, batch):
     return t[local_rows(mesh, t.shape[0])].to(mesh.device)
 
 
-def split_sizes(n: int, parts: int, block: int = 1) -> List[int]:
+def split_sizes(n: int, parts: int, block: int = 1, empty_ok: bool = False) -> List[int]:
     """Sizes of ``parts`` contiguous slabs of ``n`` items whose boundaries
     fall on multiples of ``block``: the blocks are dealt as evenly as they
     go, the earlier slabs taking one more, and the last slab takes any
     remainder below ``block``. Raises ``ValueError`` when there are fewer
-    blocks than parts."""
+    blocks than parts, unless ``empty_ok`` (the slabs after the blocks run
+    out are then empty, but for the remainder of the last)."""
     blocks = n // block
-    if blocks < parts:
+    if blocks < parts and not empty_ok:
         raise ValueError(f"{n} planes hold {blocks} blocks of {block}, fewer than the "
                          f"{parts} slabs asked for")
     sizes = [(blocks // parts + (i < blocks % parts)) * block for i in range(parts)]

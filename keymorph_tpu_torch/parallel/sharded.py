@@ -25,6 +25,7 @@ whole batch with the same generator state.
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -39,7 +40,7 @@ from keymorph_tpu_torch.models.keymorph import (
 )
 from keymorph_tpu_torch.ops import coords
 from keymorph_tpu_torch.ops.cuda import resample3d
-from keymorph_tpu_torch.ops.resample import grid_to_planes
+from keymorph_tpu_torch.ops.resample import align_img, grid_to_planes
 from keymorph_tpu_torch.parallel import halo
 from keymorph_tpu_torch.parallel.mesh import (
     Mesh,
@@ -83,21 +84,22 @@ def _make_sharded_extract(net: nn.Module, mesh: Mesh, method: Optional[str] = No
 
 
 def _grid_slab(points_f, points_m, align_type, spatial, z0, z1, lmbda=None, weights=None):
-    """The ``xy`` sampling grid (B, z1 - z0, H, W, 3) of planes [z0, z1) of
-    the fixed volume: ``align_pair(compute_grid=True)``'s grid evaluated at
-    that slab's points alone (the TPS flow's points mode on the card)."""
+    """The ``xy`` sampling grid (B, z1 - z0, *spatial[1:], d) of planes (or
+    a 2D image's rows) [z0, z1) of the fixed volume:
+    ``align_pair(compute_grid=True)``'s grid evaluated at that slab's points
+    alone (in 3D the TPS flow's points mode on the card)."""
     B = points_f.shape[0]
-    D, H, W = spatial
+    d, plane = len(spatial), math.prod(spatial[1:])
     pf, pm = points_f.float(), points_m.float()
-    pts = coords.flat_norm_grid(spatial, device=pf.device)[:, z0 * H * W: z1 * H * W]
-    pts = pts.expand(B, -1, 3)
+    pts = coords.flat_norm_grid(spatial, device=pf.device)[:, z0 * plane: z1 * plane]
+    pts = pts.expand(B, -1, d)
     if align_type in ("affine", "rigid"):
         fit = solvers.fit_affine if align_type == "affine" else solvers.fit_rigid
         moved = coords.apply_matrix(solvers.square_matrix(fit(pf, pm, weights)), pts)
     else:
         theta = solvers.fit_tps(pf, pm, lmbda, weights)
         moved = solvers.tps_eval_chunked(theta, pf, pts)
-    return torch.flip(moved.reshape(B, z1 - z0, H, W, 3), dims=(-1,))
+    return torch.flip(moved.reshape(B, z1 - z0, *spatial[1:], d), dims=(-1,))
 
 
 class _SumOverGroup(torch.autograd.Function):
@@ -276,50 +278,57 @@ def make_spatial_register_fn(net: nn.Module, config: Config, mesh: Mesh,
     single-pair latency path, beside :func:`make_sharded_register_fn`'s
     pair throughput.
 
-    * Extraction runs the DoubleConv U-Net's module path on each rank's Z
-      slab (``parallel/halo.py``): each 3^3 conv receives one plane from
-      each Z neighbour (zeros at the volume's true faces), GroupNorm's and
-      the batch norm's sums are all-reduced over 'space', max-pools and
-      nearest upsampling stay local (slab boundaries fall on multiples of
-      2^(num_levels - 1) planes), and the centre of mass all-reduces its
-      marginal sums, each at its global Z offset. keymorph_tpu runs its
-      flax path here (``fast_extract=False``) and lets GSPMD insert the
+    * Extraction runs the backbone's and the head's module path on each
+      rank's Z slab (``parallel/halo.py``), for every 3D backbone (the
+      U-Nets in any block family and layer order, the ConvNet), both
+      keypoint heads and both keypoint weightings: each 3^3 conv receives
+      one plane from each Z neighbour (zeros at the volume's true faces),
+      the norms', the squeeze-and-excitation gate's, the linear head's and
+      the weightings' sums are all-reduced over 'space', and the centre of
+      mass all-reduces its marginal sums, each at its global Z offset. Slab
+      boundaries fall on multiples of the backbone's block (2^(num_levels
+      - 1), or 16 for the ConvNet) and the far slab takes the remainder, so
+      pools and crops act as in the unsplit module; a rank left without
+      planes joins every collective with empty tensors. keymorph_tpu runs
+      its flax path here (``fast_extract=False``) and lets GSPMD insert the
       same exchanges.
-    * The fit is replicated; the flow (the TPS flow's points mode, or the
-      affine grid) and the warp run on the rank's slab, from the whole
-      moving volume, as in keymorph_tpu.
+    * The fit is replicated (with the keypoint weights, as keymorph_tpu's
+      ``align_pair`` takes them); the flow (the TPS flow's points mode, or
+      the affine grid) and the warp run on the rank's equal D / 'space'
+      slab, from the whole moving volume, as keymorph_tpu's ``shard_map``
+      warp does.
 
     Returns ``fn(img_f, img_m) -> (img_a, grid, points_f, points_m)``, each
-    whole on every rank (every rank passes the whole volumes). The backbone
-    must be a DoubleConv 3D U-Net (``UNet3D``, ``TruncatedUNet3D``, any
-    layer order) with the centre-of-mass head and no keypoint weighting;
-    the Z extent a multiple of 2^(num_levels - 1) with at least 'space'
-    such blocks. Others raise ``ValueError``.
+    whole on every rank (every rank passes the whole volumes). A 2D net's
+    images (B, 1, H, W) split along H, their first spatial axis, as
+    keymorph_tpu's split them. The split extent must divide by 'space'
+    (keymorph_tpu's warp splits it evenly).
     """
     require_mesh(mesh)
     align_type, lmbda_spec = parse_transform_type(transform_type or config.transform_type)
     _numeric_lmbda(align_type, lmbda_spec, "spatial register")
-    block = halo.check_backbone(net)
+    block = halo.block(net)
 
     @torch.no_grad()
     def fn(img_f, img_m):
         spatial = tuple(img_f.shape[2:])
         D = spatial[0]
-        if D % block:
-            raise ValueError(f"the spatial path needs Z ({D}) a multiple of "
-                             f"2^(num_levels - 1) = {block} (ROADMAP Queue C)")
-        sizes = split_sizes(D, mesh.space_size, block)
-        z0, z1 = _slab(mesh, sizes)
+        if D % mesh.space_size:
+            raise ValueError(f"the spatial path splits Z ({D}) over 'space' "
+                             f"({mesh.space_size}) evenly, as keymorph_tpu's warp does")
         dev = mesh.device
         group = mesh.space_group
-        points_f = halo.keypoints(net.backbone, img_f[:, :, z0:z1].to(dev), z0, D, group)
-        points_m = halo.keypoints(net.backbone, img_m[:, :, z0:z1].to(dev), z0, D, group)
+        slabs = halo.Slabs(D, block, group)
+        z0, z1 = slabs.local(0)
+        points_f, points_m, weights = halo.pair(net, img_f[:, :, z0:z1].to(dev),
+                                                img_m[:, :, z0:z1].to(dev), slabs)
         lmbda = (torch.full((img_f.shape[0],), float(lmbda_spec), device=dev)
                  if align_type == "tps" else None)
-        grid = _grid_slab(points_f, points_m, align_type, spatial, z0, z1, lmbda=lmbda)
-        img_a = resample3d.warp_planes(img_m.to(dev), grid_to_planes(grid))
-        return (gather_cat(img_a, group, 2, sizes), gather_cat(grid, group, 1, sizes),
-                points_f, points_m)
+        w0, w1 = _slab(mesh, [D // mesh.space_size] * mesh.space_size)
+        grid = _grid_slab(points_f, points_m, align_type, spatial, w0, w1, lmbda=lmbda,
+                          weights=weights)
+        img_a = align_img(grid, img_m.to(dev))
+        return gather_cat(img_a, group, 2), gather_cat(grid, group, 1), points_f, points_m
 
     return fn
 

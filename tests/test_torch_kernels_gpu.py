@@ -615,17 +615,61 @@ def test_wrappers_raise_instead_of_falling_back(dev):
         with pytest.raises(ValueError, match="2\\^31"):
             resample3d.warp_planes_grad(img, planes, torch.zeros(1, device=dev).expand(
                 1, 1, *planes.shape[2:]))
-    # the TPS wrappers' limits: more than 2048 control points, more than 65535
-    # batch items (the grid's second dimension)
-    for B, T in ((1, 2049), (65536, 1)):
-        theta, ctrl = torch.zeros((B, T + 4, 3), device=dev), torch.zeros((B, T, 3), device=dev)
-        with pytest.raises(ValueError):
-            tpsflow.tps_planes(theta, ctrl, (2, 2, 2))
-        with pytest.raises(ValueError):
-            tpsflow.tps_planes_bwd(theta, ctrl, (2, 2, 2), torch.zeros((B, 3, 2, 2, 2), device=dev))
-        with pytest.raises(ValueError):
-            tpsflow.tps_flow(theta, ctrl, torch.zeros((B, 2, 3), device=dev))
     assert {k: v["plain_calls"] for k, v in kernels.counters().items()} == before
+
+
+def test_kernels_past_the_old_limits(rng, dev):
+    """More than 2048 control points and more than 65535 batch items (the
+    grid's y dimension, now walked by the kernels), each in one launch
+    against the plain version: the TPS kernels at T = 4096 (the backward at
+    200 x 200 x 8, where its rows of partial sums are fewer than 2112), and
+    every TPS and warp wrapper at B = 70000 on 4^3, under the bars above.
+    Over 4096 control points the forward kernels' and the plain versions'
+    fp32 sums each lie more than 2e-5 from float64, in other orders, so there
+    the forward kernels are held by the float64 rule alone: 2e-5 or 4x the
+    plain version's own distance."""
+    from keymorph_tpu_torch.ops.cuda import resample3d, tpsflow
+
+    theta, src = _splines(rng, dev, 1, 4096, 1.0)
+    n0 = (tpsflow.tps_planes.launches, tpsflow.tps_flow.launches,
+          tpsflow.tps_planes_bwd.launches)
+    pts = torch.tensor(rng.uniform(-1.2, 1.2, (1, 3000, 3)).astype(np.float32), device=dev)
+    spatial = (9, 10, 12)
+    for got, want, ref in (
+            (tpsflow.tps_flow(theta, src, pts), tpsflow.tps_flow_plain(theta, src, pts),
+             tpsflow.tps_flow_plain(theta, src, pts, dtype=torch.float64)),
+            (tpsflow.tps_planes(theta, src, spatial), tpsflow.tps_planes_plain(theta, src, spatial),
+             tpsflow.tps_planes_plain(theta, src, spatial, dtype=torch.float64))):
+        assert (got - ref).abs().max().item() <= max(2e-5, 4 * (want - ref).abs().max().item())
+    spatial = (200, 200, 8)
+    g = torch.tensor(rng.normal(size=(1, 3, *spatial)).astype(np.float32), device=dev)
+    for k, p in zip(tpsflow.tps_planes_bwd(theta, src, spatial, g),
+                    tpsflow.tps_planes_bwd_plain(theta, src, spatial, g)):
+        assert (k - p).abs().max().item() <= 1e-4 * p.abs().max().item()
+    torch.cuda.synchronize()
+    assert (tpsflow.tps_planes.launches, tpsflow.tps_flow.launches,
+            tpsflow.tps_planes_bwd.launches) == tuple(n + 1 for n in n0)
+    del g
+
+    B, spatial = 70000, (4, 4, 4)
+    theta, src = _splines(rng, dev, B, 6, 1.0)
+    assert (tpsflow.tps_planes(theta, src, spatial)
+            - tpsflow.tps_planes_plain(theta, src, spatial)).abs().max().item() <= 2e-5
+    pts = torch.tensor(rng.uniform(-1.2, 1.2, (B, 10, 3)).astype(np.float32), device=dev)
+    assert (tpsflow.tps_flow(theta, src, pts)
+            - tpsflow.tps_flow_plain(theta, src, pts)).abs().max().item() <= 2e-5
+    g = torch.tensor(rng.normal(size=(B, 3, *spatial)).astype(np.float32), device=dev)
+    for k, p in zip(tpsflow.tps_planes_bwd(theta, src, spatial, g),
+                    tpsflow.tps_planes_bwd_plain(theta, src, spatial, g)):
+        assert (k - p).abs().max().item() <= 1e-5 * p.abs().max().item()
+    img, planes, g = _warp_inputs(rng, dev, B, 2, spatial, spatial, 0)
+    for mode in ("bilinear", "nearest"):
+        torch.testing.assert_close(resample3d.warp_planes(img, planes, mode),
+                                   resample3d.warp_planes_plain(img, planes, mode),
+                                   atol=0, rtol=0)
+    want = resample3d.warp_planes_grad_plain(img, planes, g)
+    assert (resample3d.warp_planes_grad(img, planes, g)
+            - want).abs().max().item() <= 1e-5 * want.abs().max().item()
 
 
 def _rw_affines(B, dev):

@@ -47,7 +47,7 @@ import torch_parallel_workers as W
 from keymorph_tpu_torch.cli.eval_pairwise import run_eval
 from keymorph_tpu_torch.data.nifti import save_nifti
 from keymorph_tpu_torch.models.keymorph import KeyMorph, KeyMorphNet, align_pair
-from keymorph_tpu_torch.models.unet import ResidualUNet3D, UNet3D
+from keymorph_tpu_torch.models.unet import UNet3D
 from keymorph_tpu_torch.ops.resample import align_img
 from keymorph_tpu_torch.parallel import make_spatial_register_fn, sharded
 from keymorph_tpu_torch.parallel import mesh as pmesh
@@ -507,24 +507,193 @@ def test_spatial_register_matches_single_and_jax(port_runs, setup, space):
 
 
 def test_spatial_register_refuses_what_it_cannot_split():
-    """The ConvNet and the residual U-Nets, keypoint weighting, a Z extent
-    that is not a multiple of 2^(num_levels - 1), and fewer such blocks than
-    'space' raise ValueError (ROADMAP Queue C)."""
-    from keymorph_tpu_torch.models.convnet import ConvNet
+    """keymorph_tpu's refusals are the port's, each a ValueError: a Z extent
+    that does not divide by 'space' (keymorph_tpu's device_put of the
+    volumes and its shard_map warp split Z evenly), and a distributional TPS
+    lambda; nothing else is refused (every backbone, head, weighting and
+    extent runs: test_spatial_register_every_backbone_head_and_extent)."""
+    from keymorph_tpu.models import UNet3D as JUNet3D
+    from keymorph_tpu.models.keymorph import KeyMorph as JKeyMorph
+    from keymorph_tpu.parallel import make_mesh
+    from keymorph_tpu.parallel.sharded import make_spatial_register_fn as jspatial
+    from keymorph_tpu.training.config import Config as JConfig
 
-    mesh = pmesh.Mesh(device_mesh=None, shape={"data": 1, "space": 8},
+    mesh = pmesh.Mesh(device_mesh=None, shape={"data": 1, "space": 2},
                       device=torch.device("cpu"), rank=0, data_index=0, space_index=0,
                       data_group=None, space_group=None, world_group=None)
-    config = Config(transform_type="tps_1")
-    for backbone in (ConvNet(out_dim=W.K), ResidualUNet3D(out_channels=W.K, f_maps=4)):
-        with pytest.raises(ValueError, match="ROADMAP Queue C"):
-            make_spatial_register_fn(KeyMorphNet(backbone, W.K), config, mesh)
-    with pytest.raises(ValueError, match="weighting"):
-        make_spatial_register_fn(KeyMorphNet(UNet3D(**W.UNET), W.K, "power"), config, mesh)
-    fn = make_spatial_register_fn(KeyMorphNet(UNet3D(**W.UNET), W.K), config, mesh)
-    vol = torch.zeros((1, 1, 13, 12, 12))
-    with pytest.raises(ValueError, match="multiple"):
-        fn(vol, vol)
-    vol = torch.zeros((1, 1, 12, 12, 12))
-    with pytest.raises(ValueError, match="fewer"):
-        fn(vol, vol)  # 6 blocks of 2 planes over 8 slabs
+    jm = JKeyMorph(backbone=JUNet3D(**W.UNET), num_keypoints=W.K)
+    jm.init_params(jax.random.PRNGKey(0), jnp.zeros((1, 1, 12, 12, 12)))
+    jmesh = make_mesh(num_devices=2, data=1, space=2)
+    vol = np.zeros((1, 1, 13, 12, 12), np.float32)
+    with pytest.raises(ValueError, match="divisible"):
+        jspatial(jm.net, JConfig(transform_type="tps_1"), jmesh)(jm.params, vol, vol)
+    fn = make_spatial_register_fn(KeyMorphNet(UNet3D(**W.UNET), W.K),
+                                  Config(transform_type="tps_1"), mesh)
+    with pytest.raises(ValueError, match="evenly"):
+        fn(torch.as_tensor(vol), torch.as_tensor(vol))
+    with pytest.raises(ValueError, match="numeric"):
+        jspatial(jm.net, JConfig(transform_type="tps_loguniform"), jmesh)
+    with pytest.raises(ValueError, match="numeric"):
+        make_spatial_register_fn(KeyMorphNet(UNet3D(**W.UNET), W.K),
+                                 Config(transform_type="tps_loguniform"), mesh)
+
+
+# The spatial path on 'space' 2 for every 3D backbone family, both heads,
+# both weightings and Z extents that are not a multiple of the block: name ->
+# (keymorph_tpu backbone, the port's (build_net spec), (D, H, W), the
+# KeyMorph options of both). Each case is one jitted program of keymorph_tpu,
+# so the features share cases: the ConvNet with instance norm; with batch
+# norm, the linear head and power weighting at D = 40 (slabs 16 + 24 at
+# block 16); the residual U-Net with variance weighting; its SE form with
+# the linear head; the DoubleConv U-Net at block 4 on D = 18 (slabs 8 + 10:
+# the nearest upsampling 4 -> 9 reaches below the slab), with power
+# weighting; at D = 4 (slabs 4 + 0: the second rank holds no plane); and a
+# 2D U-Net's images, split along H as keymorph_tpu splits them, with the
+# linear head and variance weighting.
+SPATIAL_CASES = {
+    "convnet_instance": ("ConvNet", dict(out_dim=W.K, norm_type="instance"), (32, 32, 32), {}),
+    "convnet_batch_linear_power": ("ConvNet", dict(out_dim=W.K, norm_type="batch"), (40, 32, 32),
+                                   dict(keypoint_layer="linear", weight_keypoints="power")),
+    "residual_variance": ("ResidualUNet3D", dict(out_channels=W.K, f_maps=4, num_levels=3),
+                          (16, 16, 16), dict(weight_keypoints="variance")),
+    "residual_se_linear": ("ResidualUNetSE3D", dict(out_channels=W.K, f_maps=4, num_levels=3),
+                           (16, 20, 16), dict(keypoint_layer="linear")),
+    "unet_d18_power": ("UNet3D", dict(out_channels=W.K, f_maps=4, num_levels=3), (18, 16, 16),
+                       dict(weight_keypoints="power")),
+    "unet_d4_empty_rank": ("UNet3D", dict(out_channels=W.K, f_maps=4, num_levels=3), (4, 16, 16),
+                           {}),
+    "unet2d_linear_variance": ("UNet2D", dict(out_channels=W.K, f_maps=4, num_levels=3), (20, 16),
+                               dict(dim=2, keypoint_layer="linear", weight_keypoints="variance")),
+}
+
+
+@pytest.fixture(scope="module")
+def spatial_runs(tmp_path_factory):
+    """Each SPATIAL_CASES net with keymorph_tpu's initial parameters (its
+    variance scales and biases drawn, as a trained net's are not 1 and 0),
+    carried to the port; a smooth pair per case; the port's spatial register
+    of every case in one 2-rank run, and again with the nets in float64."""
+    from keymorph_tpu.models import convnet as jconvnet
+    from keymorph_tpu.models import unet as junet
+    from keymorph_tpu.models.keymorph import KeyMorph as JKeyMorph
+
+    root = tmp_path_factory.mktemp("spatial_cases")
+    jms, data, cases = {}, {}, []
+    for i, (name, (backbone, kw, spatial, opts)) in enumerate(SPATIAL_CASES.items()):
+        jbb = getattr(jconvnet if backbone == "ConvNet" else junet, backbone)(**kw)
+        jm = JKeyMorph(backbone=jbb, num_keypoints=W.K, **opts)
+        # init_params, jitted: flax's eager init compiles op by op (a minute
+        # over these nets); the parameters do not depend on the example's
+        # size, so it is the smallest the backbone takes
+        blk = 16 if backbone == "ConvNet" else 2 ** (kw["num_levels"] - 1)
+        example = jnp.zeros((1, 1, *[blk] * len(spatial)))
+        jm.params = jax.jit(jm.net.init)(jax.random.PRNGKey(i), example, example)
+        if opts.get("weight_keypoints") == "variance":
+            rng = np.random.default_rng(i)
+            p = dict(jm.params["params"])
+            p["scales"] = jnp.asarray(rng.uniform(0.5, 1.5, W.K).astype(np.float32))
+            p["biases"] = jnp.asarray(rng.uniform(0.0, 0.1, W.K).astype(np.float32))
+            jm.params = {"params": p}
+        jm.eval()
+        wpath = str(root / f"{name}.pt")
+        torch.save(state_dict_from_flax(jm.params), wpath)
+        f, m = (W.blobs(20 + i, 2, spatial) if len(spatial) == 3
+                else W.blobs(20 + i, 2, (3, *spatial))[:, :, 1])
+        data[name] = {"img_f": f[None], "img_m": m[None]}
+        np.savez(root / f"{name}.npz", **data[name])
+        cases.append(dict(name=name, net=dict(backbone=backbone, kw=kw, weights=wpath, **opts),
+                          data=str(root / f"{name}.npz"), mesh=dict(data=1, space=2),
+                          transform_type="tps_1"))
+        jms[name] = jm
+    ranks = W.run("spatial", 2, root / "run", deadline=150, cases=cases)
+    cases64 = [dict(c, net=dict(c["net"], float64=True)) for c in cases]
+    ranks64 = W.run("spatial", 2, root / "run64", deadline=150, cases=cases64)
+    return dict(jms=jms, data=data, cases={c["name"]: c for c in cases}, ranks=ranks,
+                ranks64=ranks64)
+
+
+@pytest.mark.parametrize("name", list(SPATIAL_CASES))
+def test_spatial_register_every_backbone_head_and_extent(spatial_runs, name):
+    """make_spatial_register_fn on 'space' 2 for each SPATIAL_CASES net, tps_1
+    (the counterpart of test_spatial_register_matches_single on every
+    backbone keymorph_tpu splits): every rank returns the same whole (img_a,
+    grid, points_f, points_m); against the port's unsplit module path
+    (``KeyMorphNet.forward``, the weighted fit, the warp), keymorph_tpu's
+    sharded-vs-single bars (keypoints 2e-4, grid 2e-3 + 2e-3 relative,
+    warped image 1e-2); against keymorph_tpu's spatial register on a CPU
+    mesh of 2: keypoints within KEYPOINT_ABS, the grid within STAGE_ABS (or
+    NOISE x how far that alignment moves when the keypoints move by
+    PERTURB, whichever is larger: variance weights make the weighted fit
+    ill-conditioned, and the two packages' fp32 solves of the same system
+    then differ by 4e-4) of keymorph_tpu's weighted alignment of the port's
+    keypoints and weights, the warped image within STAGE_ABS of
+    keymorph_tpu's warp of the port's grid."""
+    from keymorph_tpu.models.keymorph import align_pair as jalign_pair
+    from keymorph_tpu.ops.resample import align_img as jalign_img
+    from keymorph_tpu.parallel import make_mesh
+    from keymorph_tpu.parallel.sharded import make_spatial_register_fn as jspatial
+    from keymorph_tpu.training.config import Config as JConfig
+
+    ranks = [r[name] for r in spatial_runs["ranks"]]
+    for other in ranks[1:]:
+        for a, b in zip(ranks[0], other):
+            assert (a is None and b is None) or torch.equal(a, b)
+    img_a, grid, pf, pm, weights = ranks[0]
+    data, jm = spatial_runs["data"][name], spatial_runs["jms"][name]
+    f, m = torch.as_tensor(data["img_f"]), torch.as_tensor(data["img_m"])
+    spatial = tuple(f.shape[2:])
+    net = W.build_net(spatial_runs["cases"][name]["net"])
+    with torch.no_grad():
+        pf0, pm0, w0 = net(f, m)
+        ref = align_pair(pf0, pm0, "tps", spatial, lmbda=torch.ones(1), weights=w0)["grid"]
+        ref_a = align_img(ref, m)
+    jimg_a, jgrid, jpf, jpm = jspatial(jm.net, JConfig(num_keypoints=W.K, transform_type="tps_1"),
+                                       make_mesh(num_devices=2, data=1, space=2))(
+        jm.params, jnp.asarray(data["img_f"]), jnp.asarray(data["img_m"]))
+    def stage_of(scale):
+        return jalign_pair(jnp.asarray(_np(pf) * scale), jnp.asarray(_np(pm) * scale), "tps",
+                           spatial, lmbda=jnp.ones((1,)), compute_grid=True,
+                           weights=None if weights is None else jnp.asarray(_np(weights))
+                           )["grid"]
+
+    stage = stage_of(1.0)
+    yard = max(_dist(stage_of(1.0 + e), stage) for e in (PERTURB, -PERTURB))
+    stage_a = jalign_img(jnp.asarray(_np(grid)), jnp.asarray(data["img_m"]))
+    d = {"single keypoints": max(_dist(pf, pf0), _dist(pm, pm0)),
+         "single grid": _dist(grid, ref), "single image": _dist(img_a, ref_a),
+         "keymorph_tpu keypoints": max(_dist(pf, jpf), _dist(pm, jpm)),
+         "keymorph_tpu stage grid": _dist(grid, stage),
+         "keymorph_tpu stage image": _dist(img_a, stage_a),
+         "keymorph_tpu grid (not held)": _dist(grid, jgrid)}
+    if weights is not None:
+        d["single weights (not held)"] = _dist(weights, w0)
+    print(f"spatial {name} at space 2: {d}; stage grid's yardstick {yard:.3g}")
+    assert img_a.shape == (1, 1, *spatial) and grid.shape == (1, *spatial, len(spatial))
+    assert torch.isfinite(grid).all() and torch.isfinite(img_a).all()
+    assert d["single keypoints"] <= 2e-4 and d["single image"] <= 1e-2
+    np.testing.assert_allclose(_np(grid), _np(ref), rtol=2e-3, atol=2e-3)
+    assert d["keymorph_tpu keypoints"] <= KEYPOINT_ABS
+    assert d["keymorph_tpu stage grid"] <= max(STAGE_ABS, NOISE * yard)
+    assert d["keymorph_tpu stage image"] <= STAGE_ABS
+
+
+@pytest.mark.parametrize("name", list(SPATIAL_CASES))
+def test_spatial_extraction_in_float64_equals_the_unsplit_modules(spatial_runs, name):
+    """The split extraction is the modules' own arithmetic: with the nets in
+    float64, the keypoints and keypoint weights of every SPATIAL_CASES net
+    split over 'space' 2 (an empty rank, a remainder slab and a 2D net
+    among them) equal the unsplit float64 net's but for the order of the
+    fp32 sums that the centre of mass and the power weighting take in both
+    (1e-6; the fp32 nets' chaos, 1e-5-1e-4 in keypoints, is gone)."""
+    ranks = [r[name] for r in spatial_runs["ranks64"]]
+    _, _, pf, pm, weights = ranks[0]
+    data = spatial_runs["data"][name]
+    net = W.build_net(dict(spatial_runs["cases"][name]["net"], float64=True))
+    with torch.no_grad():
+        pf0, pm0, w0 = net(torch.as_tensor(data["img_f"]), torch.as_tensor(data["img_m"]))
+    d = {"keypoints": max(_dist(pf, pf0), _dist(pm, pm0)),
+         "weights": 0.0 if w0 is None else _dist(weights, w0)}
+    print(f"spatial {name} in float64: {d}")
+    assert all(torch.equal(a, b) for a, b in zip(ranks[0][2:4], ranks[1][2:4]))
+    assert (weights is None) == (w0 is None)
+    assert d["keypoints"] <= 1e-6 and d["weights"] <= 1e-6

@@ -193,7 +193,8 @@ def test_port_imports_neither_jax_nor_keymorph_tpu():
                      "parallel.halo", "viz", "tools.make_synthetic_dataset",
                      "tools.center_volumes", "tools.prepare_ixi", "tools.collect_run_artifacts",
                      "tools.tps_approx_bench", "tools.warp_channels_bench", "tools.flops",
-                     "tools.trace_summary", "tools.extract_trace", "tools.train_step_trace"):
+                     "tools.trace_summary", "tools.extract_trace", "tools.train_step_trace",
+                     "tools.conv_microbench"):
             assert "keymorph_tpu_torch." + want in names, want
         import chip_smoke
         keymorph_tpu_torch.ops.cuda.counters()

@@ -24,8 +24,9 @@ from keymorph_tpu.tools import make_synthetic_dataset as jmake
 from keymorph_tpu.tools import prepare_ixi as jprep
 from keymorph_tpu.tools.weight_parity import make_subjects as jmake_subjects
 from keymorph_tpu_torch.data.nifti import load_nifti, save_nifti
-from keymorph_tpu_torch.tools import (center_volumes, collect_run_artifacts, extract_trace,
-                                      flops, make_synthetic_dataset, prepare_ixi,
+from keymorph_tpu.tools.conv_microbench import flagship_stages as jflagship_stages
+from keymorph_tpu_torch.tools import (center_volumes, collect_run_artifacts, conv_microbench,
+                                      extract_trace, flops, make_synthetic_dataset, prepare_ixi,
                                       tps_approx_bench, train_step_trace, trace_summary,
                                       warp_channels_bench)
 
@@ -298,6 +299,35 @@ def test_warp_channels_bench_on_the_cpu(capsys):
         assert r["bound_ms"] == pytest.approx(16 ** 3 * (8 * r["C"] + 12) / 3.35e12 * 1e3)
 
 
+@pytest.mark.parametrize("size", [128, 256])
+def test_conv_microbench_stages_are_keymorph_tpus(size):
+    """The same stages as keymorph_tpu's microbenchmark: every conv of the
+    flagship TruncatedUNet3D, with its widths and size."""
+    assert conv_microbench.flagship_stages(size) == jflagship_stages(size)
+
+
+def test_conv_microbench_on_the_cpu(capsys):
+    """At 32^3 with ``--device cpu`` (the plain versions, host clock): one
+    JSON line per stage and one of totals; each stage names its form and
+    instantiation and carries its bound by the conv's bytes and operations."""
+    rows, total = conv_microbench.main(["--device", "cpu", "--size", "32", "--reps", "1"])
+    lines = [json.loads(line) for line in capsys.readouterr().out.strip().splitlines()]
+    assert lines == rows + [total] and len(rows) == 13
+    assert [r["stage"] for r in rows] == [s[0] for s in jflagship_stages(32)]
+    for r, (name, cin, cout, spatial) in zip(rows, jflagship_stages(32)):
+        assert (r["cin"], r["cout"], tuple(r["spatial"])) == (cin, cout, spatial)
+        assert r["card"] is None and r["timer"] == "host_clock"
+        assert r["kernel_ms"] > 0 and r["library_ms"] > 0
+        k = 1 if name == "head" else 3
+        n = spatial[0] * spatial[1] * spatial[2]
+        assert r["bound_ms"] == pytest.approx(max(
+            2 * (n * cin + k ** 3 * cin * cout + n * cout) / 3.35e12,
+            2 * n * k ** 3 * cin * cout / 989e12) * 1e3)
+    assert rows[0]["kernel"] == "fma" and rows[1]["kernel"] == "mma<32>"
+    assert rows[8]["form"] == "upconv" and rows[8]["kernel"] == "mma<64>"
+    assert rows[-1]["kernel"] == "matmul (PyTorch)"
+
+
 def test_trace_tools_on_the_cpu(capsys):
     """extract_trace and train_step_trace run at 16^3 with ``--device
     cpu`` and say that no device time was measured."""
@@ -313,8 +343,9 @@ def test_trace_tools_on_the_cpu(capsys):
     lambda: train_step_trace.main(["16"]),
     lambda: center_volumes.main(["--img_dir", ".", "--reference", "r.nii.gz",
                                  "--out_dir", "never"]),
+    lambda: conv_microbench.main(["--size", "16"]),
 ], ids=["tps_approx_bench", "warp_channels_bench", "extract_trace", "train_step_trace",
-        "center_volumes"])
+        "center_volumes", "conv_microbench"])
 def test_device_tools_need_a_card_by_default(call, monkeypatch):
     """No tool falls back to the CPU: without ``--device cpu`` each runs on
     the card and raises where there is none."""

@@ -133,3 +133,51 @@ def test_square_matrix_matches_jax(rng):
     m = rng.normal(size=(2, 3, 4)).astype(np.float32)
     np.testing.assert_array_equal(solvers.square_matrix(torch.tensor(m)).numpy(),
                                   np.asarray(jsolvers.square_matrix(jnp.asarray(m))))
+
+
+def test_plain_versions_at_3000_control_points_match_jax_tps_eval(rng):
+    """Past the 2048 control points the wrappers once refused: the plain
+    tps_planes and tps_flow against keymorph_tpu's tps_eval (XLA) on one fit
+    (the port's), within 2e-5 (the bar at T = 16 and 130) or twice
+    keymorph_tpu's own distance from the float64 evaluation of the same
+    formula, whichever is larger: over 3000 terms each package's fp32 sum
+    can lie more than 2e-5 from float64 on its own, so a flat 2e-5 between
+    the two would hold their rounding to less than either has."""
+    src, dst, lmbda = _keypoints(rng, 1, 3000)
+    theta = solvers.fit_tps(torch.tensor(src), torch.tensor(dst), torch.tensor(lmbda))
+    theta, ctrl = theta.contiguous(), torch.tensor(src)
+    jtheta, jsrc = jnp.asarray(theta.numpy()), jnp.asarray(src)
+    spatial = (6, 7, 8)
+    pts = rng.uniform(-1.2, 1.2, (1, 300, 3)).astype(np.float32)
+    cases = [
+        (tpsflow.tps_planes(theta, ctrl, spatial),
+         _jax_grid_planes(jtheta, src, spatial),
+         tpsflow.tps_planes_plain(theta, ctrl, spatial, dtype=torch.float64)),
+        (tpsflow.tps_flow(theta, ctrl, torch.tensor(pts)),
+         np.asarray(jsolvers.tps_eval(jtheta, jsrc, jnp.asarray(pts))),
+         tpsflow.tps_flow_plain(theta, ctrl, torch.tensor(pts), dtype=torch.float64)),
+    ]
+    for got, want, ref in cases:
+        got, ref = got.numpy(), ref.numpy()
+        assert got.shape == want.shape
+        bar = max(2e-5, 2.0 * np.abs(want - ref).max())
+        assert np.abs(got - want).max() <= bar, (np.abs(got - want).max(), bar)
+
+
+@pytest.mark.parametrize("B,T", [(1, 4096), (70000, 1)], ids=["T4096", "B70000"])
+def test_launch_checks_take_any_T_and_B(B, T):
+    """The TPS and warp launch checks no longer refuse T > 2048 or B > 65535
+    (the kernels tile T and walk the batch past the grid's 65535 rows): on
+    the CPU, shapes that size pass every size check and raise for the
+    device alone (the TPS check's last; the warp's comes after its 2^31
+    voxels, as test_torch_warp.py's 2^31 - 1 show)."""
+    from keymorph_tpu_torch.ops.cuda import resample3d
+
+    theta, ctrl = torch.zeros((B, T + 4, 3)), torch.zeros((B, T, 3))
+    for name in ("tps_planes", "tps_planes_bwd", "tps_flow"):
+        with pytest.raises(ValueError, match="one CUDA device"):
+            tpsflow._check_spline(name, theta, ctrl)
+    img, planes = torch.zeros((B, 1, 2, 2, 2)), torch.zeros((B, 3, 2, 2, 2))
+    for name in ("warp_planes", "warp_planes_grad"):
+        with pytest.raises(ValueError, match="one CUDA device"):
+            resample3d._check(name, img, planes)

@@ -100,6 +100,28 @@ def make_net(weights_path):
     return net
 
 
+BACKBONES = ("UNet3D", "UNet2D", "TruncatedUNet3D", "ResidualUNet3D", "ResidualUNetSE3D",
+             "ConvNet")
+
+
+def build_net(spec):
+    """A KeyMorphNet from a JSON spec: ``backbone`` (a name of BACKBONES),
+    its keyword arguments ``kw``, ``weight_keypoints``, ``keypoint_layer``,
+    the keypoints' ``dim`` (3 unless given), the ``weights`` path of its
+    state_dict (fp32) and ``float64`` (a float64 net, the oracle's dtype)."""
+    from keymorph_tpu_torch.models import convnet, unet
+    from keymorph_tpu_torch.models.keymorph import KeyMorphNet
+
+    assert spec["backbone"] in BACKBONES
+    module = convnet if spec["backbone"] == "ConvNet" else unet
+    kw = dict(spec["kw"], dtype=torch.float64) if spec.get("float64") else spec["kw"]
+    backbone = getattr(module, spec["backbone"])(**kw)
+    net = KeyMorphNet(backbone, K, spec.get("weight_keypoints"),
+                      spec.get("keypoint_layer", "com"), spec.get("dim", 3))
+    net.load_state_dict(torch.load(spec["weights"], weights_only=True))
+    return (net.double() if spec.get("float64") else net).eval()
+
+
 def _to_torch(x):
     return None if x is None else torch.as_tensor(np.asarray(x, np.float32))
 
@@ -206,6 +228,34 @@ def job_register(spec, rank):
     return out
 
 
+def job_spatial(spec, rank):
+    """``make_spatial_register_fn`` per case of ``spec["cases"]``: a net
+    (``build_net``), a mesh, a transform and the pair of an .npz. Returns
+    per case (img_a, grid, points_f, points_m, the keypoint weights or
+    None)."""
+    from keymorph_tpu_torch.parallel import make_mesh, make_spatial_register_fn
+    from keymorph_tpu_torch.training.config import Config
+
+    from keymorph_tpu_torch.parallel import halo
+
+    out = {}
+    for case in spec["cases"]:
+        mesh = make_mesh(device_type="cpu", timeout=TIMEOUT, **case["mesh"])
+        data = np.load(case["data"])
+        net = build_net(case["net"])
+        fn = make_spatial_register_fn(net, Config(num_keypoints=K,
+                                                  transform_type=case["transform_type"]), mesh)
+        f, m = torch.as_tensor(data["img_f"]), torch.as_tensor(data["img_m"])
+        res = [r.clone() for r in fn(f, m)]
+        # the keypoint weights the fit took (the same computation again)
+        slabs = halo.Slabs(f.shape[2], halo.block(net), mesh.space_group)
+        z0, z1 = slabs.local(0)
+        with torch.no_grad():
+            weights = halo.pair(net, f[:, :, z0:z1], m[:, :, z0:z1], slabs)[2]
+        out[case["name"]] = res + [weights]
+    return out
+
+
 def job_groupwise_register(spec, rank):
     from keymorph_tpu_torch.models.keymorph import KeyMorph
     from keymorph_tpu_torch.models.unet import UNet3D
@@ -281,7 +331,7 @@ def job_tasks(spec, rank):
     return [JOBS[job](sub, rank) for job, sub in spec["tasks"]]
 
 
-JOBS = {"mesh": job_mesh, "train": job_train, "register": job_register,
+JOBS = {"mesh": job_mesh, "train": job_train, "register": job_register, "spatial": job_spatial,
         "groupwise_register": job_groupwise_register, "eval": job_eval, "cli": job_cli,
         "tasks": job_tasks}
 
