@@ -207,8 +207,23 @@ Phases (each prints its lines; any failure raises, so the exit code is not 0):
      on it. The tools run at their
      own defaults and seeds; ``--seed`` moves the panels' pair and weights.
 
+ 16. the benchmark, the entry points and the pair example: (a)
+     ``keymorph_tpu_torch.bench.run`` at 256^3 (the flagship net, 128
+     keypoints, 8 chained registrations) with the stages and the batch rows
+     at bs 1, 2, 4 and 8, its JSON line printed as ``python -m
+     keymorph_tpu_torch.bench`` prints it, its first warped volume held bit
+     for bit against phase 2's calls on the bench's own net and pair; (b)
+     ``entry()`` on the card against the same forward on the CPU, on seeded
+     blob volumes at 32^3, under phase 13's card-vs-CPU rule; (c)
+     ``dryrun_multichip(2)``: two gloo ranks on the one card run every
+     multi-device path at keymorph_tpu's tiny shapes; (d) the pair
+     example's ``register_pair`` on phase 11's IXI-like pair at its default
+     128^3 (its ``main`` refuses without matplotlib first), MSE and hard
+     Dice against a float64 recomputation. Each path's kernels must launch
+     and no plain version runs on it.
+
 The line before the last is the kernels' JSON record (``launches`` summed
-over the main paths of phases 2, 5, 9, 10, 11, 12, 13, 14 and 15); the last line is
+over the main paths of phases 2, 5, 9, 10, 11, 12, 13, 14, 15 and 16); the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA it raises before printing
 a result. The script imports neither jax nor keymorph_tpu.
 """
@@ -3047,7 +3062,7 @@ def _p14_worker(torch, rank, tmp):
     from keymorph_tpu_torch.models.unet import TruncatedUNet3D
     from keymorph_tpu_torch.ops.resample import align_img
     from keymorph_tpu_torch.parallel import (
-        make_mesh, make_sharded_register_fn, make_spatial_register_fn, sharded)
+        launch, make_mesh, make_sharded_register_fn, make_spatial_register_fn, sharded)
     from keymorph_tpu_torch.training.config import Config
 
     km = _import_port()
@@ -3056,7 +3071,7 @@ def _p14_worker(torch, rank, tmp):
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     timeout = datetime.timedelta(seconds=P14_TIMEOUT)
-    dist.init_process_group("gloo", init_method=f"file://{tmp / 'store'}", rank=rank,
+    dist.init_process_group("gloo", init_method=launch.store_url(tmp), rank=rank,
                             world_size=2, timeout=timeout)
     inputs = _p14_inputs(torch, dev)
     out = {"ms": {}, "counts": {}}
@@ -3179,35 +3194,14 @@ def _p14_worker(torch, rank, tmp):
 
 def _p14_spawn(torch, tmp):
     """The 2-rank world: two processes of this script on cuda:0, joined
-    with a deadline; on a failure or at the deadline every survivor is
-    killed and the ranks' logs are printed to stderr. Returns the ranks'
-    results."""
-    logs = [open(tmp / f"rank{r}.log", "w+") for r in range(2)]
-    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--seed",
-                               str(SEED), "--phase14-rank", str(r), "--phase14-dir", str(tmp)],
-                              stdout=logs[r], stderr=subprocess.STDOUT, cwd=ROOT)
-             for r in range(2)]
-    end = time.monotonic() + P14_DEADLINE
-    try:
-        while any(p.poll() is None for p in procs):
-            if time.monotonic() > end or any(p.poll() not in (None, 0) for p in procs):
-                break
-            time.sleep(0.2)
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-        for p in procs:
-            p.wait()
-    codes = [p.returncode for p in procs]
-    for r, f in enumerate(logs):
-        f.seek(0)
-        text = f.read()
-        f.close()
-        if any(codes):
-            print(f"phase14 rank {r} (exit {codes[r]}):\n{text[-6000:]}", file=sys.stderr)
-    if any(codes):
-        raise AssertionError(f"phase 14 (b): the 2-rank world failed, exit codes {codes}")
+    with a deadline (``parallel.launch.spawn``: on a failure or at the
+    deadline every survivor is killed and the ranks' logs are raised).
+    Returns the ranks' results."""
+    from keymorph_tpu_torch.parallel import launch
+
+    launch.spawn([[sys.executable, str(Path(__file__).resolve()), "--seed", str(SEED),
+                   "--phase14-rank", str(r), "--phase14-dir", str(tmp)] for r in range(2)],
+                 tmp, P14_DEADLINE, cwd=ROOT)
     return [torch.load(tmp / f"result_{r}.pt", weights_only=False) for r in range(2)]
 
 
@@ -3506,6 +3500,191 @@ def phase15(torch, dev, reg_dir, extract_s):
     return counts
 
 
+# phase 16: the benchmark, the entry points and the pair example
+P16_ITERS = 8                 # the bench's chained registrations (BENCH_ITERS)
+P16_RANKS = 2                 # dryrun_multichip's gloo ranks on the one card
+P16_EXAMPLE_SIZE = 128        # the example's --size (its default)
+P16_ENTRY_ABS = 1e-5          # the entry's floors (phase 13's 2D floors): keypoints, matrix, image
+P16_BENCH_PATH = ("conv3x3_fused_flat", "conv3x3_fused_flat_upconv", "tps_planes",
+                  "warp_planes")
+P16_DRYRUN_PATH = ("tps_planes", "tps_planes_bwd", "tps_flow", "warp_planes",
+                   "warp_planes_grad")
+P16_EXAMPLE_PATH = ("tps_flow", "warp_planes")
+
+
+def _p16_bench(torch, dev, out):
+    """(a) ``bench.run`` at 256^3 with the stages and the batch rows; its
+    first warped volume against phase 2's calls on the bench's own net and
+    pair, bit for bit."""
+    from keymorph_tpu_torch import bench
+    from keymorph_tpu_torch.models.keymorph import align_pair
+    from keymorph_tpu_torch.ops.resample import align_planes
+
+    rec, first = _timed(torch, out, "bench", lambda: bench.run(
+        SPATIAL[0], NUM_KEYPOINTS, P16_ITERS, stages=True, throughput=True, device=dev,
+        seed=SEED, return_first=True))
+    print(f"phase16 (a) python -m keymorph_tpu_torch.bench at {SPATIAL[0]}^3 with BENCH_THROUGHPUT=1 "
+          f"and seed {SEED} ({out['ms']['bench'] / 1e3:.3f} s); its line:")
+    print(json.dumps(rec))
+    net, img_f, img_m, _ = bench.setup(SPATIAL[0], NUM_KEYPOINTS, dev, SEED)
+    with torch.no_grad():
+        pf, pm, _ = net(img_f, img_m)
+        planes = align_pair(pf, pm, "tps", SPATIAL, lmbda=LMBDA, compute_grid="planes")["planes"]
+        warped = align_planes(planes, img_m)
+    same = torch.equal(warped, first)
+    st, rows = rec["stages"], rec["per_batch"]
+    print(f"phase16 (a) the bench's first warped volume against phase 2's calls on its net and "
+          f"pair: bit for bit {same} (max |d| {(warped - first).abs().max().item()!r}); launches "
+          f"{json.dumps({k: c['launches'] for k, c in out['counts']['bench'].items()})}")
+    _expect("phase 16 (a) bench", out["counts"]["bench"], P16_BENCH_PATH)
+    vals = [rec["value"]] + [st[k] for k in ("extract_ms", "solve_flow_ms", "warp_ms",
+                                             "register_ms", "extract_mfu", "solve_flow_mfu",
+                                             "warp_hbm_frac", "busy_ms", "idle_share")]
+    vals += [r[k] for r in rows.values() for k in ("latency_ms", "regs_per_sec", "peak_gib")]
+    if not (same and list(rows) == ["1", "2", "4", "8"] and rec["device"]
+            and all(v is not None and np.isfinite(v) and v >= 0 for v in vals)
+            and rec["value"] == 1e3 / st["register_ms"] and first.shape == (1, 1, *SPATIAL)):
+        raise AssertionError("phase 16 (a): the bench's record or first volume is wrong")
+
+
+def _p16_entry(torch, dev, out, rng):
+    """(b) ``entry()`` on the card and on the CPU, same weights and seeded
+    blob volumes, under phase 13's card-vs-CPU rule (float64: the backbone
+    and the head, then the fp32 fit, grid and warp on the CPU)."""
+    from keymorph_tpu_torch import entry
+    from keymorph_tpu_torch.models.keymorph import align_pair
+    from keymorph_tpu_torch.models.unet import TruncatedUNet3D
+    from keymorph_tpu_torch.ops.resample import align_img
+
+    fn, (params, img, _) = entry.entry()
+    cpu_fn = entry.entry(device="cpu")[0]
+    shape = tuple(img.shape[2:])
+    f, m = (v.cpu() for v in _make_pairs(torch, rng, "cpu", shape, 1)[0])
+    with torch.no_grad():
+        got = _timed(torch, out, "entry", lambda: fn(params, f.to(dev), m.to(dev)))
+        ref = cpu_fn({k: v.cpu() for k, v in params.items()}, f, m)
+        bb64 = TruncatedUNet3D(**entry.ENTRY_UNET, dtype=torch.float64).double()
+        bb64.load_state_dict({k[len("backbone."):]: v.cpu().double() for k, v in params.items()
+                              if k.startswith("backbone.")})
+        kp64 = [_com64(torch, bb64(v.double()).movedim(1, -1)).float() for v in (f, m)]
+        y = align_pair(*kp64, "affine", shape, compute_grid=True)
+        yard_of = (align_img(y["grid"], m), y["matrix"], *kp64)
+    ok, rows = True, []
+    for name, a, b, c in zip(("warped", "matrix", "points_f", "points_m"), got, ref, yard_of):
+        d, yard, own = _dist(a, b), _dist(b, c), _dist(a, c)
+        tol = max(P16_ENTRY_ABS, CARD_CPU_FACTOR * yard)
+        rows.append(f"{name} {d!r} (yardstick {yard!r}, tol {tol!r}; the card from the float64 "
+                    f"call {own!r})")
+        ok &= d <= tol and bool(torch.isfinite(a).all())
+    print(f"phase16 (b) entry() at {shape}, card vs CPU ({out['ms']['entry']:.3f} ms, first call, "
+          f"host clock): " + "; ".join(rows))
+    _expect("phase 16 (b) entry", out["counts"]["entry"], ("warp_planes",))
+    if not ok:
+        raise AssertionError("phase 16 (b): entry() on the card disagrees with the CPU's")
+
+
+def _p16_dryrun(torch, out):
+    """(c) ``dryrun_multichip`` over gloo ranks on the one card: every rank
+    runs every path and their launches are summed."""
+    from keymorph_tpu_torch import entry
+
+    t0 = time.perf_counter()
+    ranks = entry.dryrun_multichip(P16_RANKS)
+    out["ms"]["dryrun"] = (time.perf_counter() - t0) * 1e3
+    counts = None
+    for r, res in enumerate(ranks):
+        c = {k: {"launches": res["launches"][k], "plain_calls": res["plain_calls"][k]}
+             for k in res["launches"]}
+        _expect(f"phase 16 (c) dryrun rank {r}", c, P16_DRYRUN_PATH)
+        counts = _add_counts(counts, c)
+    out["counts"]["dryrun"] = counts
+    print(f"phase16 (c) dryrun_multichip({P16_RANKS}) on cuda:0 over gloo: "
+          f"{out['ms']['dryrun'] / 1e3:.3f} s (host clock, the ranks' start included); losses by "
+          f"rank {[res['loss'] for res in ranks]}; launches summed over the ranks "
+          f"{json.dumps({k: c['launches'] for k, c in counts.items()})}")
+    if not all(np.isfinite(res["loss"]) for res in ranks):
+        raise AssertionError("phase 16 (c): a non-finite loss")
+
+
+def _p16_example(torch, dev, out, reg_dir):
+    """(d) the example's ``register_pair`` on phase 11's IXI-like pair at
+    its default size (``main`` refuses without matplotlib, before any
+    work); MSE and hard Dice against a float64 recomputation on the CPU
+    from the example's own warped volumes."""
+    import importlib.util
+
+    import torch.nn.functional as F
+
+    from keymorph_tpu_torch.data import Preprocessor
+    from keymorph_tpu_torch.examples import register_pair as ex
+    from keymorph_tpu_torch.ops.resample import align_img
+    from keymorph_tpu_torch.utils import one_hot
+
+    argv = ["--fixed", str(reg_dir / "fixed.nii.gz"), "--moving", str(reg_dir / "moving.nii.gz"),
+            "--fixed_seg", str(reg_dir / "fixed_seg.nii.gz"), "--moving_seg",
+            str(reg_dir / "moving_seg.nii.gz"), "--out", str(reg_dir / "example_out")]
+    if importlib.util.find_spec("matplotlib") is None:
+        try:
+            ex.main(argv)
+            raise AssertionError("phase 16 (d): the example ran without matplotlib")
+        except ImportError as e:
+            refused = f"refuses without matplotlib: {e}"
+        if (reg_dir / "example_out").exists():
+            raise AssertionError("phase 16 (d): the example wrote files before refusing")
+    else:
+        refused = "matplotlib present"
+    pre = Preprocessor(size=(P16_EXAMPLE_SIZE,) * 3)
+    fixed, moving = (pre.load(str(reg_dir / f"{s}.nii.gz"), seg_path=str(reg_dir / f"{s}_seg.nii.gz"))
+                     for s in ("fixed", "moving"))
+    km = ex.build_model(NUM_KEYPOINTS, dev, SEED)
+    res = _timed(torch, out, "example", lambda: ex.register_pair(fixed, moving, km))
+    n_cls = int(max(fixed["seg"].max(), moving["seg"].max())) + 1
+    img_f64 = torch.tensor(fixed["img"][None], dtype=torch.float64)
+    seg_f64 = one_hot(torch.tensor(fixed["seg"][None].astype(np.int64)), n_cls).double()
+    seg_m = one_hot(torch.tensor(moving["seg"][None].astype(np.int64), device=dev), n_cls)
+    ok, rows = True, []
+    for name, r in res.items():
+        with torch.no_grad():
+            seg_a = align_img(r["grid"], seg_m).cpu()
+        mse = float(((img_f64 - r["img_a"].cpu().double()) ** 2).mean())
+        p = F.one_hot(seg_a.argmax(1), n_cls).movedim(-1, 1).double()[:, 1:].flatten(2)
+        t = seg_f64[:, 1:].flatten(2)
+        dice = 1.0 - float((1.0 - (2.0 * (p * t).sum(2) + 1.0)
+                            / ((p * p).sum(2) + (t * t).sum(2) + 1.0)).mean())
+        d_mse, d_dice = abs(r["mse"] / mse - 1.0), abs(r["harddice"] - dice)
+        rows.append(f"{name} mse {r['mse']!r} rel {d_mse!r} (tol {MSE_REL}), harddice "
+                    f"{r['harddice']!r} {d_dice!r} (tol {DICE_MEAN_ABS!r})")
+        ok &= (d_mse <= MSE_REL and d_dice <= DICE_MEAN_ABS
+               and r["grid"].shape == (1, *(P16_EXAMPLE_SIZE,) * 3, 3)
+               and bool(torch.isfinite(r["grid"]).all()))
+    print(f"phase16 (d) examples/register_pair ({refused}): register_pair of phase 11's pair at "
+          f"{P16_EXAMPLE_SIZE}^3, fp32 net, {NUM_KEYPOINTS} keypoints, {list(res)}: "
+          f"{out['ms']['example']:.3f} ms (first call, host clock); against float64: "
+          + "; ".join(rows))
+    _expect("phase 16 (d) example", out["counts"]["example"], P16_EXAMPLE_PATH)
+    if not ok:
+        raise AssertionError("phase 16 (d): the example's metrics disagree with float64")
+
+
+def phase16(torch, dev, reg_dir):
+    """The benchmark, the entry points and the pair example (module
+    docstring, phase 16). Returns the launch counts of their device paths."""
+    t0 = time.perf_counter()
+    out = {"ms": {}, "counts": {}}
+    _p16_bench(torch, dev, out)
+    torch.cuda.empty_cache()
+    _p16_entry(torch, dev, out, np.random.default_rng([SEED, 16]))
+    _p16_dryrun(torch, out)
+    _p16_example(torch, dev, out, reg_dir)
+    counts = None
+    for c in out["counts"].values():
+        counts = _add_counts(counts, c)
+    print(f"phase16 counters (summed over its device paths) "
+          f"{json.dumps({k: c['launches'] for k, c in counts.items()})}; phase 16 "
+          f"{time.perf_counter() - t0:.3f} s")
+    return counts
+
+
 # --plant-fault: each fault wraps one kernel's wrapper, so only the kernel
 # route sees it (the plain steps call the plain versions by their own names)
 FAULTS = ("warp_grad_plane", "input_grad_half")
@@ -3645,6 +3824,8 @@ def main():
     extract_s = float(np.mean([t[0] for t in serve_times[1:]])) / 2
     try:
         tools_counts = phase15(torch, dev, reg_dir, extract_s)
+        torch.cuda.empty_cache()
+        entry_counts = phase16(torch, dev, reg_dir)
     finally:
         import shutil
 
@@ -3658,12 +3839,14 @@ def main():
         # backbones' steps, phase 13's extraction at an IXI scan's native
         # grid, where the parts form runs; phase 14's parallel paths, over its
         # world of 1 and both ranks of its world of 2; phase 15's tools and
-        # panels). Phase 1's launches are kept apart.
+        # panels; phase 16's bench, entry, dry-run ranks and example). Phase
+        # 1's launches are kept apart.
         paths = {"launches_served_3_pairs": serve_counts, "launches_3_train_steps": train_counts,
                  "launches_phase9_api": api_counts, "launches_phase10_steps": api_train_counts,
                  "launches_phase11_register": register_counts,
                  "launches_phase12_run": run_counts, "launches_phase13_parts": parts_counts,
-                 "launches_phase14": parallel_counts, "launches_phase15_tools": tools_counts}
+                 "launches_phase14": parallel_counts, "launches_phase15_tools": tools_counts,
+                 "launches_phase16": entry_counts}
         per_path = {k: c[name]["launches"] for k, c in paths.items()}
         return {"name": name, "route": "cuda", "source": f"keymorph_tpu_torch/csrc/{source}",
                 "replaces": REPLACES[key], "launches": sum(per_path.values()), **per_path,

@@ -31,21 +31,23 @@ import torch.nn.functional as F
 from torch import nn
 
 
-def center_of_mass(vol: torch.Tensor) -> torch.Tensor:
+def center_of_mass(vol: torch.Tensor, indexing: str = "ij") -> torch.Tensor:
     """Per-channel center of mass in normalized [-1, 1] coordinates.
 
     Args:
         vol: (B, *spatial, C) channel-last heatmaps, any float dtype.
+        indexing: "ij" (first volume axis first, the pipeline's order) or
+            "xy" (the same coordinates in reverse order).
     Returns:
-        (B, C, d) fp32 coordinates in ``ij`` order (first volume axis
-        first; keymorph_tpu's "xy" option is not ported). Along an axis of
-        size N the coordinate is taken against ``linspace(0, 1, N)`` and
-        mapped by ``* 2 - 1`` (align-corners style, the reference's
-        convention).
+        (B, C, d) fp32 coordinates. Along an axis of size N the coordinate
+        is taken against ``linspace(0, 1, N)`` and mapped by ``* 2 - 1``
+        (align-corners style, the reference's convention).
 
     The ReLU runs in the input dtype; each marginal mass is a reduction that
     accumulates in fp32 without materializing an fp32 copy of the volume.
     """
+    if indexing not in ("ij", "xy"):
+        raise ValueError(f"indexing={indexing!r}: 'ij' or 'xy'")
     spatial = vol.shape[1:-1]
     d = len(spatial)
     v = torch.relu(vol)
@@ -57,7 +59,23 @@ def center_of_mass(vol: torch.Tensor) -> torch.Tensor:
         line = torch.linspace(0.0, 1.0, spatial[k], dtype=torch.float32,
                               device=vol.device)
         coords.append((m * line[None, :, None]).sum(dim=1) / total)
+    if indexing == "xy":
+        coords = coords[::-1]
     return torch.stack(coords, dim=-1) * 2.0 - 1.0
+
+
+class CenterOfMass(nn.Module):
+    """Module form of :func:`center_of_mass` (no parameters): keymorph_tpu's
+    ``CenterOfMass``, the reference's CenterOfMass2d/3d in any dimension."""
+
+    def __init__(self, indexing: str = "ij"):
+        super().__init__()
+        if indexing not in ("ij", "xy"):
+            raise ValueError(f"indexing={indexing!r}: 'ij' or 'xy'")
+        self.indexing = indexing
+
+    def forward(self, vol: torch.Tensor) -> torch.Tensor:
+        return center_of_mass(vol, self.indexing)
 
 
 def acc_dtype(dtype: torch.dtype) -> torch.dtype:

@@ -2,7 +2,8 @@
 device mesh (``mesh.py``), the sharded steps and factories (``sharded.py``)
 and the Z-split module path of the spatial registration (``halo.py``).
 Port of ``keymorph_tpu/parallel/``; launch one process per GPU with
-``torchrun``."""
+``torchrun``, or start a world's processes from a parent with
+``launch.spawn``."""
 
 from keymorph_tpu_torch.parallel.mesh import Mesh, make_mesh, shard_batch  # noqa: F401
 from keymorph_tpu_torch.parallel.sharded import (  # noqa: F401

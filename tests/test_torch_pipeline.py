@@ -169,7 +169,8 @@ def test_unported_training_entry_points_name_their_roadmap_item(rng):
 def test_port_imports_neither_jax_nor_keymorph_tpu():
     """The port, every one of its modules (the data layer, the metrics with
     LC2, the CLIs, pretraining, the backbones, the brain extractor and its
-    tool, the parallel layer, the panels and the tools among them) and chip_smoke.py import torch only:
+    tool, the parallel layer, the panels, the tools, the benchmark, the
+    entry points and the example among them) and chip_smoke.py import torch only:
     neither jax nor the JAX package may appear in sys.modules (fresh
     interpreter), and no source line imports them."""
     code = textwrap.dedent("""
@@ -194,7 +195,8 @@ def test_port_imports_neither_jax_nor_keymorph_tpu():
                      "tools.center_volumes", "tools.prepare_ixi", "tools.collect_run_artifacts",
                      "tools.tps_approx_bench", "tools.warp_channels_bench", "tools.flops",
                      "tools.trace_summary", "tools.extract_trace", "tools.train_step_trace",
-                     "tools.conv_microbench"):
+                     "tools.conv_microbench", "bench", "entry", "examples",
+                     "examples.register_pair", "parallel.launch"):
             assert "keymorph_tpu_torch." + want in names, want
         import chip_smoke
         keymorph_tpu_torch.ops.cuda.counters()

@@ -7,9 +7,10 @@ file (``python tests/torch_parallel_workers.py JOB RANK WORLD DIR``), each
 on one thread, joined by a gloo group that meets through a ``FileStore``
 under ``DIR`` (no TCP port, so parallel test workers cannot collide), with
 a 60-s timeout on every group. Each runs ``JOBS[job](spec, rank)`` and saves
-its result to ``DIR/result_RANK.pt``. The parent waits with a deadline,
-kills every survivor when one fails or the deadline passes, and raises with
-the failures' output; it returns the results in rank order.
+its result to ``DIR/result_RANK.pt``. The parent waits with a deadline
+(``keymorph_tpu_torch.parallel.launch.spawn``: every survivor killed when one
+fails or the deadline passes, the failures' output raised) and returns the
+results in rank order.
 """
 
 from __future__ import annotations
@@ -17,13 +18,13 @@ from __future__ import annotations
 import datetime
 import json
 import os
-import subprocess
 import sys
-import time
 from pathlib import Path
 
 import numpy as np
 import torch
+
+from keymorph_tpu_torch.parallel import launch
 
 ROOT = Path(__file__).resolve().parents[1]
 TIMEOUT = datetime.timedelta(seconds=60)
@@ -35,35 +36,9 @@ def run(job: str, world: int, tmp_path, deadline: float = 120.0, **spec):
     tmp = Path(tmp_path)
     tmp.mkdir(parents=True, exist_ok=True)
     (tmp / "spec.json").write_text(json.dumps(spec))
-    env = dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1",
-               PYTHONPATH=os.pathsep.join([str(ROOT), os.environ.get("PYTHONPATH", "")]))
-    env.pop("WORLD_SIZE", None)
-    logs = [open(tmp / f"log_{r}.txt", "w+") for r in range(world)]
-    procs = [subprocess.Popen([sys.executable, __file__, job, str(r), str(world), str(tmp)],
-                              cwd=ROOT, env=env, stdout=logs[r], stderr=subprocess.STDOUT)
-             for r in range(world)]
-    end = time.monotonic() + deadline
-    try:
-        while any(p.poll() is None for p in procs):
-            if time.monotonic() > end or any(p.poll() not in (None, 0) for p in procs):
-                break
-            time.sleep(0.05)
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-        for p in procs:
-            p.wait()
-    codes = [p.returncode for p in procs]
-    if any(c != 0 for c in codes):
-        tails = []
-        for r, f in enumerate(logs):
-            f.seek(0)
-            tails.append(f"--- rank {r} (exit {codes[r]}) ---\n{f.read()[-3000:]}")
-        raise AssertionError(f"{job} at world {world} failed (exit codes {codes}):\n"
-                             + "\n".join(tails))
-    for f in logs:
-        f.close()
+    env = launch.rank_env({"OMP_NUM_THREADS": "1", "MKL_NUM_THREADS": "1"}, pythonpath=ROOT)
+    launch.spawn([[sys.executable, __file__, job, str(r), str(world), str(tmp)]
+                  for r in range(world)], tmp, deadline, env=env, cwd=ROOT)
     return [torch.load(tmp / f"result_{r}.pt", weights_only=False) for r in range(world)]
 
 
@@ -341,7 +316,7 @@ def main():
 
     job, rank, world, tmp = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), Path(sys.argv[4])
     torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method=f"file://{tmp / 'store'}", rank=rank,
+    dist.init_process_group("gloo", init_method=launch.store_url(tmp), rank=rank,
                             world_size=world, timeout=TIMEOUT)
     spec = json.loads((tmp / "spec.json").read_text())
     result = JOBS[job](spec, rank)
