@@ -8,11 +8,12 @@ the port builds, launches and registers on the card).
 phase's inputs; the tolerances do not depend on it. ``--plant-fault``
 (``warp_grad_plane``: the warp-gradient kernel's first plane zeroed;
 ``input_grad_half``: the conv input-gradient kernel's output halved) is a
-control of phases 6, 10 and 12's rule: it wraps that kernel with the fault,
-runs phases 5, 6 and 10 and phase 12's kernel steps only, and exits 0 only
-if each step comparison whose path holds the faulty kernel fails (phase
-12's pretrain step has no warp gradient); it prints no kernels line and no
-``ok`` line.
+control of phases 6, 10, 12 and 17's rule: it wraps that kernel with the
+fault, runs phases 5, 6 and 10, phase 12's kernel steps and (for
+``warp_grad_plane``) phase 17 (a)'s step check only, and exits 0 only if
+each step comparison whose path holds the faulty kernel fails (phase 12's
+pretrain step has no warp gradient, phase 17's fp32 nets no conv kernel);
+it prints no kernels line and no ``ok`` line.
 
 Phases (each prints its lines; any failure raises, so the exit code is not 0):
 
@@ -222,8 +223,27 @@ Phases (each prints its lines; any failure raises, so the exit code is not 0):
      Dice against a float64 recomputation. Each path's kernels must launch
      and no plain version runs on it.
 
+ 17. the port's trained nets (``runs/torch_weight_parity``, written by
+     ``python -m keymorph_tpu_torch.tools.weight_parity`` on the card): (a)
+     ``train_port`` again at the committed truncated net's settings (affine
+     MSE steps at 96^3, fp32 TruncatedUNet3D f_maps 8, 3 levels, 32
+     keypoints, Adam 1e-4, the same pair and augmentation draws): its first
+     step through the kernels against the plain versions under phase 6's
+     rule, then the first P17_STEPS of the committed run's 600 steps, their
+     mean loss every 100 steps beside the committed run's and their last
+     50 steps' mean within P17_LOSS_REL of the committed run's over the same
+     steps, ms a step on CUDA events; (b) both committed nets register the three
+     configs' held-out pairs (the UNet's at 96^3, the truncated net's at
+     128^3 in normalized and in real-world coordinates) with rigid, affine,
+     tps_1, tps_0.1 and tps_0 through ``weight_parity.port_register`` on the
+     card and on the CPU: keypoints, grids and the hard Dice of the warped
+     one-hot segmentation under phase 13's card-vs-CPU rule (the float64
+     backbone and head on the card, then the fp32 fit, grid and warp on the
+     CPU). Each path's
+     kernels must launch and no plain version runs on it.
+
 The line before the last is the kernels' JSON record (``launches`` summed
-over the main paths of phases 2, 5, 9, 10, 11, 12, 13, 14, 15 and 16); the last line is
+over the main paths of phases 2, 5, 9, 10, 11, 12, 13, 14, 15, 16 and 17); the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA it raises before printing
 a result. The script imports neither jax nor keymorph_tpu.
 """
@@ -3685,6 +3705,206 @@ def phase16(torch, dev, reg_dir):
     return counts
 
 
+# phase 17: the port's trained nets (runs/torch_weight_parity)
+P17_RUN = ROOT / "runs" / "torch_weight_parity"
+P17_NET = dict(num_keypoints=32, f_maps=8, num_levels=3)
+# the net (a) trains again: the committed truncated net's first P17_STEPS
+# steps at 96^3, held against the committed run's same steps. Its 600 steps
+# (~58 s) and the UNet's (234.6 ms each, its record beside the weights) are
+# past the phase's budget; the tool trains them.
+P17_TRAIN = "truncatedunet"
+P17_STEPS = 200
+P17_TAIL = 50                 # steps of the final mean loss
+P17_LOSS_REL = 0.2            # the final mean loss against the committed run's
+P17_EVAL_SIZE = 128           # the truncated configs' held-out pair (--eval_size)
+P17_KEYPOINT_ABS = 1e-5       # card vs CPU floors (phase 13's): normalized units
+P17_GRID_ABS = 1e-5
+P17_RW_TPS_ABS = 5e-3         # real-world TPS grids: the fp32 limit (tests/test_torch_weight_parity.py)
+P17_DICE_ABS = 1e-5
+P17_TRAIN_PATH = ("warp_planes", "warp_planes_grad")
+P17_SERVE_PATH = ("tps_flow", "warp_planes")
+
+
+def _p17_data():
+    """(a)'s training record and the images ``weight_parity.main`` trained
+    its net on."""
+    from keymorph_tpu_torch.tools import weight_parity as wp
+
+    rec = wp.read_record(P17_RUN, P17_TRAIN)
+    return rec, wp.make_subjects(size=rec["size"], seed=rec["data_seed"])[0][2:]
+
+
+def _p17_step(torch, dev, rng, rec, imgs):
+    """(a)'s step check: the first step of ``train_port`` (its pair and
+    augmentation, its initial weights) through the kernels and on the plain
+    versions, and once more on the plain versions with the pair perturbed by
+    PERTURB (the yardstick), under phase 6's rule. Returns whether it holds."""
+    from keymorph_tpu_torch.models.keymorph import KeyMorph
+    from keymorph_tpu_torch.ops import cuda as kernels
+    from keymorph_tpu_torch.tools import weight_parity as wp
+
+    data = torch.from_numpy(imgs).to(dev)
+    pair = wp.draw_pair(data, np.random.default_rng(rec["seed"]),
+                        torch.Generator().manual_seed(rec["seed"]))
+
+    def step(p, plain):
+        net = wp.build_backbone(backbone=P17_TRAIN, seed=rec["seed"], **P17_NET)
+        model = KeyMorph(net, P17_NET["num_keypoints"], device=dev).train()
+        loss = wp.affine_mse(model, *p, plain=plain)
+        loss.backward()
+        grads = _grads(model.net)
+        return (float(loss.detach()), float(sum((g ** 2).sum() for g in grads.values()) ** 0.5),
+                grads)
+
+    kernels.reset_counters()
+    kern = step(pair, False)
+    _expect("phase17 (a) step", kernels.counters(), P17_TRAIN_PATH)
+    plain = step(pair, True)
+    noisy = tuple(v * (1.0 + PERTURB * torch.tensor(
+        rng.choice([-1.0, 1.0], size=tuple(v.shape)).astype(np.float32), device=dev))
+        for v in pair)
+    return _hold_readings("phase17 (a) step", kern, plain, step(noisy, True))
+
+
+def _p17_train(torch, dev, rng, out):
+    """(a) ``train_port`` on the card at the committed net's settings: the
+    step check, then its first P17_STEPS steps, their loss every 100 steps
+    beside the committed run's and their final mean loss against the
+    committed run's over the same steps."""
+    from keymorph_tpu_torch.ops import cuda as kernels
+    from keymorph_tpu_torch.tools import weight_parity as wp
+
+    rec, imgs = _p17_data()
+    if not _p17_step(torch, dev, rng, rec, imgs):
+        raise AssertionError("phase 17 (a): the kernel step and the plain step disagree")
+    torch.cuda.synchronize()
+    kernels.reset_counters()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    _, losses = wp.train_port(imgs, P17_STEPS, rec["num_keypoints"], rec["f_maps"],
+                              rec["num_levels"], rec["lr"], seed=rec["seed"], backbone=P17_TRAIN,
+                              device=dev, log_every=0)
+    b.record()
+    torch.cuda.synchronize()
+    out["counts"]["train"] = kernels.counters()
+    _expect("phase 17 (a) train_port", out["counts"]["train"], P17_TRAIN_PATH)
+    ms = a.elapsed_time(b) / P17_STEPS
+    committed = rec["losses"][:P17_STEPS]
+    rows = [f"{i}-{i + 99}: {np.mean(losses[i:i + 100]):.5f} ({np.mean(committed[i:i + 100]):.5f})"
+            for i in range(0, P17_STEPS, 100)]
+    tail, tail_c = float(np.mean(losses[-P17_TAIL:])), float(np.mean(committed[-P17_TAIL:]))
+    rel = abs(tail / tail_c - 1.0)
+    print(f"phase17 (a) train_port {P17_TRAIN} {P17_STEPS} of {rec['steps']} steps at {rec['size']}^3 on the "
+          f"card: {ms:.3f} ms a step (CUDA events; the committed run {rec['ms_per_step_host_clock']:.3f}"
+          f" host clock on {rec['card']}); mean MSE by 100 steps (committed): " + ", ".join(rows))
+    print(f"phase17 (a) steps {P17_STEPS - P17_TAIL}-{P17_STEPS - 1} mean MSE {tail!r}, committed {tail_c!r}: rel {rel!r} "
+          f"(tol {P17_LOSS_REL})")
+    if not (np.all(np.isfinite(losses)) and rel <= P17_LOSS_REL):
+        raise AssertionError("phase 17 (a): the card's training run strays from the committed one")
+
+
+def _p17_dice(torch, grid, oh_f, oh_m):
+    """Hard Dice (no background) of the one-hot moving segmentation warped
+    bilinear by ``grid``, as keymorph_tpu's ``weight_parity._compare`` reads it."""
+    from keymorph_tpu_torch.losses import hard_dice_loss
+    from keymorph_tpu_torch.ops.resample import align_img
+
+    return 1.0 - float(hard_dice_loss(align_img(grid, oh_m), oh_f, ign_first_ch=True))
+
+
+def _p17_serve(torch, dev, out):
+    """(b) the committed nets register each config's held-out pair, five
+    aligns each, on the card and on the CPU; points, grids and hard Dice
+    held under phase 13's card-vs-CPU rule (the yardstick: the CPU route
+    against the float64 backbone and head, run on the card, then the fp32
+    fit, grid and warp on the CPU)."""
+    from keymorph_tpu_torch.models.keymorph import align_pair, parse_transform_type
+    from keymorph_tpu_torch.tools import weight_parity as wp
+    from keymorph_tpu_torch.utils import one_hot
+
+    pairs = wp.eval_pairs(wp.read_record(P17_RUN, "unet")["size"], P17_EVAL_SIZE)
+    ok = True
+    for backbone in wp.CHECKPOINTS:
+        path = P17_RUN / wp.CHECKPOINTS[backbone]
+        card = wp.load_port(path, backbone=backbone, device=dev, **P17_NET)
+        cpu = wp.load_port(path, backbone=backbone, device="cpu", **P17_NET)
+        net64 = wp.build_backbone(backbone=backbone, dtype=torch.float64, **P17_NET)
+        net64.load_state_dict(torch.load(path, map_location="cpu", weights_only=True)["state_dict"])
+        net64.to(dev)
+        kp64 = {}
+        for config in (c for c in wp.CONFIGS if wp.config_backbone(c) == backbone):
+            img_f, img_m, seg_f, seg_m, aff_f, aff_m = pairs[config]
+            n_cls = int(max(seg_f.max(), seg_m.max())) + 1
+            oh = [one_hot(torch.from_numpy(s.astype(np.int64)), n_cls).float() for s in (seg_f, seg_m)]
+            rw = aff_f is not None
+
+            def serve(model):
+                res = wp.port_register(model, img_f, img_m, wp.ALIGNS, aff_f, aff_m)[0]
+                f, m = (v.to(model.device) for v in oh)
+                return res, {k: _p17_dice(torch, model._tensor(r["grid"]), f, m)
+                             for k, r in res.items()}
+
+            got = _timed(torch, out, config, lambda: serve(card))
+            _expect(f"phase 17 (b) {config}", out["counts"][config], P17_SERVE_PATH)
+            ref = serve(cpu)
+            if not kp64:
+                with torch.no_grad():
+                    kp64 = [_com64(torch, net64(torch.from_numpy(x).to(dev).double()).movedim(1, -1))
+                            .float().cpu() for x in (img_f, img_m)]
+            yard = {}
+            for k in wp.ALIGNS:
+                align_type, lm = parse_transform_type(k)
+                rwkw = {} if not rw else {"aff_f": torch.from_numpy(aff_f),
+                                          "aff_m": torch.from_numpy(aff_m)}
+                with torch.no_grad():
+                    g = align_pair(*kp64, align_type, img_m.shape[2:], compute_grid=True,
+                                   lmbda=None if lm is None else torch.full((1,), float(lm)),
+                                   moving_shape=img_m.shape[2:], **rwkw)["grid"]
+                yard[k] = (g, _p17_dice(torch, g, *oh))
+            rows = []
+
+            def hold(name, a, b, c, floor):
+                nonlocal ok
+                d, y = float(np.abs(a - b).max()), float(np.abs(b - c).max())
+                tol = max(floor, CARD_CPU_FACTOR * y)
+                rows.append(f"{name} {d:.3e} (yardstick {y:.3e}, tol {tol:.3e})")
+                ok &= d <= tol and bool(np.all(np.isfinite(a)))
+
+            first = wp.ALIGNS[0]
+            for i, f in enumerate(("points_f", "points_m")):
+                hold(f, got[0][first][f], ref[0][first][f], kp64[i].numpy(), P17_KEYPOINT_ABS)
+            for k in wp.ALIGNS:
+                floor = P17_RW_TPS_ABS if rw and k.startswith("tps") else P17_GRID_ABS
+                hold(f"{k} grid", got[0][k]["grid"], ref[0][k]["grid"], yard[k][0].numpy(), floor)
+                hold(f"{k} harddice", np.float64(got[1][k]), np.float64(ref[1][k]),
+                     np.float64(yard[k][1]), P17_DICE_ABS)
+            print(f"phase17 (b) {config} ({backbone}, {tuple(img_f.shape[2:])}, "
+                  f"{out['ms'][config]:.3f} ms on the card, first call, host clock; hard Dice "
+                  f"{json.dumps({k: round(v, 5) for k, v in got[1].items()})}), card vs CPU: "
+                  + "; ".join(rows))
+    if not ok:
+        raise AssertionError("phase 17 (b): the card's registrations disagree with the CPU's")
+
+
+def phase17(torch, dev):
+    """The port's trained nets (module docstring, phase 17). Returns the
+    launch counts of its device paths."""
+    t0 = time.perf_counter()
+    out = {"ms": {}, "counts": {}}
+    _p17_train(torch, dev, np.random.default_rng([SEED, 17]), out)
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    _p17_serve(torch, dev, out)
+    counts = None
+    for c in out["counts"].values():
+        counts = _add_counts(counts, c)
+    t2 = time.perf_counter()
+    print(f"phase17 counters (summed over its device paths) "
+          f"{json.dumps({k: c['launches'] for k, c in counts.items()})}; (a) {t1 - t0:.3f} s, "
+          f"(b) {t2 - t1:.3f} s, phase 17 {t2 - t0:.3f} s")
+    return counts
+
+
 # --plant-fault: each fault wraps one kernel's wrapper, so only the kernel
 # route sees it (the plain steps call the plain versions by their own names)
 FAULTS = ("warp_grad_plane", "input_grad_half")
@@ -3710,7 +3930,8 @@ def _plant(kind):
 
 
 def fault_control(torch, dev, kind):
-    """Phases 5, 6 and 10 and phase 12's kernel steps with ``kind`` planted
+    """Phases 5, 6 and 10, phase 12's kernel steps and phase 17 (a)'s step
+    check with ``kind`` planted
     in the kernel route: each step comparison whose path holds the faulty
     kernel must fail under the rule it is held to. Phase 5's volumes and
     subset are drawn afresh from the seed, so they differ from those of the
@@ -3727,6 +3948,9 @@ def fault_control(torch, dev, kind):
     step_held = _phase12_steps(torch, rng, dev, img)[1]
     held.update({k: v for k, v in step_held.items()
                  if kind == "input_grad_half" or "same-resolution" in k})
+    if kind == "warp_grad_plane":  # phase 17's fp32 nets reach no conv kernel
+        held["phase17 (a) step"] = _p17_step(torch, dev, np.random.default_rng([SEED, 17]),
+                                             *_p17_data())
     caught = {label: not ok for label, ok in held.items()}
     print(json.dumps({"planted_fault": kind, "seed": SEED, "caught": caught}))
     if not all(caught.values()):
@@ -3830,6 +4054,8 @@ def main():
         import shutil
 
         shutil.rmtree(reg_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    trained_counts = phase17(torch, dev)
 
     def entry(name, key, source):
         # launches: over every main path, each counted from 0 just before it
@@ -3839,14 +4065,15 @@ def main():
         # backbones' steps, phase 13's extraction at an IXI scan's native
         # grid, where the parts form runs; phase 14's parallel paths, over its
         # world of 1 and both ranks of its world of 2; phase 15's tools and
-        # panels; phase 16's bench, entry, dry-run ranks and example). Phase
-        # 1's launches are kept apart.
+        # panels; phase 16's bench, entry, dry-run ranks and example; phase
+        # 17's training run and its served pairs). Phase 1's launches are
+        # kept apart.
         paths = {"launches_served_3_pairs": serve_counts, "launches_3_train_steps": train_counts,
                  "launches_phase9_api": api_counts, "launches_phase10_steps": api_train_counts,
                  "launches_phase11_register": register_counts,
                  "launches_phase12_run": run_counts, "launches_phase13_parts": parts_counts,
                  "launches_phase14": parallel_counts, "launches_phase15_tools": tools_counts,
-                 "launches_phase16": entry_counts}
+                 "launches_phase16": entry_counts, "launches_phase17": trained_counts}
         per_path = {k: c[name]["launches"] for k, c in paths.items()}
         return {"name": name, "route": "cuda", "source": f"keymorph_tpu_torch/csrc/{source}",
                 "replaces": REPLACES[key], "launches": sum(per_path.values()), **per_path,

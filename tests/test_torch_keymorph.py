@@ -13,6 +13,7 @@ was measured at these seeds (the tests print what they measure).
 """
 
 import os
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -378,3 +379,54 @@ def test_keymorph_self_registration_identity(rng):
     res = tm(img, img, transform_type=["affine", "rigid"])
     for name in ("affine", "rigid"):
         np.testing.assert_allclose(_np(res[name]["matrix"])[0], np.eye(4), atol=1e-3)
+
+
+# -- on trained weights (runs/torch_weight_parity) ----------------------------
+
+TRAINED = Path(__file__).resolve().parents[1] / "runs" / "torch_weight_parity"
+TRAINED_NET = dict(num_keypoints=32, f_maps=8, num_levels=3)
+# Flat bars on the committed truncated net and a 32^3 phantom pair, the
+# port in fp32 against keymorph_tpu registering from its float64 keypoints
+# (tests/test_torch_weight_parity.py), at most about twice what was read.
+TRAINED_KEYPOINT_ABS = 1e-6    # read 4.77e-7
+TRAINED_ABS = 1e-5             # grids, matrices, aligned images and points: read <= 7.1e-6
+TRAINED_TPS_GRID_ABS = 5e-5    # the tps_0.1 fit carries the keypoints' gap: read 2.11e-5
+
+
+def trained_models():
+    """keymorph_tpu's KeyMorph with its backbone in float64
+    (``test_torch_weight_parity.Float64KeyMorph``) and the port's in fp32,
+    on the committed trained TruncatedUNet3D, the file loaded by each
+    package's own reader."""
+    from keymorph_tpu_torch.tools import weight_parity as wp
+    from test_torch_weight_parity import jax_float64_model
+
+    path = TRAINED / wp.CHECKPOINTS["truncatedunet"]
+    jm = jax_float64_model(path, "truncatedunet", **TRAINED_NET)
+    tm = wp.load_port(path, backbone="truncatedunet", device="cpu", **TRAINED_NET)
+    return jm, tm
+
+
+def test_keymorph_forward_matches_jax_on_trained_weights():
+    """``model(img_f, img_m, transform_type=["rigid", "affine", "tps_0.1"],
+    return_aligned_points=True)`` on the committed trained net and a
+    held-out phantom pair at 32^3: keypoints within TRAINED_KEYPOINT_ABS of
+    keymorph_tpu's float64 ones, every grid (TPS: TRAINED_TPS_GRID_ABS),
+    matrix and aligned point set within TRAINED_ABS of keymorph_tpu's
+    registration from them, flat (printed)."""
+    from keymorph_tpu_torch.tools.make_synthetic_dataset import make_subjects
+
+    jm, tm = trained_models()
+    imgs, _ = make_subjects(n_subjects=2, size=32, seed=7)
+    f, m = imgs[0:1], imgs[1:2]
+    types = ["rigid", "affine", "tps_0.1"]
+    want = jm(jnp.asarray(f), jnp.asarray(m), transform_type=types, return_aligned_points=True)
+    got = tm(f, m, transform_type=types, return_aligned_points=True)
+    for name in types:
+        g, r = got[name], want[name]
+        d_kp = max(_dist(g["points_f"], r["points_f"]), _dist(g["points_m"], r["points_m"]))
+        d = {k: _dist(g[k], r[k]) for k in ("grid", "points_a", "matrix") if k in r}
+        print(f"{name} (trained): keypoints {d_kp:.3g}, {d}")
+        grid_bar = TRAINED_TPS_GRID_ABS if name.startswith("tps") else TRAINED_ABS
+        assert d_kp <= TRAINED_KEYPOINT_ABS and d.pop("grid") <= grid_bar, name
+        assert max(d.values()) <= TRAINED_ABS, name

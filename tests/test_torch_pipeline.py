@@ -170,7 +170,8 @@ def test_port_imports_neither_jax_nor_keymorph_tpu():
     """The port, every one of its modules (the data layer, the metrics with
     LC2, the CLIs, pretraining, the backbones, the brain extractor and its
     tool, the parallel layer, the panels, the tools, the benchmark, the
-    entry points and the example among them) and chip_smoke.py import torch only:
+    entry points, the example and the weight-parity tool among them) and
+    chip_smoke.py import torch only:
     neither jax nor the JAX package may appear in sys.modules (fresh
     interpreter), and no source line imports them."""
     code = textwrap.dedent("""
@@ -196,7 +197,7 @@ def test_port_imports_neither_jax_nor_keymorph_tpu():
                      "tools.tps_approx_bench", "tools.warp_channels_bench", "tools.flops",
                      "tools.trace_summary", "tools.extract_trace", "tools.train_step_trace",
                      "tools.conv_microbench", "bench", "entry", "examples",
-                     "examples.register_pair", "parallel.launch"):
+                     "examples.register_pair", "parallel.launch", "tools.weight_parity"):
             assert "keymorph_tpu_torch." + want in names, want
         import chip_smoke
         keymorph_tpu_torch.ops.cuda.counters()

@@ -32,6 +32,7 @@ from keymorph_tpu_torch.data import save_nifti
 from keymorph_tpu_torch.models import keymorph as km
 from keymorph_tpu_torch.models.unet import TruncatedUNet3D
 from keymorph_tpu_torch.training.config import Config
+from test_torch_keymorph import TRAINED_ABS, TRAINED_KEYPOINT_ABS, trained_models
 
 K = 8
 CFG = dict(out_channels=K, f_maps=4, num_levels=3, num_truncated_layers=1)
@@ -379,3 +380,43 @@ def test_groupwise_visualize_writes_keymorph_tpus_montage(rng, tmp_path):
         want = _pixels(jviz.plot_groupwise_register, tmp_path, f"jax_{align}",
                        [b[b.shape[0] // 2] for b in before], [a[a.shape[0] // 2] for a in after])
         np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("transform_type,one_hot", [("tps_1", False), ("affine", True)])
+def test_panel_arrays_match_jax_on_trained_weights(tmp_path, monkeypatch, transform_type, one_hot):
+    """``_panel_arrays`` against keymorph_tpu's ``render_registration_panels``
+    on the committed trained net (keymorph_tpu's keypoints from its backbone
+    in float64) and a held-out phantom pair at 32^3 (label maps or one-hot
+    segmentations), flat: the moving and fixed images equal, keypoints
+    within TRAINED_KEYPOINT_ABS, the aligned image and points within
+    TRAINED_ABS (printed); segmentation labels equal but at voxels named as
+    nearest-rounding ties."""
+    from keymorph_tpu_torch.tools.make_synthetic_dataset import make_subjects
+
+    imgs, segs = make_subjects(n_subjects=2, size=32, seed=7)
+    img_f, img_m = imgs[0:1], imgs[1:2]
+    seg_f, seg_m = segs[0:1], segs[1:2]
+    if one_hot:
+        seg_f, seg_m = (np.moveaxis(np.eye(4, dtype=np.float32)[s[:, 0]], -1, 1)
+                        for s in (seg_f, seg_m))
+    jm, tm = trained_models()
+    shown = []
+    monkeypatch.setattr(jviz, "imshow_registration_3d",
+                        lambda *a, **k: shown.append((a, k.get("weights"))))
+    jviz.render_registration_panels(jm, jnp.asarray(img_f), jnp.asarray(img_m), transform_type,
+                                    str(tmp_path / "jax"), "t", seg_f=seg_f, seg_m=seg_m)
+    got = viz._panel_arrays(tm, img_f, img_m, transform_type, seg_f=seg_f, seg_m=seg_m)
+    (want_img, _), (want_seg, _) = shown
+    names = ("moving", "fixed", "aligned", "points_m", "points_f", "points_a")
+    d = {n: _dist(g, w) for n, g, w in zip(names, got["img"] + got["points"], want_img)}
+    print(f"{transform_type} one_hot={one_hot} (trained): port vs keymorph_tpu {d}")
+    assert d["moving"] == d["fixed"] == 0.0
+    assert max(d["points_m"], d["points_f"]) <= TRAINED_KEYPOINT_ABS
+    assert max(d["aligned"], d["points_a"]) <= TRAINED_ABS
+    np.testing.assert_array_equal(got["seg"][0], np.asarray(want_seg[0]))
+    np.testing.assert_array_equal(got["seg"][1], np.asarray(want_seg[1]))
+    res = tm(img_f, img_m, transform_type=transform_type)
+    ties = _nearest_ties(res[transform_type]["grid"].numpy(), img_f.shape[2:])
+    differ = got["seg"][2] != np.asarray(want_seg[2])
+    print(f"labels differ at {differ.sum()} of {differ.size} voxels, {ties.sum()} near a tie")
+    assert not np.any(differ & ~ties)
