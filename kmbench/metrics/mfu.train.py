@@ -1,0 +1,8 @@
+"""Useful FLOPs of the traced window's completed steps (forward and
+backward, no recomputation) over the window, against 989 TFLOP/s."""
+
+from kmbench.readings import mfu_pct
+
+
+def read(data):
+    return mfu_pct(data)
