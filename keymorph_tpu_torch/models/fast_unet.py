@@ -45,6 +45,7 @@ from torch.utils.checkpoint import checkpoint
 
 from keymorph_tpu_torch.models.unet import AbstractUNet, gn_groups, supports_fast_unet
 from keymorph_tpu_torch.ops.cuda import conv3d
+from keymorph_tpu_torch.tracing import span
 from keymorph_tpu_torch.ops.cuda.conv3d import channel_stats, upsample_nearest_flat
 
 _KERNEL_CONVS = SimpleNamespace(
@@ -119,9 +120,10 @@ def _maxpool2_flat(xf, spatial):
     Z, Y, X = spatial
     C = xf.shape[1]
     Zh, Yh, Xh = Z // 2, Y // 2, X // 2
-    x4 = xf.reshape(Z, C, Y, X)[: 2 * Zh, :, : 2 * Yh, : 2 * Xh]
-    p = x4.reshape(Zh, 2, C, Yh, 2, Xh, 2).amax(dim=(1, 4, 6))
-    return p.reshape(Zh, C, Yh * Xh).contiguous(), (Zh, Yh, Xh)
+    with span("unet.pool"):
+        x4 = xf.reshape(Z, C, Y, X)[: 2 * Zh, :, : 2 * Yh, : 2 * Xh]
+        p = x4.reshape(Zh, 2, C, Yh, 2, Xh, 2).amax(dim=(1, 4, 6))
+        return p.reshape(Zh, C, Yh * Xh).contiguous(), (Zh, Yh, Xh)
 
 
 def fast_unet_forward(unet: AbstractUNet, img: torch.Tensor, plain: bool = False):
@@ -178,8 +180,9 @@ def fast_unet_forward(unet: AbstractUNet, img: torch.Tensor, plain: bool = False
                 xf = block(dec.basic_module, skip, sk_sp, stats0=stats0, xb=xb)
             spatial = sk_sp
         # final 1x1 conv: bf16 operands, fp32 products and sums, fp32 bias
-        hw = unet.final_conv.weight[:, :, 0, 0, 0].t().to(torch.bfloat16).float()
-        hb = unet.final_conv.bias.float()
-        out = torch.matmul(xf.float().transpose(1, 2), hw) + hb  # (Z, Y*X, K)
-        outs.append(out.reshape(*spatial, -1).to(torch.bfloat16))
+        with span("unet.final"):
+            hw = unet.final_conv.weight[:, :, 0, 0, 0].t().to(torch.bfloat16).float()
+            hb = unet.final_conv.bias.float()
+            out = torch.matmul(xf.float().transpose(1, 2), hw) + hb  # (Z, Y*X, K)
+            outs.append(out.reshape(*spatial, -1).to(torch.bfloat16))
     return torch.stack(outs, dim=0)

@@ -28,7 +28,6 @@ from __future__ import annotations
 import math
 import os
 import re
-import time
 from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -42,6 +41,7 @@ from keymorph_tpu_torch.models.unet import supports_fast_unet
 from keymorph_tpu_torch.ops import coords
 from keymorph_tpu_torch.ops.cuda import tpsflow
 from keymorph_tpu_torch.ops.planes import affine_flow_planes
+from keymorph_tpu_torch.tracing import StageTimer, span
 from keymorph_tpu_torch.transforms import solvers
 from keymorph_tpu_torch.transforms.affine import affine_flow
 
@@ -135,14 +135,16 @@ class KeyMorphNet(nn.Module):
         keymorph_tpu's ``features`` applies the flax module (XLA convs, no
         Pallas kernel) where its executor does not apply.
         """
-        if supports_fast_unet(self.backbone):
-            return fast_unet_forward(self.backbone, img, plain=plain)
-        return self.backbone(img).movedim(1, -1)
+        with span("backbone"):
+            if supports_fast_unet(self.backbone):
+                return fast_unet_forward(self.backbone, img, plain=plain)
+            return self.backbone(img).movedim(1, -1)
 
     def keypoints_from_features(self, feat: torch.Tensor) -> torch.Tensor:
-        if self.keypoint_layer == "com":
-            return center_of_mass(feat)
-        return self.regressor(feat)
+        with span("head"):
+            if self.keypoint_layer == "com":
+                return center_of_mass(feat)
+            return self.regressor(feat)
 
     def get_keypoints(self, img: torch.Tensor, return_feat: bool = False,
                       plain: bool = False):
@@ -274,62 +276,70 @@ def align_pair(points_f: torch.Tensor, points_m: torch.Tensor, align_type: str,
     if want_planes and d != 3:
         raise ValueError(f"compute_grid='planes' is 3D only (keymorph_tpu's planes path "
                          f"unpacks three sizes); got {d}D keypoints")
-    pf, pm = points_f.float(), points_m.float()
-    if rw:
-        aff_f, aff_m = aff_f.float(), aff_m.float()
-        pf = coords.convert_points_norm2real(pf, aff_f, spatial)
-        pm = coords.convert_points_norm2real(pm, aff_m, spatial_m)
-
-    def grid_points():
-        g = coords.flat_norm_grid(spatial, device=pf.device).expand(B, -1, d)
-        return coords.convert_points_norm2real(g, aff_f, spatial) if rw else g
-
-    def store_grid(moved):
+    with span("align"):
+        pf, pm = points_f.float(), points_m.float()
         if rw:
-            moved = coords.convert_points_real2norm(moved, aff_m, spatial_m)
-        grid = torch.flip(moved.reshape(B, *spatial, d), dims=(-1,))
-        if want_planes:
-            out["planes"] = torch.flip(torch.movedim(grid, -1, 1), dims=(1,)).contiguous()
-        else:
-            out["grid"] = grid
+            aff_f, aff_m = aff_f.float(), aff_m.float()
+            pf = coords.convert_points_norm2real(pf, aff_f, spatial)
+            pm = coords.convert_points_norm2real(pm, aff_m, spatial_m)
 
-    if align_type in ("affine", "rigid"):
-        fit = solvers.fit_affine if align_type == "affine" else solvers.fit_rigid
-        inverse = solvers.square_matrix(fit(pf, pm, weights))
-        matrix = torch.linalg.inv_ex(inverse)[0]
-        out["matrix"] = matrix
-        if compute_grid and rw:
-            store_grid(coords.apply_matrix(inverse, grid_points()))
-        elif want_planes:
-            out["planes"] = affine_flow_planes(inverse, spatial)
-        elif compute_grid:
-            out["grid"] = affine_flow(inverse, spatial)
+        def grid_points():
+            g = coords.flat_norm_grid(spatial, device=pf.device).expand(B, -1, d)
+            return coords.convert_points_norm2real(g, aff_f, spatial) if rw else g
+
+        def store_grid(moved):
+            if rw:
+                moved = coords.convert_points_real2norm(moved, aff_m, spatial_m)
+            grid = torch.flip(moved.reshape(B, *spatial, d), dims=(-1,))
+            if want_planes:
+                out["planes"] = torch.flip(torch.movedim(grid, -1, 1), dims=(1,)).contiguous()
+            else:
+                out["grid"] = grid
+
+        if align_type in ("affine", "rigid"):
+            fit = solvers.fit_affine if align_type == "affine" else solvers.fit_rigid
+            with span("align.fit"):
+                inverse = solvers.square_matrix(fit(pf, pm, weights))
+                matrix = torch.linalg.inv_ex(inverse)[0]
+            out["matrix"] = matrix
+            if compute_grid:
+                with span("align.flow"):
+                    if rw:
+                        store_grid(coords.apply_matrix(inverse, grid_points()))
+                    elif want_planes:
+                        out["planes"] = affine_flow_planes(inverse, spatial)
+                    else:
+                        out["grid"] = affine_flow(inverse, spatial)
+            if compute_aligned_points:
+                pa = coords.apply_matrix(matrix, pm)
+                out["points_a"] = coords.convert_points_real2norm(pa, aff_f, spatial) if rw else pa
+            return out
+
+        approx = tps_centers is not None and int(tps_centers) < pf.shape[1]
+        S = int(tps_centers) if approx else pf.shape[1]
+        with span("align.fit"):
+            if approx:
+                theta = solvers.fit_tps_approximate(pf, pm, lmbda, S, weights)
+            else:
+                theta = solvers.fit_tps(pf, pm, lmbda, weights)
+            theta, ctrl = theta.contiguous(), pf[:, :S].contiguous()
+        if compute_grid:
+            with span("align.flow"):
+                if want_planes and not rw:
+                    flow = tpsflow.tps_planes_plain if plain else tpsflow.tps_planes
+                    out["planes"] = flow(theta, ctrl, spatial)
+                else:
+                    evaluate = solvers.tps_eval_chunked_plain if plain else solvers.tps_eval_chunked
+                    store_grid(evaluate(theta, ctrl, grid_points()))
         if compute_aligned_points:
-            pa = coords.apply_matrix(matrix, pm)
+            with span("align.fit"):
+                if approx:
+                    back = solvers.fit_tps_approximate(pm, pf, lmbda, S, weights)
+                else:
+                    back = solvers.fit_tps(pm, pf, lmbda, weights)
+            pa = solvers.tps_eval(back, pm[:, :S], pm)
             out["points_a"] = coords.convert_points_real2norm(pa, aff_f, spatial) if rw else pa
         return out
-
-    approx = tps_centers is not None and int(tps_centers) < pf.shape[1]
-    S = int(tps_centers) if approx else pf.shape[1]
-    if approx:
-        theta = solvers.fit_tps_approximate(pf, pm, lmbda, S, weights)
-    else:
-        theta = solvers.fit_tps(pf, pm, lmbda, weights)
-    theta, ctrl = theta.contiguous(), pf[:, :S].contiguous()
-    if want_planes and not rw:
-        flow = tpsflow.tps_planes_plain if plain else tpsflow.tps_planes
-        out["planes"] = flow(theta, ctrl, spatial)
-    elif compute_grid:
-        evaluate = solvers.tps_eval_chunked_plain if plain else solvers.tps_eval_chunked
-        store_grid(evaluate(theta, ctrl, grid_points()))
-    if compute_aligned_points:
-        if approx:
-            back = solvers.fit_tps_approximate(pm, pf, lmbda, S, weights)
-        else:
-            back = solvers.fit_tps(pm, pf, lmbda, weights)
-        pa = solvers.tps_eval(back, pm[:, :S], pm)
-        out["points_a"] = coords.convert_points_real2norm(pa, aff_f, spatial) if rw else pa
-    return out
 
 
 def _groupwise_iterate(points: torch.Tensor, lmbda, weights, align_type: str,
@@ -371,8 +381,10 @@ class KeyMorph:
     ``use_amp`` is kept for the signature alone. ``device`` (None = the CUDA card, raising
     without one; tests pass "cpu") holds the net, the inputs and a
     ``torch.Generator`` for the random draws (``seed_rng``). Gradients flow
-    only in ``train()`` mode. The time fields are the host clock around
-    ``torch.cuda.synchronize``. keymorph_tpu's ``set_allow_pallas`` switch
+    only in ``train()`` mode. The time fields are seconds between
+    :class:`~keymorph_tpu_torch.tracing.StageTimer` marks (CUDA events on the
+    card, the host clock on the CPU), read after one wait at the end of the
+    call. keymorph_tpu's ``set_allow_pallas`` switch
     (for its GSPMD-partitioned programs) has no counterpart: the port runs
     its kernels wherever the tensors are on the card.
     """
@@ -428,10 +440,6 @@ class KeyMorph:
         x = x if torch.is_tensor(x) else torch.as_tensor(np.asarray(x))
         return x.to(device=self.device, dtype=torch.float32)
 
-    def _sync(self):
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-
     def get_keypoints(self, img, return_feat: bool = False):
         with torch.set_grad_enabled(self.training):
             return self.net.get_keypoints(self._tensor(img), return_feat=return_feat)
@@ -466,16 +474,16 @@ class KeyMorph:
         if self.align_keypoints_in_real_world_coords:
             aff_f, aff_m = self._tensor(kwargs["aff_f"]), self._tensor(kwargs["aff_m"])
 
+        timer = StageTimer(self.device)
         with torch.set_grad_enabled(self.training):
-            t0 = time.perf_counter()
+            start = timer.mark()
             extract = self.net.pair_ranked_by_mass if self.num_tps_centers else self.net
             points_f, points_m, weights = extract(img_f, img_m)
-            self._sync()
-            extract_time = time.perf_counter() - t0
+            extracted = timer.mark()
 
             result: RegistrationResult = {}
+            timed, prev = [], extracted
             for name in transform_type:
-                t0 = time.perf_counter()
                 align_type, lmbda_spec = parse_transform_type(name)
                 lmbda = None
                 p_f, p_m, w = points_f, points_m, weights
@@ -493,17 +501,21 @@ class KeyMorph:
                     aff_m=aff_m, moving_shape=shape_m,
                     tps_centers=(self.num_tps_centers
                                  if align_type == "tps" and not self.training else None))
-                self._sync()
-                align_time = time.perf_counter() - t0
                 res = {"grid": aligned["grid"], "points_f": p_f, "points_m": p_m,
-                       "points_weights": w, "tps_lmbda": lmbda,
-                       "time_keypoint_extract": extract_time, "time_align": align_time,
-                       "time": extract_time + align_time}
+                       "points_weights": w, "tps_lmbda": lmbda}
                 if align_type in ("rigid", "affine"):
                     res["matrix"] = aligned["matrix"]
                 if ret_pts:
                     res["points_a"] = aligned["points_a"]
                 result[name] = res
+                timed.append((res, prev, timer.mark()))
+                prev = timed[-1][2]
+        timer.wait()
+        extract_time = timer.seconds(start, extracted)
+        for res, a, b in timed:
+            align_time = timer.seconds(a, b)
+            res.update(time_keypoint_extract=extract_time, time_align=align_time,
+                       time=extract_time + align_time)
         return result
 
     def _subject_weights(self, feat: torch.Tensor) -> torch.Tensor:
@@ -623,8 +635,9 @@ class KeyMorph:
             group_weights = torch.cat(weights) if self.weight_keypoints else None
 
             result: RegistrationResult = {}
+            timer, timed = StageTimer(self.device), []
             for name in transform_type:
-                t0 = time.perf_counter()
+                start = timer.mark()
                 align_type, lmbda_spec = parse_transform_type(name)
                 if align_type == "tps" and not isinstance(lmbda_spec, (int, float)):
                     raise ValueError(
@@ -635,9 +648,8 @@ class KeyMorph:
                                           device=self.device) if align_type == "tps" else None)
                 curr, mean_points = _groupwise_iterate(group_points, lmbda, group_weights,
                                                        align_type, num_iters)
-                self._sync()
-                res = {"time": time.perf_counter() - t0, "grouppoints_m": group_points,
-                       "grouppoints_a": curr}
+                res = {"grouppoints_m": group_points, "grouppoints_a": curr}
+                timed.append((res, start, timer.mark()))
                 if group_weights is not None:
                     res["grouppoints_weights"] = group_weights
                 grid_batch = batch_size("grid_batch")
@@ -664,6 +676,9 @@ class KeyMorph:
                 if grids:
                     res["groupgrids"] = torch.cat(grids)
                 result[name] = res
+        timer.wait()
+        for res, a, b in timed:
+            res["time"] = timer.seconds(a, b)
         if log:
             print("Groupwise registration complete!")
         return result

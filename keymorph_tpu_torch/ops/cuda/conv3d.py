@@ -66,6 +66,7 @@ import torch
 import torch.nn.functional as F
 
 from keymorph_tpu_torch import _build
+from keymorph_tpu_torch.tracing import span
 
 
 # ---------------------------------------------------------------------------
@@ -525,8 +526,9 @@ class _FusedConv(torch.autograd.Function):
 
         y = None
         if relu or emit_stats:
-            y = _forward(mode, plain, xa, xb, spatial, w, scale, shift, bias, relu,
-                         False)
+            with span("conv.recompute"):
+                y = _forward(mode, plain, xa, xb, spatial, w, scale, shift, bias, relu,
+                             False)
         g = g_y.float()
         if emit_stats:
             n = float(Z * Y * X)
@@ -537,10 +539,11 @@ class _FusedConv(torch.autograd.Function):
         g_v = g.to(torch.bfloat16).contiguous()
         del g, y
 
-        if plain or g_v.device.type == "cpu":
-            g_ua, g_ub = conv3x3_input_grad_plain(g_v, spatial, w, ca)
-        else:
-            g_ua, g_ub = conv3x3_input_grad(g_v, spatial, w, ca)
+        with span("conv.input_grad"):
+            if plain or g_v.device.type == "cpu":
+                g_ua, g_ub = conv3x3_input_grad_plain(g_v, spatial, w, ca)
+            else:
+                g_ua, g_ub = conv3x3_input_grad(g_v, spatial, w, ca)
 
         # the half-resolution source sees the 2x2x2 block sums of g_u
         gb = None
@@ -571,12 +574,13 @@ class _FusedConv(torch.autograd.Function):
             g_bias = g_v.sum(dim=(0, 2), dtype=torch.float32).to(bias.dtype)
         del ga, gb
         if need[7]:
-            u = _full_input(xa, xb, lowres, spatial).float()
-            if scale is not None:
-                u = u * scale.float()[None, :, None]
-            if shift is not None:
-                u = u + shift.float()[None, :, None]
-            g_w = _weight_grad(u.to(torch.bfloat16), g_v, spatial).to(w.dtype)
+            with span("conv.weight_grad"):
+                u = _full_input(xa, xb, lowres, spatial).float()
+                if scale is not None:
+                    u = u * scale.float()[None, :, None]
+                if shift is not None:
+                    u = u + shift.float()[None, :, None]
+                g_w = _weight_grad(u.to(torch.bfloat16), g_v, spatial).to(w.dtype)
         return (None, None, None, None, None, g_xa, g_xb, g_w, g_scale, g_shift,
                 g_bias)
 

@@ -17,6 +17,7 @@ import itertools
 import torch
 
 from keymorph_tpu_torch.ops.cuda import resample3d
+from keymorph_tpu_torch.tracing import span
 
 
 def grid_to_planes(grid: torch.Tensor) -> torch.Tensor:
@@ -92,13 +93,15 @@ def grid_sample(img: torch.Tensor, grid: torch.Tensor, mode: str = "bilinear"):
 
 def align_img(grid: torch.Tensor, x: torch.Tensor, mode: str = "bilinear"):
     """Warp image ``x`` with sampling grid ``grid`` (reference argument order)."""
-    return grid_sample(x, grid, mode=mode)
+    with span("warp"):
+        return grid_sample(x, grid, mode=mode)
 
 
 def align_planes(planes: torch.Tensor, x: torch.Tensor, mode: str = "bilinear"):
     """Warp image ``x`` from ``ij``-ordered coordinate planes (B, 3, D, H, W);
     equals ``align_img`` on the ``xy`` grid ``flip(moveaxis(planes, 1, -1), -1)``."""
-    return resample3d.warp_planes(x, planes, mode)
+    with span("warp"):
+        return resample3d.warp_planes(x, planes, mode)
 
 
 def _require_3d_field(field: torch.Tensor, name: str):

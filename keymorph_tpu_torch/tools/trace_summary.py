@@ -8,12 +8,22 @@ Chrome trace; ``DeviceType.CUDA`` events in a live profile). The device's
 busy time is the union of those intervals, so overlapping streams count
 once; its idle share is 1 - busy / the host's wall time of the run.
 
+The program's spans (``keymorph_tpu_torch/tracing.py``: ``km.*`` ranges on
+the profiler's clock) split the device's time and its idle gaps: a device
+operation belongs to the innermost ``km.*`` range open on the thread that
+launched it (the runtime call of the same correlation id), or, where that
+thread has none open (autograd's device thread), to the innermost one open
+on any thread; it counts for every span that range lies within, on any
+thread. An operation's idle gap is the device's idle time between the end
+of everything before it and its start.
+
 Usage:
     python -m keymorph_tpu_torch.tools.trace_summary <trace.json[.gz] or dir> [top_n]
 
 Library:
     profile_fn(fn, *args) -> (result, summary)
     summarize_trace(path, top_n) -> [(name, total_ms, count)]
+    summarize_spans(path) -> [(span, device_ms, idle_ms)]
 """
 
 from __future__ import annotations
@@ -26,6 +36,8 @@ import sys
 import time
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
+SPAN_PREFIX = "km."
 
 
 def find_trace_file(path: str):
@@ -53,12 +65,61 @@ def device_reading(intervals, top_n=None):
     return busy, rows[:top_n] if top_n else rows
 
 
-def _trace_intervals(trace_path: str):
+def _trace_events(trace_path: str):
     opener = gzip.open if trace_path.endswith(".gz") else open
     with opener(trace_path, "rt") as fh:
-        events = json.load(fh).get("traceEvents", [])
+        return [e for e in json.load(fh).get("traceEvents", []) if e.get("ph") == "X"]
+
+
+def _trace_intervals(trace_path: str):
     return [(e.get("name", "?"), float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)))
-            for e in events if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS]
+            for e in _trace_events(trace_path) if e.get("cat") in DEVICE_CATS]
+
+
+def span_reading(events):
+    """[(span, device ms, idle ms)] of the ``km.*`` ranges among Chrome
+    trace ``events``, by device time, the largest first; [] where the trace
+    holds no device activity (not measured)."""
+    ranges, launches, device = [], [], []
+    for e in events:
+        cat, name, ts = e.get("cat"), e.get("name", ""), float(e.get("ts", 0))
+        end = ts + float(e.get("dur", 0))
+        corr = (e.get("args") or {}).get("correlation")
+        if cat in DEVICE_CATS:
+            device.append((ts, end, corr))
+        elif cat in LAUNCH_CATS and corr is not None:
+            launches.append((ts, corr, e.get("tid")))
+        elif cat == "user_annotation" and name.startswith(SPAN_PREFIX):
+            ranges.append((ts, end, name, e.get("tid")))
+    if not device:
+        return []
+    ranges.sort(key=lambda r: (r[0], -r[1]))  # every container before what it holds
+    around = [{o[2] for o in ranges[: i + 1] if o[1] >= r[1]} for i, r in enumerate(ranges)]
+    owner, active, nxt = {}, [], 0
+    for ts, corr, tid in sorted(launches, key=lambda launch: launch[0]):
+        while nxt < len(ranges) and ranges[nxt][0] <= ts:
+            active.append(nxt)
+            nxt += 1
+        active = [i for i in active if ranges[i][1] >= ts]
+        mine = [i for i in active if ranges[i][3] == tid]
+        if mine or active:
+            owner[corr] = max(mine or active)  # the innermost
+    totals = {r[2]: [0.0, 0.0] for r in ranges}
+    last = None
+    for s, e, corr in sorted(device, key=lambda d: d[0]):
+        gap = max(0.0, s - last) if last is not None else 0.0
+        last = e if last is None else max(last, e)
+        for name in around[owner[corr]] if corr in owner else ():
+            totals[name][0] += e - s
+            totals[name][1] += gap
+    rows = [(name, dev / 1e3, idle / 1e3) for name, (dev, idle) in totals.items()]
+    return sorted(rows, key=lambda r: -r[1])
+
+
+def summarize_spans(trace_path: str):
+    """[(span, device ms, idle ms)] of a Chrome trace's ``km.*`` spans
+    (:func:`span_reading`)."""
+    return span_reading(_trace_events(trace_path))
 
 
 def summarize_trace(trace_path: str, top_n: int = 20):
@@ -115,6 +176,11 @@ def main():
         total += ms
         print(f"{ms:10.3f} ms  x{count:<5d} {name[:100]}")
     print(f"{'':>10}  (top-{top_n} total {total:.3f} ms)")
+    spans = summarize_spans(trace)
+    if spans:
+        print("by span: device ms, idle ms before its operations")
+    for name, device_ms, idle_ms in spans:
+        print(f"{device_ms:10.3f} ms  {idle_ms:10.3f} ms idle  {name}")
 
 
 if __name__ == "__main__":

@@ -44,6 +44,7 @@ from keymorph_tpu_torch.models.keymorph import (
 from keymorph_tpu_torch.ops.cuda import resample3d
 from keymorph_tpu_torch.ops.resample import grid_sample_2d, grid_to_planes
 from keymorph_tpu_torch.ops.resize import resize_trilinear
+from keymorph_tpu_torch.tracing import span
 from keymorph_tpu_torch.training.config import Config
 from keymorph_tpu_torch.utils import aggregate_dicts, one_hot, one_hot_subsampled_pair
 
@@ -138,7 +139,7 @@ def _make_step(net: nn.Module, config: Config, plain: bool, model_size):
     def loss_fn(generator, img_f, img_m, seg_f, seg_m, aug_scale, aff_f, aff_m, lmbda,
                 keypoint_idx, aug_params):
         if aug_params is not None or any(p > 0 for p in max_params):
-            with torch.no_grad():
+            with torch.no_grad(), span("train.augment"):
                 seg = seg_m if use_dice else None
                 if aug_params is None:
                     out = augment.random_affine_augment(
@@ -154,11 +155,13 @@ def _make_step(net: nn.Module, config: Config, plain: bool, model_size):
                 if rw:
                     aff_m = aff_m @ aug_M
 
-        if model_size is None:
-            points_f, points_m, weights = net(img_f, img_m, plain=plain)
-        else:  # keypoints from the model's resolution, the loss at the original
-            points_f, points_m, weights = net(resize_trilinear(img_f, model_size),
-                                              resize_trilinear(img_m, model_size), plain=plain)
+        with span("train.extract"):
+            if model_size is None:
+                points_f, points_m, weights = net(img_f, img_m, plain=plain)
+            else:  # keypoints from the model's resolution, the loss at the original
+                points_f, points_m, weights = net(resize_trilinear(img_f, model_size),
+                                                  resize_trilinear(img_m, model_size),
+                                                  plain=plain)
 
         if align_type == "tps":
             if lmbda is None:
@@ -177,12 +180,13 @@ def _make_step(net: nn.Module, config: Config, plain: bool, model_size):
                           aff_f=aff_f if rw else None, aff_m=aff_m if rw else None,
                           moving_shape=img_m.shape[2:], plain=plain)
         flow = flow["planes" if use_planes else "grid"]
-        if use_dice:
-            loss = soft_dice_loss(warp(flow, seg_m, use_planes), seg_f)
-            metrics = {"softdiceloss": loss, "softdice": 1.0 - loss}
-        else:
-            loss = mse_loss(img_f, warp(flow, img_m, use_planes))
-            metrics = {"mse": loss}
+        with span("train.loss"):
+            if use_dice:
+                loss = soft_dice_loss(warp(flow, seg_m, use_planes), seg_f)
+                metrics = {"softdiceloss": loss, "softdice": 1.0 - loss}
+            else:
+                loss = mse_loss(img_f, warp(flow, img_m, use_planes))
+                metrics = {"mse": loss}
         metrics["loss"] = loss
         return loss, metrics
 
@@ -194,10 +198,12 @@ def _make_step(net: nn.Module, config: Config, plain: bool, model_size):
         state.optimizer.zero_grad(set_to_none=True)
         loss, metrics = loss_fn(generator, img_f, img_m, seg_f, seg_m, float(aug_scale),
                                 aff_f, aff_m, lmbda, keypoint_idx, aug_params)
-        loss.backward()
+        with span("train.backward"):
+            loss.backward()
         metrics = {k: v.detach() for k, v in metrics.items()}
-        metrics["grad_norm"] = _global_norm(net.parameters())
-        state.optimizer.step()
+        with span("train.optimizer"):
+            metrics["grad_norm"] = _global_norm(net.parameters())
+            state.optimizer.step()
         state.step += 1
         return state, metrics
 

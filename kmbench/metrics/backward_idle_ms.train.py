@@ -1,0 +1,9 @@
+"""The device's idle gaps before the kernels launched inside the program's
+``km.train.backward`` span (``loss.backward()``, on autograd's device
+thread), over the profiled steps, a step."""
+
+from kmbench.program_spans import idle_ms, per_unit
+
+
+def read(data):
+    return per_unit(data, idle_ms, "train.backward")

@@ -252,6 +252,58 @@ def test_profile_fn_on_the_cpu(tmp_path):
     assert trace is not None and trace_summary.summarize_trace(trace) == []
 
 
+def _span_trace(path):
+    """Thread 1: ``km.align`` (0-60) holding ``km.align.fit`` (5-20), then
+    ``km.train.backward`` (100-200); thread 2 (autograd's):
+    ``km.conv.weight_grad`` (120-150). Kernels (us): 12-20 and 56-58 from
+    thread 1 inside the fit and the align, 81-90 outside any span, 126-140
+    from thread 2 inside its span, 161-171 from thread 2 outside it."""
+    def x(cat, name, ts, dur, tid=1, corr=None):
+        return {"ph": "X", "cat": cat, "name": name, "ts": ts, "dur": dur, "tid": tid,
+                **({"args": {"correlation": corr}} if corr is not None else {})}
+
+    events = [x("user_annotation", "km.align", 0, 60), x("user_annotation", "km.align.fit", 5, 15),
+              x("user_annotation", "km.train.backward", 100, 100),
+              x("user_annotation", "km.conv.weight_grad", 120, 30, tid=2)]
+    for corr, (launch, tid, start, end) in enumerate([(10, 1, 12, 20), (55, 1, 56, 58),
+                                                      (80, 1, 81, 90), (125, 2, 126, 140),
+                                                      (160, 2, 161, 171)]):
+        events += [x("cuda_runtime", "cudaLaunchKernel", launch, 1, tid=tid, corr=corr),
+                   x("kernel", f"k{corr}", start, end - start, tid=7, corr=corr)]
+    path.write_text(json.dumps({"traceEvents": events}))
+
+
+def test_summarize_spans_splits_device_and_idle_time(tmp_path, capsys, monkeypatch):
+    path = tmp_path / "epoch1.json"
+    _span_trace(path)
+    rows = {name: (dev, idle) for name, dev, idle in trace_summary.summarize_spans(str(path))}
+    want = {"km.train.backward": (0.024, 0.057), "km.conv.weight_grad": (0.014, 0.036),
+            "km.align": (0.010, 0.036), "km.align.fit": (0.008, 0.0)}
+    assert set(rows) == set(want)
+    for name, (dev, idle) in want.items():
+        assert rows[name] == (pytest.approx(dev), pytest.approx(idle)), name
+    monkeypatch.setattr("sys.argv", ["trace_summary", str(path)])
+    trace_summary.main()
+    out = capsys.readouterr().out
+    assert "by span" in out and "km.conv.weight_grad" in out
+
+
+def test_summarize_spans_of_a_cpu_step_is_not_measured(tmp_path):
+    """A profiled CPU step records the spans and no device activity: no
+    split is read from it."""
+    from keymorph_tpu_torch import tracing
+
+    def step(a):
+        with tracing.span("train.backward"):
+            return a * 2
+
+    _, summary = trace_summary.profile_fn(step, torch.arange(4.0), trace_dir=str(tmp_path))
+    trace = trace_summary.find_trace_file(str(tmp_path))
+    events = trace_summary._trace_events(trace)
+    assert any(e.get("name") == "km.train.backward" for e in events)
+    assert trace_summary.summarize_spans(trace) == []
+
+
 def test_tps_approx_bench_on_the_cpu(capsys):
     """16^3, K = 16, S = 4 and 8: one JSON line with the exact and
     approximate times on the host clock (no card: ``card`` null), each
