@@ -7,7 +7,8 @@ the port builds, launches and registers on the card).
 ``--seed`` (0 unless given) seeds the weights, the volumes and every
 phase's inputs; the tolerances do not depend on it. ``--plant-fault``
 (``warp_grad_plane``: the warp-gradient kernel's first plane zeroed;
-``input_grad_half``: the conv input-gradient kernel's output halved) is a
+``input_grad_half``: the conv input-gradient kernel's output halved;
+``weight_grad_half``: the conv weight-gradient kernel's output halved) is a
 control of phases 6, 10, 12 and 17's rule: it wraps that kernel with the
 fault, runs phases 5, 6 and 10, phase 12's kernel steps and (for
 ``warp_grad_plane``) phase 17 (a)'s step check only, and exits 0 only if
@@ -29,7 +30,12 @@ Phases (each prints its lines; any failure raises, so the exit code is not 0):
      done. The conv runs at ten shapes of the U-Net (e0c1, e0c2, d1c2, e3c2
      flat; d1c1 and d0c1 as upconv, d1c1 as parts; the input gradients of
      e0c2, d1c1 and d1c2) with its achieved TFLOP/s, and at d0c1 (K = 27*384)
-     kernel and plain version are each held against a float64 conv; the three
+     kernel and plain version are each held against a float64 conv; the
+     conv weight gradient at the 12 convs of the 128^3 training net, against
+     its plain version per weight within WGRAD_TOL of the sum of its terms'
+     magnitudes, its library call ``torch.nn.grad.conv3d_weight`` in bf16 on
+     the materialized input, its bound counting each source at its own
+     resolution; the three
      TPS kernels and their plain versions are each held against the float64
      evaluation of the same formula, for splines fitted at lmbda 1, 1e-4 and
      1e-6 (the bottom of the range training draws from); the TPS backward
@@ -292,6 +298,13 @@ SMALL_LMBDA = 1e-4
 MIN_LMBDA = 1e-6
 FLOAT64_FACTOR = 4.0
 WARP_GRAD_REL = 1e-5       # x max|ref|: the same fp32 terms, FMA-contracted in the kernel
+# The conv weight gradient sums exact products of bf16 values in fp32, split
+# across blocks by voxels and the splits then summed in order; its plain
+# version sums the same products in cuBLAS's order. Each weight is held to
+# WGRAD_TOL x S, S = sum |u| |g_v| of its terms (an fp32 sum's error scales
+# with S, not with the result, which cancels); the GPU tests measured at most
+# 4.1e-7 of S over 24 shapes (NVIDIA H100 80GB HBM3, 700.00 W).
+WGRAD_TOL = 1e-5
 # phase 3, plain path vs kernel path end to end: bf16 conv outputs may differ
 # by 1 ulp and the random-weight net and the TPS fit carry that on, so the
 # tolerance is the larger of these floors and NOISE_FACTOR x what the plain
@@ -339,6 +352,8 @@ TRAIN_LR = 3e-6
 REPLACES = {
     "conv": "keymorph_tpu/ops/pallas/conv3d.py:337",
     "conv_grad": "keymorph_tpu/ops/pallas/conv3d.py:159",
+    # no Pallas kernel: the 27 XLA einsums of _conv_bwd
+    "conv_wgrad": "keymorph_tpu/ops/pallas/conv3d.py:1199",
     "tps": "keymorph_tpu/ops/pallas/tpsflow.py:60",
     "tps_bwd": "keymorph_tpu/ops/pallas/tpsflow.py:275",
     "warp": "keymorph_tpu/ops/pallas/resample3d.py:110",
@@ -571,6 +586,44 @@ def phase1(torch, rng, dev):
                _conv_bound(cg, cin, spatial, g_v.numel() * 2), what, grad_tol,
                all(o for _, o in checks), flops=2.0 * 27 * cin * cg * n)
 
+    def wgrad_case(what, ca, cb, cout, spatial, gen):
+        """One weight-gradient shape: sources of ``ca`` channels at
+        ``spatial`` and (``cb``) at half resolution, a random affine, a bf16
+        cotangent; ``gen`` draws them on the card."""
+        Z, Y, X = spatial
+        lowres = cb > 0
+
+        def draw(z, c, n, relu=True):
+            x = torch.randn((z, c, n), generator=gen, device=dev)
+            return (torch.relu(x) if relu else x).to(torch.bfloat16)
+
+        xa = draw(Z, ca, Y * X)
+        xb = draw(Z // 2, cb, (Y // 2) * (X // 2)) if lowres else None
+        g_v = draw(Z, cout, Y * X, relu=False)
+        cin = ca + cb
+        sc = torch.rand(cin, generator=gen, device=dev) + 0.5
+        sh = torch.randn(cin, generator=gen, device=dev) * 0.2
+        args = (xa, xb, spatial, g_v, sc, sh, lowres)
+        k = conv3d.conv3x3_weight_grad(*args)
+        p = conv3d._weight_grad_plain(*args)
+        u = (conv3d._full_input(xa, xb, lowres, spatial).float() * sc[None, :, None]
+             + sh[None, :, None]).to(torch.bfloat16)
+        mag = conv3d._weight_grad_plain(u.abs(), None, spatial, g_v.abs())
+        err = (k - p).abs()
+        ok = bool((err <= WGRAD_TOL * mag).all())
+        ratio = (err / mag.clamp_min(1e-30)).max().item()
+        ms = _cuda_ms(lambda: conv3d.conv3x3_weight_grad(*args), 5)
+        pms = _cuda_ms(lambda: conv3d._weight_grad_plain(*args), 3)
+        lhs, gout = _ncdhw(u, spatial), _ncdhw(g_v, spatial)
+        lms = _cuda_ms(lambda: torch.nn.grad.conv3d_weight(lhs, (cout, cin, 3, 3, 3), gout,
+                                                           padding=1), 3)
+        n = Z * Y * X
+        nbytes = 2 * (n * ca + n // 8 * cb + n * cout) + 4 * 27 * cin * cout
+        record("conv3x3_weight_grad", err.max().item(), ms, pms, lms,
+               _bound(nbytes, 2.0 * 27 * cin * cout * n / PEAK_BF16), what,
+               f"tol {WGRAD_TOL} x S = sum |u| |g_v|", ok, flops=2.0 * 27 * cin * cout * n,
+               extra={"max_err_over_S": ratio})
+
     def relu_bf16(n, c):
         return torch.relu(bf16(n[0], c, n[1] * n[2]))
 
@@ -657,6 +710,22 @@ def phase1(torch, rng, dev):
     grad_case("conv input grad d1c1 64->[64 | 128] @64^3", g_v, t2, weights(192, 64), 64)
     grad_case("conv input grad d1c2 64->64 @64^3", g_v, t2, weights(64, 64))
     del g_v
+
+    # conv weight gradient at the 12 convs of the 128^3 training net (e0 at
+    # 128^3 ... e3 at 16^3; d0c1 [128@32^3 | up2(256@16^3)], d1c1 [64@64^3 |
+    # up2(128@32^3)]), inputs from a generator of its own (the phases after
+    # this one keep theirs)
+    gen = torch.Generator(device=dev).manual_seed(
+        int(np.random.default_rng([SEED, 9]).integers(2 ** 62)))
+    for what, ca, cb, cout, lvl in (
+            ("e0c1 1->16", 1, 0, 16, 0), ("e0c2 16->32", 16, 0, 32, 0),
+            ("e1c1 32->32", 32, 0, 32, 1), ("e1c2 32->64", 32, 0, 64, 1),
+            ("e2c1 64->64", 64, 0, 64, 2), ("e2c2 64->128", 64, 0, 128, 2),
+            ("e3c1 128->128", 128, 0, 128, 3), ("e3c2 128->256", 128, 0, 256, 3),
+            ("d0c1 [128 | up2(256)]->128", 128, 256, 128, 2), ("d0c2 128->128", 128, 0, 128, 2),
+            ("d1c1 [64 | up2(128)]->64", 64, 128, 64, 1), ("d1c2 64->64", 64, 0, 64, 1)):
+        sp = tuple(d >> lvl for d in T3)
+        wgrad_case(f"conv weight grad {what} @{sp[0]}^3", ca, cb, cout, sp, gen)
 
     # TPS flow planes at 256^3, T = 128, from a real fit
     src = rng.uniform(-0.8, 0.8, (1, NUM_KEYPOINTS, 3)).astype(np.float32)
@@ -1138,7 +1207,8 @@ def phase4(torch, net, pairs):
 
 
 TRAIN_PATH_KERNELS = ("conv3x3_fused_flat", "conv3x3_fused_flat_upconv", "conv3x3_input_grad",
-                      "tps_planes", "tps_planes_bwd", "warp_planes", "warp_planes_grad")
+                      "conv3x3_weight_grad", "tps_planes", "tps_planes_bwd", "warp_planes",
+                      "warp_planes_grad")
 
 
 def _train_config(spatial):
@@ -3493,8 +3563,16 @@ def _p15_tools(torch, out, reg_dir, extract_s):
     vals = [r[k] for r in rows for k in ("kernel_ms", "library_ms", "bound_ms")]
     if len(rows) != 13 or not all(np.isfinite(v) and v > 0 for v in vals):
         raise AssertionError("phase 15 (f): conv_microbench read a missing or non-finite time")
-    _expect("phase 15 (f)", out["counts"]["conv_microbench"],
-            ("conv3x3_fused_flat", "conv3x3_fused_flat_upconv"))
+    # the tool times the weight gradient's plain version beside its kernel,
+    # once a call: that plain version, and no other, runs
+    counts = out["counts"]["conv_microbench"]
+    wgrad = counts["conv3x3_weight_grad"]
+    if wgrad["plain_calls"] != wgrad["launches"]:
+        raise AssertionError(f"phase 15 (f): the weight gradient's plain version ran "
+                             f"{wgrad['plain_calls']} times for {wgrad['launches']} launches")
+    _expect("phase 15 (f)", {**counts, "conv3x3_weight_grad": {**wgrad, "plain_calls": 0}},
+            ("conv3x3_fused_flat", "conv3x3_fused_flat_upconv", "conv3x3_input_grad",
+             "conv3x3_weight_grad"))
 
     flop = flops.unet_extract_flops(SPATIAL, NUM_KEYPOINTS, UNET["f_maps"], UNET["num_levels"],
                                     UNET["num_truncated_layers"])
@@ -3907,14 +3985,15 @@ def phase17(torch, dev):
 
 # --plant-fault: each fault wraps one kernel's wrapper, so only the kernel
 # route sees it (the plain steps call the plain versions by their own names)
-FAULTS = ("warp_grad_plane", "input_grad_half")
+FAULTS = ("warp_grad_plane", "input_grad_half", "weight_grad_half")
 
 
 def _plant(kind):
     from keymorph_tpu_torch.ops.cuda import conv3d, resample3d
 
-    module, name = ((resample3d, "warp_planes_grad") if kind == "warp_grad_plane"
-                    else (conv3d, "conv3x3_input_grad"))
+    module, name = {"warp_grad_plane": (resample3d, "warp_planes_grad"),
+                    "input_grad_half": (conv3d, "conv3x3_input_grad"),
+                    "weight_grad_half": (conv3d, "conv3x3_weight_grad")}[kind]
     real = getattr(module, name)
 
     def faulty(*args):
@@ -3923,6 +4002,8 @@ def _plant(kind):
         if kind == "warp_grad_plane":
             out[:, 0] = 0.0
             return out
+        if kind == "weight_grad_half":
+            return out * 0.5
         return tuple(None if o is None else o * 0.5 for o in out)
 
     faulty.launches = 0
@@ -3947,7 +4028,7 @@ def fault_control(torch, dev, kind):
     img = _make_pairs(torch, rng, dev, RUN_SIZE, 1, noise_amp=0.0)[0][0]
     step_held = _phase12_steps(torch, rng, dev, img)[1]
     held.update({k: v for k, v in step_held.items()
-                 if kind == "input_grad_half" or "same-resolution" in k})
+                 if kind != "warp_grad_plane" or "same-resolution" in k})
     if kind == "warp_grad_plane":  # phase 17's fp32 nets reach no conv kernel
         held["phase17 (a) step"] = _p17_step(torch, dev, np.random.default_rng([SEED, 17]),
                                              *_p17_data())
@@ -4085,6 +4166,7 @@ def main():
         entry("conv3x3_fused_flat_upconv", "conv", "conv3d.cu"),
         entry("conv3x3_fused_flat_parts", "conv", "conv3d.cu"),
         entry("conv3x3_input_grad", "conv_grad", "conv3d.cu"),
+        entry("conv3x3_weight_grad", "conv_wgrad", "conv3d.cu"),
         entry("tps_planes", "tps", "tpsflow.cu"),
         entry("tps_flow", "tps", "tpsflow.cu"),
         entry("tps_planes_bwd", "tps_bwd", "tpsflow.cu"),

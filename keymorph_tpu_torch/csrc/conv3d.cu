@@ -1,7 +1,9 @@
 // Fused per-channel affine + 3x3x3 SAME conv + bias + ReLU (+ output stats)
 // on the flat (Z, C, Y*X) layout: conv3x3_fused_flat, its parts and upconv
 // forms, and the conv's input gradient, as ONE implicit GEMM on the H100's
-// bf16 tensor cores (wgmma), plus an FMA kernel for the forward conv at Cin < 8.
+// bf16 tensor cores (wgmma), plus an FMA kernel for the forward conv at Cin < 8;
+// and the conv's weight gradient, a split-voxel wgmma product on the same
+// staged halo tile (wgrad3x3_mma_kernel<TX>, below the FMA kernel).
 //
 // Replaces keymorph_tpu/ops/pallas/conv3d.py:_kernel_flat + _cell_compute
 // (reached through _conv_pallas_group_flat <- _conv_pallas_flat /
@@ -30,11 +32,49 @@
 //
 // is the same device code on the wrapper's flipped, channel-swapped weight
 // pack, with no affine, bias, ReLU or stats, its channels written to two
-// tensors split at Csplit (the halves of a two-source conv's gradient).
+// tensors split at Csplit (the halves of a two-source conv's gradient). The
+// weight gradient
+//
+//   dW[tap, ci, co] = sum_{z,y,x} pad0(bf16(a*x + b))[tap-shifted, ci] *
+//                     g_v[z, co, y, x]
+//
+// replaces no TPU kernel: keymorph_tpu's _conv_bwd computes it by 27 XLA
+// einsums with fp32 sums (keymorph_tpu/ops/pallas/conv3d.py:1199-1232). Its
+// design, and why:
+//  * GEMM view per tap: M = 64 cotangent channels (a block of Cout, padded),
+//    N = 16 input channels (one staged chunk), K = output voxels. 27 taps x
+//    64 x 16 fp32 sums are 27 x 8 registers a thread of one warpgroup: a
+//    block has three warpgroups of products, warpgroup dz holding the 9 taps
+//    (dz, dy, dx) (72 registers), and a fourth that stages.
+//  * A block walks a run of tile planes (8 x 32 or 16 x 16 output voxels
+//    of one z, along z then to the next tile): each input plane is staged
+//    once by stage_halo (the forward's staging: affine, bf16, pad0, the
+//    upconv source at half resolution), a ring of 4 holds planes z - 1, z,
+//    z + 1 and the one being staged. In its [ci/8][halo voxel][8] layout, 8
+//    voxels x 8 channels are one 128-byte core matrix with the channels
+//    contiguous: wgmma's B operand, MN-major (the transpose bit), and tap
+//    (dy, dx) of 16 output voxels is the descriptor's start moved by
+//    (ly + dy) * HX + lx + dx voxels. Warpgroup dz reads plane z - 1 + dz.
+//  * The cotangent is the A operand from registers: per 16 voxels a
+//    warpgroup loads its 64 x 16 fragment once (ldmatrix.x4.trans) for its 9
+//    products. With both operands in shared memory a m64n16k16 product took
+//    ~36 cycles (the fragments of A read anew for every tap), from registers
+//    ~20. The cotangent plane is staged with 16-byte loads into a layout
+//    skewed by one 16-byte unit every 8 voxels, so that the stores of a
+//    phase and the 8 rows of an ldmatrix both fall on 8 distinct bank groups.
+//  * The stager runs one step ahead, onto named barriers (FULL and EMPTY, two
+//    of each by step parity, so that no barrier is ever two phases ahead).
+//  * Split-K: the wrapper cuts the tile planes into nsplit runs, one block per
+//    (run, Cout block, chunk), each writing its 27 x 16 x 64 fp32 partial
+//    sums to its own slice; wgrad3x3_reduce_kernel adds the runs in order. No
+//    atomics: the same inputs give the same bits.
 //
 // What bounds it on the H100: tensor-core operations (2*27*Cin*Cout FLOP per
 // voxel against 2*(Cin+Cout) bytes), except at e0c1 (Cin = 1), which is bound
-// by bytes and takes the FMA instantiation.
+// by bytes and takes the FMA instantiation. The weight gradient has the same
+// operations and is as near its bound as the products allow: wgmma's M is
+// 64, so a Cout of 16 or 32 pays for 64, and a Cin of 1 for 16 (e0c1 stays
+// on the tensor cores: the kernel is bound by its products, not its bytes).
 //
 // The tensor-core design (conv3x3_mma_kernel<NB>, every conv with Cin >= 8):
 //  * GEMM view: M = voxels, N = Cout (NB = 8, 16, 32 or 64 per block, the
@@ -89,10 +129,14 @@
 // staging and wgmmas overlap each other).
 // Registers and spill (nvcc -Xptxas -v, sm_90a, CUDA 12.8; build/.../nvcc.log):
 // conv3x3_mma_kernel<64> 230 registers, no spill (128 of them accumulators);
-// <32> 128 registers with 44 bytes of spill, <16> 126, <8> 112 (NB <= 32 is
+// <32> 128 registers with 44 bytes of spill, <16> 126, <8> 114 (NB <= 32 is
 // held to 128 registers so that two blocks fit an SM; the staging's 8 loads
 // in flight and 16 affine constants press on that);
-// conv3x3_fma_kernel 128 registers with 28 bytes of spill.
+// conv3x3_fma_kernel 128 registers with 28 bytes of spill;
+// wgrad3x3_mma_kernel<32>, <16> 128 registers (512 threads) with 36 bytes of
+// spill stores, 120 of loads; wgrad3x3_reduce_kernel 32. Shared memory of the
+// weight gradient: 4 input planes x 16 channels x 340 voxels x 2 B (43,520)
+// and 2 cotangent planes x 8 channel groups x 288 units x 16 B (73,728).
 //
 // Which shapes take which instantiation: every input gradient, and the
 // forward conv at Cin >= 8 -> conv3x3_mma_kernel<NB> with NB from Cout
@@ -227,15 +271,15 @@ __device__ __forceinline__ void wgmma(float* d, uint64_t da, uint64_t db) {
 // device memory are read whole, and since a halo row is 32 bytes more than a
 // multiple of 128 long, the 8 lanes of a store phase fall on 4 distinct bank
 // groups (a 2-way conflict; octets side by side would make it 8-way).
-template <bool LOW, bool AFF>
+template <bool LOW, bool AFF, int NT = MMA_THREADS>
 __device__ __forceinline__ void stage_group_vec(const MmaArgs& p,
                                                 const __nv_bfloat16* __restrict__ src, int Cs,
-                                                int cs0, int aff0, int z0, int y0, int x0,
-                                                unsigned char* dst) {
+                                                int cs0, int aff0, int zlo, int nz, int y0,
+                                                int x0, unsigned char* dst) {
   const int Ys = LOW ? p.Y >> 1 : p.Y, Xs = LOW ? p.X >> 1 : p.X;
   const int plane = (Ys * Xs) >> 3;  // a channel's 16-byte units
   const int noct = (LOW ? p.TX >> 4 : p.TX >> 3) + 2;
-  const int nrows = HZ * p.HY;
+  const int nrows = nz * p.HY;
   const int xs0 = (LOW ? x0 >> 1 : x0) - 8;
   const int nch = min(max(Cs - cs0, 0), 8);  // real channels of this group
   const unsigned hx = static_cast<unsigned>(p.HX);
@@ -246,11 +290,11 @@ __device__ __forceinline__ void stage_group_vec(const MmaArgs& p,
     b[c] = AFF && c < nch ? p.shift[aff0 + c] : 0.0f;
   }
   const int nitems = nrows * ((noct + 1) & ~1);
-  for (int idx = threadIdx.x; idx < nitems; idx += MMA_THREADS) {
+  for (int idx = threadIdx.x % NT; idx < nitems; idx += NT) {
     const int row = (idx >> 1) % nrows;
     const int o = 2 * ((idx >> 1) / nrows) + (idx & 1);
     if (o >= noct) continue;
-    const int z = z0 - 1 + row / p.HY, y = y0 - 1 + row % p.HY, xs = xs0 + 8 * o;
+    const int z = zlo + row / p.HY, y = y0 - 1 + row % p.HY, xs = xs0 + 8 * o;
     const bool inside = z >= 0 && z < p.Z && y >= 0 && y < p.Y && xs >= 0 && xs < Xs;
     uint4 v[8];
     const uint4* at = reinterpret_cast<const uint4*>(src) +
@@ -296,18 +340,19 @@ __device__ __forceinline__ void stage_group_vec(const MmaArgs& p,
 }
 
 // The same, one value at a time: any X.
+template <int NT = MMA_THREADS>
 __device__ __forceinline__ void stage_group_scalar(const MmaArgs& p,
                                                    const __nv_bfloat16* __restrict__ src, int Cs,
-                                                   int cs0, int aff0, bool low, int z0, int y0,
-                                                   int x0, uint16_t* dst) {
+                                                   int cs0, int aff0, bool low, int zlo, int nz,
+                                                   int y0, int x0, uint16_t* dst) {
   const bool aff = p.scale != nullptr;
   const int Ys = low ? p.Y >> 1 : p.Y, Xs = low ? p.X >> 1 : p.X;
-  const int nvox = HZ * p.HY * p.HX;
-  for (int idx = threadIdx.x; idx < nvox * 8; idx += MMA_THREADS) {
+  const int nvox = nz * p.HY * p.HX;
+  for (int idx = threadIdx.x % NT; idx < nvox * 8; idx += NT) {
     const int c = idx & 7, vox = idx >> 3;
     const int lx = vox % p.HX, r = vox / p.HX;
     const int ly = r % p.HY, lz = r / p.HY;
-    const int z = z0 - 1 + lz, y = y0 - 1 + ly, x = x0 - 1 + lx;
+    const int z = zlo + lz, y = y0 - 1 + ly, x = x0 - 1 + lx;
     const int ch = cs0 + c;
     uint16_t bits = 0;
     if (ch < Cs && z >= 0 && z < p.Z && y >= 0 && y < p.Y && x >= 0 && x < p.X) {
@@ -323,12 +368,14 @@ __device__ __forceinline__ void stage_group_scalar(const MmaArgs& p,
   }
 }
 
-// One 16-channel chunk of the halo tile: pad0(bf16(a*x + b)) as
-// [ci/8][halo voxel][8]. Packed channel kk is source A's channel kk below
-// CaP (Ca rounded up to 8), else source B's channel kk - CaP; channels past
-// a source's end are zeros.
-__device__ __forceinline__ void stage_halo(const MmaArgs& p, int chunk, int z0, int y0, int x0,
-                                           unsigned char* dst) {
+// One 16-channel chunk of the halo tile's planes [zlo, zlo + nz):
+// pad0(bf16(a*x + b)) as [ci/8][halo voxel][8], the two 8-channel groups
+// gstride bytes apart. Packed channel kk is source A's channel kk below CaP
+// (Ca rounded up to 8), else source B's channel kk - CaP; channels past a
+// source's end are zeros. NT threads (a whole number of warpgroups) stage.
+template <int NT = MMA_THREADS>
+__device__ __forceinline__ void stage_halo(const MmaArgs& p, int chunk, int zlo, int nz, int y0,
+                                           int x0, unsigned char* dst, int gstride) {
 #pragma unroll 1
   for (int kg = 0; kg < 2; ++kg) {
     const int kk0 = chunk * 16 + kg * 8;
@@ -338,16 +385,17 @@ __device__ __forceinline__ void stage_halo(const MmaArgs& p, int chunk, int z0, 
     const __nv_bfloat16* src = is_a ? p.xa : p.xb;
     const int aff0 = is_a ? kk0 : p.Ca + cs0;
     const bool low = !is_a && p.b_lowres;
-    unsigned char* d = dst + kg * NVOX_ALLOC * 16;
+    unsigned char* d = dst + kg * gstride;
     const bool aff = p.scale != nullptr;
     if (!p.vec)
-      stage_group_scalar(p, src, Cs, cs0, aff0, low, z0, y0, x0, reinterpret_cast<uint16_t*>(d));
+      stage_group_scalar<NT>(p, src, Cs, cs0, aff0, low, zlo, nz, y0, x0,
+                             reinterpret_cast<uint16_t*>(d));
     else if (low)
-      aff ? stage_group_vec<true, true>(p, src, Cs, cs0, aff0, z0, y0, x0, d)
-          : stage_group_vec<true, false>(p, src, Cs, cs0, aff0, z0, y0, x0, d);
+      aff ? stage_group_vec<true, true, NT>(p, src, Cs, cs0, aff0, zlo, nz, y0, x0, d)
+          : stage_group_vec<true, false, NT>(p, src, Cs, cs0, aff0, zlo, nz, y0, x0, d);
     else
-      aff ? stage_group_vec<false, true>(p, src, Cs, cs0, aff0, z0, y0, x0, d)
-          : stage_group_vec<false, false>(p, src, Cs, cs0, aff0, z0, y0, x0, d);
+      aff ? stage_group_vec<false, true, NT>(p, src, Cs, cs0, aff0, zlo, nz, y0, x0, d)
+          : stage_group_vec<false, false, NT>(p, src, Cs, cs0, aff0, zlo, nz, y0, x0, d);
   }
 }
 
@@ -381,7 +429,7 @@ __global__ void __launch_bounds__(MMA_THREADS, NB <= 32 ? 2 : 1)
       load_weights(smem_u32(wbuf + s * WBYTES), wsrc + static_cast<size_t>(s) * WBYTES, WBYTES,
                    bar0 + 8 * s);
   }
-  stage_halo(p, 0, z0, y0, x0, hbuf);
+  stage_halo(p, 0, z0 - 1, HZ, y0, x0, hbuf, NVOX_ALLOC * 16);
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   __syncthreads();
 
@@ -427,7 +475,8 @@ __global__ void __launch_bounds__(MMA_THREADS, NB <= 32 ? 2 : 1)
     }
     asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
     // the tensor cores work on chunk c; stage chunk c + 1 meanwhile
-    if (c + 1 < p.nchunks) stage_halo(p, c + 1, z0, y0, x0, hbuf + (s ^ 1) * HBYTES);
+    if (c + 1 < p.nchunks)
+      stage_halo(p, c + 1, z0 - 1, HZ, y0, x0, hbuf + (s ^ 1) * HBYTES, NVOX_ALLOC * 16);
     asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 #pragma unroll
     for (int i = 0; i < MBZ; ++i)
@@ -747,6 +796,297 @@ int run_fma(const FmaArgs& p, int n_tiles, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// the weight gradient
+// ---------------------------------------------------------------------------
+
+constexpr int WG_THREADS = 512;              // 3 warpgroups of products (one dz each), 1 stager
+constexpr int WVOX = 256;                    // output voxels of a plane tile (TY x TX)
+constexpr int WCO = 64;                      // cotangent channels a block takes (wgmma M)
+constexpr int UPL = 340;                     // halo voxels a staged input plane holds
+constexpr int UBYTES = 2 * UPL * 16;         // one input plane, 16 channels
+constexpr int GSTR = WVOX + WVOX / 8;        // units of a staged cotangent group (skewed)
+constexpr int GBYTES = WCO / 8 * GSTR * 16;  // one cotangent plane, 64 channels
+constexpr int WG_SMEM = 4 * UBYTES + 2 * GBYTES;
+constexpr int BAR_FULL = 1, BAR_EMPTY = 3;   // named barriers, two of each (by step parity)
+
+struct WgradArgs {
+  MmaArgs in;               // the conv's input, its affine and the plane tile (TZ unused)
+  const __nv_bfloat16* gv;  // (Z, Cout, Y*X)
+  float* part;              // (nsplit, 27, 16 * nchunks, WCO * nco)
+  int nco, nsplit, planes;  // planes: the ntx * nty * Z tile planes, cut into nsplit runs
+};
+
+__device__ __forceinline__ void bar_sync(int id) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(WG_THREADS) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(WG_THREADS) : "memory");
+}
+
+// D (64 x 16 fp32, in registers) += A (64 x 16 bf16, in registers) * B (16 x
+// 16 bf16 in shared memory as MN-major core matrices: the transpose bit)
+__device__ __forceinline__ void wgmma_rs16(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// Plane z of the cotangent's channels [co0, co0 + 64) over the plane tile at
+// (y0, x0): voxel v of 8-channel group grp is 16 bytes at unit
+// grp * GSTR + v + v / 8 (one unit of skew every 8 voxels), zeros outside
+// the volume; groups past Cout are left as they are (their rows of the
+// product are never stored). An item is one x octet of one group: 8 loads of
+// 16 bytes (two items' in flight a thread), then per voxel one 16-byte store
+// of its 8 channels (the byte-permute transposes); the skew puts the 8
+// lanes of a store phase, 9 units apart, on 8 distinct bank groups, and keeps
+// the 8 voxels an ldmatrix row set reads contiguous. Without 16-byte loads
+// (X not a multiple of 8) an item is one voxel, loaded value by value.
+template <int TX, int NT>
+__device__ __forceinline__ void stage_cotangent(const WgradArgs& w, int z, int y0, int x0,
+                                                int co0, unsigned char* dst) {
+  const MmaArgs& p = w.in;
+  const long long YX = static_cast<long long>(p.Y) * p.X;
+  const int ngrp = min(8, (p.Cout - co0 + 7) >> 3);
+  const __nv_bfloat16* gz = w.gv + (static_cast<long long>(z) * p.Cout + co0) * YX;
+  if (!p.vec) {
+    for (int idx = threadIdx.x % NT; idx < ngrp * WVOX; idx += NT) {
+      const int grp = idx / WVOX, v = idx % WVOX;
+      const int y = y0 + v / TX, x = x0 + v % TX;
+      const __nv_bfloat16* at = gz + 8LL * grp * YX + static_cast<long long>(y) * p.X + x;
+      uint32_t o[4];
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        const bool in = y < p.Y && x < p.X;
+        const int c = co0 + 8 * grp + 2 * m;
+        const uint32_t lo = in && c < p.Cout ? __bfloat16_as_ushort(at[(2 * m) * YX]) : 0u;
+        const uint32_t hi = in && c + 1 < p.Cout ? __bfloat16_as_ushort(at[(2 * m + 1) * YX]) : 0u;
+        o[m] = lo | (hi << 16);
+      }
+      *reinterpret_cast<uint4*>(dst + (grp * GSTR + v + (v >> 3)) * 16) =
+          make_uint4(o[0], o[1], o[2], o[3]);
+    }
+    return;
+  }
+  constexpr int NOCT = WVOX / 8;
+  const int nitems = ngrp * NOCT;
+  for (int i0 = threadIdx.x % NT; i0 < nitems; i0 += 2 * NT) {
+    uint4 v[2][8];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int idx = i0 + u * NT;
+      const int grp = idx / NOCT, o = idx % NOCT;
+      const int y = y0 + 8 * o / TX, x = x0 + 8 * o % TX;
+      const uint4* at = reinterpret_cast<const uint4*>(gz + 8LL * grp * YX +
+                                                       static_cast<long long>(y) * p.X + x);
+#pragma unroll
+      for (int c = 0; c < 8; ++c)
+        v[u][c] = idx < nitems && y < p.Y && x < p.X && co0 + 8 * grp + c < p.Cout
+                      ? __ldg(at + c * (YX >> 3))
+                      : make_uint4(0u, 0u, 0u, 0u);
+    }
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int idx = i0 + u * NT;
+      if (idx >= nitems) break;
+      const int grp = idx / NOCT, o = idx % NOCT;
+      unsigned char* d = dst + (grp * GSTR + 9 * o) * 16;
+#pragma unroll
+      for (int x = 0; x < 8; ++x) {
+        uint32_t out[4];
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+          const uint4 &e = v[u][2 * m], &f = v[u][2 * m + 1];
+          const uint32_t we = x < 2 ? e.x : x < 4 ? e.y : x < 6 ? e.z : e.w;
+          const uint32_t wf = x < 2 ? f.x : x < 4 ? f.y : x < 6 ? f.z : f.w;
+          out[m] = __byte_perm(we, wf, (x & 1) ? 0x7632 : 0x5410);
+        }
+        *reinterpret_cast<uint4*>(d + x * 16) = make_uint4(out[0], out[1], out[2], out[3]);
+      }
+    }
+  }
+}
+
+// A block owns one 64-channel block of the cotangent, one 16-channel chunk
+// of the input and one run of tile planes (split-K over voxels), and walks
+// the run plane by plane. Warpgroup 3 stages: input plane z + 1 and
+// cotangent plane z of step z while warpgroups 0-2 work on step z - 1, onto
+// named barriers (FULL: a step's operands are staged; EMPTY: a step's
+// products are done, its buffers free). Warpgroup dz holds the 9 taps
+// (dz, dy, dx) as 9 accumulators of 64 x 16 (72 registers) and reads input
+// plane z - 1 + dz; a tap is the B descriptor's start moved by
+// (ly + dy) * HX + lx + dx halo voxels. Per 16 voxels it loads the
+// cotangent's 64 x 16 fragment once (ldmatrix.trans from the staged plane)
+// for its 9 products, two fragments in flight. Partial sums go to the
+// block's own slice of part: no atomics.
+template <int TX>
+__global__ void __launch_bounds__(WG_THREADS, 1) wgrad3x3_mma_kernel(const WgradArgs w) {
+  constexpr int TY = WVOX / TX, HX = TX + 2;
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* ubuf = smem;               // a ring of 4 input planes: plane zz in slot (zz + 1) & 3
+  unsigned char* gbuf = smem + 4 * UBYTES;  // 2 cotangent planes, step z in (z - zb) & 1
+  const MmaArgs& p = w.in;
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int cob = blockIdx.x % w.nco;
+  const int chunk = (blockIdx.x / w.nco) % p.nchunks;
+  const int split = blockIdx.x / (w.nco * p.nchunks);
+  const int start = static_cast<int>(static_cast<long long>(split) * w.planes / w.nsplit);
+  const int end = static_cast<int>(static_cast<long long>(split + 1) * w.planes / w.nsplit);
+
+  if (wg == 3) {  // the stager
+#pragma unroll 1
+    for (int idx = start; idx < end;) {
+      const int tile = idx / p.Z, zb = idx - tile * p.Z;
+      const int ze = min(p.Z, zb + (end - idx));
+      const int x0 = (tile % p.ntx) * TX, y0 = (tile / p.ntx) * TY;
+#pragma unroll 1
+      for (int zz = zb - 1; zz <= zb; ++zz)
+        stage_halo<128>(p, chunk, zz, 1, y0, x0, ubuf + ((zz + 1) & 3) * UBYTES, UPL * 16);
+#pragma unroll 1
+      for (int z = zb; z < ze; ++z) {
+        const int par = (z - zb) & 1;
+        if (z >= zb + 2) bar_sync(BAR_EMPTY + par);  // step z - 2 is done with these buffers
+        stage_halo<128>(p, chunk, z + 1, 1, y0, x0, ubuf + ((z + 2) & 3) * UBYTES, UPL * 16);
+        stage_cotangent<TX, 128>(w, z, y0, x0, cob * WCO, gbuf + par * GBYTES);
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        bar_arrive(BAR_FULL + par);
+      }
+#pragma unroll 1
+      for (int z = max(zb, ze - 2); z < ze; ++z) bar_sync(BAR_EMPTY + ((z - zb) & 1));
+      idx += ze - zb;
+    }
+    return;
+  }
+
+  float acc[9][8];
+#pragma unroll
+  for (int t = 0; t < 9; ++t)
+#pragma unroll
+    for (int k = 0; k < 8; ++k) acc[t][k] = 0.0f;
+  uint32_t frag[2][4];
+
+  // B descriptor: no swizzle, MN-major; core matrices lie 128 bytes (LBO)
+  // apart along K (voxels) and a staged plane's group (SBO) apart along N
+  // (8 input channels)
+  constexpr uint64_t B_HI = (8ull << 16) | (static_cast<uint64_t>(UPL) << 32);
+  const uint32_t u_lo = smem_u32(ubuf) >> 4;
+  // ldmatrix.x4.trans: lane l gives row l % 8 of 8 x 8 matrix l / 8 = (k half,
+  // 8-channel group of this warp's 16 rows); the fragment is wgmma's A
+  const int lane = tid & 31, wq = (tid >> 5) & 3;
+  const uint32_t g_lane = smem_u32(gbuf) + ((2 * wq + ((lane >> 3) & 1)) * GSTR +
+                                            9 * (lane >> 4) + (lane & 7)) * 16;
+
+#pragma unroll 1
+  for (int idx = start; idx < end;) {
+    const int tile = idx / p.Z, zb = idx - tile * p.Z;
+    const int ze = min(p.Z, zb + (end - idx));
+#pragma unroll 1
+    for (int z = zb; z < ze; ++z) {
+      const int par = (z - zb) & 1;
+      bar_sync(BAR_FULL + par);
+      const uint32_t g_z = g_lane + par * GBYTES;
+      const uint32_t b_z = u_lo + ((z + wg) & 3) * (UBYTES >> 4);  // input plane z - 1 + dz
+#pragma unroll
+      for (int ks = 0; ks < WVOX / 16; ++ks) {
+        uint32_t* a = frag[ks & 1];
+        if (ks >= 2) {  // the products of step ks - 2 are done with this fragment
+          asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+#pragma unroll
+          for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[i])::"memory");
+        }
+        asm volatile(
+            "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+            : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+            : "r"(g_z + ks * 18 * 16));
+#pragma unroll
+        for (int t = 0; t < 9; ++t)
+#pragma unroll
+          for (int k = 0; k < 8; ++k) asm volatile("" : "+f"(acc[t][k])::"memory");
+        asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+        const int ly = ks * 16 / TX, lx = ks * 16 % TX;
+#pragma unroll
+        for (int dy = 0; dy < 3; ++dy)
+#pragma unroll
+          for (int dx = 0; dx < 3; ++dx)
+            wgmma_rs16(acc[dy * 3 + dx], a,
+                       B_HI | static_cast<uint64_t>(b_z + (ly + dy) * HX + lx + dx));
+        asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      }
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+#pragma unroll
+      for (int t = 0; t < 9; ++t)
+#pragma unroll
+        for (int k = 0; k < 8; ++k) asm volatile("" : "+f"(acc[t][k])::"memory");
+#pragma unroll
+      for (int s = 0; s < 2; ++s)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(frag[s][i])::"memory");
+      bar_arrive(BAR_EMPTY + par);
+    }
+    idx += ze - zb;
+  }
+
+  // Accumulator fragment: this thread holds rows (cotangent channels)
+  // 16 * (warp in group) + lane / 4 and + 8, columns (input channels)
+  // 8j + 2 * (lane % 4) + e
+  const int CiP = 16 * p.nchunks, CoP = WCO * w.nco;
+  float* base = w.part + static_cast<long long>(split) * 27 * CiP * CoP;
+#pragma unroll
+  for (int t = 0; t < 9; ++t)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int co = cob * WCO + 16 * wq + (lane >> 2) + 8 * h;
+          const int ci = chunk * 16 + 8 * j + 2 * (lane & 3) + e;
+          base[(static_cast<long long>(9 * wg + t) * CiP + ci) * CoP + co] =
+              acc[t][4 * j + 2 * h + e];
+        }
+}
+
+// dW[tap, ci, co]: the splits' partial sums added in split order (the same
+// inputs give the same bits). Input channel ci is packed channel ci below
+// Ca, else CaP + ci - Ca.
+__global__ void wgrad3x3_reduce_kernel(const float* __restrict__ part, float* __restrict__ out,
+                                       int nsplit, int Ca, int CaP, int Cin, int CiP, int Cout,
+                                       int CoP) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= 27LL * Cin * Cout) return;
+  const int co = static_cast<int>(i % Cout);
+  const long long r = i / Cout;
+  const int ci = static_cast<int>(r % Cin), tap = static_cast<int>(r / Cin);
+  const int cip = ci < Ca ? ci : CaP + ci - Ca;
+  const long long stride = 27LL * CiP * CoP;
+  const float* src = part + (static_cast<long long>(tap) * CiP + cip) * CoP + co;
+  float s = 0.0f;
+  for (int k = 0; k < nsplit; ++k) s += src[k * stride];
+  out[i] = s;
+}
+
+template <int TX>
+int launch_wgrad(const WgradArgs& w, cudaStream_t stream) {
+  static bool allowed[64] = {};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 0 || dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!allowed[dev]) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        wgrad3x3_mma_kernel<TX>, cudaFuncAttributeMaxDynamicSharedMemorySize, WG_SMEM);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    allowed[dev] = true;
+  }
+  wgrad3x3_mma_kernel<TX><<<w.nco * w.in.nchunks * w.nsplit, WG_THREADS, WG_SMEM, stream>>>(w);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Forward conv. Cin = Ca + Cb < 8 takes the FMA instantiation: w is then the
@@ -812,4 +1152,48 @@ KM_EXPORT int km_conv3x3_input_grad(const void* gv, const void* w, void* out_a, 
   p.Z = Z; p.Y = Y; p.X = X; p.Ca = Cg; p.Cb = 0;
   p.Cout = Ca + Cb; p.Csplit = Ca; p.b_lowres = 0; p.relu = 0; p.vec = vec;
   return run_mma(p, nblk, tx, ty, mstride, n_tiles, st);
+}
+
+// The weight gradient dW[tap, ci, co] of the conv km_conv3x3 computes, into
+// out (27, Ca + Cb, Cout) fp32: its inputs as km_conv3x3 takes them (the
+// affine, pad0, the half-resolution source) against the bf16 cotangent gv
+// (Z, Cout, Y*X) of its pre-ReLU output. tx is the plane tile's width (16 or
+// 32; 256 / tx rows), vec as for km_conv3x3 (and gv aligned alike), nsplit
+// the runs of tile planes the voxels are cut into, and part their (nsplit,
+// 27, CiP, CoP) fp32 partial sums (CiP the packed channels, CoP Cout
+// rounded up to 64), summed in order by a second kernel.
+KM_EXPORT int km_conv3x3_weight_grad(const void* xa, const void* xb, const void* scale,
+                                     const void* shift, const void* gv, void* part, void* out,
+                                     int Z, int Y, int X, int Ca, int Cb, int Cout, int b_lowres,
+                                     int tx, int vec, int nsplit, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  WgradArgs w{};
+  MmaArgs& p = w.in;
+  p.xa = static_cast<const __nv_bfloat16*>(xa);
+  p.xb = static_cast<const __nv_bfloat16*>(xb);
+  p.scale = static_cast<const float*>(scale);
+  p.shift = static_cast<const float*>(shift);
+  p.Z = Z; p.Y = Y; p.X = X; p.Ca = Ca; p.Cb = Cb;
+  p.Cout = Cout; p.Csplit = Cout; p.b_lowres = b_lowres; p.vec = vec;
+  p.TX = tx; p.TY = WVOX / tx; p.HX = tx + 2; p.HY = p.TY + 2;
+  p.ntx = km::ceil_div(X, tx);
+  p.nty = km::ceil_div(Y, p.TY);
+  p.CaP = (Ca + 7) / 8 * 8;
+  p.nchunks = (p.CaP + (Cb + 7) / 8 * 8 + 15) / 16;
+  w.gv = static_cast<const __nv_bfloat16*>(gv);
+  w.part = static_cast<float*>(part);
+  w.nco = km::ceil_div(Cout, WCO);
+  w.nsplit = nsplit;
+  const long long planes = static_cast<long long>(p.ntx) * p.nty * Z;
+  if ((tx != 16 && tx != 32) || p.HY * p.HX > UPL || Ca < 1 || Cb < 0 || Cout < 1 ||
+      nsplit < 1 || nsplit > planes || planes > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  w.planes = static_cast<int>(planes);
+  const int err = tx == 16 ? launch_wgrad<16>(w, st) : launch_wgrad<32>(w, st);
+  if (err != 0) return err;
+  const long long n = 27LL * (Ca + Cb) * Cout;
+  wgrad3x3_reduce_kernel<<<km::ceil_div(n, 256), 256, 0, st>>>(
+      w.part, static_cast<float*>(out), nsplit, Ca, p.CaP, Ca + Cb, 16 * p.nchunks, Cout,
+      WCO * w.nco);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -17,6 +17,7 @@ def _functions():
         "conv3x3_fused_flat_parts": conv3d.conv3x3_fused_flat_parts,
         "conv3x3_fused_flat_upconv": conv3d.conv3x3_fused_flat_upconv,
         "conv3x3_input_grad": conv3d.conv3x3_input_grad,
+        "conv3x3_weight_grad": conv3d.conv3x3_weight_grad,
         "tps_planes": tpsflow.tps_planes,
         "tps_planes_bwd": tpsflow.tps_planes_bwd,
         "tps_flow": tpsflow.tps_flow,
@@ -28,6 +29,7 @@ def _functions():
         "conv3x3_fused_flat_parts": conv3d.conv3x3_fused_flat_parts_plain,
         "conv3x3_fused_flat_upconv": conv3d.conv3x3_fused_flat_upconv_plain,
         "conv3x3_input_grad": conv3d.conv3x3_input_grad_plain,
+        "conv3x3_weight_grad": conv3d._weight_grad_plain,
         "tps_planes": tpsflow.tps_planes_plain,
         "tps_planes_bwd": tpsflow.tps_planes_bwd_plain,
         "tps_flow": tpsflow.tps_flow_plain,

@@ -2,8 +2,9 @@
 layout: ``conv3x3_fused_flat`` and its ``_parts`` / ``_upconv`` forms, the
 4-D entry ``conv3x3_fused``, and their gradient.
 
-Port of ``keymorph_tpu/ops/pallas/conv3d.py`` (kernels B1-B3 and B6). The
-public functions keep the JAX package's signatures and layouts:
+Port of ``keymorph_tpu/ops/pallas/conv3d.py`` (kernels B1-B3 and B6) and
+of its weight gradient (B9). The public functions keep the JAX package's
+signatures and layouts:
 
   * ``xf`` / ``xa`` / ``xb``: flat (Z, C, Y*X) bf16 volumes (one sample);
   * ``w``: (3, 3, 3, Cin, Cout) conv weights (flax ``nn.Conv`` layout);
@@ -13,8 +14,9 @@ public functions keep the JAX package's signatures and layouts:
   * ``emit_stats``: also return the per-Cout fp32 (mean, mean-square) of the
     bf16 output, for the next GroupNorm.
 
-One CUDA source (``csrc/conv3d.cu``) serves all three forms and the input
-gradient, in two kernels chosen by a shape rule: every input gradient, and
+One CUDA source (``csrc/conv3d.cu``) serves all three forms and both
+gradients. The forward and the input gradient take two kernels chosen by a
+shape rule: every input gradient, and
 the forward conv with 8 or more input channels, is an implicit GEMM on the
 bf16 tensor cores (``wgmma``: voxels x Cout x 27*Cin, fp32 sums in registers),
 bound by tensor-core operations; the forward conv with fewer (the U-Net's
@@ -49,9 +51,15 @@ v = conv_W(pad0(bf16(u))) + bias, y = relu(v),
   * the input gradient ``g_u`` is :func:`conv3x3_input_grad`: the same conv
     over ``g_v`` with flipped taps and swapped channels, a kernel of its own
     entry (B6), bf16 out; ``g_x = bf16(g_u * a)``;
-  * ``g_a``, ``g_b``, ``g_bias`` are plain reductions, and the weight
-    gradient is 27 tap-sliced products of bf16-valued operands with fp32
-    sums over views of one padded copy of ``bf16(u)``.
+  * ``g_a``, ``g_b``, ``g_bias`` are plain reductions;
+  * the weight gradient is :func:`conv3x3_weight_grad`: all 27 taps in one
+    tensor-core kernel over the staged halo planes (the forward's affine,
+    rounding, pad0 and half-resolution read: neither ``u`` nor the concat is
+    built), voxels split across blocks, the splits summed in order by a
+    second kernel (:func:`weight_grad_plan` says how); its plain version
+    (:func:`_weight_grad_plain`, the CPU's and the ``plain`` path's) builds
+    ``bf16(u)`` and takes 27 tap-sliced fp32 products over views of one
+    padded copy.
 
 For the upconv form the half-resolution source's gradient is the 2x2x2
 block sum of the full-resolution ``g_u`` (the transpose of nearest x2).
@@ -60,6 +68,7 @@ block sum of the full-resolution ``g_u`` (the transpose of nearest x2).
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Sequence
 
 import torch
@@ -187,8 +196,36 @@ def _split(g_u, ca):
     return g_u[:, :ca].contiguous(), g_u[:, ca:].contiguous()
 
 
+def _weight_grad_plain(xa, xb, spatial, g_v, scale=None, shift=None, lowres=False):
+    """Plain PyTorch :func:`conv3x3_weight_grad`. With u = bf16(a*x + b) over
+    the conv's whole input (concat and upsample materialized),
+    dW[dz, dy, dx, ci, co] = sum_{z,y,x} u[z+dz-1, ci, y+dy-1, x+dx-1] *
+    g_v[z, co, y, x] (zero outside): 27 z-batched fp32 matmuls of bf16-valued
+    operands over views of one padded copy of ``u``. Returns (3, 3, 3, Cin,
+    Cout) fp32."""
+    _weight_grad_plain.calls += 1
+    u = _full_input(xa, xb, lowres, spatial).float()
+    if scale is not None:
+        u = u * scale.float()[None, :, None]
+    if shift is not None:
+        u = u + shift.float()[None, :, None]
+    u = u.to(torch.bfloat16)
+    Z, Y, X = spatial
+    C = u.shape[1]
+    up = F.pad(u.reshape(Z, C, Y, X), (1, 1, 1, 1, 0, 0, 1, 1))
+    gf = g_v.float().transpose(1, 2)  # (Z, N, Cout)
+    taps = []
+    for dz in range(3):
+        for dy in range(3):
+            for dx in range(3):
+                usl = up[dz:dz + Z, :, dy:dy + Y, dx:dx + X].float().reshape(Z, C, Y * X)
+                taps.append(torch.bmm(usl, gf).sum(dim=0))
+    return torch.stack(taps).reshape(3, 3, 3, C, -1)
+
+
 for _f in (conv3x3_fused_flat_plain, conv3x3_fused_flat_parts_plain,
-           conv3x3_fused_flat_upconv_plain, conv3x3_input_grad_plain):
+           conv3x3_fused_flat_upconv_plain, conv3x3_input_grad_plain,
+           _weight_grad_plain):
     _f.calls = 0
 
 
@@ -312,6 +349,8 @@ def _fn():
         f.restype = ctypes.c_int
         lib.km_conv3x3_input_grad.argtypes = [vp] * 4 + [i] * 12 + [vp]
         lib.km_conv3x3_input_grad.restype = ctypes.c_int
+        lib.km_conv3x3_weight_grad.argtypes = [vp] * 7 + [i] * 10 + [vp]
+        lib.km_conv3x3_weight_grad.restype = ctypes.c_int
     return lib
 
 
@@ -321,20 +360,26 @@ def _vec(v: torch.Tensor, n: int, dev, name: str):
     return v.to(device=dev, dtype=torch.float32).contiguous()
 
 
+def _aligned(X, lowres, sources):
+    """Whether the staging may load 16 bytes along x: X a multiple of 8 (16
+    for a half-resolution source) and every source 16-byte aligned."""
+    return X % (16 if lowres else 8) == 0 and all(t.data_ptr() % 16 == 0 for t in sources)
+
+
 def _plan(spatial, lowres, sources):
     """(geometry ints, tile count) of a tensor-core launch."""
     geom = tile_geometry(spatial[2])
-    vec = spatial[2] % (16 if lowres else 8) == 0 \
-        and all(t.data_ptr() % 16 == 0 for t in sources)
+    vec = _aligned(spatial[2], lowres, sources)
     return (geom["tx"], geom["ty"], geom["mstride"], int(vec)), n_tiles(spatial, geom)
 
 
-def _launch(xa, xb, b_lowres, spatial, w, scale, shift, bias, relu, emit_stats):
-    """Check the operands and launch the kernel on ``xa``'s device."""
+def _sources(xa, xb, b_lowres, spatial, extra=()):
+    """Check a conv's sources (and ``extra`` tensors) for the kernels: one
+    CUDA device, bf16, contiguous flat, shapes that match ``spatial``.
+    Returns (Z, Y, X, Ca, Cb)."""
     Z, Y, X = (int(s) for s in spatial)
     dev = xa.device
-    srcs = [xa] if xb is None else [xa, xb]
-    for t in srcs:
+    for t in ([xa] if xb is None else [xa, xb]) + list(extra):
         if t.device != dev or dev.type != "cuda":
             raise ValueError("conv3x3: inputs must be on one CUDA device")
         if t.dtype != torch.bfloat16:
@@ -353,6 +398,24 @@ def _launch(xa, xb, b_lowres, spatial, w, scale, shift, bias, relu, emit_stats):
             raise ValueError(f"conv3x3 upconv: spatial {spatial} must be even")
         if tuple(xb.shape) != want:
             raise ValueError(f"conv3x3: xb {tuple(xb.shape)} is not {want}")
+    return Z, Y, X, Ca, Cb
+
+
+def _affine(scale, shift, cin, dev):
+    """The kernels' per-channel affine: both fp32 (Cin,) vectors or neither
+    (one given: the other is its identity)."""
+    if (scale is None) != (shift is None):
+        scale = torch.ones(cin, device=dev) if scale is None else scale
+        shift = torch.zeros(cin, device=dev) if shift is None else shift
+    return (None if scale is None else _vec(scale, cin, dev, "scale"),
+            None if shift is None else _vec(shift, cin, dev, "shift"))
+
+
+def _launch(xa, xb, b_lowres, spatial, w, scale, shift, bias, relu, emit_stats):
+    """Check the operands and launch the kernel on ``xa``'s device."""
+    Z, Y, X, Ca, Cb = _sources(xa, xb, b_lowres, spatial)
+    dev = xa.device
+    srcs = [xa] if xb is None else [xa, xb]
     Cin = Ca + Cb
     if w.shape[:4] != (3, 3, 3, Cin):
         raise ValueError(f"conv3x3: w {tuple(w.shape)} is not (3, 3, 3, {Cin}, Cout)")
@@ -367,11 +430,7 @@ def _launch(xa, xb, b_lowres, spatial, w, scale, shift, bias, relu, emit_stats):
         geom_args, tiles = _plan((Z, Y, X), b_lowres, srcs)
         nblk = n_block(Cout)
         wk = pack_weights(w, Ca, nblk)
-    if (scale is None) != (shift is None):  # the kernel takes both or neither
-        scale = torch.ones(Cin, device=dev) if scale is None else scale
-        shift = torch.zeros(Cin, device=dev) if shift is None else shift
-    scale_t = None if scale is None else _vec(scale, Cin, dev, "scale")
-    shift_t = None if shift is None else _vec(shift, Cin, dev, "shift")
+    scale_t, shift_t = _affine(scale, shift, Cin, dev)
     bias_t = None if bias is None else _vec(bias, Cout, dev, "bias")
     out = torch.empty((Z, Cout, Y * X), dtype=torch.bfloat16, device=dev)
     stats = None
@@ -456,6 +515,110 @@ conv3x3_input_grad.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# the weight gradient (kernel B9)
+# ---------------------------------------------------------------------------
+
+WG_VOX = 256            # output voxels of the weight-gradient kernel's plane tile
+WG_PLANE_ALLOC = 340    # halo voxels one staged input plane holds
+WG_CO_BLOCK = 64        # cotangent channels a block takes (the wgmma M)
+WG_PART_CAP = 32 << 20  # bytes of fp32 partial sums the splits may take together
+WG_RUN_COST = 2         # a run's start in planes' worth of work (3 input planes staged)
+
+
+@functools.lru_cache(maxsize=None)
+def weight_grad_plan(spatial, ca: int, cb: int, cout: int, n_sm: int = 132) -> dict:
+    """How :func:`conv3x3_weight_grad` cuts its work (``csrc/conv3d.cu``
+    checks the geometry against its buffers):
+
+      * the plane tile: ``ty`` x ``tx`` = 256 output voxels, its ``hy`` x
+        ``hx`` halo; the volume is ``ntx`` x ``nty`` tiles, ``planes`` =
+        ntx * nty * Z tile planes in (tile, z) order;
+      * ``cip``: the packed input channels (:func:`packed_channels`),
+        ``nchunks`` of 16 (the wgmma N); ``cop``: Cout rounded up to
+        ``nco`` blocks of 64 (the wgmma M);
+      * ``nsplit`` runs of tile planes, run s = [s * planes // nsplit,
+        (s + 1) * planes // nsplit), each a block per (Cout block, chunk):
+        the count of full waves over ``n_sm`` SMs (one block each) times a
+        run's planes is least, with ``part_bytes`` of fp32 partial sums
+        under WG_PART_CAP (one run may exceed it) and every run at least
+        one plane.
+    """
+    Z, Y, X = (int(s) for s in spatial)
+    tx = 32 if X > 16 else 16
+    ty = WG_VOX // tx
+    ntx, nty = -(-X // tx), -(-Y // ty)
+    planes = ntx * nty * Z
+    cip = len(packed_channels(ca, cb))
+    nco = -(-cout // WG_CO_BLOCK)
+    cop = nco * WG_CO_BLOCK
+    blocks = nco * (cip // 16)
+    split_bytes = 27 * cip * cop * 4
+    most = max(1, min(WG_PART_CAP // split_bytes, planes))
+
+    def cost(s):
+        return -(-blocks * s // n_sm) * (-(-planes // s) + WG_RUN_COST)
+
+    nsplit = min(range(1, most + 1), key=lambda s: (cost(s), s))
+    return {"tx": tx, "ty": ty, "hx": tx + 2, "hy": ty + 2, "ntx": ntx, "nty": nty,
+            "planes": planes, "cip": cip, "nchunks": cip // 16, "nco": nco, "cop": cop,
+            "nsplit": nsplit, "blocks": blocks * nsplit, "part_bytes": nsplit * split_bytes}
+
+
+def conv3x3_weight_grad(xa, xb, spatial, g_v, scale=None, shift=None, lowres=False):
+    """Weight gradient of the fused conv over the sources [xa, xb] (``xb``
+    None: flat; at ``spatial``: parts; at half resolution with ``lowres``:
+    upconv): dW[dz, dy, dx, ci, co] = sum_{z,y,x} u[z+dz-1, ci, y+dy-1,
+    x+dx-1] * g_v[z, co, y, x], u = pad0(bf16(scale * x + shift)), bf16
+    operands, fp32 sums.
+
+    Args:
+        g_v: flat (Z, Cout, Y*X) bf16 cotangent of the conv's pre-ReLU output.
+    Returns:
+        (3, 3, 3, Cin, Cout) fp32.
+
+    CPU tensors run :func:`_weight_grad_plain`; CUDA tensors launch the
+    tensor-core kernel (:func:`weight_grad_plan`) and the kernel that sums
+    its splits in order, whatever the channel counts.
+    """
+    if g_v.device.type == "cpu":
+        return _weight_grad_plain(xa, xb, spatial, g_v, scale, shift, lowres)
+    Z, Y, X, Ca, Cb = _sources(xa, xb, lowres, spatial, extra=(g_v,))
+    Cout = int(g_v.shape[1])
+    if tuple(g_v.shape) != (Z, Cout, Y * X):
+        raise ValueError(f"conv3x3_weight_grad: g_v {tuple(g_v.shape)} does not match "
+                         f"spatial {spatial}")
+    dev = g_v.device
+    Cin = Ca + Cb
+    scale_t, shift_t = _affine(scale, shift, Cin, dev)
+    plan = weight_grad_plan((Z, Y, X), Ca, Cb, Cout, _sm_count(
+        dev.index if dev.index is not None else torch.cuda.current_device()))
+    srcs = [xa] if xb is None else [xa, xb]
+    vec = _aligned(X, lowres, srcs + [g_v])
+    part = torch.empty((plan["nsplit"], 27, plan["cip"], plan["cop"]), dtype=torch.float32,
+                       device=dev)
+    out = torch.empty((3, 3, 3, Cin, Cout), dtype=torch.float32, device=dev)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    err = _fn().km_conv3x3_weight_grad(
+        xa.data_ptr(), ptr(xb), ptr(scale_t), ptr(shift_t), g_v.data_ptr(), part.data_ptr(),
+        out.data_ptr(), Z, Y, X, Ca, Cb, Cout, int(bool(lowres)), plan["tx"], int(vec),
+        plan["nsplit"], _build.stream_ptr(dev))
+    _build.check(err, "km_conv3x3_weight_grad")
+    conv3x3_weight_grad.launches += 1
+    return out
+
+
+conv3x3_weight_grad.launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+# ---------------------------------------------------------------------------
 # autograd
 # ---------------------------------------------------------------------------
 
@@ -480,24 +643,6 @@ def _block_sum2(x, spatial):
     C = x.shape[1]
     x7 = x.reshape(Z // 2, 2, C, Y // 2, 2, X // 2, 2)
     return x7.sum(dim=(1, 4, 6), dtype=torch.float32).reshape(Z // 2, C, -1)
-
-
-def _weight_grad(u, g_v, spatial):
-    """dW[dz, dy, dx, ci, co] = sum_{z,y,x} u[z+dz-1, ci, y+dy-1, x+dx-1] *
-    g_v[z, co, y, x] (zero outside): 27 z-batched fp32 matmuls of bf16-valued
-    operands over views of one padded copy of ``u``. Returns (3, 3, 3, Cin,
-    Cout) fp32."""
-    Z, Y, X = spatial
-    C = u.shape[1]
-    up = F.pad(u.reshape(Z, C, Y, X), (1, 1, 1, 1, 0, 0, 1, 1))
-    gf = g_v.float().transpose(1, 2)  # (Z, N, Cout)
-    taps = []
-    for dz in range(3):
-        for dy in range(3):
-            for dx in range(3):
-                usl = up[dz:dz + Z, :, dy:dy + Y, dx:dx + X].float().reshape(Z, C, Y * X)
-                taps.append(torch.bmm(usl, gf).sum(dim=0))
-    return torch.stack(taps).reshape(3, 3, 3, C, -1)
 
 
 class _FusedConv(torch.autograd.Function):
@@ -575,12 +720,8 @@ class _FusedConv(torch.autograd.Function):
         del ga, gb
         if need[7]:
             with span("conv.weight_grad"):
-                u = _full_input(xa, xb, lowres, spatial).float()
-                if scale is not None:
-                    u = u * scale.float()[None, :, None]
-                if shift is not None:
-                    u = u + shift.float()[None, :, None]
-                g_w = _weight_grad(u.to(torch.bfloat16), g_v, spatial).to(w.dtype)
+                wgrad = _weight_grad_plain if plain else conv3x3_weight_grad
+                g_w = wgrad(xa, xb, spatial, g_v, scale, shift, lowres).to(w.dtype)
         return (None, None, None, None, None, g_xa, g_xb, g_w, g_scale, g_shift,
                 g_bias)
 

@@ -21,11 +21,28 @@ three forms:
     3.35 TB/s and the operations (2 * k^3 * Cin * Cout a voxel) over 989
     TFLOP/s bf16, as ``chip_smoke.py:_conv_bound`` counts them.
 
+and, for every 3^3 stage, its two gradients on a bf16 cotangent of its
+output:
+
+  * ``igrad_ms``: the input gradient, ``conv3x3_input_grad`` (its bound is
+    the forward's: the same operations, the cotangent read, the gradient
+    written);
+  * ``wgrad_ms``, ``wgrad_plain_ms``, ``wgrad_library_ms``,
+    ``wgrad_bound_ms``: the weight gradient, ``conv3x3_weight_grad``
+    (``wgrad<TX>``: the tensor-core kernel and its plane tile's width), its
+    plain version (27 tap-sliced fp32 matmuls) and one library call that
+    computes the same function (``torch.nn.grad.conv3d_weight`` in bf16 on
+    the materialized input, as ``library_ms`` is timed), against the
+    operations over 989 TFLOP/s and the bytes (each source read once at its
+    own resolution, the cotangent read once, the fp32 gradient written)
+    over 3.35 TB/s.
+
 Usage (on the card unless ``--device cpu``):
     python -m keymorph_tpu_torch.tools.conv_microbench [--size 256] [--reps 3]
            [--stages l1c1,l1c2,...] [--device cpu]
 
-One JSON line per stage, then one with the totals. Timing: CUDA events, the
+One JSON line per stage, then one with the totals (the 1^3 head has no
+gradient fields). Timing: CUDA events, the
 mean of ``--reps`` calls on fresh seeded inputs (drawn on the device) after a
 warm-up; with
 ``--device cpu`` the plain versions on the host clock ("card": null).
@@ -79,6 +96,20 @@ def bound(cin, cout, spatial, k=3):
     nbytes = 2 * (n * cin + k ** 3 * cin * cout + n * cout)
     tb = nbytes / H100_HBM_BYTES_PER_S
     to = conv_flops(cin, cout, spatial, k) / H100_BF16_PEAK_FLOPS
+    return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
+
+
+def wgrad_bound(ca, cb, cout, spatial, lowres=False):
+    """(ms, "bytes" or "operations") of a 3^3 conv's weight gradient over
+    the sources [ca | cb] channels: each source (bf16) read once at its own
+    resolution (``cb`` at half resolution with ``lowres``), the cotangent
+    (bf16) read once, the fp32 gradient written once; the forward's
+    operations."""
+    n = int(np.prod(spatial))
+    nb = n // 8 if lowres else n
+    cin = ca + cb
+    tb = (2 * (n * ca + nb * cb + n * cout) + 4 * 27 * cin * cout) / H100_HBM_BYTES_PER_S
+    to = conv_flops(cin, cout, spatial) / H100_BF16_PEAK_FLOPS
     return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
 
 
@@ -145,10 +176,38 @@ def stage_record(name, cin, cout, spatial, reps, device, gen):
         library_ms, _ = mean_ms(library, lib_inputs, device)
     b_ms, b_by = bound(cin, cout, spatial, k)
     tflops = conv_flops(cin, cout, spatial, k) / 1e9
-    return {"stage": name, "cin": cin, "cout": cout, "spatial": list(spatial), "k": k,
-            "form": "upconv" if up else "flat", "kernel": kind, "kernel_ms": kernel_ms,
-            "kernel_tflops": tflops / kernel_ms, "library_ms": library_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "timer": timer}
+    row = {"stage": name, "cin": cin, "cout": cout, "spatial": list(spatial), "k": k,
+           "form": "upconv" if up else "flat", "kernel": kind, "kernel_ms": kernel_ms,
+           "kernel_tflops": tflops / kernel_ms, "library_ms": library_ms,
+           "bound_ms": b_ms, "bound_by": b_by, "timer": timer}
+    if k == 1:
+        return row
+    grads = [(xa, xb, bf16(Z, cout, Y * X)) for xa, xb in inputs]
+
+    def input_grad(xa, xb, g_v):
+        return conv3d.conv3x3_input_grad(g_v, spatial, w, ca if up else None)
+
+    def weight_grad(xa, xb, g_v):
+        return conv3d.conv3x3_weight_grad(xa, xb, spatial, g_v, scale, shift, up)
+
+    def weight_grad_plain(xa, xb, g_v):
+        return conv3d._weight_grad_plain(xa, xb, spatial, g_v, scale, shift, up)
+
+    lib_grads = [(library_input(xa, xb),
+                  g_v.reshape(Z, cout, Y, X).permute(1, 0, 2, 3)[None].contiguous())
+                 for xa, xb, g_v in grads]
+
+    def weight_grad_library(u, g):
+        return torch.nn.grad.conv3d_weight(u, (cout, cin, 3, 3, 3), g, padding=1)
+
+    with torch.no_grad():
+        row["igrad_ms"], _ = mean_ms(input_grad, grads, device)
+        row["wgrad_ms"], _ = mean_ms(weight_grad, grads, device)
+        row["wgrad_plain_ms"], _ = mean_ms(weight_grad_plain, grads, device)
+        row["wgrad_library_ms"], _ = mean_ms(weight_grad_library, lib_grads, device)
+    row["wgrad_kernel"] = f"wgrad<{conv3d.weight_grad_plan(spatial, ca, cb, cout)['tx']}>"
+    row["wgrad_bound_ms"], row["wgrad_bound_by"] = wgrad_bound(ca, cb, cout, spatial, up)
+    return row
 
 
 def main(argv=None):
@@ -179,9 +238,9 @@ def main(argv=None):
         rows.append(row)
         print(json.dumps(row), flush=True)
     total = {"total": True, "stages": len(rows), "size": args.size, "card": name_of_card,
-             "kernel_ms": sum(r["kernel_ms"] for r in rows),
-             "library_ms": sum(r["library_ms"] for r in rows),
-             "bound_ms": sum(r["bound_ms"] for r in rows)}
+             **{k: sum(r.get(k, 0.0) for r in rows)
+                for k in ("kernel_ms", "library_ms", "bound_ms", "igrad_ms", "wgrad_ms",
+                          "wgrad_plain_ms", "wgrad_library_ms", "wgrad_bound_ms")}}
     print(json.dumps(total), flush=True)
     return rows, total
 

@@ -218,11 +218,45 @@ def test_weight_grad_is_the_tap_sliced_product(rng):
     Z, Y, X, C, K = 3, 5, 7, 4, 6
     u = torch.tensor(_bf16(rng.normal(size=(Z, C, Y * X)).astype(np.float32)))
     g = torch.tensor(_bf16(rng.normal(size=(Z, K, Y * X)).astype(np.float32)))
-    got = tconv._weight_grad(u.to(torch.bfloat16), g.to(torch.bfloat16), (Z, Y, X)).numpy()
+    got = tconv._weight_grad_plain(u.to(torch.bfloat16), None, (Z, Y, X),
+                                   g.to(torch.bfloat16)).numpy()
     up = np.pad(u.numpy().astype(np.float64).reshape(Z, C, Y, X),
                 ((1, 1), (0, 0), (1, 1), (1, 1)))
     g4 = g.numpy().astype(np.float64).reshape(Z, K, Y, X)
     want = np.zeros((3, 3, 3, C, K))
+    for dz in range(3):
+        for dy in range(3):
+            for dx in range(3):
+                want[dz, dy, dx] = np.einsum(
+                    "zcyx,zkyx->ck", up[dz:dz + Z, :, dy:dy + Y, dx:dx + X], g4)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("mode", ["parts", "upconv"])
+def test_weight_grad_plain_builds_u_from_both_sources(rng, mode):
+    """The plain weight gradient of a two-source conv with the affine (the
+    concat, the nearest x2 upsample of a half-resolution source, bf16(a*x +
+    b) and pad0 built inside it) against a float64 einsum over u made here:
+    only the fp32 sum's order differs (rel 1e-5)."""
+    Z, Y, X, ca, cb, K = 4, 6, 8, 3, 5, 7
+    lo = mode == "upconv"
+    xa = torch.tensor(_bf16(rng.normal(size=(Z, ca, Y * X)).astype(np.float32)))
+    src = (Z // 2, cb, (Y // 2) * (X // 2)) if lo else (Z, cb, Y * X)
+    xb = torch.tensor(_bf16(rng.normal(size=src).astype(np.float32)))
+    g = torch.tensor(_bf16(rng.normal(size=(Z, K, Y * X)).astype(np.float32)))
+    a = rng.uniform(0.5, 1.5, ca + cb).astype(np.float32)
+    b = (rng.normal(size=ca + cb) * 0.3).astype(np.float32)
+    bf = torch.bfloat16
+    got = tconv._weight_grad_plain(xa.to(bf), xb.to(bf), (Z, Y, X), g.to(bf), torch.tensor(a),
+                                   torch.tensor(b), lo).numpy()
+    xb4 = xb.numpy().reshape(src[0], cb, *((Y // 2, X // 2) if lo else (Y, X)))
+    if lo:
+        xb4 = xb4.repeat(2, axis=0).repeat(2, axis=2).repeat(2, axis=3)
+    x = np.concatenate([xa.numpy().reshape(Z, ca, Y, X), xb4], axis=1)
+    u = _bf16(x * a[None, :, None, None] + b[None, :, None, None]).astype(np.float64)
+    up = np.pad(u, ((1, 1), (0, 0), (1, 1), (1, 1)))
+    g4 = g.numpy().astype(np.float64).reshape(Z, K, Y, X)
+    want = np.zeros((3, 3, 3, ca + cb, K))
     for dz in range(3):
         for dy in range(3):
             for dx in range(3):

@@ -201,3 +201,112 @@ def test_tile_geometry_covers_its_tile_inside_one_stage(X):
     assert torch.equal(centre[v], want[v])
     assert int(centre.max() + lin["tap_offsets"][26] - lin["tap_offsets"][13]) < conv3d.NVOX_ALLOC
     assert conv3d.n_tiles((3, 9, X), geom) == -(-X // geom["tx"]) * -(-9 // geom["ty"]) * 2
+
+
+# the 12 convs of TruncatedUNet3D (f_maps 32, 4 levels, 1 truncated) at 128^3:
+# spatial, ca, cb (the half-resolution part of a decoder's input), cout
+UNET_128 = [((128,) * 3, 1, 0, 16), ((128,) * 3, 16, 0, 32), ((64,) * 3, 32, 0, 32),
+            ((64,) * 3, 32, 0, 64), ((32,) * 3, 64, 0, 64), ((32,) * 3, 64, 0, 128),
+            ((16,) * 3, 128, 0, 128), ((16,) * 3, 128, 0, 256), ((32,) * 3, 128, 256, 128),
+            ((32,) * 3, 128, 0, 128), ((64,) * 3, 64, 128, 64), ((64,) * 3, 64, 0, 64)]
+WGRAD_PLANS = UNET_128 + [((256, 256, 150), 16, 0, 32), ((128, 128, 75), 64, 64, 64),
+                          ((6, 12, 40), 8, 16, 24), ((5, 9, 33), 3, 5, 130), ((1, 4, 33), 16, 0, 3),
+                          ((3, 5, 7), 1, 0, 3), ((2, 3, 5), 200, 0, 3), ((4, 8, 16), 16, 0, 16)]
+
+
+def weight_grad_runs(plan):
+    """The runs of tile planes, (start, end) a split, as the kernel computes
+    them from the plan."""
+    p, n = plan["planes"], plan["nsplit"]
+    return [(s * p // n, (s + 1) * p // n) for s in range(n)]
+
+
+@pytest.mark.parametrize("n_sm", [132, 7])
+@pytest.mark.parametrize("spatial,ca,cb,cout", WGRAD_PLANS)
+def test_weight_grad_plan_splits_every_voxel_once(spatial, ca, cb, cout, n_sm):
+    """The weight-gradient kernel's plan: its plane tile and every tap's
+    operand inside one staged plane; the runs of tile planes cut [0, planes)
+    into nsplit non-empty pieces and put every output voxel in exactly one;
+    the partial sums under WG_PART_CAP (or a single run); the channel axes
+    padded to the wgmma's 16 input and 64 output channels."""
+    Z, Y, X = spatial
+    plan = conv3d.weight_grad_plan(spatial, ca, cb, cout, n_sm)
+    tx, ty, hx, hy = (plan[k] for k in ("tx", "ty", "hx", "hy"))
+    assert tx % 16 == 0 and tx * ty == conv3d.WG_VOX and (hx, hy) == (tx + 2, ty + 2)
+    # the last voxel a k-step reads: row ty - 1 + 2, column tx - 16 + 2 + 15
+    assert hy * hx <= conv3d.WG_PLANE_ALLOC and (ty + 1) * hx + tx + 1 < conv3d.WG_PLANE_ALLOC
+    runs = weight_grad_runs(plan)
+    assert len(runs) == plan["nsplit"] and runs[0][0] == 0 and runs[-1][1] == plan["planes"]
+    assert all(a < b for a, b in runs) and all(runs[i][1] == runs[i + 1][0]
+                                               for i in range(len(runs) - 1))
+    assert plan["planes"] == plan["ntx"] * plan["nty"] * Z
+    seen = torch.zeros((Z, plan["nty"] * ty, plan["ntx"] * tx), dtype=torch.int32)
+    for a, b in runs:
+        for idx in range(a, b):
+            tile, z = divmod(idx, Z)
+            y0, x0 = (tile // plan["ntx"]) * ty, (tile % plan["ntx"]) * tx
+            seen[z, y0:y0 + ty, x0:x0 + tx] += 1
+    assert bool((seen == 1).all())
+    assert plan["cip"] == len(conv3d.packed_channels(ca, cb)) == 16 * plan["nchunks"]
+    assert plan["cop"] == conv3d.WG_CO_BLOCK * plan["nco"] and 0 <= plan["cop"] - cout < 64
+    assert plan["part_bytes"] == plan["nsplit"] * 27 * plan["cip"] * plan["cop"] * 4
+    assert plan["part_bytes"] <= conv3d.WG_PART_CAP or plan["nsplit"] == 1
+    assert plan["blocks"] == plan["nco"] * plan["nchunks"] * plan["nsplit"]
+
+
+def _wgrad_walk(u, g, spatial, ca, cb, plan):
+    """The weight-gradient kernel's walk in float64: per run of tile planes,
+    per plane, the 16-channel chunks of the three input planes staged as the
+    kernel's halo planes (packed channels, pad0), a tap's operand the rows
+    (ly + dy) * hx + lx + dx of the plane z - 1 + dz, the cotangent plane
+    padded to ``cop`` channels; partial sums a run, then summed in order and
+    unpacked. ``u``: (Z, Cin, Y*X) the staged input, ``g``: (Z, Cout, Y*X)."""
+    Z, Y, X = spatial
+    tx, ty, hx, hy, cop = (plan[k] for k in ("tx", "ty", "hx", "hy", "cop"))
+    chan = conv3d.packed_channels(ca, cb)
+    cin, cout = ca + cb, g.shape[1]
+    padded = torch.zeros((Z + 2, cin + 1, Y + ty + 2, X + tx + 2), dtype=torch.float64)
+    padded[1:Z + 1, :cin, 1:Y + 1, 1:X + 1] = u.double().reshape(Z, cin, Y, X)
+    gp = torch.zeros((Z, cop, Y + ty, X + tx), dtype=torch.float64)
+    gp[:, :cout, :Y, :X] = g.double().reshape(Z, cout, Y, X)
+    v = torch.arange(ty * tx)
+    ly, lx = v // tx, v % tx
+    part = torch.zeros((plan["nsplit"], 27, len(chan), cop), dtype=torch.float64)
+    for s, (a, b) in enumerate(weight_grad_runs(plan)):
+        for idx in range(a, b):
+            tile, z = divmod(idx, Z)
+            y0, x0 = (tile // plan["ntx"]) * ty, (tile % plan["ntx"]) * tx
+            gt = gp[z, :, y0:y0 + ty, x0:x0 + tx].reshape(cop, -1)
+            for dz in range(3):
+                # channel -1 (padding) reads the zero channel
+                halo = padded[z + dz, :, y0:y0 + hy, x0:x0 + hx][chan].reshape(len(chan), -1)
+                for dy in range(3):
+                    for dx in range(3):
+                        part[s, (dz * 3 + dy) * 3 + dx] += \
+                            halo[:, (ly + dy) * hx + lx + dx] @ gt.T
+    pos = torch.nonzero(chan >= 0).flatten()  # packed position of each real channel
+    return part.sum(0)[:, pos, :cout].reshape(3, 3, 3, cin, cout)
+
+
+@pytest.mark.parametrize("spatial,mode,ca,cb,cout", [
+    ((3, 9, 33), "flat", 3, 0, 5), ((4, 6, 20), "upconv", 5, 11, 70),
+    ((2, 17, 16), "parts", 8, 9, 3), ((2, 3, 40), "flat", 17, 0, 64)])
+def test_weight_grad_walk_matches_plain(rng, spatial, mode, ca, cb, cout):
+    """What the weight-gradient kernel is told (plane tiles, runs, packed and
+    padded channels), walked in float64 over the staged input, against the
+    plain weight gradient: within 1e-5 of the sum of the terms' magnitudes."""
+    Z, Y, X = spatial
+    xa = _bf16(rng, Z, ca, Y * X)
+    src = {"flat": None, "parts": (Z, cb, Y * X), "upconv": (Z // 2, cb, (Y // 2) * (X // 2))}
+    xb = None if src[mode] is None else _bf16(rng, *src[mode])
+    g = _bf16(rng, Z, cout, Y * X)
+    sc = torch.tensor(rng.uniform(0.5, 1.5, ca + cb).astype(np.float32))
+    sh = torch.tensor((rng.normal(size=ca + cb) * 0.3).astype(np.float32))
+    lowres = mode == "upconv"
+    u = (conv3d._full_input(xa, xb, lowres, spatial).float() * sc[None, :, None]
+         + sh[None, :, None]).to(torch.bfloat16)
+    plan = conv3d.weight_grad_plan(spatial, ca, cb, cout, n_sm=5)
+    got = _wgrad_walk(u, g, spatial, ca, cb, plan)
+    want = conv3d._weight_grad_plain(xa, xb, spatial, g, sc, sh, lowres)
+    mag = conv3d._weight_grad_plain(u.abs(), None, spatial, g.abs())
+    assert bool(((got - want.double()).abs() <= 1e-5 * mag.double()).all())

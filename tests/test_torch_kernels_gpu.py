@@ -372,8 +372,8 @@ def test_conv_input_grad_kernel_matches_plain(rng, dev, shape):
 
 @pytest.mark.parametrize("mode", ["flat", "upconv"])
 def test_conv_backward_through_the_kernels_matches_plain(rng, dev, mode):
-    """backward() of the fused conv on the card (forward recompute and input
-    gradient on the kernels, the reductions in PyTorch) against the same
+    """backward() of the fused conv on the card (forward recompute, input and
+    weight gradients on the kernels, the reductions in PyTorch) against the same
     Function on the plain versions: every gradient within 2e-2 of its
     largest value (bf16 cotangents and outputs may differ by one ulp)."""
     from keymorph_tpu_torch.ops.cuda import conv3d
@@ -396,12 +396,131 @@ def test_conv_backward_through_the_kernels_matches_plain(rng, dev, mode):
         return [t.grad.float() for t in leaves]
 
     n0 = conv3d.conv3x3_input_grad.launches
+    w0 = conv3d.conv3x3_weight_grad.launches
     got, want = grads(kern), grads(plain)
     torch.cuda.synchronize()
     assert conv3d.conv3x3_input_grad.launches == n0 + 1
+    assert conv3d.conv3x3_weight_grad.launches == w0 + 1
     for g, p in zip(got, want):
         assert g.shape == p.shape
         assert (g - p).abs().max().item() <= 2e-2 * p.abs().max().item()
+
+
+# The weight-gradient kernel sums products of bf16 values (exact in fp32) in
+# fp32 on the tensor cores, a split's voxels at a time, then the splits in
+# order; the plain version sums the same products in cuBLAS's order. Each is
+# held to WGRAD_TOL of the sum of the terms' magnitudes, S = sum |u| |g_v|
+# (the error of an fp32 sum scales with S, not with the result, which
+# cancels). The tests print the measured worst; PERF.md keeps it.
+WGRAD_TOL = 1e-5
+
+# the 12 convs of TruncatedUNet3D (f_maps 32, 4 levels, 1 truncated) at 128^3
+UNET_128 = [((128,) * 3, "flat", 1, 0, 16), ((128,) * 3, "flat", 16, 0, 32),
+            ((64,) * 3, "flat", 32, 0, 32), ((64,) * 3, "flat", 32, 0, 64),
+            ((32,) * 3, "flat", 64, 0, 64), ((32,) * 3, "flat", 64, 0, 128),
+            ((16,) * 3, "flat", 128, 0, 128), ((16,) * 3, "flat", 128, 0, 256),
+            ((32,) * 3, "upconv", 128, 256, 128), ((32,) * 3, "flat", 128, 0, 128),
+            ((64,) * 3, "upconv", 64, 128, 64), ((64,) * 3, "flat", 64, 0, 64)]
+
+WGRAD_SHAPES = [
+    # spatial, form, ca, cb, cout, affine
+    ((6, 12, 40), "flat", 8, 0, 24, True),       # Y, X ragged against the 8 x 32 plane tile
+    ((6, 12, 40), "upconv", 8, 16, 24, True),
+    ((6, 12, 40), "upconv", 8, 16, 24, False),
+    ((5, 9, 33), "parts", 8, 16, 24, True),      # X odd: staged value by value
+    ((5, 9, 33), "parts", 3, 5, 24, False),      # sources of 3 and 5 channels, padded apart
+    ((4, 8, 16), "flat", 16, 0, 16, False),      # X = 16: the 16 x 16 plane tile
+    ((3, 5, 7), "flat", 1, 0, 3, True),          # Cin = 1
+    ((1, 4, 33), "flat", 16, 0, 130, True),      # Z = 1; Cout 130: three blocks, the last ragged
+    ((8, 20, 48), "upconv", 24, 40, 72, True),   # Cout 72: the second block ragged
+    ((2, 3, 5), "flat", 200, 0, 3, False),       # 13 chunks of 16 input channels
+    ((256, 256, 150), "flat", 16, 0, 32, True),  # an IXI scan's extent, X ragged and not a multiple of 8
+    ((128, 128, 75), "parts", 64, 64, 64, True),  # its decoder at level 1 (skip of 75 against 74)
+] + [(*c, True) for c in UNET_128]
+
+
+def _wgrad_inputs(dev, spatial, mode, ca, cb, cout, affine, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def bf(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    Z, Y, X = spatial
+    xa = bf(Z, ca, Y * X)
+    xb = None
+    if mode == "parts":
+        xb = bf(Z, cb, Y * X)
+    elif mode == "upconv":
+        xb = bf(Z // 2, cb, (Y // 2) * (X // 2))
+    cin = ca + cb
+    sc = sh = None
+    if affine:
+        sc = torch.rand(cin, generator=g, device=dev) + 0.5
+        sh = torch.randn(cin, generator=g, device=dev) * 0.3
+    return xa, xb, spatial, bf(Z, cout, Y * X), sc, sh, mode == "upconv"
+
+
+def _wgrad_magnitude(args):
+    """S = sum |u| |g_v| per weight: the plain product of the magnitudes."""
+    from keymorph_tpu_torch.ops.cuda import conv3d
+
+    xa, xb, spatial, g_v, sc, sh, lowres = args
+    u = conv3d._full_input(xa, xb, lowres, spatial).float()
+    if sc is not None:
+        u = u * sc[None, :, None] + sh[None, :, None]
+    return conv3d._weight_grad_plain(u.to(torch.bfloat16).abs(), None, spatial, g_v.abs())
+
+
+@pytest.mark.parametrize("spatial,mode,ca,cb,cout,affine", WGRAD_SHAPES)
+def test_conv_weight_grad_kernel_matches_plain(dev, spatial, mode, ca, cb, cout, affine):
+    """The weight-gradient kernel against its plain version within WGRAD_TOL
+    of S, bit for bit the same across two calls (its splits are summed in a
+    fixed order), on shapes ragged against its plane tile and channel blocks,
+    the three forms with and without the affine, and the U-Net's 12 convs at
+    128^3."""
+    from keymorph_tpu_torch.ops.cuda import conv3d
+
+    args = _wgrad_inputs(dev, spatial, mode, ca, cb, cout, affine)
+    n0 = conv3d.conv3x3_weight_grad.launches
+    k = conv3d.conv3x3_weight_grad(*args)
+    k2 = conv3d.conv3x3_weight_grad(*args)
+    p = conv3d._weight_grad_plain(*args)
+    mag = _wgrad_magnitude(args)
+    torch.cuda.synchronize()
+    assert conv3d.conv3x3_weight_grad.launches == n0 + 2
+    assert k.shape == p.shape == (3, 3, 3, ca + cb, cout) and k.dtype == torch.float32
+    assert torch.equal(k, k2)
+    ratio = ((k - p).abs() / mag.clamp_min(1e-30)).max().item()
+    print(f"weight grad {spatial} {mode} {ca}+{cb}->{cout}: |kernel - plain| / S = {ratio:.3g}")
+    assert bool(((k - p).abs() <= WGRAD_TOL * mag).all()), ratio
+
+
+def test_conv_weight_grad_against_float64_at_the_longest_sums(dev):
+    """The U-Net's e0c2 at 128^3 (sums over 2^21 voxels): kernel and plain
+    version each against a float64 product of the same bf16 operands, within
+    WGRAD_TOL of S."""
+    import torch.nn.functional as F
+
+    from keymorph_tpu_torch.ops.cuda import conv3d
+
+    args = _wgrad_inputs(dev, (128, 128, 128), "flat", 16, 0, 32, True, seed=1)
+    xa, _, spatial, g_v, sc, sh, _ = args
+    Z, Y, X = spatial
+    k = conv3d.conv3x3_weight_grad(*args)
+    p = conv3d._weight_grad_plain(*args)
+    mag = _wgrad_magnitude(args)
+    u = (xa.float() * sc[None, :, None] + sh[None, :, None]).to(torch.bfloat16).double()
+    up = F.pad(u.reshape(Z, 16, Y, X), (1, 1, 1, 1, 0, 0, 1, 1))
+    g = g_v.double().reshape(Z, 32, Y * X)
+    ref = torch.stack([
+        torch.einsum("zcn,zkn->ck", up[dz:dz + Z, :, dy:dy + Y, dx:dx + X].reshape(Z, 16, -1), g)
+        for dz in range(3) for dy in range(3) for dx in range(3)]).reshape(3, 3, 3, 16, 32)
+    torch.cuda.synchronize()
+    for name, got in (("kernel", k), ("plain", p)):
+        err = (got.double() - ref).abs()
+        print(f"weight grad e0c2 128^3 {name}: |. - float64| / S = "
+              f"{(err / mag.double()).max().item():.3g}")
+        assert bool((err <= WGRAD_TOL * mag.double()).all())
 
 
 @pytest.mark.parametrize("B,T,spatial,lmbda", TPS_SHAPES)
@@ -595,6 +714,12 @@ def test_wrappers_raise_instead_of_falling_back(dev):
     with pytest.raises(TypeError):
         conv3d.conv3x3_input_grad(torch.zeros((2, 2, 64), device=dev), (2, 8, 8),
                                   torch.zeros((3, 3, 3, 1, 2), device=dev))
+    xa = torch.zeros((2, 1, 64), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(TypeError):
+        conv3d.conv3x3_weight_grad(xa, None, (2, 8, 8), torch.zeros((2, 2, 64), device=dev))
+    with pytest.raises(ValueError):
+        conv3d.conv3x3_weight_grad(xa, None, (2, 8, 8),
+                                   torch.zeros((2, 2, 63), device=dev, dtype=torch.bfloat16))
     theta, ctrl = torch.zeros((1, 8, 3), device=dev), torch.zeros((1, 4, 3), device=dev)
     with pytest.raises(ValueError):
         tpsflow.tps_planes_bwd(theta, ctrl, (4, 4, 4), torch.zeros((1, 3, 4, 4, 5), device=dev))

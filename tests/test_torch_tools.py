@@ -361,7 +361,10 @@ def test_conv_microbench_stages_are_keymorph_tpus(size):
 def test_conv_microbench_on_the_cpu(capsys):
     """At 32^3 with ``--device cpu`` (the plain versions, host clock): one
     JSON line per stage and one of totals; each stage names its form and
-    instantiation and carries its bound by the conv's bytes and operations."""
+    instantiation and carries its bound by the conv's bytes and operations,
+    and each 3^3 stage its input and weight gradients' times (the weight
+    gradient's also through the library) and the weight gradient's bound,
+    each source counted at its own resolution."""
     rows, total = conv_microbench.main(["--device", "cpu", "--size", "32", "--reps", "1"])
     lines = [json.loads(line) for line in capsys.readouterr().out.strip().splitlines()]
     assert lines == rows + [total] and len(rows) == 13
@@ -375,6 +378,15 @@ def test_conv_microbench_on_the_cpu(capsys):
         assert r["bound_ms"] == pytest.approx(max(
             2 * (n * cin + k ** 3 * cin * cout + n * cout) / 3.35e12,
             2 * n * k ** 3 * cin * cout / 989e12) * 1e3)
+        if k == 3:  # the two gradients: kernel wrappers (plain versions on the CPU)
+            assert r["igrad_ms"] > 0 and r["wgrad_ms"] > 0 and r["wgrad_plain_ms"] > 0
+            assert r["wgrad_library_ms"] > 0
+            # an upconv's deeper source is read at half resolution
+            cb = {"d1c1": 256, "d2c1": 128}.get(name, 0)
+            assert r["wgrad_bound_ms"] == pytest.approx(max(
+                (2 * (n * (cin - cb) + n // 8 * cb + n * cout) + 4 * 27 * cin * cout) / 3.35e12,
+                2 * n * 27 * cin * cout / 989e12) * 1e3)
+            assert r["wgrad_kernel"] == ("wgrad<32>" if spatial[2] > 16 else "wgrad<16>")
     assert rows[0]["kernel"] == "fma" and rows[1]["kernel"] == "mma<32>"
     assert rows[8]["form"] == "upconv" and rows[8]["kernel"] == "mma<64>"
     assert rows[-1]["kernel"] == "matmul (PyTorch)"
