@@ -35,7 +35,11 @@ Phases (each prints its lines; any failure raises, so the exit code is not 0):
      its plain version per weight within WGRAD_TOL of the sum of its terms'
      magnitudes, its library call ``torch.nn.grad.conv3d_weight`` in bf16 on
      the materialized input, its bound counting each source at its own
-     resolution; the three
+     resolution; the residual U-Nets' serving kernels at every shape of the
+     256^3 ResidualUNetSE3D (the residual-epilogue conv and the scSE gate at
+     each of its four levels, three 2x max-pools, four lifts, three
+     transposed convs against bf16 ``F.conv_transpose3d``;
+     ``_phase1_residual_net``); the three
      TPS kernels and their plain versions are each held against the float64
      evaluation of the same formula, for splines fitted at lmbda 1, 1e-4 and
      1e-6 (the bottom of the range training draws from); the TPS backward
@@ -247,9 +251,15 @@ Phases (each prints its lines; any failure raises, so the exit code is not 0):
      backbone and head on the card, then the fp32 fit, grid and warp on the
      CPU). Each path's
      kernels must launch and no plain version runs on it.
+ 18. the residual cell's net: the 256^3 bf16 ResidualUNetSE3D (f_maps 32, 4
+     levels, 256 keypoints, seeded weights) served through
+     ``KeyMorphNet.features`` under no_grad with the counters set to 0 just
+     before: each residual kernel launches once a layer of its kind and
+     nothing else runs; heatmaps and keypoints against its plain route under
+     phase 3's yardstick rule.
 
 The line before the last is the kernels' JSON record (``launches`` summed
-over the main paths of phases 2, 5, 9, 10, 11, 12, 13, 14, 15, 16 and 17); the last line is
+over the main paths of phases 2, 5, 9, 10, 11, 12, 13, 14, 15, 16, 17 and 18); the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA it raises before printing
 a result. The script imports neither jax nor keymorph_tpu.
 """
@@ -358,6 +368,11 @@ REPLACES = {
     "tps_bwd": "keymorph_tpu/ops/pallas/tpsflow.py:275",
     "warp": "keymorph_tpu/ops/pallas/resample3d.py:110",
     "warp_grad": "keymorph_tpu/ops/pallas/resample3d.py:393",
+    # no Pallas kernel: keymorph_tpu runs the residual nets' flax modules
+    "resblock": "none: flax nn.Conv, keymorph_tpu/models/unet.py:176",
+    "tconv": "none: flax nn.ConvTranspose, keymorph_tpu/models/unet.py:359",
+    "scse": "none: flax ChannelSpatialSE, keymorph_tpu/models/unet.py:161",
+    "pool": "none: flax nn.max_pool, keymorph_tpu/models/unet.py:261",
 }
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense): the bounds
@@ -697,6 +712,8 @@ def phase1(torch, rng, dev):
           f"STATS_REL {STATS_REL})")
     del skip, low, full, u, ref, ko, po
 
+    _phase1_residual_net(torch, rng, dev, bf16, weights, gn, record)
+
     # conv input gradient at the training step's shapes (128^3 input): e0c2,
     # its largest conv (cotangent 32 channels -> gradient 16 channels); the
     # d1c1 upconv at 64^3: cotangent 64 -> [64 | 128] (both halves at 64^3; the
@@ -907,6 +924,149 @@ def phase1(torch, rng, dev):
 
 LIMIT_T = 4096     # control points past the 2048 the TPS wrappers once took
 LIMIT_B = 70000    # batch items past the grid's 65535 rows
+
+
+def _phase1_residual_net(torch, rng, dev, bf16, weights, gn, record):
+    """The residual U-Nets' kernels at every shape of the 256^3
+    ResidualUNetSE3D (f_maps 32, 4 levels: 32@256^3, 64@128^3, 128@64^3,
+    256@32^3): a block's last conv with the residual sum and ReLU in its
+    epilogue (each level), the 2x max-pool (levels 0-2), the lifts (each
+    encoder; fp32 FMA rate), the transposed conv with the skip sum (d0: 256@32^3
+    -> 128@64^3; d1: 128@64^3 -> 64@128^3; d2: 64@128^3 -> 32@256^3; library:
+    bf16 ``F.conv_transpose3d``), the scSE gate (each level). A rounded conv
+    summed with a bf16 tensor and rounded again lies within one bf16 ulp of
+    the conv part plus one of the sum of the plain version's; the gate's
+    fp32 squeeze and spatial sum in other orders may move a gate by one bf16
+    ulp, a gated value by two."""
+    import torch.nn.functional as F
+
+    from keymorph_tpu_torch.models.unet import ChannelSpatialSE
+    from keymorph_tpu_torch.ops.cuda import conv3d, resblock
+
+    Z, Y, X = SPATIAL
+    levels = [(32 << i, (Z >> i, Y >> i, X >> i)) for i in range(4)]  # (C, spatial)
+
+    def sum_ok(k, p, part):
+        k, p, part = k.float(), p.float(), part.float()
+        err = (k - p).abs()
+        tol = CONV_REL_ULP * (part.abs() + p.abs()) + CONV_FLOOR * part.abs().max()
+        return err.max().item(), bool((err <= tol).all())
+
+    def side(sp):
+        return f"{sp[0]}^3" if sp[0] == sp[1] == sp[2] else "x".join(map(str, sp))
+
+    sum_tol = f"tol 1 bf16 ulp of the conv part + 1 of the sum + {CONV_FLOOR}*max"
+    with torch.no_grad():
+        # each level's block end: relu(bf16(bf16(conv(GN(y))) + residual)), stats
+        for c, sp in levels:
+            n = sp[0] * sp[1] * sp[2]
+            y, res = torch.relu(bf16(sp[0], c, sp[1] * sp[2])), bf16(sp[0], c, sp[1] * sp[2])
+            w = weights(c, c)
+            sc, sh = gn(y, 8)
+            args = (y, sp, w, sc, sh, None)
+            k, _ = conv3d.conv3x3_fused_flat_res(*args, emit_stats=True, residual=res)
+            p, _ = conv3d.conv3x3_fused_flat_res_plain(*args, emit_stats=True, residual=res)
+            part = conv3d.conv3x3_fused_flat_plain(*args, relu=False)
+            err, ok = sum_ok(k, p, part)
+            del k, p, part
+            ms = _cuda_ms(lambda: conv3d.conv3x3_fused_flat_res(*args, emit_stats=True,
+                                                                residual=res), 5)
+            pms = _cuda_ms(lambda: conv3d.conv3x3_fused_flat_res_plain(*args, emit_stats=True,
+                                                                       residual=res), 3)
+            record("conv3x3_fused_flat_res", err, ms, pms, None,
+                   _conv_bound(c, c, sp, 2 * c * n * 2),
+                   f"conv block end {c}->{c} @{side(sp)} (+GN affine, residual sum, ReLU, "
+                   f"stats)", sum_tol, ok, flops=2.0 * 27 * c * c * n)
+            del y, res, args
+
+        # the encoders' 2x max-pools: levels 0-2 -> 1-3
+        for c, sp in levels[:3]:
+            x = bf16(sp[0], c, sp[1] * sp[2])
+            k, _ = resblock.maxpool2_flat(x, sp)
+            p, _ = resblock.maxpool2_flat_plain(x, sp)
+            err = (k.float() - p.float()).abs().max().item()
+            del k, p
+            ms = _cuda_ms(lambda: resblock.maxpool2_flat(x, sp), 5)
+            pms = _cuda_ms(lambda: resblock.maxpool2_flat_plain(x, sp), 3)
+            record("maxpool2_flat", err, ms, pms, None,
+                   _bound(c * sp[0] * sp[1] * sp[2] * 2 * 9 / 8, 0.0),
+                   f"2x max-pool {c}@{side(sp)} -> {side(tuple(s // 2 for s in sp))}", "exact",
+                   err == 0.0)
+            del x
+
+        # each encoder's lift (1 -> 32 at level 0, C/2 -> C below), with stats
+        for cin, (cout, sp) in zip((1, 32, 64, 128), levels):
+            x = bf16(sp[0], cin, sp[1] * sp[2])
+            wl = torch.tensor(rng.normal(size=(cout, cin)).astype(np.float32) / np.sqrt(cin),
+                              device=dev)
+            bl = torch.tensor(rng.normal(size=cout).astype(np.float32) * 0.1, device=dev)
+            k, ks = resblock.lift1x1_flat(x, wl, bl)
+            p, ps = resblock.lift1x1_flat_plain(x, wl, bl)
+            err, ok = _conv_check((k, ks), (p, ps))
+            del k, p
+            ms = _cuda_ms(lambda: resblock.lift1x1_flat(x, wl, bl), 5)
+            pms = _cuda_ms(lambda: resblock.lift1x1_flat_plain(x, wl, bl), 3)
+            n = sp[0] * sp[1] * sp[2]
+            record("lift1x1_flat", err, ms, pms, None,
+                   _bound(2 * (cin + cout) * n, 2.0 * cin * cout * n / PEAK_FP32),
+                   f"lift {cin}->{cout} @{side(sp)} (+bias, stats)",
+                   "tol 1 bf16 ulp + floor, stats rel", ok)
+            del x
+
+        # the decoders' transposed convs, skip summed, stats of the sum
+        for name, (cin, low), (cout, out) in (("d0", levels[3], levels[2]),
+                                              ("d1", levels[2], levels[1]),
+                                              ("d2", levels[1], levels[0])):
+            x = torch.relu(bf16(low[0], cin, low[1] * low[2]))
+            skip = bf16(out[0], cout, out[1] * out[2])
+            wt = torch.tensor(rng.normal(size=(cin, cout, 3, 3, 3)).astype(np.float32)
+                              / np.sqrt(cin * 27 / 8), device=dev)
+            b = torch.tensor(rng.normal(size=cout).astype(np.float32) * 0.1, device=dev)
+            k, _ = conv3d.conv_transpose3x3s2_flat(x, out, wt, b, skip=skip, emit_stats=True)
+            p, _ = conv3d.conv_transpose3x3s2_flat_plain(x, out, wt, b, skip=skip,
+                                                         emit_stats=True)
+            part = conv3d.conv_transpose3x3s2_flat_plain(x, out, wt, b)
+            err, ok = sum_ok(k, p, part)
+            del k, p, part
+            ms = _cuda_ms(lambda: conv3d.conv_transpose3x3s2_flat(x, out, wt, b, skip=skip,
+                                                                  emit_stats=True), 5)
+            pms = _cuda_ms(lambda: conv3d.conv_transpose3x3s2_flat_plain(
+                x, out, wt, b, skip=skip, emit_stats=True), 3)
+            lhs = _ncdhw(x, low)
+            wb, bb = wt.to(torch.bfloat16), b.to(torch.bfloat16)
+            lms = _cuda_ms(lambda: F.conv_transpose3d(lhs, wb, bb, stride=2, padding=1,
+                                                      output_padding=1), 3)
+            n = out[0] * out[1] * out[2]
+            flops = 2.0 * 27 * cin * cout * n / 8
+            record("conv_transpose3x3s2_flat", err, ms, pms, lms,
+                   _bound(2 * (cin * n / 8 + 27 * cin * cout + 2 * cout * n), flops / PEAK_BF16),
+                   f"transposed conv {name} {cin}@{side(low)} -> {cout}@{side(out)} (+bias, "
+                   f"skip sum, stats)", sum_tol, ok, flops=flops)
+            del x, skip, lhs
+
+        # the scSE gate of each level's block output (squeeze from its mean)
+        for c, sp in levels:
+            se = ChannelSpatialSE(c, 1, torch.bfloat16)
+            for prm in se.parameters():
+                prm.copy_(torch.tensor(rng.normal(size=prm.shape).astype(np.float32)
+                                       / np.sqrt(prm[0].numel() if prm.dim() > 1 else 1)))
+            se = se.to(dev)
+            x = torch.relu(bf16(sp[0], c, sp[1] * sp[2]))
+            n = sp[0] * sp[1] * sp[2]
+            mean = torch.sum(x, dim=(0, 2), dtype=torch.float32) / n
+            k = resblock.scse_gate_flat(x, se, mean)
+            p = resblock.scse_gate_flat_plain(x, se)
+            kf, pf = k.float(), p.float()
+            err = (kf - pf).abs()
+            ok = bool((err <= 2 * CONV_REL_ULP * torch.maximum(kf.abs(), pf.abs())).all())
+            differ = float((kf != pf).float().mean())
+            del k, p, kf, pf
+            ms = _cuda_ms(lambda: resblock.scse_gate_flat(x, se, mean), 5)
+            pms = _cuda_ms(lambda: resblock.scse_gate_flat_plain(x, se), 3)
+            record("scse_gate_flat", err.max().item(), ms, pms, None, _bound(2 * c * n * 2, 0.0),
+                   f"scSE gate {c}@{side(sp)}", "tol 2 bf16 ulps", ok,
+                   extra={"share_differing": differ})
+            del x, err
 
 
 def _phase1_past_the_old_limits(torch, dev, record, flush):
@@ -3983,6 +4143,68 @@ def phase17(torch, dev):
     return counts
 
 
+RESUNET = dict(out_channels=256, f_maps=32, num_levels=4)  # the benchmark's resunetse-k256-full
+
+
+def phase18(torch, dev):
+    """The 256^3 bf16 ResidualUNetSE3D (f_maps 32, 4 levels, 'gcr', 256
+    keypoints) served through ``KeyMorphNet.features`` under no_grad, the
+    counters set to 0 just before: each residual kernel launches as often as
+    the net has its layers (7 block-first convs, 7 block ends, 4 lifts, 3
+    pools, 3 transposed convs, 7 gates) and no plain version runs. Its
+    heatmaps and keypoints against its plain route (``plain=True``) under
+    phase 3's yardstick rule. Weights from the seed, biases and norm affines
+    moved off their init. Returns the launch counts."""
+    from keymorph_tpu_torch.models.keymorph import KeyMorphNet
+    from keymorph_tpu_torch.models.layers import center_of_mass
+    from keymorph_tpu_torch.models.unet import ResidualUNetSE3D, init_weights
+    from keymorph_tpu_torch.ops import cuda as kernels
+
+    gen = torch.Generator().manual_seed(SEED + 18)
+    backbone = init_weights(ResidualUNetSE3D(dtype=torch.bfloat16, **RESUNET), gen)
+    with torch.no_grad():
+        for p in backbone.parameters():
+            if p.dim() == 1:  # conv biases, norm scales and biases
+                p.add_(0.1 * torch.randn(p.shape, generator=gen))
+    net = KeyMorphNet(backbone, RESUNET["out_channels"]).to(dev).eval()
+    img = _make_pairs(torch, np.random.default_rng([SEED, 18]), dev, n_pairs=1)[0][0]
+    want = {"conv3x3_fused_flat": 7, "conv3x3_fused_flat_res": 7, "lift1x1_flat": 4,
+            "maxpool2_flat": 3, "conv_transpose3x3s2_flat": 3, "scse_gate_flat": 7}
+    with torch.no_grad():
+        net.features(img)  # first call: the kernels' shapes warm
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_counters()
+        k_feat = net.features(img)
+        counts = kernels.counters()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        _expect("phase 18 ResidualUNetSE3D", counts, tuple(want))
+        got = {name: counts[name]["launches"] for name in want}
+        if got != want or any(c["launches"] for n, c in counts.items() if n not in want):
+            raise AssertionError(f"phase 18: launches {counts}, want {want} and no other")
+        p_feat = net.features(img, plain=True)
+        d = (k_feat.float() - p_feat.float()).abs().max().item()
+        d_kp = (center_of_mass(k_feat) - center_of_mass(p_feat)).abs().max().item()
+        del k_feat
+        n_feat = net.features(img * (1 + PERTURB), plain=True)
+        top = p_feat.float().abs().max().item()
+        y = (n_feat.float() - p_feat.float()).abs().max().item() / top
+        y_kp = (center_of_mass(n_feat) - center_of_mass(p_feat)).abs().max().item()
+        d /= top
+        del n_feat, p_feat
+        k_ms = _cuda_ms(lambda: net.features(img), 3)
+        p_ms = _cuda_ms(lambda: net.features(img, plain=True), 1)
+    tol, tol_kp = max(HEATMAP_REL, NOISE_FACTOR * y), max(KEYPOINT_ABS, NOISE_FACTOR * y_kp)
+    print(f"phase18 ResidualUNetSE3D at {SPATIAL}: heatmaps {k_ms:.3f} ms through the kernels "
+          f"(peak device memory {peak:.3f} GiB), {p_ms:.3f} ms plain; kernels vs plain {d!r} x "
+          f"max (yardstick {y!r}, tol {tol!r}); keypoints {d_kp!r} (yardstick {y_kp!r}, tol "
+          f"{tol_kp!r}); launches {json.dumps(got)}")
+    if d > tol or d_kp > tol_kp:
+        raise AssertionError("phase 18: the residual net's heatmaps through the kernels disagree "
+                             "with its plain route")
+    return counts
+
+
 # --plant-fault: each fault wraps one kernel's wrapper, so only the kernel
 # route sees it (the plain steps call the plain versions by their own names)
 FAULTS = ("warp_grad_plane", "input_grad_half", "weight_grad_half")
@@ -4137,6 +4359,8 @@ def main():
         shutil.rmtree(reg_dir, ignore_errors=True)
     torch.cuda.empty_cache()
     trained_counts = phase17(torch, dev)
+    torch.cuda.empty_cache()
+    resunet_counts = phase18(torch, dev)
 
     def entry(name, key, source):
         # launches: over every main path, each counted from 0 just before it
@@ -4147,14 +4371,15 @@ def main():
         # grid, where the parts form runs; phase 14's parallel paths, over its
         # world of 1 and both ranks of its world of 2; phase 15's tools and
         # panels; phase 16's bench, entry, dry-run ranks and example; phase
-        # 17's training run and its served pairs). Phase 1's launches are
-        # kept apart.
+        # 17's training run and its served pairs; phase 18's residual net).
+        # Phase 1's launches are kept apart.
         paths = {"launches_served_3_pairs": serve_counts, "launches_3_train_steps": train_counts,
                  "launches_phase9_api": api_counts, "launches_phase10_steps": api_train_counts,
                  "launches_phase11_register": register_counts,
                  "launches_phase12_run": run_counts, "launches_phase13_parts": parts_counts,
                  "launches_phase14": parallel_counts, "launches_phase15_tools": tools_counts,
-                 "launches_phase16": entry_counts, "launches_phase17": trained_counts}
+                 "launches_phase16": entry_counts, "launches_phase17": trained_counts,
+                 "launches_phase18_resunet": resunet_counts}
         per_path = {k: c[name]["launches"] for k, c in paths.items()}
         return {"name": name, "route": "cuda", "source": f"keymorph_tpu_torch/csrc/{source}",
                 "replaces": REPLACES[key], "launches": sum(per_path.values()), **per_path,
@@ -4172,6 +4397,11 @@ def main():
         entry("tps_planes_bwd", "tps_bwd", "tpsflow.cu"),
         entry("warp_planes", "warp", "resample3d.cu"),
         entry("warp_planes_grad", "warp_grad", "resample3d.cu"),
+        entry("conv3x3_fused_flat_res", "resblock", "conv3d.cu"),
+        entry("conv_transpose3x3s2_flat", "tconv", "conv3d.cu"),
+        entry("lift1x1_flat", "resblock", "resblock.cu"),
+        entry("scse_gate_flat", "scse", "resblock.cu"),
+        entry("maxpool2_flat", "pool", "resblock.cu"),
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -3,7 +3,13 @@
 // forms, and the conv's input gradient, as ONE implicit GEMM on the H100's
 // bf16 tensor cores (wgmma), plus an FMA kernel for the forward conv at Cin < 8;
 // and the conv's weight gradient, a split-voxel wgmma product on the same
-// staged halo tile (wgrad3x3_mma_kernel<TX>, below the FMA kernel).
+// staged halo tile (wgrad3x3_mma_kernel<TX>, below the FMA kernel). The same
+// implicit GEMM serves the residual U-Nets' forward (models/fast_resunet.py)
+// in two more modes: conv3x3_res_mma_kernel<NB>, a block's last conv with the
+// residual sum and the ReLU after it in the epilogue, and tconv3_mma_kernel<NB>,
+// the decoders' transposed 3x3x3 stride-2 conv over the zero-dilated
+// half-resolution input, its skip summed in the epilogue (both at NB 32 or
+// 64; see Mode).
 //
 // Replaces keymorph_tpu/ops/pallas/conv3d.py:_kernel_flat + _cell_compute
 // (reached through _conv_pallas_group_flat <- _conv_pallas_flat /
@@ -128,10 +134,12 @@
 // per SM), 78,864 B for e0c2 (16 -> 32, one chunk: two blocks per SM, whose
 // staging and wgmmas overlap each other).
 // Registers and spill (nvcc -Xptxas -v, sm_90a, CUDA 12.8; build/.../nvcc.log):
-// conv3x3_mma_kernel<64> 230 registers, no spill (128 of them accumulators);
-// <32> 128 registers with 44 bytes of spill, <16> 126, <8> 114 (NB <= 32 is
+// conv3x3_mma_kernel<64> 226 registers, no spill (128 of them accumulators);
+// <32> 128 registers with 60 bytes of spill, <16> 126, <8> 112 (NB <= 32 is
 // held to 128 registers so that two blocks fit an SM; the staging's 8 loads
-// in flight and 16 affine constants press on that);
+// in flight and 16 affine constants press on that); conv3x3_res_mma_kernel
+// <64> 224, no spill, <32> 128 with 4 bytes; tconv3_mma_kernel<64> 231, no
+// spill, <32> 128 with 12 bytes;
 // conv3x3_fma_kernel 128 registers with 28 bytes of spill;
 // wgrad3x3_mma_kernel<32>, <16> 128 registers (512 threads) with 36 bytes of
 // spill stores, 120 of loads; wgrad3x3_reduce_kernel 32. Shared memory of the
@@ -173,6 +181,7 @@ struct MmaArgs {
   __nv_bfloat16* out;       // (Z, Csplit, Y*X): output channels [0, Csplit)
   __nv_bfloat16* out_b;     // (Z, Cout - Csplit, Y*X): the rest, or null
   float* stats;             // (n_tiles, Cout, 2) or null
+  const __nv_bfloat16* res; // (Z, Cout, Y*X), added in the RES and TCONV modes, or null
   int Z, Y, X, Ca, Cb, CaP, nchunks, Cout, Csplit, b_lowres, relu;
   int TX, TY, HX, HY, MSTRIDE, ntx, nty, nb, vec;
 };
@@ -271,7 +280,7 @@ __device__ __forceinline__ void wgmma(float* d, uint64_t da, uint64_t db) {
 // device memory are read whole, and since a halo row is 32 bytes more than a
 // multiple of 128 long, the 8 lanes of a store phase fall on 4 distinct bank
 // groups (a 2-way conflict; octets side by side would make it 8-way).
-template <bool LOW, bool AFF, int NT = MMA_THREADS>
+template <bool LOW, bool AFF, int NT = MMA_THREADS, bool DIL = false>
 __device__ __forceinline__ void stage_group_vec(const MmaArgs& p,
                                                 const __nv_bfloat16* __restrict__ src, int Cs,
                                                 int cs0, int aff0, int zlo, int nz, int y0,
@@ -295,7 +304,8 @@ __device__ __forceinline__ void stage_group_vec(const MmaArgs& p,
     const int o = 2 * ((idx >> 1) / nrows) + (idx & 1);
     if (o >= noct) continue;
     const int z = zlo + row / p.HY, y = y0 - 1 + row % p.HY, xs = xs0 + 8 * o;
-    const bool inside = z >= 0 && z < p.Z && y >= 0 && y < p.Y && xs >= 0 && xs < Xs;
+    const bool inside = z >= 0 && z < p.Z && y >= 0 && y < p.Y && xs >= 0 && xs < Xs &&
+                        !(DIL && ((z | y) & 1));
     uint4 v[8];
     const uint4* at = reinterpret_cast<const uint4*>(src) +
                       (static_cast<long long>(LOW ? z >> 1 : z) * Cs + cs0) * plane +
@@ -333,14 +343,14 @@ __device__ __forceinline__ void stage_group_vec(const MmaArgs& p,
         const int lx = 16 * o + 2 * x - 15;
         if (static_cast<unsigned>(lx) < hx) *reinterpret_cast<uint4*>(drow + lx * 16) = o4;
         if (static_cast<unsigned>(lx + 1) < hx)
-          *reinterpret_cast<uint4*>(drow + (lx + 1) * 16) = o4;
+          *reinterpret_cast<uint4*>(drow + (lx + 1) * 16) = DIL ? make_uint4(0u, 0u, 0u, 0u) : o4;
       }
     }
   }
 }
 
 // The same, one value at a time: any X.
-template <int NT = MMA_THREADS>
+template <int NT = MMA_THREADS, bool DIL = false>
 __device__ __forceinline__ void stage_group_scalar(const MmaArgs& p,
                                                    const __nv_bfloat16* __restrict__ src, int Cs,
                                                    int cs0, int aff0, bool low, int zlo, int nz,
@@ -355,7 +365,8 @@ __device__ __forceinline__ void stage_group_scalar(const MmaArgs& p,
     const int z = zlo + lz, y = y0 - 1 + ly, x = x0 - 1 + lx;
     const int ch = cs0 + c;
     uint16_t bits = 0;
-    if (ch < Cs && z >= 0 && z < p.Z && y >= 0 && y < p.Y && x >= 0 && x < p.X) {
+    if (ch < Cs && z >= 0 && z < p.Z && y >= 0 && y < p.Y && x >= 0 && x < p.X &&
+        !(DIL && low && ((z | y | x) & 1))) {
       const int zs = low ? z >> 1 : z, ys = low ? y >> 1 : y, xs = low ? x >> 1 : x;
       __nv_bfloat16 v = src[(static_cast<long long>(zs) * Cs + ch) * Ys * Xs +
                             static_cast<long long>(ys) * Xs + xs];
@@ -373,7 +384,10 @@ __device__ __forceinline__ void stage_group_scalar(const MmaArgs& p,
 // gstride bytes apart. Packed channel kk is source A's channel kk below CaP
 // (Ca rounded up to 8), else source B's channel kk - CaP; channels past a
 // source's end are zeros. NT threads (a whole number of warpgroups) stage.
-template <int NT = MMA_THREADS>
+// With DIL the half-resolution source is zero-dilated instead of repeated:
+// full-resolution (z, y, x) holds source (z/2, y/2, x/2) where all three are
+// even, else 0 (the transposed conv's input, below).
+template <int NT = MMA_THREADS, bool DIL = false>
 __device__ __forceinline__ void stage_halo(const MmaArgs& p, int chunk, int zlo, int nz, int y0,
                                            int x0, unsigned char* dst, int gstride) {
 #pragma unroll 1
@@ -388,21 +402,61 @@ __device__ __forceinline__ void stage_halo(const MmaArgs& p, int chunk, int zlo,
     unsigned char* d = dst + kg * gstride;
     const bool aff = p.scale != nullptr;
     if (!p.vec)
-      stage_group_scalar<NT>(p, src, Cs, cs0, aff0, low, zlo, nz, y0, x0,
-                             reinterpret_cast<uint16_t*>(d));
+      stage_group_scalar<NT, DIL>(p, src, Cs, cs0, aff0, low, zlo, nz, y0, x0,
+                                  reinterpret_cast<uint16_t*>(d));
     else if (low)
-      aff ? stage_group_vec<true, true, NT>(p, src, Cs, cs0, aff0, zlo, nz, y0, x0, d)
-          : stage_group_vec<true, false, NT>(p, src, Cs, cs0, aff0, zlo, nz, y0, x0, d);
+      aff ? stage_group_vec<true, true, NT, DIL>(p, src, Cs, cs0, aff0, zlo, nz, y0, x0, d)
+          : stage_group_vec<true, false, NT, DIL>(p, src, Cs, cs0, aff0, zlo, nz, y0, x0, d);
     else
       aff ? stage_group_vec<false, true, NT>(p, src, Cs, cs0, aff0, zlo, nz, y0, x0, d)
           : stage_group_vec<false, false, NT>(p, src, Cs, cs0, aff0, zlo, nz, y0, x0, d);
   }
 }
 
+// The residual's tile of a block's outputs (two z slabs x TY x TX, NB
+// columns from Cout block nbi) into shared memory in two halves by column,
+// columns [0, NB/2) at rt0 and the rest at rt1, each [z slab][column][y]
+// [x]: 16-byte loads along x by all threads at once (cp.async with async,
+// which needs 16-byte loads), value by value where x is not a multiple of 8
+// or the pointers are not aligned. Outside the volume nothing is written: the
+// epilogue reads only its valid rows.
 template <int NB>
-__global__ void __launch_bounds__(MMA_THREADS, NB <= 32 ? 2 : 1)
-    conv3x3_mma_kernel(const MmaArgs p) {
+__device__ __forceinline__ void stage_residual(const MmaArgs& p, __nv_bfloat16* rt0,
+                                               __nv_bfloat16* rt1, int z0, int y0, int x0,
+                                               int nbi, bool async) {
+  constexpr int NH = NB / 2;
+  const long long YX = static_cast<long long>(p.Y) * p.X;
+  const int noct = p.TX >> 3;
+  for (int idx = threadIdx.x; idx < 2 * NB * p.TY * noct; idx += MMA_THREADS) {
+    const int oct = idx % noct, r = idx / noct;
+    const int oy = r % p.TY, col = (r / p.TY) % NB, zz = r / (p.TY * NB);
+    const int zr = z0 + zz, yr = y0 + oy, xr = x0 + 8 * oct, co = nbi * NB + col;
+    if (zr >= p.Z || yr >= p.Y || xr >= p.X || co >= p.Cout) continue;
+    __nv_bfloat16* d = (col < NH ? rt0 : rt1) + ((zz * NH + col % NH) * p.TY + oy) * p.TX + 8 * oct;
+    const __nv_bfloat16* src = p.res + (static_cast<long long>(zr) * p.Cout + co) * YX +
+                               static_cast<long long>(yr) * p.X + xr;
+    if (async)
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(d)), "l"(src)
+                   : "memory");
+    else if (p.vec && xr + 8 <= p.X)
+      *reinterpret_cast<uint4*>(d) = __ldg(reinterpret_cast<const uint4*>(src));
+    else
+      for (int k = 0; k < 8 && xr + k < p.X; ++k) d[k] = src[k];
+  }
+}
+
+// What a launch of the implicit GEMM computes: the fused conv (PLAIN); the
+// fused conv whose rounded output has the residual operand added before the
+// ReLU (RES: relu(bf16(bf16(conv + bias) + res)), a residual block's third
+// conv with the sum and the non-linearity after it); the transposed 3^3
+// stride-2 conv as that conv over the zero-dilated half-resolution source
+// (TCONV, below), its rounded output summed with the skip in the same way.
+enum Mode { PLAIN = 0, RES = 1, TCONV = 2 };
+
+template <int NB, int MODE>
+__device__ __forceinline__ void mma_conv(const MmaArgs& p) {
   extern __shared__ __align__(128) unsigned char smem[];
+  constexpr bool DIL = MODE == TCONV;
   constexpr int WBYTES = 2 * 27 * NB * 16;
   constexpr int NR = NB / 2;  // accumulator registers per 64-row block
   const int nst = p.nchunks > 1 ? 2 : 1;
@@ -429,7 +483,7 @@ __global__ void __launch_bounds__(MMA_THREADS, NB <= 32 ? 2 : 1)
       load_weights(smem_u32(wbuf + s * WBYTES), wsrc + static_cast<size_t>(s) * WBYTES, WBYTES,
                    bar0 + 8 * s);
   }
-  stage_halo(p, 0, z0 - 1, HZ, y0, x0, hbuf, NVOX_ALLOC * 16);
+  stage_halo<MMA_THREADS, DIL>(p, 0, z0 - 1, HZ, y0, x0, hbuf, NVOX_ALLOC * 16);
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   __syncthreads();
 
@@ -446,6 +500,24 @@ __global__ void __launch_bounds__(MMA_THREADS, NB <= 32 ? 2 : 1)
   constexpr uint64_t B_HI = (static_cast<uint64_t>(27 * NB) << 16) | (8ull << 32);
   const uint32_t a_lo = (smem_u32(hbuf) >> 4) + wg * p.HY * p.HX;  // this warpgroup's slab
   const uint32_t b_lo = smem_u32(wbuf) >> 4;
+
+  // RES, TCONV: the residual's tile goes to shared memory before the
+  // epilogue (stage_residual): during the last chunk's products into the idle
+  // weight and halo buffers of the other stage (a half each; the halo half
+  // behind the stats scratch), else after them behind the scratch. Read value
+  // by value in the epilogue instead, a thread's eight columns were eight
+  // round trips to device memory with one block an SM: +4 ms on a 32-channel
+  // 256^3 conv.
+  constexpr int RED_BYTES = MMA_THREADS / 32 * NB * 2 * 4;  // (8 warps, NB, 2) floats
+  const int tvox = p.TY * p.TX;
+  const int half = NB * tvox * 2;  // bytes of a half tile
+  const bool staged = MODE != PLAIN && p.res != nullptr && RED_BYTES + 2 * half <= nst * HBYTES;
+  const bool early = staged && p.vec && nst == 2 && half <= WBYTES && RED_BYTES + half <= HBYTES;
+  const int so = ((p.nchunks - 1) & 1) ^ 1;  // the stage idle during the last chunk
+  __nv_bfloat16* const rt0 =
+      reinterpret_cast<__nv_bfloat16*>(early ? wbuf + so * WBYTES : hbuf + RED_BYTES);
+  __nv_bfloat16* const rt1 = early
+      ? reinterpret_cast<__nv_bfloat16*>(hbuf + so * HBYTES + RED_BYTES) : rt0 + NB * tvox;
 
 #pragma unroll 1
   for (int c = 0; c < p.nchunks; ++c) {
@@ -474,9 +546,13 @@ __global__ void __launch_bounds__(MMA_THREADS, NB <= 32 ? 2 : 1)
       }
     }
     asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-    // the tensor cores work on chunk c; stage chunk c + 1 meanwhile
+    // the tensor cores work on chunk c; stage chunk c + 1 meanwhile, or in the
+    // last chunk the residual's tile into the idle halo buffer
     if (c + 1 < p.nchunks)
-      stage_halo(p, c + 1, z0 - 1, HZ, y0, x0, hbuf + (s ^ 1) * HBYTES, NVOX_ALLOC * 16);
+      stage_halo<MMA_THREADS, DIL>(p, c + 1, z0 - 1, HZ, y0, x0, hbuf + (s ^ 1) * HBYTES,
+                                   NVOX_ALLOC * 16);
+    else if (early)
+      stage_residual<NB>(p, rt0, rt1, z0, y0, x0, nbi, true);
     asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 #pragma unroll
     for (int i = 0; i < MBZ; ++i)
@@ -494,7 +570,7 @@ __global__ void __launch_bounds__(MMA_THREADS, NB <= 32 ? 2 : 1)
   const int lane = tid & 31, warp = tid >> 5;
   const int z = z0 + wg;
   const long long YX = static_cast<long long>(p.Y) * p.X;
-  int yx[MBZ][2];
+  int yx[MBZ][2], tl[MBZ][2];
   bool ok[MBZ][2];
 #pragma unroll
   for (int i = 0; i < MBZ; ++i)
@@ -505,8 +581,16 @@ __global__ void __launch_bounds__(MMA_THREADS, NB <= 32 ? 2 : 1)
       const int y = y0 + oy, x = x0 + ox;
       ok[i][h] = ox < p.TX && oy < p.TY && z < p.Z && y < p.Y && x < p.X;
       yx[i][h] = y * p.X + x;
+      tl[i][h] = oy * p.TX + ox;
     }
   float* red = reinterpret_cast<float*>(hbuf);  // (8 warps, NB, 2); the halo is done with
+  if (early) {
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();
+  } else if (staged) {
+    stage_residual<NB>(p, rt0, rt1, z0, y0, x0, nbi, false);
+    __syncthreads();
+  }
 #pragma unroll
   for (int j = 0; j < NB / 8; ++j) {
 #pragma unroll
@@ -516,10 +600,26 @@ __global__ void __launch_bounds__(MMA_THREADS, NB <= 32 ? 2 : 1)
       const bool cok = co < p.Cout;
       const float bias = (cok && p.bias != nullptr) ? p.bias[co] : 0.0f;
       __nv_bfloat16* base = nullptr;
-      if (cok)
+      const __nv_bfloat16* rbase = nullptr;  // RES, TCONV: Csplit == Cout
+      if (cok) {
         base = co < p.Csplit
                    ? p.out + (static_cast<long long>(z) * p.Csplit + co) * YX
                    : p.out_b + (static_cast<long long>(z) * (p.Cout - p.Csplit) + co - p.Csplit) * YX;
+        if (MODE != PLAIN && p.res != nullptr)
+          rbase = p.res + (static_cast<long long>(z) * p.Cout + co) * YX;
+      }
+      float rv[MBZ][2];  // the residual's values of this column
+      if constexpr (MODE != PLAIN) {
+        const __nv_bfloat16* rcol =
+            (col < NB / 2 ? rt0 : rt1) + (wg * (NB / 2) + col % (NB / 2)) * tvox;
+#pragma unroll
+        for (int i = 0; i < MBZ; ++i)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            rv[i][h] = rbase == nullptr || !ok[i][h] ? 0.0f
+                       : staged ? __bfloat162float(rcol[tl[i][h]])
+                                : __bfloat162float(__ldg(rbase + yx[i][h]));
+      }
       float s1 = 0.0f, s2 = 0.0f;
 #pragma unroll
       for (int i = 0; i < MBZ; ++i)
@@ -527,6 +627,8 @@ __global__ void __launch_bounds__(MMA_THREADS, NB <= 32 ? 2 : 1)
         for (int h = 0; h < 2; ++h) {
           if (!(cok && ok[i][h])) continue;
           float v = acc[i][4 * j + 2 * h + e] + bias;
+          if (MODE != PLAIN && rbase != nullptr)
+            v = __bfloat162float(__float2bfloat16_rn(v)) + rv[i][h];
           if (p.relu) v = fmaxf(v, 0.0f);
           const __nv_bfloat16 hv = __float2bfloat16_rn(v);
           base[yx[i][h]] = hv;
@@ -560,9 +662,49 @@ __global__ void __launch_bounds__(MMA_THREADS, NB <= 32 ? 2 : 1)
 }
 
 template <int NB>
+__global__ void __launch_bounds__(MMA_THREADS, NB <= 32 ? 2 : 1)
+    conv3x3_mma_kernel(const MmaArgs p) {
+  mma_conv<NB, PLAIN>(p);
+}
+
+template <int NB>
+__global__ void __launch_bounds__(MMA_THREADS, NB <= 32 ? 2 : 1)
+    conv3x3_res_mma_kernel(const MmaArgs p) {
+  mma_conv<NB, RES>(p);
+}
+
+// The transposed 3^3 conv, stride 2, padding 1, output padding 1 (torch's
+// ConvTranspose3d as the residual decoder builds it): out[o] = sum over i, k
+// with o = 2i - 1 + k of x[i] W[k], per axis. With D the half-resolution
+// input zero-dilated to full resolution (D[2i] = x[i], D[2i + 1] = 0), that
+// is sum_d W[2 - d] D[o + d - 1]: the SAME 3^3 conv of D with the taps flipped
+// and Cin/Cout swapped (the wrapper's pack). The staging builds D in shared
+// memory straight from the half-resolution source (DIL), so D never exists
+// in device memory; 7 of 8 staged values are zeros, and the tensor cores
+// multiply them: 8x the useful operations. Its own name keeps its time apart
+// from the 3^3 convs' in a profile.
+template <int NB>
+__global__ void __launch_bounds__(MMA_THREADS, NB <= 32 ? 2 : 1)
+    tconv3_mma_kernel(const MmaArgs p) {
+  mma_conv<NB, TCONV>(p);
+}
+
+// the kernel of (NB, MODE), instantiating no other
+template <int NB, int MODE>
+auto mma_kernel() {
+  if constexpr (MODE == PLAIN)
+    return conv3x3_mma_kernel<NB>;
+  else if constexpr (MODE == RES)
+    return conv3x3_res_mma_kernel<NB>;
+  else
+    return tconv3_mma_kernel<NB>;
+}
+
+template <int NB, int MODE>
 int launch_mma(const MmaArgs& p, int tiles, cudaStream_t stream) {
   const int nst = p.nchunks > 1 ? 2 : 1;
   const int smem = nst * (2 * 27 * NB * 16 + HBYTES) + 16;
+  const auto kernel = mma_kernel<NB, MODE>();
   // once per instantiation and device, for its larger (two-stage) size
   static bool allowed[64] = {};
   int dev = 0;
@@ -570,12 +712,12 @@ int launch_mma(const MmaArgs& p, int tiles, cudaStream_t stream) {
   if (dev < 0 || dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
   if (!allowed[dev]) {
     const cudaError_t e =
-        cudaFuncSetAttribute(conv3x3_mma_kernel<NB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              2 * (2 * 27 * NB * 16 + HBYTES) + 16);
     if (e != cudaSuccess) return static_cast<int>(e);
     allowed[dev] = true;
   }
-  conv3x3_mma_kernel<NB><<<tiles * p.nb, MMA_THREADS, smem, stream>>>(p);
+  kernel<<<tiles * p.nb, MMA_THREADS, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -584,7 +726,9 @@ int launch_mma(const MmaArgs& p, int tiles, cudaStream_t stream) {
 // against what this file fixes at compile time: refuses a geometry the
 // kernel's buffers and its eight 64-row blocks do not cover, or a tile count
 // that is not the caller's (its stats buffer has one row per tile).
-int run_mma(MmaArgs p, int nblk, int tx, int ty, int mstride, int n_tiles, cudaStream_t stream) {
+// RES and TCONV take NB 32 or 64 only (their wrappers pad a smaller Cout).
+int run_mma(MmaArgs p, int nblk, int tx, int ty, int mstride, int n_tiles, cudaStream_t stream,
+            int mode = PLAIN) {
   p.TX = tx;
   p.TY = ty;
   p.HX = tx + 2;
@@ -603,11 +747,21 @@ int run_mma(MmaArgs p, int nblk, int tx, int ty, int mstride, int n_tiles, cudaS
   if (tx % 16 != 0 || tx < 16 || ty < 1 || !(rows || linear) || HZ * slab > NVOX_ALLOC ||
       last_read >= NVOX_ALLOC || tiles != n_tiles)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (mode == RES) {
+    if (nblk == 32) return launch_mma<32, RES>(p, tiles, stream);
+    if (nblk == 64) return launch_mma<64, RES>(p, tiles, stream);
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (mode == TCONV) {
+    if (nblk == 32) return launch_mma<32, TCONV>(p, tiles, stream);
+    if (nblk == 64) return launch_mma<64, TCONV>(p, tiles, stream);
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   switch (nblk) {
-    case 8: return launch_mma<8>(p, tiles, stream);
-    case 16: return launch_mma<16>(p, tiles, stream);
-    case 32: return launch_mma<32>(p, tiles, stream);
-    case 64: return launch_mma<64>(p, tiles, stream);
+    case 8: return launch_mma<8, PLAIN>(p, tiles, stream);
+    case 16: return launch_mma<16, PLAIN>(p, tiles, stream);
+    case 32: return launch_mma<32, PLAIN>(p, tiles, stream);
+    case 64: return launch_mma<64, PLAIN>(p, tiles, stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -1196,4 +1350,50 @@ KM_EXPORT int km_conv3x3_weight_grad(const void* xa, const void* xb, const void*
       w.part, static_cast<float*>(out), nsplit, Ca, p.CaP, Ca + Cb, 16 * p.nchunks, Cout,
       WCO * w.nco);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The forward conv of a residual block's last SingleConv with the block's sum
+// and ReLU in its epilogue: out = relu?(bf16(bf16(conv + bias) + res)), res
+// (Z, Cout, Y*X) bf16 laid out as out. Arguments as km_conv3x3's with one
+// source (Cin channels at full resolution); always the tensor-core kernel,
+// nblk 32 or 64.
+KM_EXPORT int km_conv3x3_res(const void* x, const void* scale, const void* shift, const void* w,
+                             const void* bias, const void* res, void* out, void* stats, int Z,
+                             int Y, int X, int Cin, int Cout, int nblk, int relu, int tx, int ty,
+                             int mstride, int vec, int n_tiles, void* stream) {
+  MmaArgs p{};
+  p.xa = static_cast<const __nv_bfloat16*>(x);
+  p.scale = static_cast<const float*>(scale);
+  p.shift = static_cast<const float*>(shift);
+  p.w = static_cast<const __nv_bfloat16*>(w);
+  p.bias = static_cast<const float*>(bias);
+  p.res = static_cast<const __nv_bfloat16*>(res);
+  p.out = static_cast<__nv_bfloat16*>(out);
+  p.stats = static_cast<float*>(stats);
+  p.Z = Z; p.Y = Y; p.X = X; p.Ca = Cin; p.Cb = 0;
+  p.Cout = Cout; p.Csplit = Cout; p.relu = relu; p.vec = vec;
+  return run_mma(p, nblk, tx, ty, mstride, n_tiles, static_cast<cudaStream_t>(stream), RES);
+}
+
+// The transposed 3^3 conv, stride 2 (tconv3_mma_kernel): x (Z/2, Cin,
+// Y/2*X/2) bf16 -> out (Z, Cout, Y*X) = bf16(bf16(convT(x) + bias) + res)
+// with res (the skip, laid out as out) or without it (null). w is the
+// forward entry's bf16 pack of the flipped taps, W'[dz, dy, dx, ci, co] =
+// Wt[ci, co, 2 - dz, 2 - dy, 2 - dx]; (Z, Y, X) the even output size; vec as
+// for an upconv source; nblk 32 or 64.
+KM_EXPORT int km_tconv3x3s2(const void* x, const void* w, const void* bias, const void* res,
+                            void* out, void* stats, int Z, int Y, int X, int Cin, int Cout,
+                            int nblk, int tx, int ty, int mstride, int vec, int n_tiles,
+                            void* stream) {
+  if ((Z | Y | X) & 1) return static_cast<int>(cudaErrorInvalidValue);
+  MmaArgs p{};
+  p.xb = static_cast<const __nv_bfloat16*>(x);
+  p.w = static_cast<const __nv_bfloat16*>(w);
+  p.bias = static_cast<const float*>(bias);
+  p.res = static_cast<const __nv_bfloat16*>(res);
+  p.out = static_cast<__nv_bfloat16*>(out);
+  p.stats = static_cast<float*>(stats);
+  p.Z = Z; p.Y = Y; p.X = X; p.Ca = 0; p.Cb = Cin;
+  p.Cout = Cout; p.Csplit = Cout; p.b_lowres = 1; p.relu = 0; p.vec = vec;
+  return run_mma(p, nblk, tx, ty, mstride, n_tiles, static_cast<cudaStream_t>(stream), TCONV);
 }

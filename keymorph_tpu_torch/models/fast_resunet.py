@@ -1,0 +1,192 @@
+"""Kernel-layout executor of the bf16 'gcr' residual U-Nets
+(``ResidualUNet3D`` and ``ResidualUNetSE3D``): serving on the conv kernels.
+
+It re-runs the network of an :class:`~keymorph_tpu_torch.models.unet.
+AbstractUNet` with residual blocks from its parameters on flat (Z, C, Y*X)
+bf16 tensors, one sample at a time, as ``models/fast_unet.py`` does for the
+DoubleConv U-Nets. A residual block (a 1x1 lift where the widths change,
+GN -> conv -> ReLU, GN -> conv, the residual sum, the ReLU, the optional
+scSE gate) runs as:
+
+  * the lift: ``lift1x1_flat``, the 1x1 conv with its bias (bf16 operands,
+    fp32 sums, one rounding), which also emits the lifted tensor's
+    per-channel statistics for the first GroupNorm (span
+    ``km.unet.residual``);
+  * the first conv: ``conv3x3_fused_flat`` with its GroupNorm folded into a
+    per-channel affine (``fast_unet._single_conv_operands``), the ReLU fused,
+    and its output statistics emitted for the second GroupNorm;
+  * the second conv: ``conv3x3_fused_flat_res``, its GroupNorm folded from
+    those statistics, the residual sum and the ReLU after it in the conv's
+    epilogue (``relu(bf16(bf16(conv) + residual))``, the module's rounding),
+    emitting the output's statistics: their mean is the scSE squeeze;
+  * the scSE gate: the module's ``ChannelSE.gate`` on that mean (C values),
+    then ``scse_gate_flat``, one pass over the block output (span
+    ``km.unet.se``).
+
+A decoder's transposed 3^3 stride-2 conv and its sum with the skip are
+``conv_transpose3x3s2_flat`` (span ``km.unet.tconv``), which also emits the
+sum's statistics for the decoder block's first GroupNorm. The module crops
+the upsampled tensor to the skip and refuses a skip that is not exactly
+twice its input: with floor pooling the crop is then the identity, and this
+executor refuses the same sizes. The 2x max-pool is ``maxpool2_flat``, a
+kernel of one read (``km.unet.pool``). The final 1x1 conv (``km.unet.final``)
+takes bf16 operands and fp32 sums with the fp32 bias and one rounding, in
+Z-slabs, so that no fp32 tensor of the whole heatmaps exists: on the card as
+a bf16 tensor-core matmul whose K axis carries the bias as three bf16 terms
+on columns of ones (hi + mid + lo = the fp32 bias to 2^-27), on the CPU or
+the plain route as an fp32 matmul (seven times slower at 256^3 on the
+card). The heatmaps come back channel-last (B, Z, Y, X, K) in bf16.
+
+Forward only: ``KeyMorphNet.features`` takes this executor with grad
+disabled (serving: ``KeyMorph``, the register CLI, ``run_eval``) and the
+module's forward with grad enabled (training).
+"""
+
+from __future__ import annotations
+
+from types import SimpleNamespace
+
+import torch
+from torch import nn
+
+from keymorph_tpu_torch.models.fast_unet import _single_conv_operands
+from keymorph_tpu_torch.models.unet import AbstractUNet, supports_fast_resunet
+from keymorph_tpu_torch.ops.cuda import conv3d, resblock
+from keymorph_tpu_torch.tracing import span
+
+_KERNELS = SimpleNamespace(
+    pool=resblock.maxpool2_flat, lift=resblock.lift1x1_flat, flat=conv3d.conv3x3_fused_flat,
+    res=conv3d.conv3x3_fused_flat_res, tconv=conv3d.conv_transpose3x3s2_flat,
+    gate=resblock.scse_gate_flat, final_mma=True)
+_PLAINS = SimpleNamespace(
+    pool=resblock.maxpool2_flat_plain, lift=resblock.lift1x1_flat_plain,
+    flat=conv3d.conv3x3_fused_flat_plain,
+    res=conv3d.conv3x3_fused_flat_res_plain, tconv=conv3d.conv_transpose3x3s2_flat_plain,
+    gate=resblock.scse_gate_flat_plain, final_mma=False)
+
+SLAB_ELEMS = 1 << 26  # elements a slab of the final conv's operand or products may hold
+
+
+def _slabs(Z, per_plane):
+    n = max(1, SLAB_ELEMS // max(1, per_plane))
+    return [(z, min(Z, z + n)) for z in range(0, Z, n)]
+
+
+def _resnet_block(block, xf, spatial, g, ops, stats=None):
+    """A ``ResNetBlock`` on flat tensors. ``stats``: the input's
+    (mean, mean-square) where it is the residual (no lift): every decoder's
+    input comes from the transposed conv, which emits them; every encoder
+    lifts."""
+    if isinstance(block.conv1, nn.Conv3d):
+        with span("unet.residual"):
+            residual, stats = ops.lift(xf, block.conv1.weight[:, :, 0, 0, 0], block.conv1.bias)
+    else:
+        residual = xf
+        if stats is None:
+            raise ValueError("a residual block without a lift needs its input's statistics")
+    w2, sc2, sh2, _ = _single_conv_operands(block.conv2, stats, g)
+    y, s2 = ops.flat(residual, spatial, w2, sc2, sh2, None, relu=True, emit_stats=True)
+    w3, sc3, sh3, _ = _single_conv_operands(block.conv3, s2, g)
+    se = block.se_module
+    r = ops.res(y, spatial, w3, sc3, sh3, None, relu=True, emit_stats=se is not None,
+                residual=residual)
+    if se is None:
+        return r
+    out, s3 = r
+    del y, residual
+    with span("unet.se"):
+        return ops.gate(out, se, s3[0])
+
+
+def _final_conv(xf, spatial, conv: nn.Conv3d, out, mma: bool):
+    """``out`` (Z, Y, X, K) bf16 <- the final 1x1 conv of flat ``xf``:
+    bf16 operands, fp32 sums, the fp32 bias, one rounding, in Z-slabs."""
+    Z, cin, N = xf.shape
+    K = conv.weight.shape[0]
+    w = conv.weight[:, :, 0, 0, 0].t().to(torch.bfloat16)  # (Cin, K)
+    hb = conv.bias.float()
+    if not mma:
+        wf = w.float()
+        for z0, z1 in _slabs(Z, K * N):  # the fp32 products' slab
+            y = torch.matmul(xf[z0:z1].float().transpose(1, 2), wf) + hb
+            out[z0:z1] = y.reshape(z1 - z0, *spatial[1:], K).to(torch.bfloat16)
+        return
+    # K axis: the channels, then three columns of ones against the bias's
+    # bf16 terms, padded to a multiple of 8
+    kp = -(-(cin + 3) // 8) * 8
+    hi = hb.to(torch.bfloat16)
+    mid = (hb - hi.float()).to(torch.bfloat16)
+    lo = (hb - hi.float() - mid.float()).to(torch.bfloat16)
+    b = torch.zeros((kp, K), dtype=torch.bfloat16, device=xf.device)
+    b[:cin] = w
+    b[cin], b[cin + 1], b[cin + 2] = hi, mid, lo
+    slabs = _slabs(Z, kp * N)  # the operand's slab (a slab of 4 planes at 256^3 took 12% more)
+    n = slabs[0][1]
+    a = torch.zeros((n, N, kp), dtype=torch.bfloat16, device=xf.device)
+    a[:, :, cin: cin + 3] = 1.0
+    for z0, z1 in slabs:
+        m = z1 - z0
+        a[:m, :, :cin] = xf[z0:z1].transpose(1, 2)
+        torch.matmul(a[:m].reshape(m * N, kp), b, out=out[z0:z1].view(m * N, K))
+
+
+def fast_resunet_forward(unet: AbstractUNet, img: torch.Tensor, plain: bool = False):
+    """Serve ``unet`` on the conv kernels.
+
+    Args:
+        unet: a bf16 'gcr' residual :class:`AbstractUNet` (see
+            ``unet.supports_fast_resunet``).
+        img: (B, 1, Z, Y, X) channel-first volume.
+        plain: run every conv, the transposed convs, the gates and the final
+            conv through their plain PyTorch versions (the oracle route; CPU
+            tensors take the plain versions either way).
+    Returns:
+        (B, Z', Y', X', K) bf16 channel-last heatmaps.
+    Raises:
+        ValueError: for a backbone ``supports_fast_resunet`` refuses, or a
+            skip the transposed conv cannot join (as the module).
+        RuntimeError: with grad enabled on parameters that require it.
+    """
+    if not supports_fast_resunet(unet):
+        raise ValueError(f"the residual executor runs bf16 'gcr' residual U-Nets, not "
+                         f"{type(unet).__name__} (blocks {getattr(unet, 'basic_module', None)!r}, "
+                         f"dtype {getattr(unet, 'dtype', None)}, layer order "
+                         f"{getattr(unet, 'layer_order', None)!r})")
+    if torch.is_grad_enabled() and any(p.requires_grad for p in unet.parameters()):
+        raise RuntimeError("the residual executor is forward-only (serving): call it under "
+                           "torch.no_grad(); the residual U-Nets train through their modules")
+    ops = _PLAINS if plain else _KERNELS
+    g = unet.num_groups
+    B = img.shape[0]
+    heat = None
+    for bi in range(B):
+        x = img[bi].transpose(0, 1).to(torch.bfloat16)  # (Z, 1, Y, X)
+        spatial = (int(x.shape[0]), int(x.shape[2]), int(x.shape[3]))
+        xf = x.reshape(spatial[0], 1, spatial[1] * spatial[2]).contiguous()
+        skips = []
+        for i, enc in enumerate(unet.encoders):
+            if i > 0:
+                with span("unet.pool"):
+                    xf, spatial = ops.pool(xf, spatial)
+            xf = _resnet_block(enc.basic_module, xf, spatial, g, ops)
+            skips.append((xf, spatial))
+        for dec, (skip, sk_sp) in zip(unet.decoders, skips[:-1][::-1]):
+            if tuple(sk_sp) != tuple(2 * s for s in spatial):
+                raise ValueError(f"residual decoder: the upsampled "
+                                 f"{tuple(2 * s for s in spatial)} cannot join the skip "
+                                 f"{tuple(sk_sp)} (odd skip sizes are not supported, as in "
+                                 "keymorph_tpu)")
+            up = dec.upsampling.upsample
+            with span("unet.tconv"):
+                xf, stats = ops.tconv(xf, sk_sp, up.weight, up.bias.to(torch.bfloat16).float(),
+                                      skip=skip, emit_stats=True)
+            spatial = sk_sp
+            xf = _resnet_block(dec.basic_module, xf, spatial, g, ops, stats)
+        del skips
+        K = unet.final_conv.weight.shape[0]
+        if heat is None:
+            heat = torch.empty((B, *spatial, K), dtype=torch.bfloat16, device=img.device)
+        with span("unet.final"):
+            _final_conv(xf, spatial, unet.final_conv, heat[bi],
+                        ops.final_mma and xf.device.type == "cuda")
+    return heat

@@ -35,9 +35,10 @@ import torch
 from torch import nn
 
 from keymorph_tpu_torch import resolve_device
+from keymorph_tpu_torch.models.fast_resunet import fast_resunet_forward
 from keymorph_tpu_torch.models.fast_unet import fast_unet_forward
 from keymorph_tpu_torch.models.layers import LinearRegressor, center_of_mass
-from keymorph_tpu_torch.models.unet import supports_fast_unet
+from keymorph_tpu_torch.models.unet import supports_fast_resunet, supports_fast_unet
 from keymorph_tpu_torch.ops import coords
 from keymorph_tpu_torch.ops.cuda import tpsflow
 from keymorph_tpu_torch.ops.planes import affine_flow_planes
@@ -131,13 +132,20 @@ class KeyMorphNet(nn.Module):
 
         A bf16 'gcr' or 'cr' DoubleConv 3D U-Net runs on the conv kernels
         (``fast_unet_forward``; ``plain`` runs the convs' plain versions, the
-        oracle route). Every other backbone is its module's forward, as
-        keymorph_tpu's ``features`` applies the flax module (XLA convs, no
-        Pallas kernel) where its executor does not apply.
+        oracle route). A bf16 'gcr' residual U-Net (``ResidualUNet3D``,
+        ``ResidualUNetSE3D``) is served on them with grad disabled
+        (``fast_resunet_forward``, forward only; ``plain`` likewise); with
+        grad enabled (training) it is its module's forward: the residual
+        nets' backward is not on the kernels. Every other backbone is its
+        module's forward, as keymorph_tpu's ``features`` applies the flax
+        module (XLA convs, no Pallas kernel) where its executor does not
+        apply.
         """
         with span("backbone"):
             if supports_fast_unet(self.backbone):
                 return fast_unet_forward(self.backbone, img, plain=plain)
+            if supports_fast_resunet(self.backbone) and not torch.is_grad_enabled():
+                return fast_resunet_forward(self.backbone, img, plain=plain)
             return self.backbone(img).movedim(1, -1)
 
     def keypoints_from_features(self, feat: torch.Tensor) -> torch.Tensor:

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 
 def _functions():
-    from keymorph_tpu_torch.ops.cuda import conv3d, resample3d, tpsflow
+    from keymorph_tpu_torch.ops.cuda import conv3d, resample3d, resblock, tpsflow
 
     kernels = {
         "conv3x3_fused_flat": conv3d.conv3x3_fused_flat,
@@ -18,6 +18,11 @@ def _functions():
         "conv3x3_fused_flat_upconv": conv3d.conv3x3_fused_flat_upconv,
         "conv3x3_input_grad": conv3d.conv3x3_input_grad,
         "conv3x3_weight_grad": conv3d.conv3x3_weight_grad,
+        "conv3x3_fused_flat_res": conv3d.conv3x3_fused_flat_res,
+        "conv_transpose3x3s2_flat": conv3d.conv_transpose3x3s2_flat,
+        "scse_gate_flat": resblock.scse_gate_flat,
+        "lift1x1_flat": resblock.lift1x1_flat,
+        "maxpool2_flat": resblock.maxpool2_flat,
         "tps_planes": tpsflow.tps_planes,
         "tps_planes_bwd": tpsflow.tps_planes_bwd,
         "tps_flow": tpsflow.tps_flow,
@@ -30,6 +35,11 @@ def _functions():
         "conv3x3_fused_flat_upconv": conv3d.conv3x3_fused_flat_upconv_plain,
         "conv3x3_input_grad": conv3d.conv3x3_input_grad_plain,
         "conv3x3_weight_grad": conv3d._weight_grad_plain,
+        "conv3x3_fused_flat_res": conv3d.conv3x3_fused_flat_res_plain,
+        "conv_transpose3x3s2_flat": conv3d.conv_transpose3x3s2_flat_plain,
+        "scse_gate_flat": resblock.scse_gate_flat_plain,
+        "lift1x1_flat": resblock.lift1x1_flat_plain,
+        "maxpool2_flat": resblock.maxpool2_flat_plain,
         "tps_planes": tpsflow.tps_planes_plain,
         "tps_planes_bwd": tpsflow.tps_planes_bwd_plain,
         "tps_flow": tpsflow.tps_flow_plain,

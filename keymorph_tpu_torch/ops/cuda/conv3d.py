@@ -63,6 +63,12 @@ v = conv_W(pad0(bf16(u))) + bias, y = relu(v),
 
 For the upconv form the half-resolution source's gradient is the 2x2x2
 block sum of the full-resolution ``g_u`` (the transpose of nearest x2).
+
+The residual U-Nets serve (forward only) through two more forms of the same
+kernel: ``conv3x3_fused_flat_res`` (a block's last conv, the residual sum and
+the ReLU in its epilogue) and ``conv_transpose3x3s2_flat`` (the decoders'
+transposed 3x3x3 stride-2 conv as the conv of the zero-dilated input, the
+skip summed in its epilogue), each with its plain version.
 """
 
 from __future__ import annotations
@@ -786,3 +792,169 @@ _KERNELS = {"flat": conv3x3_fused_flat, "parts": conv3x3_fused_flat_parts,
             "upconv": conv3x3_fused_flat_upconv}
 _PLAINS = {"flat": conv3x3_fused_flat_plain, "parts": conv3x3_fused_flat_parts_plain,
            "upconv": conv3x3_fused_flat_upconv_plain}
+
+
+# ---------------------------------------------------------------------------
+# forward-only forms of the residual U-Nets (models/fast_resunet.py)
+# ---------------------------------------------------------------------------
+
+
+def _forward_only(name, *tensors):
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name} is forward-only (serving); the residual U-Nets train "
+                           "through their modules")
+
+
+def _res_nblk(cout: int) -> int:
+    """The residual and transposed forms' Cout block: 32 or 64 (the only
+    instantiations ``csrc/conv3d.cu`` builds for them)."""
+    return 32 if cout <= 32 else 64
+
+
+def _reduce_stats(stats, n):
+    sums = torch.sum(stats, dim=0)  # (Cout, 2)
+    return sums[:, 0] / n, sums[:, 1] / n
+
+
+def _check_like(t, shape, name):
+    if t is None:
+        return
+    if t.dtype != torch.bfloat16 or not t.is_contiguous() or tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: want a contiguous bf16 {tuple(shape)}, got {t.dtype} "
+                         f"{tuple(t.shape)}")
+
+
+def conv3x3_fused_flat_res_plain(xf, spatial, w, scale=None, shift=None, bias=None,
+                                 relu=True, emit_stats=False, *, residual):
+    """Plain PyTorch :func:`conv3x3_fused_flat_res`."""
+    conv3x3_fused_flat_res_plain.calls += 1
+    y = _conv_plain(xf, spatial, w, scale, shift, bias, False, False)
+    y = (y.float() + residual.float()).to(torch.bfloat16)
+    if relu:
+        y = torch.relu(y)
+    return (y, channel_stats(y)) if emit_stats else y
+
+
+def conv3x3_fused_flat_res(xf, spatial, w, scale=None, shift=None, bias=None, relu=True,
+                           emit_stats=False, *, residual):
+    """A residual block's last conv with the block's sum and ReLU fused:
+    ``relu?(bf16(bf16(conv3^3(pad0(scale*x + shift); w) + bias) + residual))``
+    on flat (Z, Cin, Y*X) bf16 ``xf``, ``residual`` flat (Z, Cout, Y*X) bf16
+    (required: a conv without one is :func:`conv3x3_fused_flat`'s); with
+    ``emit_stats`` also the per-Cout (mean, msq) of the stored output.
+    Forward only. CPU tensors run the plain version; CUDA tensors launch
+    ``conv3x3_res_mma_kernel`` (the tensor-core conv, its epilogue reading
+    the residual)."""
+    if residual is None:
+        raise ValueError("conv3x3_fused_flat_res: a residual is required; a conv without one "
+                         "is conv3x3_fused_flat's")
+    _forward_only("conv3x3_fused_flat_res", xf, w, scale, shift, bias, residual)
+    if xf.device.type == "cpu":
+        return conv3x3_fused_flat_res_plain(xf, spatial, w, scale, shift, bias, relu,
+                                            emit_stats, residual=residual)
+    Z, Y, X, Cin, _ = _sources(xf, None, False, spatial)
+    dev = xf.device
+    if w.shape[:4] != (3, 3, 3, Cin):
+        raise ValueError(f"conv3x3_fused_flat_res: w {tuple(w.shape)} is not (3, 3, 3, {Cin}, "
+                         f"Cout)")
+    Cout = int(w.shape[4])
+    _check_like(residual, (Z, Cout, Y * X), "conv3x3_fused_flat_res: residual")
+    geom_args, tiles = _plan((Z, Y, X), False, [xf, residual])
+    nblk = _res_nblk(Cout)
+    wk = pack_weights(w.to(device=dev), Cin, nblk)
+    scale_t, shift_t = _affine(scale, shift, Cin, dev)
+    bias_t = None if bias is None else _vec(bias, Cout, dev, "bias")
+    out = torch.empty((Z, Cout, Y * X), dtype=torch.bfloat16, device=dev)
+    stats = (torch.empty((tiles, Cout, 2), dtype=torch.float32, device=dev)
+             if emit_stats else None)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    err = _res_fns().km_conv3x3_res(
+        xf.data_ptr(), ptr(scale_t), ptr(shift_t), wk.data_ptr(), ptr(bias_t), ptr(residual),
+        out.data_ptr(), ptr(stats), Z, Y, X, Cin, Cout, nblk, int(bool(relu)), *geom_args, tiles,
+        _build.stream_ptr(dev))
+    _build.check(err, "km_conv3x3_res")
+    conv3x3_fused_flat_res.launches += 1
+    return (out, _reduce_stats(stats, float(Z * Y * X))) if emit_stats else out
+
+
+def conv_transpose3x3s2_flat_plain(x_lo, spatial, wt, bias=None, skip=None, emit_stats=False):
+    """Plain PyTorch :func:`conv_transpose3x3s2_flat`: an fp32
+    ``conv_transpose3d`` of the bf16 operands, rounded to bf16, plus the skip,
+    rounded again."""
+    conv_transpose3x3s2_flat_plain.calls += 1
+    Z, Y, X = (int(s) for s in spatial)
+    if x_lo.is_cuda and torch.backends.cudnn.allow_tf32:
+        raise RuntimeError("plain conv oracle needs TF32 off: call "
+                           "keymorph_tpu_torch.disable_tf32() first")
+    cin, cout = int(wt.shape[0]), int(wt.shape[1])
+    lhs = x_lo.float().reshape(Z // 2, cin, Y // 2, X // 2).permute(1, 0, 2, 3)[None]
+    b = None if bias is None else bias.float()
+    out = F.conv_transpose3d(lhs, wt.to(torch.bfloat16).float(), b, stride=2, padding=1,
+                             output_padding=1)[0]
+    out = out.permute(1, 0, 2, 3).to(torch.bfloat16).reshape(Z, cout, Y * X)
+    if skip is not None:
+        out = (out.float() + skip.float()).to(torch.bfloat16)
+    return (out, channel_stats(out)) if emit_stats else out
+
+
+def conv_transpose3x3s2_flat(x_lo, spatial, wt, bias=None, skip=None, emit_stats=False):
+    """The residual decoder's upsampling: the transposed 3^3 conv, stride 2,
+    padding 1, output padding 1 (``ConvTranspose3d`` weights ``wt`` (Cin,
+    Cout, 3, 3, 3)), of flat (Z/2, Cin, Y/2*X/2) bf16 ``x_lo`` to the even
+    ``spatial`` (Z, Y, X), bf16 operands, fp32 sums, plus the fp32 ``bias``,
+    rounded to bf16; with ``skip`` (flat (Z, Cout, Y*X) bf16) the rounded
+    sum with it, rounded again (the decoder's join); with ``emit_stats`` also
+    the per-Cout (mean, msq) of the stored output. Forward only. CPU tensors
+    run the plain version; CUDA tensors launch ``tconv3_mma_kernel`` (the
+    tensor-core conv over the zero-dilated input, ``csrc/conv3d.cu``)."""
+    _forward_only("conv_transpose3x3s2_flat", x_lo, wt, bias, skip)
+    if x_lo.device.type == "cpu":
+        return conv_transpose3x3s2_flat_plain(x_lo, spatial, wt, bias, skip, emit_stats)
+    Z, Y, X = (int(s) for s in spatial)
+    dev = x_lo.device
+    if Z % 2 or Y % 2 or X % 2:
+        raise ValueError(f"conv_transpose3x3s2_flat: spatial {spatial} must be even")
+    if wt.dim() != 5 or tuple(wt.shape[2:]) != (3, 3, 3):
+        raise ValueError(f"conv_transpose3x3s2_flat: wt {tuple(wt.shape)} is not (Cin, Cout, "
+                         "3, 3, 3)")
+    Cin, Cout = int(wt.shape[0]), int(wt.shape[1])
+    if x_lo.device.type != "cuda":
+        raise ValueError("conv_transpose3x3s2_flat: inputs must be on one CUDA device")
+    _check_like(x_lo, (Z // 2, Cin, (Y // 2) * (X // 2)), "conv_transpose3x3s2_flat: x_lo")
+    _check_like(skip, (Z, Cout, Y * X), "conv_transpose3x3s2_flat: skip")
+    geom_args, tiles = _plan((Z, Y, X), True, [x_lo] + ([] if skip is None else [skip]))
+    nblk = _res_nblk(Cout)
+    # the SAME conv of the dilated input: taps flipped, (Cin, Cout) last
+    wk = pack_weights(wt.to(device=dev).flip(2, 3, 4).permute(2, 3, 4, 0, 1), 0, nblk)
+    bias_t = None if bias is None else _vec(bias, Cout, dev, "bias")
+    out = torch.empty((Z, Cout, Y * X), dtype=torch.bfloat16, device=dev)
+    stats = (torch.empty((tiles, Cout, 2), dtype=torch.float32, device=dev)
+             if emit_stats else None)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    err = _res_fns().km_tconv3x3s2(
+        x_lo.data_ptr(), wk.data_ptr(), ptr(bias_t), ptr(skip), out.data_ptr(), ptr(stats),
+        Z, Y, X, Cin, Cout, nblk, *geom_args, tiles, _build.stream_ptr(dev))
+    _build.check(err, "km_tconv3x3s2")
+    conv_transpose3x3s2_flat.launches += 1
+    return (out, _reduce_stats(stats, float(Z * Y * X))) if emit_stats else out
+
+
+def _res_fns():
+    lib = _fn()
+    if lib.km_conv3x3_res.argtypes is None:
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        lib.km_conv3x3_res.argtypes = [vp] * 8 + [i] * 12 + [vp]
+        lib.km_conv3x3_res.restype = ctypes.c_int
+        lib.km_tconv3x3s2.argtypes = [vp] * 6 + [i] * 11 + [vp]
+        lib.km_tconv3x3s2.restype = ctypes.c_int
+    return lib
+
+
+conv3x3_fused_flat_res.launches = conv_transpose3x3s2_flat.launches = 0
+conv3x3_fused_flat_res_plain.calls = conv_transpose3x3s2_flat_plain.calls = 0

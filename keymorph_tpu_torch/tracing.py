@@ -10,8 +10,11 @@ With the profiler off a span builds nothing (an ungated ``record_function``
 costs ~15 us on the host). Span names start with ``km.``:
 
   * ``km.backbone``, ``km.unet.pool``, ``km.unet.final`` and ``km.head``:
-    ``KeyMorphNet.features``, ``fast_unet``'s 2x max-pool and final 1x1
+    ``KeyMorphNet.features``, the executors' 2x max-pool and final 1x1
     conv, ``KeyMorphNet.keypoints_from_features``;
+  * ``km.unet.residual``, ``km.unet.tconv``, ``km.unet.se``: the residual
+    executor's (``models/fast_resunet.py``) 1x1 lifts, transposed convs with
+    their skip sums, and scSE gates with their squeeze;
   * ``km.align`` with ``km.align.fit`` and ``km.align.flow`` inside it:
     ``align_pair``, its solver calls and its planes or grid;
   * ``km.warp``: ``ops/resample.py:align_planes`` and ``align_img``;

@@ -257,6 +257,58 @@ def test_bf16_cr_unet_executor_within_jax_spread(rng, monkeypatch):
     assert d_exec <= 2.0 * d_module + 1e-2
 
 
+RESIDUAL_BF16 = [
+    ("residual", junet.ResidualUNet3D, tunet.ResidualUNet3D),
+    ("residual_se", junet.ResidualUNetSE3D, tunet.ResidualUNetSE3D),
+]
+
+
+@pytest.mark.parametrize("case", RESIDUAL_BF16, ids=[c[0] for c in RESIDUAL_BF16])
+def test_bf16_residual_executor_within_jax_spread(case, rng):
+    """The bf16 'gcr' residual U-Nets on the serving executor
+    (``fast_resunet_forward``; its plain route, the kernels' plain versions,
+    on the CPU) and on the port's bf16 module, against keymorph_tpu's bf16
+    flax module on the same weights. keymorph_tpu has no kernel executor for
+    these nets, so its own spread is its bf16 module's distance from the
+    float64 evaluation of the same net (the port's module in float64): the
+    executor and the port's module each lie within twice that of float64
+    and of keymorph_tpu's bf16 heatmaps (x the float64 heatmaps' max)."""
+    name, jcls, tcls = case
+    cfg = dict(out_channels=K, f_maps=8, num_levels=3)
+    jm = jcls(dtype=jnp.bfloat16, **cfg)
+    img = rng.uniform(0, 1, size=(1, 1, 16, 16, 24)).astype(np.float32)
+    x_cl = jnp.moveaxis(jnp.asarray(img), 1, -1)
+    variables = _perturbed(jax.jit(jm.init)(jax.random.PRNGKey(4), x_cl), rng)
+    flax_bf16 = np.asarray(jax.jit(jm.apply)(variables, x_cl.astype(jnp.bfloat16)), np.float64)
+
+    sd = backbone_state_dict_from_flax(_np(variables["params"]))
+    n64 = tcls(dtype=torch.float64, **cfg)
+    n64.load_state_dict(sd)  # strict
+    unet = tcls(dtype=torch.bfloat16, **cfg)
+    unet.load_state_dict(sd)
+    assert tunet.supports_fast_resunet(unet)
+    kernels.reset_counters()
+    with torch.no_grad():
+        truth = n64(torch.tensor(img, dtype=torch.float64)).movedim(1, -1).numpy()
+        feat = KeyMorphNet(unet, K).features(torch.tensor(img), plain=True)
+        module = unet(torch.tensor(img)).movedim(1, -1).float().numpy()
+    counts = kernels.counters()
+    assert counts["conv3x3_fused_flat_res"]["plain_calls"] == 2 * cfg["num_levels"] - 1
+    assert counts["conv_transpose3x3s2_flat"]["plain_calls"] == cfg["num_levels"] - 1
+    assert feat.dtype == torch.bfloat16 and tuple(feat.shape) == truth.shape
+    got = feat.float().numpy()
+    ref = np.abs(truth).max()
+    spread = np.abs(flax_bf16 - truth).max() / ref
+    assert spread > 0
+    bar = 2.0 * spread
+    for port_name, port in (("executor", got), ("bf16 module", module)):
+        for other_name, other in (("flax bf16", flax_bf16), ("float64", truth)):
+            d = np.abs(port - other).max() / ref
+            print(f"{name} {port_name} vs {other_name}: {d:.3g} (keymorph_tpu from float64 "
+                  f"{spread:.3g}, bar {bar:.3g})")
+            assert d <= bar, (port_name, other_name)
+
+
 @pytest.mark.parametrize("src,dst", [((14, 12, 10), (8, 8, 8)), ((6, 5, 7), (12, 16, 9)),
                                      ((20, 8, 9), (10, 8, 16))],
                          ids=["downsample", "upsample", "mixed"])

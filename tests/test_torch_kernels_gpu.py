@@ -991,3 +991,215 @@ def test_simple_unet_and_lc2_on_the_card_match_the_cpu(rng, dev):
               for _ in range(2))
     lc2 = M.LC2()
     assert (lc2(us.to(dev), mr.to(dev)).cpu() - lc2(us, mr)).abs().max().item() <= 1e-5
+
+
+# ---------------------------------------------------------------------------
+# the residual U-Nets' forms: the residual epilogue, the transposed conv, the
+# scSE gate (forward only)
+# ---------------------------------------------------------------------------
+
+
+def _offset_copy(t, offset):
+    """``t`` at a storage offset of ``offset`` elements (2-byte units: not
+    16-byte aligned for an odd offset)."""
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    out = buf[offset:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def _sum_close(k, p, part):
+    """A rounded conv output summed with another bf16 tensor and rounded
+    again: the kernel's conv part may lie one ulp from the plain version's
+    (see _conv_close), which moves the sum by that ulp before its own
+    rounding: one ulp of the conv part plus one of the sum, plus CONV_FLOOR
+    of the conv part's range."""
+    k, p, part = k.float(), p.float(), part.float()
+    bound = _ulp(part) + torch.maximum(_ulp(p), _ulp(k)) + CONV_FLOOR * part.abs().max()
+    assert bool(((k - p).abs() <= bound).all()), (k - p).abs().max().item()
+
+
+@pytest.mark.parametrize("spatial,cin,cout,offset,relu", [
+    ((3, 5, 7), 32, 32, 0, True),      # odd Y*X: the scalar staging
+    ((2, 8, 64), 32, 32, 0, True),     # the residual tile loaded during the last chunk
+    ((4, 8, 64), 64, 64, 0, True),     # 16-byte loads, the 64-wide tile
+    ((2, 6, 33), 72, 72, 1, False),    # an unaligned source and residual
+    ((2, 4, 16), 256, 256, 0, True),
+    ((3, 3, 5), 16, 24, 0, True),      # Cout < 32: the pack pads to the 32 block
+    ((2, 4, 16), 16, 64, 0, True),     # one chunk at NB 64: the residual read in the epilogue
+])
+def test_conv_residual_epilogue_matches_plain(rng, dev, spatial, cin, cout, offset, relu):
+    """``conv3x3_fused_flat_res``: relu(bf16(bf16(conv) + residual)) with the
+    folded GroupNorm, against the plain version (:func:`_sum_close`); its
+    stats as :func:`_stats_close` says."""
+    from keymorph_tpu_torch.ops.cuda import conv3d
+
+    Z, Y, X = spatial
+    x = _offset_copy(_bf16(rng, Z, cin, Y * X).to(dev), offset)
+    res = _offset_copy(_bf16(rng, Z, cout, Y * X).to(dev), offset)
+    w = torch.tensor(rng.normal(size=(3, 3, 3, cin, cout)).astype(np.float32) / np.sqrt(cin),
+                     device=dev)
+    sc = torch.tensor(rng.uniform(0.5, 1.5, cin).astype(np.float32), device=dev)
+    sh = torch.tensor(rng.normal(size=cin).astype(np.float32) * 0.3, device=dev)
+    n0 = conv3d.conv3x3_fused_flat_res.launches
+    with torch.no_grad():
+        k_out, k_stats = conv3d.conv3x3_fused_flat_res(x, spatial, w, sc, sh, None, relu=relu,
+                                                       emit_stats=True, residual=res)
+        p_out, p_stats = conv3d.conv3x3_fused_flat_res_plain(x, spatial, w, sc, sh, None,
+                                                             relu=relu, emit_stats=True,
+                                                             residual=res)
+        part = conv3d.conv3x3_fused_flat_plain(x, spatial, w, sc, sh, None, relu=False)
+    torch.cuda.synchronize()
+    assert conv3d.conv3x3_fused_flat_res.launches == n0 + 1
+    _sum_close(k_out, p_out, part)
+    _stats_close(k_out, k_stats, p_out, p_stats)
+
+
+@pytest.mark.parametrize("low,cin,cout,offset,skip", [
+    ((3, 5, 7), 64, 32, 0, True),      # odd Y*X at half resolution: the scalar staging
+    ((2, 4, 16), 64, 32, 0, True),     # 16-byte loads of the half-resolution source
+    ((2, 3, 16), 128, 64, 1, True),    # an unaligned source
+    ((2, 2, 8), 256, 128, 0, False),   # without the skip
+    ((1, 3, 5), 40, 72, 0, True),      # channels off every block
+])
+def test_transposed_conv_matches_conv_transpose3d(rng, dev, low, cin, cout, offset, skip):
+    """``conv_transpose3x3s2_flat`` against ``F.conv_transpose3d`` (stride 2,
+    padding 1, output padding 1) in fp32 on the bf16 operands, plus the
+    bias, rounded, plus the skip, rounded (:func:`_conv_close` without the
+    skip, :func:`_sum_close` with it); its stats as :func:`_stats_close`."""
+    import torch.nn.functional as F
+
+    from keymorph_tpu_torch.ops.cuda import conv3d
+
+    Zl, Yl, Xl = low
+    spatial = (2 * Zl, 2 * Yl, 2 * Xl)
+    x = _offset_copy(_bf16(rng, Zl, cin, Yl * Xl).to(dev), offset)
+    wt = torch.tensor(rng.normal(size=(cin, cout, 3, 3, 3)).astype(np.float32)
+                      / np.sqrt(cin * 27 / 8), device=dev)
+    b = torch.tensor(rng.normal(size=cout).astype(np.float32) * 0.1, device=dev)
+    sk = _bf16(rng, spatial[0], cout, spatial[1] * spatial[2]).to(dev) if skip else None
+    n0 = conv3d.conv_transpose3x3s2_flat.launches
+    with torch.no_grad():
+        k_out, k_stats = conv3d.conv_transpose3x3s2_flat(x, spatial, wt, b, skip=sk,
+                                                         emit_stats=True)
+        lhs = x.float().reshape(Zl, cin, Yl, Xl).permute(1, 0, 2, 3)[None]
+        ref = F.conv_transpose3d(lhs, wt.to(torch.bfloat16).float(), b, stride=2, padding=1,
+                                 output_padding=1)[0]
+        part = ref.permute(1, 0, 2, 3).to(torch.bfloat16).reshape(spatial[0], cout, -1)
+        want = part if sk is None else (part.float() + sk.float()).to(torch.bfloat16)
+        p_out, p_stats = conv3d.conv_transpose3x3s2_flat_plain(x, spatial, wt, b, skip=sk,
+                                                               emit_stats=True)
+    torch.cuda.synchronize()
+    assert conv3d.conv_transpose3x3s2_flat.launches == n0 + 1
+    assert torch.equal(p_out, want)
+    if sk is None:
+        _conv_close(k_out, want)
+    else:
+        _sum_close(k_out, want, part)
+    _stats_close(k_out, k_stats, p_out, p_stats)
+
+
+@pytest.mark.parametrize("Z,cin,cout,YX,offset", [(3, 1, 32, 35, 0), (2, 32, 64, 4097, 1),
+                                                  (2, 128, 256, 130, 0), (1, 5, 3, 1, 0)])
+def test_lift_kernel_matches_plain(rng, dev, Z, cin, cout, YX, offset):
+    """``lift1x1_flat``: the 1x1 conv with bias against its plain version
+    (an fp32 matmul of the same bf16 values): one bf16 ulp of each output
+    plus CONV_FLOOR of the range (another order of the fp32 sum), stats as
+    :func:`_stats_close` says."""
+    from keymorph_tpu_torch.ops.cuda import resblock
+
+    x = _offset_copy(_bf16(rng, Z, cin, YX).to(dev), offset)
+    w = torch.tensor(rng.normal(size=(cout, cin)).astype(np.float32) / np.sqrt(cin), device=dev)
+    b = torch.tensor(rng.normal(size=cout).astype(np.float32) * 0.1, device=dev)
+    n0 = resblock.lift1x1_flat.launches
+    with torch.no_grad():
+        k_out, k_stats = resblock.lift1x1_flat(x, w, b)
+        p_out, p_stats = resblock.lift1x1_flat_plain(x, w, b)
+    torch.cuda.synchronize()
+    assert resblock.lift1x1_flat.launches == n0 + 1
+    _conv_close(k_out, p_out)
+    _stats_close(k_out, k_stats, p_out, p_stats)
+
+
+@pytest.mark.parametrize("spatial,C", [((6, 10, 14), 32), ((5, 7, 9), 3), ((4, 64, 64), 64)])
+def test_maxpool_kernel_matches_plain(rng, dev, spatial, C):
+    """``maxpool2_flat``: the 2x max (VALID, floor) of bf16 values, exact
+    (odd sizes drop their last plane, row and column), NaN propagating."""
+    from keymorph_tpu_torch.ops.cuda import resblock
+
+    Z, Y, X = spatial
+    x = _bf16(rng, Z, C, Y * X).to(dev)
+    x[0, 0, 0] = float("nan")
+    n0 = resblock.maxpool2_flat.launches
+    k, ks = resblock.maxpool2_flat(x, spatial)
+    p, ps = resblock.maxpool2_flat_plain(x, spatial)
+    torch.cuda.synchronize()
+    assert resblock.maxpool2_flat.launches == n0 + 1
+    assert ks == ps == (Z // 2, Y // 2, X // 2)
+    assert torch.equal(k.isnan(), p.isnan()) and bool(k[0, 0, 0].isnan())
+    assert torch.equal(torch.nan_to_num(k), torch.nan_to_num(p))
+
+
+@pytest.mark.parametrize("Z,C,YX,offset", [(3, 32, 35, 0), (2, 64, 4097, 1), (4, 256, 130, 0),
+                                           (1, 48, 1, 0)])
+def test_scse_gate_matches_the_module(rng, dev, Z, C, YX, offset):
+    """``scse_gate_flat`` against the bf16 ``ChannelSpatialSE`` module on the
+    same flat tensor. The kernel's channel gate comes from an fp32 mean taken
+    in another order and its spatial gate's fp32 sum too: either may round to
+    the neighbouring bf16 value, moving a gated product by up to one ulp of
+    the gate, so an output lies within two ulps of the module's, and almost
+    every output is equal."""
+    from keymorph_tpu_torch.models.unet import ChannelSpatialSE
+    from keymorph_tpu_torch.ops.cuda import resblock
+
+    se = ChannelSpatialSE(C, 1, torch.bfloat16)
+    with torch.no_grad():
+        for p in se.parameters():
+            p.copy_(torch.tensor(rng.normal(size=p.shape).astype(np.float32)
+                                 / np.sqrt(p[0].numel() if p.dim() > 1 else 1)))
+    se = se.to(dev)
+    x = _offset_copy(_bf16(rng, Z, C, YX).to(dev), offset)
+    n0 = resblock.scse_gate_flat.launches
+    with torch.no_grad():
+        mean = torch.sum(x, dim=(0, 2), dtype=torch.float32) / (Z * YX)
+        k = resblock.scse_gate_flat(x, se, mean)
+        p = resblock.scse_gate_flat_plain(x, se)
+    torch.cuda.synchronize()
+    assert resblock.scse_gate_flat.launches == n0 + 1
+    kf, pf = k.float(), p.float()
+    assert bool(((kf - pf).abs() <= 2 * torch.maximum(_ulp(kf), _ulp(pf))).all())
+    assert float((kf != pf).float().mean()) < 0.01
+
+
+def test_residual_executor_on_the_card_matches_its_plain_route(rng, dev):
+    """``fast_resunet_forward`` on the kernels against its plain route for
+    both residual families at 32^3 (4 levels, f_maps 8, 16 keypoints): the
+    heatmaps within a tenth of the plain route's largest value, the
+    keypoints within 2e-3 (rounding flips of a random-weight bf16 net,
+    amplified by the global squeeze, as the module and the plain route
+    differ on the CPU), every conv, transposed conv and gate on its kernel,
+    none on a plain version."""
+    from keymorph_tpu_torch.models.fast_resunet import fast_resunet_forward
+    from keymorph_tpu_torch.models.layers import center_of_mass
+    from keymorph_tpu_torch.models.unet import ResidualUNet3D, ResidualUNetSE3D, init_weights
+    from keymorph_tpu_torch.ops import cuda as kernels
+
+    img = torch.nn.functional.interpolate(torch.rand((1, 1, 5, 5, 5)), size=(32, 32, 32),
+                                          mode="trilinear", align_corners=True).to(dev)
+    for cls in (ResidualUNetSE3D, ResidualUNet3D):
+        net = init_weights(cls(16, f_maps=8, num_levels=4, dtype=torch.bfloat16),
+                           torch.Generator().manual_seed(3)).to(dev)
+        kernels.reset_counters()
+        with torch.no_grad():
+            k = fast_resunet_forward(net, img)
+            counts = kernels.counters()
+            p = fast_resunet_forward(net, img, plain=True)
+        assert counts["conv3x3_fused_flat"]["launches"] == 7
+        assert counts["conv3x3_fused_flat_res"]["launches"] == 7
+        assert counts["conv_transpose3x3s2_flat"]["launches"] == 3
+        assert counts["scse_gate_flat"]["launches"] == (7 if cls is ResidualUNetSE3D else 0)
+        assert counts["lift1x1_flat"]["launches"] == 4
+        assert counts["maxpool2_flat"]["launches"] == 3
+        assert not any(counts[n]["plain_calls"] for n in counts)
+        assert float((k.float() - p.float()).abs().max()) <= 0.1 * float(p.float().abs().max())
+        assert float((center_of_mass(k) - center_of_mass(p)).abs().max()) <= 2e-3
