@@ -1238,8 +1238,8 @@ def phase2(torch, net, pairs):
     print(f"phase2 peak device memory {peak:.3f} GiB; counters {json.dumps(counts)}")
     if not d_grid <= TPS_ABS:
         raise AssertionError("phase 2 grid form disagrees with the planes form")
-    for name in ("conv3x3_fused_flat", "conv3x3_fused_flat_upconv", "tps_planes",
-                 "tps_flow", "warp_planes"):
+    for name in ("conv3x3_fused_flat", "conv3x3_fused_flat_upconv", "maxpool2_flat",
+                 "tps_planes", "tps_flow", "warp_planes"):
         if counts[name]["launches"] <= 0:
             raise AssertionError(f"phase 2 never launched the {name} kernel")
     if any(c["plain_calls"] for c in counts.values()):

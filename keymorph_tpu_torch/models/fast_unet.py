@@ -19,8 +19,10 @@ from its parameters on flat (Z, C, Y*X) bf16 tensors, one sample at a time:
     (nearest x2 leaves per-channel mean and E[x^2] unchanged); where the
     skip is not exactly twice the deeper size the upsample is materialized
     and the concat-free ``conv3x3_fused_flat_parts`` runs instead;
-  * 2x max-pool is a reshape-and-max, and the final 1x1 conv is a matmul
-    of bf16 operands with fp32 accumulation.
+  * the 2x max-pool is the hand-written ``maxpool2_flat`` where no
+    gradient is needed (serving), and a reshape-and-``amax`` under autograd
+    where one is; both give the same maxima, NaN included;
+  * the final 1x1 conv is a matmul of bf16 operands with fp32 accumulation.
 
 The heatmaps come back channel-last (B, Z', Y', X', K) in bf16, as
 keymorph_tpu's executor returns them.
@@ -28,9 +30,10 @@ keymorph_tpu's executor returns them.
 The executor is differentiable: the convs carry their own backward (the
 input-gradient kernel, ``ops/cuda/conv3d.py``); GroupNorm statistics, the
 affine fold, the max-pool and the final matmul are plain PyTorch under
-autograd. The reshape-and-``amax`` pool splits the gradient evenly among
-tied maxima, as keymorph_tpu's ``_maxpool2_rw_bwd`` does (every all-zero
-window after a ReLU is such a tie). With ``unet.use_checkpoint`` each
+autograd. The pool kernel is forward only, so a pool whose input needs a
+gradient takes ``resblock.maxpool2_amax``, which splits the gradient evenly
+among tied maxima, as keymorph_tpu's ``_maxpool2_rw_bwd`` does (every
+all-zero window after a ReLU is such a tie). With ``unet.use_checkpoint`` each
 DoubleConv is wrapped in ``torch.utils.checkpoint``: only block boundaries
 are kept and the block is replayed, kernels included, in the backward.
 Serving code calls it under ``torch.no_grad()``.
@@ -44,19 +47,31 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from keymorph_tpu_torch.models.unet import AbstractUNet, gn_groups, supports_fast_unet
-from keymorph_tpu_torch.ops.cuda import conv3d
+from keymorph_tpu_torch.ops.cuda import conv3d, resblock
 from keymorph_tpu_torch.tracing import span
 from keymorph_tpu_torch.ops.cuda.conv3d import channel_stats, upsample_nearest_flat
+
+
+def _maxpool2_flat(xf, spatial):
+    """2x max-pool (VALID, floor) of a flat (Z, C, Y*X) bf16 tensor:
+    ``maxpool2_flat`` (the kernel on the card) where no gradient is needed,
+    the differentiable and uncounted ``maxpool2_amax`` where one is."""
+    if torch.is_grad_enabled() and xf.requires_grad:
+        return resblock.maxpool2_amax(xf, spatial)
+    return resblock.maxpool2_flat(xf, spatial)
+
 
 _KERNEL_CONVS = SimpleNamespace(
     flat=conv3d.conv3x3_fused_flat,
     parts=conv3d.conv3x3_fused_flat_parts,
     upconv=conv3d.conv3x3_fused_flat_upconv,
+    pool=_maxpool2_flat,
 )
 _PLAIN_CONVS = SimpleNamespace(
     flat=conv3d.conv3x3_fused_flat_plain,
     parts=conv3d.conv3x3_fused_flat_parts_plain,
     upconv=conv3d.conv3x3_fused_flat_upconv_plain,
+    pool=resblock.maxpool2_flat_plain,
 )
 
 
@@ -115,17 +130,6 @@ def _double_conv_flat(block, xf, spatial, num_groups, convs, stats0=None,
     return convs.flat(y, spatial, w1, sc1, sh1, b1)
 
 
-def _maxpool2_flat(xf, spatial):
-    """2x max-pool (VALID, floor) of a flat (Z, C, Y*X) tensor."""
-    Z, Y, X = spatial
-    C = xf.shape[1]
-    Zh, Yh, Xh = Z // 2, Y // 2, X // 2
-    with span("unet.pool"):
-        x4 = xf.reshape(Z, C, Y, X)[: 2 * Zh, :, : 2 * Yh, : 2 * Xh]
-        p = x4.reshape(Zh, 2, C, Yh, 2, Xh, 2).amax(dim=(1, 4, 6))
-        return p.reshape(Zh, C, Yh * Xh).contiguous(), (Zh, Yh, Xh)
-
-
 def fast_unet_forward(unet: AbstractUNet, img: torch.Tensor, plain: bool = False):
     """Run ``unet`` on the conv kernels.
 
@@ -133,9 +137,9 @@ def fast_unet_forward(unet: AbstractUNet, img: torch.Tensor, plain: bool = False
         unet: a bf16 'gcr' or 'cr' DoubleConv :class:`AbstractUNet`
             (parameters are read from it; see ``unet.supports_fast_unet``).
         img: (B, 1, Z, Y, X) channel-first volume.
-        plain: run every conv through its plain PyTorch version instead of
-            the kernel wrapper (the oracle route on a GPU; CPU tensors take
-            the plain versions either way).
+        plain: run every conv and the pool through their plain PyTorch
+            versions instead of the kernel wrappers (the oracle route on a
+            GPU; CPU tensors take the plain versions either way).
     Returns:
         (B, Z', Y', X', K) bf16 channel-last heatmaps.
     Raises:
@@ -164,7 +168,8 @@ def fast_unet_forward(unet: AbstractUNet, img: torch.Tensor, plain: bool = False
         skips = []
         for i, enc in enumerate(unet.encoders):
             if i > 0:
-                xf, spatial = _maxpool2_flat(xf, spatial)
+                with span("unet.pool"):
+                    xf, spatial = convs.pool(xf, spatial)
             xf = block(enc.basic_module, xf, spatial)
             skips.append((xf, spatial))
         for dec, (skip, sk_sp) in zip(unet.decoders, skips[:-1][::-1]):

@@ -131,7 +131,8 @@ class KeyMorphNet(nn.Module):
         in the backbone's dtype (its compute dtype).
 
         A bf16 'gcr' or 'cr' DoubleConv 3D U-Net runs on the conv kernels
-        (``fast_unet_forward``; ``plain`` runs the convs' plain versions, the
+        (``fast_unet_forward``, its pool on a kernel where no gradient is
+        needed; ``plain`` runs the convs' and the pool's plain versions, the
         oracle route). A bf16 'gcr' residual U-Net (``ResidualUNet3D``,
         ``ResidualUNetSE3D``) is served on them with grad disabled
         (``fast_resunet_forward``, forward only; ``plain`` likewise); with

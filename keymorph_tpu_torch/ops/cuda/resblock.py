@@ -17,8 +17,10 @@ gated values once, in the bf16 module's rounding order; the squeeze comes
 from the caller (the stats the block's last conv emits) and the MLP on (C,)
 is the module's own ``ChannelSE.gate``.
 
-All are forward only: the residual U-Nets train through their modules.
-CPU tensors run the plain versions; CUDA tensors launch the kernels.
+All are forward only: the residual U-Nets train through their modules, and
+the DoubleConv executor pools through ``maxpool2_amax``, the differentiable
+reshape-and-``amax``, where a gradient is needed. CPU tensors run the plain
+versions; CUDA tensors launch the kernels.
 """
 
 from __future__ import annotations
@@ -103,9 +105,11 @@ def lift1x1_flat(xf, w, b):
     return out, (sums[:, 0] / count, sums[:, 1] / count)
 
 
-def maxpool2_flat_plain(xf, spatial):
-    """Plain PyTorch :func:`maxpool2_flat`: reshape and ``amax``."""
-    maxpool2_flat_plain.calls += 1
+def maxpool2_amax(xf, spatial):
+    """2x max-pool (VALID, floor) of a flat (Z, C, Y*X) tensor by reshape
+    and ``amax``, uncounted. Differentiable: its backward splits the gradient
+    evenly among tied maxima (every all-zero window after a ReLU is such a
+    tie), as keymorph_tpu's ``_maxpool2_rw_bwd`` does."""
     Z, Y, X = spatial
     C = xf.shape[1]
     Zh, Yh, Xh = Z // 2, Y // 2, X // 2
@@ -114,9 +118,16 @@ def maxpool2_flat_plain(xf, spatial):
     return p.reshape(Zh, C, Yh * Xh).contiguous(), (Zh, Yh, Xh)
 
 
+def maxpool2_flat_plain(xf, spatial):
+    """Plain PyTorch :func:`maxpool2_flat`: :func:`maxpool2_amax`, counted."""
+    maxpool2_flat_plain.calls += 1
+    return maxpool2_amax(xf, spatial)
+
+
 def maxpool2_flat(xf, spatial):
     """2x max-pool (VALID, floor) of a flat (Z, C, Y*X) bf16 tensor at
     ``spatial``: (pooled flat tensor, its spatial size). NaN propagates."""
+    _forward_only("maxpool2_flat", xf)
     if xf.device.type == "cpu":
         return maxpool2_flat_plain(xf, spatial)
     Z, Y, X = (int(d) for d in spatial)

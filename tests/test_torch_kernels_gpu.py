@@ -1140,7 +1140,48 @@ def test_maxpool_kernel_matches_plain(rng, dev, spatial, C):
     assert torch.equal(torch.nan_to_num(k), torch.nan_to_num(p))
 
 
-@pytest.mark.parametrize("Z,C,YX,offset", [(3, 32, 35, 0), (2, 64, 4097, 1), (4, 256, 130, 0),
+@pytest.mark.parametrize("size", [(32, 32, 32), (20, 18, 15)])
+def test_doubleconv_executor_pools_on_the_kernel_without_a_gradient(rng, dev, size):
+    """``fast_unet_forward`` under no_grad for a 4-level bf16 'gcr'
+    TruncatedUNet3D pools on ``maxpool2_kernel``: three launches, no plain
+    version, and heatmaps equal bit for bit to the same forward with the
+    pool forced onto the reshape-and-``amax`` (the kernel is exact; odd sizes
+    floor). A training forward and backward of the same net launches no pool
+    kernel, runs no plain version, and still gives the first conv a gradient."""
+    from keymorph_tpu_torch.models.fast_unet import fast_unet_forward
+    from keymorph_tpu_torch.models.unet import TruncatedUNet3D, init_weights
+    from keymorph_tpu_torch.ops import cuda as kernels
+    from keymorph_tpu_torch.ops.cuda import resblock
+
+    unet = init_weights(TruncatedUNet3D(out_channels=16, f_maps=8, num_levels=4,
+                                        num_truncated_layers=1, dtype=torch.bfloat16),
+                        torch.Generator().manual_seed(0)).to(dev)
+    img = torch.tensor(rng.uniform(0, 1, size=(1, 1, *size)).astype(np.float32), device=dev)
+    kernels.reset_counters()
+    with torch.no_grad():
+        k = fast_unet_forward(unet, img)
+    torch.cuda.synchronize()
+    counts = kernels.counters()
+    assert counts["maxpool2_flat"]["launches"] == 3
+    assert not any(c["plain_calls"] for c in counts.values()), counts
+    with pytest.MonkeyPatch.context() as mp, torch.no_grad():
+        mp.setattr(resblock, "maxpool2_flat", resblock.maxpool2_amax)
+        a = fast_unet_forward(unet, img)
+    assert torch.equal(k, a)
+
+    kernels.reset_counters()
+    out = fast_unet_forward(unet, img)
+    out.float().square().mean().backward()
+    torch.cuda.synchronize()
+    counts = kernels.counters()
+    assert counts["maxpool2_flat"]["launches"] == 0
+    assert counts["conv3x3_input_grad"]["launches"] > 0
+    assert not any(c["plain_calls"] for c in counts.values()), counts
+    grad = unet.encoders[0].basic_module.SingleConv1.conv.weight.grad
+    assert grad is not None and float(grad.abs().sum()) > 0 and bool(grad.isfinite().all())
+
+
+@pytest.mark.parametrize("Z,C,YX,offset",[(3, 32, 35, 0), (2, 64, 4097, 1), (4, 256, 130, 0),
                                            (1, 48, 1, 0)])
 def test_scse_gate_matches_the_module(rng, dev, Z, C, YX, offset):
     """``scse_gate_flat`` against the bf16 ``ChannelSpatialSE`` module on the

@@ -183,6 +183,76 @@ def test_maxpool_splits_the_gradient_evenly_among_ties(rng):
     np.testing.assert_allclose(got[:2, 0, :2, :2], g[0, 0, 0, 0] / 8.0, atol=1e-7)
 
 
+@pytest.mark.parametrize("spatial", [(4, 6, 8), (5, 7, 9)])
+@pytest.mark.parametrize("route", ["no_grad", "input_without_grad", "input_with_grad"])
+def test_executor_pool_routes_by_whether_a_gradient_is_needed(rng, spatial, route):
+    """``fast_unet._maxpool2_flat`` takes the kernel wrapper ``maxpool2_flat``
+    (its counted plain version on CPU tensors) when no gradient is needed,
+    and the uncounted, differentiable ``maxpool2_amax`` when one is: the same
+    maxima either way, NaN included, odd sizes floored."""
+    from keymorph_tpu_torch.ops import cuda as kernels
+    from keymorph_tpu_torch.ops.cuda import resblock
+
+    Z, Y, X = spatial
+    x = torch.tensor(np.round(rng.normal(size=(Z, 3, Y * X)) * 2) / 2,
+                     dtype=torch.float32).to(torch.bfloat16)
+    x[0, 1, 0] = float("nan")
+    want, want_sp = resblock.maxpool2_amax(x, spatial)
+    x.requires_grad_(route == "input_with_grad")
+    kernels.reset_counters()
+    with torch.set_grad_enabled(route != "no_grad"):
+        got, got_sp = fast_unet._maxpool2_flat(x, spatial)
+    count = kernels.counters()["maxpool2_flat"]
+    assert got_sp == want_sp == (Z // 2, Y // 2, X // 2)
+    got = got.detach() if route == "input_with_grad" else got
+    assert torch.equal(got.isnan(), want.isnan()) and bool(got.isnan().any())
+    assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(want))
+    if route == "input_with_grad":
+        assert count == {"launches": 0, "plain_calls": 0}
+    else:
+        assert count == {"launches": 0, "plain_calls": 1}
+
+
+def test_executor_pool_keeps_the_graph_only_where_a_gradient_is_needed(rng):
+    """A 4-level net at an odd size (20 x 18 x 15): under no_grad the
+    executor's three pools go through ``maxpool2_flat``; under autograd
+    through ``maxpool2_amax``, uncounted, whose pooled tensors keep the graph,
+    so the first conv still gets a gradient. The heatmaps are the same."""
+    from keymorph_tpu_torch.ops.cuda import resblock
+
+    unet = init_weights(TruncatedUNet3D(out_channels=4, f_maps=4, num_levels=4,
+                                        num_truncated_layers=1, dtype=torch.bfloat16),
+                        torch.Generator().manual_seed(0))
+    img = torch.tensor(rng.uniform(0, 1, size=(1, 1, 20, 18, 15)).astype(np.float32))
+    n0 = resblock.maxpool2_flat_plain.calls
+    with torch.no_grad():
+        served = fast_unet_forward(unet, img)
+    assert resblock.maxpool2_flat_plain.calls == n0 + 3
+    out = fast_unet_forward(unet, img)
+    assert resblock.maxpool2_flat_plain.calls == n0 + 3
+    assert out.grad_fn is not None and torch.equal(out.detach(), served)
+    out.float().square().sum().backward()
+    grad = unet.encoders[0].basic_module.SingleConv1.conv.weight.grad
+    assert grad is not None and float(grad.abs().sum()) > 0
+
+
+def test_pool_kernel_wrapper_refuses_an_input_that_needs_a_gradient():
+    """``resblock.maxpool2_flat`` is forward only: with grad enabled it
+    raises on an input that requires a grad (it would return a tensor cut
+    from the graph) before anything runs; under no_grad it pools."""
+    from keymorph_tpu_torch.ops.cuda import resblock
+
+    x = torch.arange(16, dtype=torch.float32).to(torch.bfloat16).reshape(2, 1, 8)
+    x.requires_grad_(True)
+    n0 = resblock.maxpool2_flat_plain.calls
+    with pytest.raises(RuntimeError, match="maxpool2_flat is forward-only"):
+        resblock.maxpool2_flat(x, (2, 2, 4))
+    assert resblock.maxpool2_flat_plain.calls == n0
+    with torch.no_grad():
+        p, sp = resblock.maxpool2_flat(x, (2, 2, 4))
+    assert sp == (1, 1, 2) and p.flatten().tolist() == [13.0, 15.0]
+
+
 def test_gn_affine_from_stats_gradient_matches_jax(rng):
     """The GroupNorm fold (per-channel stats -> per-channel scale and shift)
     under autograd against jax.grad of keymorph_tpu's: rel 1e-5 of the
