@@ -9,7 +9,9 @@
 // residual sum and the ReLU after it in the epilogue, and tconv3_mma_kernel<NB>,
 // the decoders' transposed 3x3x3 stride-2 conv over the zero-dilated
 // half-resolution input, its skip summed in the epilogue (both at NB 32 or
-// 64; see Mode).
+// 64; see Mode). One entry, km_conv3x3, launches every one of these products
+// in the form its caller names; km_conv3x3_weight_grad launches the weight
+// gradient.
 //
 // Replaces keymorph_tpu/ops/pallas/conv3d.py:_kernel_flat + _cell_compute
 // (reached through _conv_pallas_group_flat <- _conv_pallas_flat /
@@ -146,7 +148,8 @@
 // weight gradient: 4 input planes x 16 channels x 340 voxels x 2 B (43,520)
 // and 2 cotangent planes x 8 channel groups x 288 units x 16 B (73,728).
 //
-// Which shapes take which instantiation: every input gradient, and the
+// Which shapes take which instantiation (the caller's rule, FMA_BELOW in
+// ops/cuda/conv3d.py): every input gradient, and the
 // forward conv at Cin >= 8 -> conv3x3_mma_kernel<NB> with NB from Cout
 // (channel counts that are no multiple of 8 are zero-padded by the pack);
 // forward at Cin < 8 (the U-Net's e0c1, 1 -> 16) -> conv3x3_fma_kernel, the fp32-FMA
@@ -726,9 +729,10 @@ int launch_mma(const MmaArgs& p, int tiles, cudaStream_t stream) {
 // against what this file fixes at compile time: refuses a geometry the
 // kernel's buffers and its eight 64-row blocks do not cover, or a tile count
 // that is not the caller's (its stats buffer has one row per tile).
-// RES and TCONV take NB 32 or 64 only (their wrappers pad a smaller Cout).
+// RES and TCONV take NB 32 or 64 only (n_block in ops/cuda/conv3d.py pads a
+// smaller Cout).
 int run_mma(MmaArgs p, int nblk, int tx, int ty, int mstride, int n_tiles, cudaStream_t stream,
-            int mode = PLAIN) {
+            int mode) {
   p.TX = tx;
   p.TY = ty;
   p.HX = tx + 2;
@@ -942,9 +946,13 @@ __global__ void __launch_bounds__(FMA_THREADS, 2) conv3x3_fma_kernel(FmaArgs p) 
   }
 }
 
+// km_conv3x3's form of this kernel, beside the implicit GEMM's Mode values
+constexpr int FMA = 3;
+
 int run_fma(const FmaArgs& p, int n_tiles, cudaStream_t stream) {
   const int tiles = km::ceil_div(p.X, FTX) * km::ceil_div(p.Y, FTY) * km::ceil_div(p.Z, FTZ);
-  if (tiles != n_tiles || p.CoutP % FCO != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (tiles != n_tiles || p.CoutP % FCO != 0 || p.CoutP < p.Cout)
+    return static_cast<int>(cudaErrorInvalidValue);
   dim3 grid(tiles, p.CoutP / FCO);
   conv3x3_fma_kernel<<<grid, FMA_THREADS, 0, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
@@ -1243,18 +1251,38 @@ int launch_wgrad(const WgradArgs& w, cudaStream_t stream) {
 
 }  // namespace
 
-// Forward conv. Cin = Ca + Cb < 8 takes the FMA instantiation: w is then the
-// fp32 (Cin, 27, nblk) tensor of bf16-rounded values with nblk = Cout padded
-// to 16, and n_tiles counts 4 x 8 x 32 tiles. Otherwise w is the bf16 pack
-// [Cout block][chunk][2][27][nblk][8], (tx, ty, mstride) the tile geometry,
-// n_tiles its 2 x ty x tx tiles, and vec says that 16-byte loads along x are
-// aligned. stats, if given, is (n_tiles, Cout, 2).
+// Every product of the conv family but the weight gradient, in the form the
+// caller chooses (ops/cuda/conv3d.py: FMA_BELOW picks FMA or PLAIN for a
+// forward conv): FMA and PLAIN are the fused conv over the sources [xa, xb]
+// (xb absent, at full resolution, or at half resolution with b_lowres); RES
+// adds res (Z, Cout, Y*X), laid out as out, to the rounded conv before the
+// ReLU; TCONV is the transposed 3^3 stride-2 conv of the half-resolution xb
+// alone (Ca = 0, b_lowres; w the pack of the flipped taps, W'[dz, dy, dx,
+// ci, co] = Wt[ci, co, 2 - dz, 2 - dy, 2 - dx]), res its skip or null. The
+// input gradient is PLAIN over the cotangent xa with the flipped,
+// channel-swapped pack w'[tap, co, ci] = W[26 - tap, ci, co], its output
+// channels [0, Csplit) in out (Z, Csplit, Y*X) and the rest in out_b (null
+// when Csplit == Cout). FMA: w is the fp32 (Cin, 27, nblk) tensor of
+// bf16-rounded values with nblk = Cout padded to 16, and n_tiles counts 4 x 8
+// x 32 tiles. Otherwise w is the bf16 pack [Cout block][chunk][2][27][nblk][8],
+// (tx, ty, mstride) the tile geometry, n_tiles its 2 x ty x tx tiles, and vec
+// says that 16-byte loads along x are aligned (res's too). stats, if given,
+// is (n_tiles, Cout, 2). Refuses what no instantiation computes: another
+// form, a residual outside RES and TCONV, a split outside PLAIN, TCONV over
+// another source, a half-resolution source of odd sizes, and (run_mma,
+// run_fma) an nblk the form does not build.
 KM_EXPORT int km_conv3x3(const void* xa, const void* xb, const void* scale, const void* shift,
-                         const void* w, const void* bias, void* out, void* stats, int Z, int Y,
-                         int X, int Ca, int Cb, int Cout, int nblk, int b_lowres, int relu,
-                         int tx, int ty, int mstride, int vec, int n_tiles, void* stream) {
+                         const void* w, const void* bias, const void* res, void* out, void* out_b,
+                         void* stats, int Z, int Y, int X, int Ca, int Cb, int Cout, int Csplit,
+                         int nblk, int form, int b_lowres, int relu, int tx, int ty, int mstride,
+                         int vec, int n_tiles, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (Ca + Cb < 8) {
+  const bool split = Csplit != Cout || out_b != nullptr;
+  if (form < PLAIN || form > FMA || (res != nullptr && form != RES && form != TCONV) ||
+      (split && (form != PLAIN || Csplit < 1 || Csplit >= Cout || out_b == nullptr)) ||
+      (form == TCONV && (Ca != 0 || !b_lowres)) || (b_lowres && ((Z | Y | X) & 1)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (form == FMA) {
     FmaArgs p;
     p.xa = static_cast<const __nv_bfloat16*>(xa);
     p.xb = static_cast<const __nv_bfloat16*>(xb);
@@ -1268,7 +1296,7 @@ KM_EXPORT int km_conv3x3(const void* xa, const void* xb, const void* scale, cons
     p.Cout = Cout; p.CoutP = nblk; p.b_lowres = b_lowres; p.relu = relu;
     return run_fma(p, n_tiles, st);
   }
-  MmaArgs p;
+  MmaArgs p{};
   p.xa = static_cast<const __nv_bfloat16*>(xa);
   p.xb = static_cast<const __nv_bfloat16*>(xb);
   p.scale = static_cast<const float*>(scale);
@@ -1276,36 +1304,12 @@ KM_EXPORT int km_conv3x3(const void* xa, const void* xb, const void* scale, cons
   p.w = static_cast<const __nv_bfloat16*>(w);
   p.bias = static_cast<const float*>(bias);
   p.out = static_cast<__nv_bfloat16*>(out);
-  p.out_b = nullptr;
-  p.stats = static_cast<float*>(stats);
-  p.Z = Z; p.Y = Y; p.X = X; p.Ca = Ca; p.Cb = Cb;
-  p.Cout = Cout; p.Csplit = Cout; p.b_lowres = b_lowres; p.relu = relu; p.vec = vec;
-  return run_mma(p, nblk, tx, ty, mstride, n_tiles, st);
-}
-
-// g_v (Z, Cg, Y*X) bf16 -> g_u: channels [0, Ca) into out_a (Z, Ca, Y*X) and
-// [Ca, Ca + Cb) into out_b (Z, Cb, Y*X; null when Cb == 0). w is the flipped,
-// channel-swapped pack w'[tap, co, ci] = W[26 - tap, ci, co] in the forward
-// entry's bf16 format. Always the tensor-core kernel: a cotangent of fewer
-// than 8 channels is zero-padded to one 16-channel chunk by the pack.
-KM_EXPORT int km_conv3x3_input_grad(const void* gv, const void* w, void* out_a, void* out_b,
-                                    int Z, int Y, int X, int Cg, int Ca, int Cb, int nblk,
-                                    int tx, int ty, int mstride, int vec, int n_tiles,
-                                    void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  MmaArgs p;
-  p.xa = static_cast<const __nv_bfloat16*>(gv);
-  p.xb = nullptr;
-  p.scale = nullptr;
-  p.shift = nullptr;
-  p.w = static_cast<const __nv_bfloat16*>(w);
-  p.bias = nullptr;
-  p.out = static_cast<__nv_bfloat16*>(out_a);
   p.out_b = static_cast<__nv_bfloat16*>(out_b);
-  p.stats = nullptr;
-  p.Z = Z; p.Y = Y; p.X = X; p.Ca = Cg; p.Cb = 0;
-  p.Cout = Ca + Cb; p.Csplit = Ca; p.b_lowres = 0; p.relu = 0; p.vec = vec;
-  return run_mma(p, nblk, tx, ty, mstride, n_tiles, st);
+  p.stats = static_cast<float*>(stats);
+  p.res = static_cast<const __nv_bfloat16*>(res);
+  p.Z = Z; p.Y = Y; p.X = X; p.Ca = Ca; p.Cb = Cb;
+  p.Cout = Cout; p.Csplit = Csplit; p.b_lowres = b_lowres; p.relu = relu; p.vec = vec;
+  return run_mma(p, nblk, tx, ty, mstride, n_tiles, st, form);
 }
 
 // The weight gradient dW[tap, ci, co] of the conv km_conv3x3 computes, into
@@ -1350,50 +1354,4 @@ KM_EXPORT int km_conv3x3_weight_grad(const void* xa, const void* xb, const void*
       w.part, static_cast<float*>(out), nsplit, Ca, p.CaP, Ca + Cb, 16 * p.nchunks, Cout,
       WCO * w.nco);
   return static_cast<int>(cudaGetLastError());
-}
-
-// The forward conv of a residual block's last SingleConv with the block's sum
-// and ReLU in its epilogue: out = relu?(bf16(bf16(conv + bias) + res)), res
-// (Z, Cout, Y*X) bf16 laid out as out. Arguments as km_conv3x3's with one
-// source (Cin channels at full resolution); always the tensor-core kernel,
-// nblk 32 or 64.
-KM_EXPORT int km_conv3x3_res(const void* x, const void* scale, const void* shift, const void* w,
-                             const void* bias, const void* res, void* out, void* stats, int Z,
-                             int Y, int X, int Cin, int Cout, int nblk, int relu, int tx, int ty,
-                             int mstride, int vec, int n_tiles, void* stream) {
-  MmaArgs p{};
-  p.xa = static_cast<const __nv_bfloat16*>(x);
-  p.scale = static_cast<const float*>(scale);
-  p.shift = static_cast<const float*>(shift);
-  p.w = static_cast<const __nv_bfloat16*>(w);
-  p.bias = static_cast<const float*>(bias);
-  p.res = static_cast<const __nv_bfloat16*>(res);
-  p.out = static_cast<__nv_bfloat16*>(out);
-  p.stats = static_cast<float*>(stats);
-  p.Z = Z; p.Y = Y; p.X = X; p.Ca = Cin; p.Cb = 0;
-  p.Cout = Cout; p.Csplit = Cout; p.relu = relu; p.vec = vec;
-  return run_mma(p, nblk, tx, ty, mstride, n_tiles, static_cast<cudaStream_t>(stream), RES);
-}
-
-// The transposed 3^3 conv, stride 2 (tconv3_mma_kernel): x (Z/2, Cin,
-// Y/2*X/2) bf16 -> out (Z, Cout, Y*X) = bf16(bf16(convT(x) + bias) + res)
-// with res (the skip, laid out as out) or without it (null). w is the
-// forward entry's bf16 pack of the flipped taps, W'[dz, dy, dx, ci, co] =
-// Wt[ci, co, 2 - dz, 2 - dy, 2 - dx]; (Z, Y, X) the even output size; vec as
-// for an upconv source; nblk 32 or 64.
-KM_EXPORT int km_tconv3x3s2(const void* x, const void* w, const void* bias, const void* res,
-                            void* out, void* stats, int Z, int Y, int X, int Cin, int Cout,
-                            int nblk, int tx, int ty, int mstride, int vec, int n_tiles,
-                            void* stream) {
-  if ((Z | Y | X) & 1) return static_cast<int>(cudaErrorInvalidValue);
-  MmaArgs p{};
-  p.xb = static_cast<const __nv_bfloat16*>(x);
-  p.w = static_cast<const __nv_bfloat16*>(w);
-  p.bias = static_cast<const float*>(bias);
-  p.res = static_cast<const __nv_bfloat16*>(res);
-  p.out = static_cast<__nv_bfloat16*>(out);
-  p.stats = static_cast<float*>(stats);
-  p.Z = Z; p.Y = Y; p.X = X; p.Ca = 0; p.Cb = Cin;
-  p.Cout = Cout; p.Csplit = Cout; p.b_lowres = 1; p.relu = 0; p.vec = vec;
-  return run_mma(p, nblk, tx, ty, mstride, n_tiles, static_cast<cudaStream_t>(stream), TCONV);
 }

@@ -16,7 +16,7 @@ signatures and layouts:
 
 One CUDA source (``csrc/conv3d.cu``) serves all three forms and both
 gradients. The forward and the input gradient take two kernels chosen by a
-shape rule: every input gradient, and
+shape rule (:data:`FMA_BELOW`, here only): every input gradient, and
 the forward conv with 8 or more input channels, is an implicit GEMM on the
 bf16 tensor cores (``wgmma``: voxels x Cout x 27*Cin, fp32 sums in registers),
 bound by tensor-core operations; the forward conv with fewer (the U-Net's
@@ -49,8 +49,8 @@ v = conv_W(pad0(bf16(u))) + bias, y = relu(v),
     ``(g_mean + 2 y g_msq) / n``, the ReLU masks it, and it is rounded to
     bf16 (``g_v``);
   * the input gradient ``g_u`` is :func:`conv3x3_input_grad`: the same conv
-    over ``g_v`` with flipped taps and swapped channels, a kernel of its own
-    entry (B6), bf16 out; ``g_x = bf16(g_u * a)``;
+    over ``g_v`` with flipped taps and swapped channels (B6), bf16 out;
+    ``g_x = bf16(g_u * a)``;
   * ``g_a``, ``g_b``, ``g_bias`` are plain reductions;
   * the weight gradient is :func:`conv3x3_weight_grad`: all 27 taps in one
     tensor-core kernel over the staged halo planes (the forward's affine,
@@ -69,13 +69,22 @@ kernel: ``conv3x3_fused_flat_res`` (a block's last conv, the residual sum and
 the ReLU in its epilogue) and ``conv_transpose3x3s2_flat`` (the decoders'
 transposed 3x3x3 stride-2 conv as the conv of the zero-dilated input, the
 skip summed in its epilogue), each with its plain version.
+
+Every form but the weight gradient is one mode of one path: the public
+functions and their plain versions call :func:`_forward`, which counts the
+plain version's calls or the kernel's launches and runs :func:`_plain` or
+:func:`_launch`. ``_launch`` checks the operands, packs the weights as the
+mode's :class:`_Form` says, chooses the Cout block (:func:`n_block`) and calls
+the library's one entry for these products, ``km_conv3x3``, naming the form
+(FMA, PLAIN, RES, TCONV; the input gradient is PLAIN with its output split).
+The weight gradient is another kernel behind ``km_conv3x3_weight_grad``.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Sequence
+from typing import Callable, NamedTuple, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -126,9 +135,6 @@ def upsample_nearest_flat(xf: torch.Tensor, spatial: Sequence[int],
 
 def _conv_plain(xf, spatial, w, scale, shift, bias, relu, emit_stats):
     Z, Y, X = spatial
-    if xf.is_cuda and torch.backends.cudnn.allow_tf32:
-        raise RuntimeError("plain conv oracle needs TF32 off: call "
-                           "keymorph_tpu_torch.disable_tf32() first")
     xc = xf.float()
     if scale is not None:
         xc = xc * scale.float()[None, :, None]
@@ -183,11 +189,59 @@ def conv3x3_input_grad_plain(g_v, spatial, w, ca=None):
     """Plain PyTorch :func:`conv3x3_input_grad`: an fp32 ``conv3d`` of the
     bf16 cotangent with the flipped, channel-swapped bf16-rounded weights,
     rounded to bf16."""
-    conv3x3_input_grad_plain.calls += 1
-    Z, Y, X = spatial
-    if g_v.is_cuda and torch.backends.cudnn.allow_tf32:
+    return _forward("igrad", True, g_v, None, spatial, w, ca=ca)
+
+
+def conv3x3_fused_flat_res_plain(xf, spatial, w, scale=None, shift=None, bias=None,
+                                 relu=True, emit_stats=False, *, residual):
+    """Plain PyTorch :func:`conv3x3_fused_flat_res`."""
+    return _forward("res", True, xf, None, spatial, w, scale, shift, bias, relu, emit_stats,
+                    res=residual)
+
+
+def conv_transpose3x3s2_flat_plain(x_lo, spatial, wt, bias=None, skip=None, emit_stats=False):
+    """Plain PyTorch :func:`conv_transpose3x3s2_flat`: an fp32
+    ``conv_transpose3d`` of the bf16 operands, rounded to bf16, plus the skip,
+    rounded again."""
+    return _forward("tconv", True, None, x_lo, spatial, wt, bias=bias, emit_stats=emit_stats,
+                    res=skip)
+
+
+def _plain(mode, xa, xb, spatial, w, scale, shift, bias, relu, emit_stats, res, ca):
+    """The arithmetic of each mode's plain version (:func:`_forward`'s
+    operands): fp32 convs, which TF32 would round."""
+    if (xb if xa is None else xa).is_cuda and torch.backends.cudnn.allow_tf32:
         raise RuntimeError("plain conv oracle needs TF32 off: call "
                            "keymorph_tpu_torch.disable_tf32() first")
+    if mode == "igrad":
+        return _input_grad_plain(xa, spatial, w, ca)
+    if mode == "tconv":
+        return _tconv_plain(xb, spatial, w, bias, res, emit_stats)
+    if mode != "res":
+        return _conv_plain(_full_input(xa, xb, mode == "upconv", spatial), spatial, w, scale,
+                           shift, bias, relu, emit_stats)
+    y = _conv_plain(xa, spatial, w, scale, shift, bias, False, False)
+    y = (y.float() + res.float()).to(torch.bfloat16)
+    if relu:
+        y = torch.relu(y)
+    return (y, channel_stats(y)) if emit_stats else y
+
+
+def _tconv_plain(x_lo, spatial, wt, bias, skip, emit_stats):
+    Z, Y, X = (int(s) for s in spatial)
+    cin, cout = int(wt.shape[0]), int(wt.shape[1])
+    lhs = x_lo.float().reshape(Z // 2, cin, Y // 2, X // 2).permute(1, 0, 2, 3)[None]
+    b = None if bias is None else bias.float()
+    out = F.conv_transpose3d(lhs, wt.to(torch.bfloat16).float(), b, stride=2, padding=1,
+                             output_padding=1)[0]
+    out = out.permute(1, 0, 2, 3).to(torch.bfloat16).reshape(Z, cout, Y * X)
+    if skip is not None:
+        out = (out.float() + skip.float()).to(torch.bfloat16)
+    return (out, channel_stats(out)) if emit_stats else out
+
+
+def _input_grad_plain(g_v, spatial, w, ca):
+    Z, Y, X = spatial
     lhs = g_v.float().reshape(Z, -1, Y, X).permute(1, 0, 2, 3)
     # OIDHW with O = Cin, I = Cout, taps flipped
     rhs = w.to(torch.bfloat16).float().flip(0, 1, 2).permute(3, 4, 0, 1, 2)
@@ -231,7 +285,7 @@ def _weight_grad_plain(xa, xb, spatial, g_v, scale=None, shift=None, lowres=Fals
 
 for _f in (conv3x3_fused_flat_plain, conv3x3_fused_flat_parts_plain,
            conv3x3_fused_flat_upconv_plain, conv3x3_input_grad_plain,
-           _weight_grad_plain):
+           conv3x3_fused_flat_res_plain, conv_transpose3x3s2_flat_plain, _weight_grad_plain):
     _f.calls = 0
 
 
@@ -239,6 +293,10 @@ for _f in (conv3x3_fused_flat_plain, conv3x3_fused_flat_parts_plain,
 # what the kernel is told: tile geometry, halo linearisation, weight packs
 # ---------------------------------------------------------------------------
 
+# km_conv3x3's forms (csrc/conv3d.cu: Mode, FMA): the tensor-core conv, with
+# the residual summed in its epilogue, over the zero-dilated half-resolution
+# source; the fp32-FMA conv
+FORM_PLAIN, FORM_RES, FORM_TCONV, FORM_FMA = 0, 1, 2, 3
 FMA_BELOW = 8        # a forward conv of fewer input channels: the FMA kernel
 FMA_TILE = (4, 8, 32)    # its output tile (z, y, x) ...
 FMA_COUT_BLOCK = 16      # ... and output channels per block
@@ -246,10 +304,12 @@ TZ, MBZ, MROWS = 2, 4, 64  # z slabs per tile, 64-row blocks per slab
 NVOX_ALLOC = 1600    # halo voxels one shared-memory stage holds
 
 
-def n_block(cout: int) -> int:
+def n_block(cout: int, form: int = FORM_PLAIN) -> int:
     """Output channels one block of the tensor-core kernel takes (the wgmma
-    N): the smallest of 8, 16, 32, 64 that holds ``cout``, else 64."""
-    return next((n for n in (8, 16, 32) if cout <= n), 64)
+    N): the smallest of 8, 16, 32, 64 that holds ``cout``, else 64; the
+    residual and transposed forms build 32 and 64 only."""
+    sizes = (8, 16, 32) if form == FORM_PLAIN else (32,)
+    return next((n for n in sizes if cout <= n), 64)
 
 
 def tile_geometry(X: int) -> dict:
@@ -345,19 +405,22 @@ def pack_weights_fma(w: torch.Tensor) -> torch.Tensor:
 # kernel launch
 # ---------------------------------------------------------------------------
 
+# csrc/conv3d.cu's entries: their pointers and ints, then the stream
+_ARGTYPES = {"km_conv3x3": (10, 16), "km_conv3x3_weight_grad": (7, 10)}
+
 
 def _fn():
     lib = _build.library()
-    f = lib.km_conv3x3
-    if f.argtypes is None:
-        vp, i = ctypes.c_void_p, ctypes.c_int
-        f.argtypes = [vp] * 8 + [i] * 14 + [vp]
-        f.restype = ctypes.c_int
-        lib.km_conv3x3_input_grad.argtypes = [vp] * 4 + [i] * 12 + [vp]
-        lib.km_conv3x3_input_grad.restype = ctypes.c_int
-        lib.km_conv3x3_weight_grad.argtypes = [vp] * 7 + [i] * 10 + [vp]
-        lib.km_conv3x3_weight_grad.restype = ctypes.c_int
+    if lib.km_conv3x3.argtypes is None:
+        for name, (n_ptr, n_int) in _ARGTYPES.items():
+            f = getattr(lib, name)
+            f.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
+            f.restype = ctypes.c_int
     return lib
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 def _vec(v: torch.Tensor, n: int, dev, name: str):
@@ -379,31 +442,35 @@ def _plan(spatial, lowres, sources):
     return (geom["tx"], geom["ty"], geom["mstride"], int(vec)), n_tiles(spatial, geom)
 
 
-def _sources(xa, xb, b_lowres, spatial, extra=()):
-    """Check a conv's sources (and ``extra`` tensors) for the kernels: one
-    CUDA device, bf16, contiguous flat, shapes that match ``spatial``.
+def _sources(name, xa, xb, b_lowres, spatial, extra=()):
+    """Check a conv's sources and its further operands for the kernels:
+    ``xa`` (None: the transposed conv, whose one source is ``xb``), ``xb``
+    (None, at ``spatial``, or at half resolution with ``b_lowres``) and
+    ``extra``, full-resolution tensors of any channel count (None: absent).
+    One CUDA device, bf16, contiguous flat, shapes that match ``spatial``.
     Returns (Z, Y, X, Ca, Cb)."""
     Z, Y, X = (int(s) for s in spatial)
-    dev = xa.device
-    for t in ([xa] if xb is None else [xa, xb]) + list(extra):
+    ts = [t for t in (xa, xb, *extra) if t is not None]
+    dev = ts[0].device
+    for t in ts:
         if t.device != dev or dev.type != "cuda":
-            raise ValueError("conv3x3: inputs must be on one CUDA device")
+            raise ValueError(f"{name}: inputs must be on one CUDA device")
         if t.dtype != torch.bfloat16:
-            raise TypeError(f"conv3x3: inputs must be bfloat16, got {t.dtype}")
+            raise TypeError(f"{name}: inputs must be bfloat16, got {t.dtype}")
         if t.dim() != 3 or not t.is_contiguous():
-            raise ValueError(f"conv3x3: inputs must be contiguous flat (Z, C, Y*X), "
+            raise ValueError(f"{name}: inputs must be contiguous flat (Z, C, Y*X), "
                              f"got {tuple(t.shape)}")
-    Ca = int(xa.shape[1])
-    if tuple(xa.shape) != (Z, Ca, Y * X):
-        raise ValueError(f"conv3x3: xa {tuple(xa.shape)} does not match spatial {spatial}")
-    Cb = 0
-    if xb is not None:
-        Cb = int(xb.shape[1])
-        want = ((Z // 2, Cb, (Y // 2) * (X // 2)) if b_lowres else (Z, Cb, Y * X))
-        if b_lowres and (Z % 2 or Y % 2 or X % 2):
-            raise ValueError(f"conv3x3 upconv: spatial {spatial} must be even")
-        if tuple(xb.shape) != want:
-            raise ValueError(f"conv3x3: xb {tuple(xb.shape)} is not {want}")
+    if xb is not None and b_lowres and (Z % 2 or Y % 2 or X % 2):
+        raise ValueError(f"{name}: spatial {spatial} must be even")
+    Ca = 0 if xa is None else int(xa.shape[1])
+    Cb = 0 if xb is None else int(xb.shape[1])
+    wants = [(xa, (Z, Ca, Y * X)),
+             (xb, (Z // 2, Cb, (Y // 2) * (X // 2)) if b_lowres else (Z, Cb, Y * X))]
+    wants += [(t, (Z, t.shape[1], Y * X)) for t in extra if t is not None]
+    for t, want in wants:
+        if t is not None and tuple(t.shape) != want:
+            raise ValueError(f"{name}: {tuple(t.shape)} does not match spatial {spatial}: "
+                             f"want {want}")
     return Z, Y, X, Ca, Cb
 
 
@@ -417,46 +484,96 @@ def _affine(scale, shift, cin, dev):
             None if shift is None else _vec(shift, cin, dev, "shift"))
 
 
-def _launch(xa, xb, b_lowres, spatial, w, scale, shift, bias, relu, emit_stats):
-    """Check the operands and launch the kernel on ``xa``'s device."""
-    Z, Y, X, Ca, Cb = _sources(xa, xb, b_lowres, spatial)
-    dev = xa.device
-    srcs = [xa] if xb is None else [xa, xb]
+def _pack_tconv(wt, ca, nblk):
+    # the SAME conv of the dilated input: taps flipped, (Cin, Cout) last
+    return pack_weights(wt.flip(2, 3, 4).permute(2, 3, 4, 0, 1), 0, nblk)
+
+
+class _Form(NamedTuple):
+    """How :func:`_launch` runs one mode of the conv."""
+    form: int | None  # km_conv3x3's form; None: FORM_FMA below FMA_BELOW input channels, else PLAIN
+    lowres: bool      # the second source is read at half resolution
+    axes: tuple       # where the weights hold their taps, the sources' channels, the outputs'
+    layout: str       # the weights' shape, for errors
+    pack: Callable    # (w, Ca, nblk) -> the tensor-core kernel's B operand
+
+
+_CONV = _Form(None, False, ((0, 1, 2), 3, 4), "(3, 3, 3, {}, Cout)", pack_weights)
+_FORMS = {"flat": _CONV, "parts": _CONV, "upconv": _CONV._replace(lowres=True),
+          "res": _CONV._replace(form=FORM_RES),
+          "tconv": _Form(FORM_TCONV, True, ((2, 3, 4), 0, 1), "({}, Cout, 3, 3, 3)", _pack_tconv),
+          "igrad": _Form(FORM_PLAIN, False, ((0, 1, 2), 4, 3), "(3, 3, 3, Cin, {})",
+                         lambda w, ca, nblk: pack_weights_grad(w, nblk))}
+
+
+def _launch(mode, xa, xb, spatial, w, scale, shift, bias, relu, emit_stats, res, ca):
+    """Check one mode's operands, pack its weights and launch it on the
+    sources' device: the one path to ``km_conv3x3``, which every product of
+    the conv family but the weight gradient takes (operands as
+    :func:`_forward` takes them)."""
+    name = _KERNELS[mode].__name__
+    f = _FORMS[mode]
+    Z, Y, X, Ca, Cb = _sources(name, xa, xb, f.lowres, spatial, extra=(res,))
+    taps, k, n = f.axes
     Cin = Ca + Cb
-    if w.shape[:4] != (3, 3, 3, Cin):
-        raise ValueError(f"conv3x3: w {tuple(w.shape)} is not (3, 3, 3, {Cin}, Cout)")
-    Cout = int(w.shape[4])
-    lib = _fn()
+    if w.dim() != 5 or tuple(w.shape[a] for a in taps) != (3, 3, 3) or w.shape[k] != Cin:
+        raise ValueError(f"{name}: w {tuple(w.shape)} is not {f.layout.format(Cin)}")
+    Cout = int(w.shape[n])
+    if res is not None and res.shape[1] != Cout:
+        raise ValueError(f"{name}: the summed operand {tuple(res.shape)} does not have the "
+                         f"{Cout} output channels")
+    split = Cout if ca is None else int(ca)
+    if not 0 < split <= Cout:
+        raise ValueError(f"{name}: split {ca} outside (0, {Cout}]")
+    form = f.form
+    if form is None:  # the shape rule between the two kernels
+        form = FORM_FMA if Cin < FMA_BELOW else FORM_PLAIN
+    srcs = [t for t in (xa, xb, res) if t is not None]
+    dev = srcs[0].device
     w = w.to(device=dev)
-    if Cin < FMA_BELOW:  # the shape rule between the two kernels
+    if form == FORM_FMA:
         geom_args, tiles = (0, 0, 0, 0), n_tiles((Z, Y, X))
         wk = pack_weights_fma(w)
         nblk = int(wk.shape[2])
     else:
-        geom_args, tiles = _plan((Z, Y, X), b_lowres, srcs)
-        nblk = n_block(Cout)
-        wk = pack_weights(w, Ca, nblk)
+        geom_args, tiles = _plan((Z, Y, X), f.lowres, srcs)
+        nblk = n_block(Cout, form)
+        wk = f.pack(w, Ca, nblk)
     scale_t, shift_t = _affine(scale, shift, Cin, dev)
     bias_t = None if bias is None else _vec(bias, Cout, dev, "bias")
-    out = torch.empty((Z, Cout, Y * X), dtype=torch.bfloat16, device=dev)
-    stats = None
-    if emit_stats:
-        stats = torch.empty((tiles, Cout, 2), dtype=torch.float32, device=dev)
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
-    err = lib.km_conv3x3(
-        xa.data_ptr(), ptr(xb), ptr(scale_t), ptr(shift_t), wk.data_ptr(), ptr(bias_t),
-        out.data_ptr(), ptr(stats), Z, Y, X, Ca, Cb, Cout, nblk, int(b_lowres),
-        int(bool(relu)), *geom_args, tiles, _build.stream_ptr(dev),
-    )
+    out = torch.empty((Z, split, Y * X), dtype=torch.bfloat16, device=dev)
+    out_b = (torch.empty((Z, Cout - split, Y * X), dtype=torch.bfloat16, device=dev)
+             if split < Cout else None)
+    stats = (torch.empty((tiles, Cout, 2), dtype=torch.float32, device=dev)
+             if emit_stats else None)
+    err = _fn().km_conv3x3(
+        _ptr(xa), _ptr(xb), _ptr(scale_t), _ptr(shift_t), wk.data_ptr(), _ptr(bias_t), _ptr(res),
+        out.data_ptr(), _ptr(out_b), _ptr(stats), Z, Y, X, Ca, Cb, Cout, split, nblk, form,
+        int(f.lowres), int(bool(relu)), *geom_args, tiles, _build.stream_ptr(dev))
     _build.check(err, "km_conv3x3")
+    if mode == "igrad":
+        return out, out_b
     if not emit_stats:
         return out
     sums = torch.sum(stats, dim=0)  # (Cout, 2)
     n = float(Z * Y * X)
     return out, (sums[:, 0] / n, sums[:, 1] / n)
+
+
+def _forward(mode, plain, xa, xb, spatial, w, scale=None, shift=None, bias=None, relu=False,
+             emit_stats=False, res=None, ca=None):
+    """Run one mode of the conv and count it: the plain version (asked for,
+    or a CPU tensor), else the kernel. Modes: the forward convs ``flat``,
+    ``parts`` and ``upconv`` (sources ``xa``, ``xb``), ``res`` (a block's
+    last conv, ``res`` its residual), ``tconv`` (the transposed conv of
+    ``xb``, ``res`` its skip, ``w`` in ``ConvTranspose3d``'s layout) and
+    ``igrad`` (the input gradient of the cotangent ``xa``, split at ``ca``)."""
+    if plain or (xb if xa is None else xa).device.type == "cpu":
+        _PLAINS[mode].calls += 1
+        return _plain(mode, xa, xb, spatial, w, scale, shift, bias, relu, emit_stats, res, ca)
+    r = _launch(mode, xa, xb, spatial, w, scale, shift, bias, relu, emit_stats, res, ca)
+    _KERNELS[mode].launches += 1
+    return r
 
 
 # ---------------------------------------------------------------------------
@@ -481,40 +598,7 @@ def conv3x3_input_grad(g_v, spatial, w, ca=None):
     CPU tensors run :func:`conv3x3_input_grad_plain`; CUDA tensors launch the
     tensor-core kernel, whatever the channel counts (the pack pads them).
     """
-    if g_v.device.type == "cpu":
-        return conv3x3_input_grad_plain(g_v, spatial, w, ca)
-    Z, Y, X = (int(s) for s in spatial)
-    dev = g_v.device
-    if dev.type != "cuda" or g_v.dtype != torch.bfloat16:
-        raise TypeError(f"conv3x3_input_grad: g_v must be a CUDA bfloat16 tensor, "
-                        f"got {g_v.dtype} on {dev}")
-    if g_v.dim() != 3 or not g_v.is_contiguous() or g_v.shape[0] != Z \
-            or g_v.shape[2] != Y * X:
-        raise ValueError(f"conv3x3_input_grad: g_v {tuple(g_v.shape)} is not a "
-                         f"contiguous flat (Z, Cout, Y*X) tensor at {spatial}")
-    Cg = int(g_v.shape[1])
-    if w.dim() != 5 or tuple(w.shape[:3]) != (3, 3, 3) or w.shape[4] != Cg:
-        raise ValueError(f"conv3x3_input_grad: w {tuple(w.shape)} is not "
-                         f"(3, 3, 3, Cin, {Cg})")
-    Cin = int(w.shape[3])
-    ca = Cin if ca is None else int(ca)
-    if not 0 < ca <= Cin:
-        raise ValueError(f"conv3x3_input_grad: split {ca} outside (0, {Cin}]")
-    cb_ = Cin - ca
-    lib = _fn()
-    geom_args, tiles = _plan((Z, Y, X), False, [g_v])
-    nblk = n_block(Cin)
-    wk = pack_weights_grad(w.to(device=dev), nblk)
-    out_a = torch.empty((Z, ca, Y * X), dtype=torch.bfloat16, device=dev)
-    out_b = (torch.empty((Z, cb_, Y * X), dtype=torch.bfloat16, device=dev)
-             if cb_ else None)
-    err = lib.km_conv3x3_input_grad(
-        g_v.data_ptr(), wk.data_ptr(), out_a.data_ptr(),
-        out_b.data_ptr() if out_b is not None else None,
-        Z, Y, X, Cg, ca, cb_, nblk, *geom_args, tiles, _build.stream_ptr(dev))
-    _build.check(err, "km_conv3x3_input_grad")
-    conv3x3_input_grad.launches += 1
-    return out_a, out_b
+    return _forward("igrad", False, g_v, None, spatial, w, ca=ca)
 
 
 conv3x3_input_grad.launches = 0
@@ -588,11 +672,8 @@ def conv3x3_weight_grad(xa, xb, spatial, g_v, scale=None, shift=None, lowres=Fal
     """
     if g_v.device.type == "cpu":
         return _weight_grad_plain(xa, xb, spatial, g_v, scale, shift, lowres)
-    Z, Y, X, Ca, Cb = _sources(xa, xb, lowres, spatial, extra=(g_v,))
+    Z, Y, X, Ca, Cb = _sources("conv3x3_weight_grad", xa, xb, lowres, spatial, extra=(g_v,))
     Cout = int(g_v.shape[1])
-    if tuple(g_v.shape) != (Z, Cout, Y * X):
-        raise ValueError(f"conv3x3_weight_grad: g_v {tuple(g_v.shape)} does not match "
-                         f"spatial {spatial}")
     dev = g_v.device
     Cin = Ca + Cb
     scale_t, shift_t = _affine(scale, shift, Cin, dev)
@@ -603,12 +684,8 @@ def conv3x3_weight_grad(xa, xb, spatial, g_v, scale=None, shift=None, lowres=Fal
     part = torch.empty((plan["nsplit"], 27, plan["cip"], plan["cop"]), dtype=torch.float32,
                        device=dev)
     out = torch.empty((3, 3, 3, Cin, Cout), dtype=torch.float32, device=dev)
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
     err = _fn().km_conv3x3_weight_grad(
-        xa.data_ptr(), ptr(xb), ptr(scale_t), ptr(shift_t), g_v.data_ptr(), part.data_ptr(),
+        xa.data_ptr(), _ptr(xb), _ptr(scale_t), _ptr(shift_t), g_v.data_ptr(), part.data_ptr(),
         out.data_ptr(), Z, Y, X, Ca, Cb, Cout, int(bool(lowres)), plan["tx"], int(vec),
         plan["nsplit"], _build.stream_ptr(dev))
     _build.check(err, "km_conv3x3_weight_grad")
@@ -627,19 +704,6 @@ def _sm_count(index: int) -> int:
 # ---------------------------------------------------------------------------
 # autograd
 # ---------------------------------------------------------------------------
-
-
-def _forward(mode, plain, xa, xb, spatial, w, scale, shift, bias, relu, emit_stats):
-    """Run one conv form forward and count it: the plain version (asked for,
-    or a CPU tensor), else the kernel."""
-    if plain or xa.device.type == "cpu":
-        _PLAINS[mode].calls += 1
-        return _conv_plain(_full_input(xa, xb, mode == "upconv", spatial), spatial,
-                           w, scale, shift, bias, relu, emit_stats)
-    r = _launch(xa, xb, mode == "upconv", spatial, w, scale, shift, bias, relu,
-                emit_stats)
-    _KERNELS[mode].launches += 1
-    return r
 
 
 def _block_sum2(x, spatial):
@@ -691,10 +755,8 @@ class _FusedConv(torch.autograd.Function):
         del g, y
 
         with span("conv.input_grad"):
-            if plain or g_v.device.type == "cpu":
-                g_ua, g_ub = conv3x3_input_grad_plain(g_v, spatial, w, ca)
-            else:
-                g_ua, g_ub = conv3x3_input_grad(g_v, spatial, w, ca)
+            igrad = conv3x3_input_grad_plain if plain else conv3x3_input_grad
+            g_ua, g_ub = igrad(g_v, spatial, w, ca)
 
         # the half-resolution source sees the 2x2x2 block sums of g_u
         gb = None
@@ -784,16 +846,6 @@ def conv3x3_fused(x, w, scale=None, shift=None, bias=None, relu=True,
     return r.reshape(Z, -1, Y, X)
 
 
-for _f in (conv3x3_fused_flat, conv3x3_fused_flat_parts, conv3x3_fused_flat_upconv):
-    _f.launches = 0
-del _f
-
-_KERNELS = {"flat": conv3x3_fused_flat, "parts": conv3x3_fused_flat_parts,
-            "upconv": conv3x3_fused_flat_upconv}
-_PLAINS = {"flat": conv3x3_fused_flat_plain, "parts": conv3x3_fused_flat_parts_plain,
-           "upconv": conv3x3_fused_flat_upconv_plain}
-
-
 # ---------------------------------------------------------------------------
 # forward-only forms of the residual U-Nets (models/fast_resunet.py)
 # ---------------------------------------------------------------------------
@@ -803,36 +855,6 @@ def _forward_only(name, *tensors):
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
         raise RuntimeError(f"{name} is forward-only (serving); the residual U-Nets train "
                            "through their modules")
-
-
-def _res_nblk(cout: int) -> int:
-    """The residual and transposed forms' Cout block: 32 or 64 (the only
-    instantiations ``csrc/conv3d.cu`` builds for them)."""
-    return 32 if cout <= 32 else 64
-
-
-def _reduce_stats(stats, n):
-    sums = torch.sum(stats, dim=0)  # (Cout, 2)
-    return sums[:, 0] / n, sums[:, 1] / n
-
-
-def _check_like(t, shape, name):
-    if t is None:
-        return
-    if t.dtype != torch.bfloat16 or not t.is_contiguous() or tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: want a contiguous bf16 {tuple(shape)}, got {t.dtype} "
-                         f"{tuple(t.shape)}")
-
-
-def conv3x3_fused_flat_res_plain(xf, spatial, w, scale=None, shift=None, bias=None,
-                                 relu=True, emit_stats=False, *, residual):
-    """Plain PyTorch :func:`conv3x3_fused_flat_res`."""
-    conv3x3_fused_flat_res_plain.calls += 1
-    y = _conv_plain(xf, spatial, w, scale, shift, bias, False, False)
-    y = (y.float() + residual.float()).to(torch.bfloat16)
-    if relu:
-        y = torch.relu(y)
-    return (y, channel_stats(y)) if emit_stats else y
 
 
 def conv3x3_fused_flat_res(xf, spatial, w, scale=None, shift=None, bias=None, relu=True,
@@ -849,55 +871,8 @@ def conv3x3_fused_flat_res(xf, spatial, w, scale=None, shift=None, bias=None, re
         raise ValueError("conv3x3_fused_flat_res: a residual is required; a conv without one "
                          "is conv3x3_fused_flat's")
     _forward_only("conv3x3_fused_flat_res", xf, w, scale, shift, bias, residual)
-    if xf.device.type == "cpu":
-        return conv3x3_fused_flat_res_plain(xf, spatial, w, scale, shift, bias, relu,
-                                            emit_stats, residual=residual)
-    Z, Y, X, Cin, _ = _sources(xf, None, False, spatial)
-    dev = xf.device
-    if w.shape[:4] != (3, 3, 3, Cin):
-        raise ValueError(f"conv3x3_fused_flat_res: w {tuple(w.shape)} is not (3, 3, 3, {Cin}, "
-                         f"Cout)")
-    Cout = int(w.shape[4])
-    _check_like(residual, (Z, Cout, Y * X), "conv3x3_fused_flat_res: residual")
-    geom_args, tiles = _plan((Z, Y, X), False, [xf, residual])
-    nblk = _res_nblk(Cout)
-    wk = pack_weights(w.to(device=dev), Cin, nblk)
-    scale_t, shift_t = _affine(scale, shift, Cin, dev)
-    bias_t = None if bias is None else _vec(bias, Cout, dev, "bias")
-    out = torch.empty((Z, Cout, Y * X), dtype=torch.bfloat16, device=dev)
-    stats = (torch.empty((tiles, Cout, 2), dtype=torch.float32, device=dev)
-             if emit_stats else None)
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
-    err = _res_fns().km_conv3x3_res(
-        xf.data_ptr(), ptr(scale_t), ptr(shift_t), wk.data_ptr(), ptr(bias_t), ptr(residual),
-        out.data_ptr(), ptr(stats), Z, Y, X, Cin, Cout, nblk, int(bool(relu)), *geom_args, tiles,
-        _build.stream_ptr(dev))
-    _build.check(err, "km_conv3x3_res")
-    conv3x3_fused_flat_res.launches += 1
-    return (out, _reduce_stats(stats, float(Z * Y * X))) if emit_stats else out
-
-
-def conv_transpose3x3s2_flat_plain(x_lo, spatial, wt, bias=None, skip=None, emit_stats=False):
-    """Plain PyTorch :func:`conv_transpose3x3s2_flat`: an fp32
-    ``conv_transpose3d`` of the bf16 operands, rounded to bf16, plus the skip,
-    rounded again."""
-    conv_transpose3x3s2_flat_plain.calls += 1
-    Z, Y, X = (int(s) for s in spatial)
-    if x_lo.is_cuda and torch.backends.cudnn.allow_tf32:
-        raise RuntimeError("plain conv oracle needs TF32 off: call "
-                           "keymorph_tpu_torch.disable_tf32() first")
-    cin, cout = int(wt.shape[0]), int(wt.shape[1])
-    lhs = x_lo.float().reshape(Z // 2, cin, Y // 2, X // 2).permute(1, 0, 2, 3)[None]
-    b = None if bias is None else bias.float()
-    out = F.conv_transpose3d(lhs, wt.to(torch.bfloat16).float(), b, stride=2, padding=1,
-                             output_padding=1)[0]
-    out = out.permute(1, 0, 2, 3).to(torch.bfloat16).reshape(Z, cout, Y * X)
-    if skip is not None:
-        out = (out.float() + skip.float()).to(torch.bfloat16)
-    return (out, channel_stats(out)) if emit_stats else out
+    return _forward("res", False, xf, None, spatial, w, scale, shift, bias, relu, emit_stats,
+                    res=residual)
 
 
 def conv_transpose3x3s2_flat(x_lo, spatial, wt, bias=None, skip=None, emit_stats=False):
@@ -911,50 +886,19 @@ def conv_transpose3x3s2_flat(x_lo, spatial, wt, bias=None, skip=None, emit_stats
     run the plain version; CUDA tensors launch ``tconv3_mma_kernel`` (the
     tensor-core conv over the zero-dilated input, ``csrc/conv3d.cu``)."""
     _forward_only("conv_transpose3x3s2_flat", x_lo, wt, bias, skip)
-    if x_lo.device.type == "cpu":
-        return conv_transpose3x3s2_flat_plain(x_lo, spatial, wt, bias, skip, emit_stats)
-    Z, Y, X = (int(s) for s in spatial)
-    dev = x_lo.device
-    if Z % 2 or Y % 2 or X % 2:
-        raise ValueError(f"conv_transpose3x3s2_flat: spatial {spatial} must be even")
-    if wt.dim() != 5 or tuple(wt.shape[2:]) != (3, 3, 3):
-        raise ValueError(f"conv_transpose3x3s2_flat: wt {tuple(wt.shape)} is not (Cin, Cout, "
-                         "3, 3, 3)")
-    Cin, Cout = int(wt.shape[0]), int(wt.shape[1])
-    if x_lo.device.type != "cuda":
-        raise ValueError("conv_transpose3x3s2_flat: inputs must be on one CUDA device")
-    _check_like(x_lo, (Z // 2, Cin, (Y // 2) * (X // 2)), "conv_transpose3x3s2_flat: x_lo")
-    _check_like(skip, (Z, Cout, Y * X), "conv_transpose3x3s2_flat: skip")
-    geom_args, tiles = _plan((Z, Y, X), True, [x_lo] + ([] if skip is None else [skip]))
-    nblk = _res_nblk(Cout)
-    # the SAME conv of the dilated input: taps flipped, (Cin, Cout) last
-    wk = pack_weights(wt.to(device=dev).flip(2, 3, 4).permute(2, 3, 4, 0, 1), 0, nblk)
-    bias_t = None if bias is None else _vec(bias, Cout, dev, "bias")
-    out = torch.empty((Z, Cout, Y * X), dtype=torch.bfloat16, device=dev)
-    stats = (torch.empty((tiles, Cout, 2), dtype=torch.float32, device=dev)
-             if emit_stats else None)
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
-    err = _res_fns().km_tconv3x3s2(
-        x_lo.data_ptr(), wk.data_ptr(), ptr(bias_t), ptr(skip), out.data_ptr(), ptr(stats),
-        Z, Y, X, Cin, Cout, nblk, *geom_args, tiles, _build.stream_ptr(dev))
-    _build.check(err, "km_tconv3x3s2")
-    conv_transpose3x3s2_flat.launches += 1
-    return (out, _reduce_stats(stats, float(Z * Y * X))) if emit_stats else out
+    return _forward("tconv", False, None, x_lo, spatial, wt, bias=bias, emit_stats=emit_stats,
+                    res=skip)
 
 
-def _res_fns():
-    lib = _fn()
-    if lib.km_conv3x3_res.argtypes is None:
-        vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.km_conv3x3_res.argtypes = [vp] * 8 + [i] * 12 + [vp]
-        lib.km_conv3x3_res.restype = ctypes.c_int
-        lib.km_tconv3x3s2.argtypes = [vp] * 6 + [i] * 11 + [vp]
-        lib.km_tconv3x3s2.restype = ctypes.c_int
-    return lib
+for _f in (conv3x3_fused_flat, conv3x3_fused_flat_parts, conv3x3_fused_flat_upconv,
+           conv3x3_fused_flat_res, conv_transpose3x3s2_flat):
+    _f.launches = 0
+del _f
 
-
-conv3x3_fused_flat_res.launches = conv_transpose3x3s2_flat.launches = 0
-conv3x3_fused_flat_res_plain.calls = conv_transpose3x3s2_flat_plain.calls = 0
+# each mode's kernel wrapper and plain version, which count its launches and calls
+_KERNELS = {"flat": conv3x3_fused_flat, "parts": conv3x3_fused_flat_parts,
+            "upconv": conv3x3_fused_flat_upconv, "res": conv3x3_fused_flat_res,
+            "tconv": conv_transpose3x3s2_flat, "igrad": conv3x3_input_grad}
+_PLAINS = {"flat": conv3x3_fused_flat_plain, "parts": conv3x3_fused_flat_parts_plain,
+           "upconv": conv3x3_fused_flat_upconv_plain, "res": conv3x3_fused_flat_res_plain,
+           "tconv": conv_transpose3x3s2_flat_plain, "igrad": conv3x3_input_grad_plain}

@@ -198,3 +198,20 @@ def test_plain_on_cpu_ignores_tf32_flag():
     w = torch.zeros((3, 3, 3, 1, 2))
     out = tconv.conv3x3_fused_flat(x, (2, 8, 8), w)
     assert out.shape == (2, 2, 64) and out.dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("mode,blocks", [("flat", (8, 8, 16, 16, 32, 32, 64, 64, 64)),
+                                         ("igrad", (8, 8, 16, 16, 32, 32, 64, 64, 64)),
+                                         ("res", (32, 32, 32, 32, 32, 32, 64, 64, 64)),
+                                         ("tconv", (32, 32, 32, 32, 32, 32, 64, 64, 64))])
+def test_cout_block_per_form(mode, blocks):
+    """The Cout block each mode launches its tensor-core form with: the
+    forward conv (8 input channels or more) and the input gradient the
+    smallest of 8, 16, 32, 64 that holds Cout, else 64; the residual and
+    transposed forms 32 or 64, the only instantiations ``csrc/conv3d.cu``
+    builds for them."""
+    form = tconv._FORMS[mode].form
+    form = tconv.FORM_PLAIN if form is None else form
+    couts = (1, 8, 9, 16, 17, 32, 33, 64, 200)
+    assert tuple(tconv.n_block(c, form) for c in couts) == blocks
+

@@ -341,35 +341,6 @@ def test_warp_kernels_take_an_empty_batch(dev):
         assert g.shape == planes.shape
 
 
-@pytest.mark.parametrize("shape", [((6, 12, 40), 24, 8, 0), ((6, 12, 40), 24, 8, 16),
-                                   ((5, 7, 9), 3, 3, 0), ((1, 4, 33), 16, 8, 0),
-                                   ((3, 5, 70), 72, 24, 0), ((2, 3, 5), 256, 200, 0),
-                                   ((2, 4, 70), 72, 24, 8), ((2, 8, 64), 16, 64, 128),
-                                   ((1, 6, 5), 16, 1, 0)])
-def test_conv_input_grad_kernel_matches_plain(rng, dev, shape):
-    """The input-gradient kernel (one tensor, and split into the two halves
-    of a two-source conv) within one bf16 ulp of its plain version, on shapes
-    ragged against the tiles and the channel blocks; cotangents of 3 channels
-    (padded to one 16-channel chunk) to 256, gradients of 1 channel to 200,
-    Z = 1."""
-    from keymorph_tpu_torch.ops.cuda import conv3d
-
-    (Z, Y, X), cg, ca, cb = shape
-    g_v = _bf16(rng, Z, cg, Y * X).to(dev)
-    w = torch.tensor(rng.normal(size=(3, 3, 3, ca + cb, cg)).astype(np.float32) * 0.2, device=dev)
-    n0 = conv3d.conv3x3_input_grad.launches
-    got = conv3d.conv3x3_input_grad(g_v, (Z, Y, X), w, ca if cb else None)
-    want = conv3d.conv3x3_input_grad_plain(g_v, (Z, Y, X), w, ca if cb else None)
-    torch.cuda.synchronize()
-    assert conv3d.conv3x3_input_grad.launches == n0 + 1
-    assert (got[1] is None) == (cb == 0)
-    for k, p in zip(got, want):
-        if k is None:
-            continue
-        assert k.shape == p.shape and k.dtype == torch.bfloat16
-        _conv_close(k, p)
-
-
 @pytest.mark.parametrize("mode", ["flat", "upconv"])
 def test_conv_backward_through_the_kernels_matches_plain(rng, dev, mode):
     """backward() of the fused conv on the card (forward recompute, input and
@@ -1019,84 +990,136 @@ def _sum_close(k, p, part):
     assert bool(((k - p).abs() <= bound).all()), (k - p).abs().max().item()
 
 
-@pytest.mark.parametrize("spatial,cin,cout,offset,relu", [
-    ((3, 5, 7), 32, 32, 0, True),      # odd Y*X: the scalar staging
-    ((2, 8, 64), 32, 32, 0, True),     # the residual tile loaded during the last chunk
-    ((4, 8, 64), 64, 64, 0, True),     # 16-byte loads, the 64-wide tile
-    ((2, 6, 33), 72, 72, 1, False),    # an unaligned source and residual
-    ((2, 4, 16), 256, 256, 0, True),
-    ((3, 3, 5), 16, 24, 0, True),      # Cout < 32: the pack pads to the 32 block
-    ((2, 4, 16), 16, 64, 0, True),     # one chunk at NB 64: the residual read in the epilogue
+@pytest.mark.parametrize("form,spatial,cin,cout,offset,opt", [
+    # the input gradient: cin cotangent channels, cout gradient channels, the
+    # last opt of them split off as a two-source conv's second half (0: one
+    # tensor)
+    ("igrad", (6, 12, 40), 24, 8, 0, 0), ("igrad", (6, 12, 40), 24, 24, 0, 16),
+    ("igrad", (5, 7, 9), 3, 3, 0, 0), ("igrad", (1, 4, 33), 16, 8, 0, 0),
+    ("igrad", (3, 5, 70), 72, 24, 0, 0), ("igrad", (2, 3, 5), 256, 200, 0, 0),
+    ("igrad", (2, 4, 70), 72, 32, 0, 8), ("igrad", (2, 8, 64), 16, 192, 0, 128),
+    ("igrad", (1, 6, 5), 16, 1, 0, 0),
+    # a block's last conv with the residual sum: opt the ReLU
+    ("res", (3, 5, 7), 32, 32, 0, True),      # odd Y*X: the scalar staging
+    ("res", (2, 8, 64), 32, 32, 0, True),     # the residual tile loaded during the last chunk
+    ("res", (4, 8, 64), 64, 64, 0, True),     # 16-byte loads, the 64-wide tile
+    ("res", (2, 6, 33), 72, 72, 1, False),    # an unaligned source and residual
+    ("res", (2, 4, 16), 256, 256, 0, True),
+    ("res", (3, 3, 5), 16, 24, 0, True),      # Cout < 32: the pack pads to the 32 block
+    ("res", (2, 4, 16), 16, 64, 0, True),     # one chunk at NB 64: the residual read in the epilogue
+    # the transposed conv of a source at half of spatial: opt the skip
+    ("tconv", (3, 5, 7), 64, 32, 0, True),    # odd Y*X at half resolution: the scalar staging
+    ("tconv", (2, 4, 16), 64, 32, 0, True),   # 16-byte loads of the half-resolution source
+    ("tconv", (2, 3, 16), 128, 64, 1, True),  # an unaligned source
+    ("tconv", (2, 2, 8), 256, 128, 0, False),  # without the skip
+    ("tconv", (1, 3, 5), 40, 72, 0, True),    # channels off every block
 ])
-def test_conv_residual_epilogue_matches_plain(rng, dev, spatial, cin, cout, offset, relu):
-    """``conv3x3_fused_flat_res``: relu(bf16(bf16(conv) + residual)) with the
-    folded GroupNorm, against the plain version (:func:`_sum_close`); its
-    stats as :func:`_stats_close` says."""
-    from keymorph_tpu_torch.ops.cuda import conv3d
+def test_conv_form_kernel_matches_plain(rng, dev, form, spatial, cin, cout, offset, opt):
+    """The input-gradient, residual and transposed forms of the conv kernel
+    against their plain versions, one launch each, on shapes ragged against
+    the tiles and the channel blocks:
 
-    Z, Y, X = spatial
-    x = _offset_copy(_bf16(rng, Z, cin, Y * X).to(dev), offset)
-    res = _offset_copy(_bf16(rng, Z, cout, Y * X).to(dev), offset)
-    w = torch.tensor(rng.normal(size=(3, 3, 3, cin, cout)).astype(np.float32) / np.sqrt(cin),
-                     device=dev)
-    sc = torch.tensor(rng.uniform(0.5, 1.5, cin).astype(np.float32), device=dev)
-    sh = torch.tensor(rng.normal(size=cin).astype(np.float32) * 0.3, device=dev)
-    n0 = conv3d.conv3x3_fused_flat_res.launches
-    with torch.no_grad():
-        k_out, k_stats = conv3d.conv3x3_fused_flat_res(x, spatial, w, sc, sh, None, relu=relu,
-                                                       emit_stats=True, residual=res)
-        p_out, p_stats = conv3d.conv3x3_fused_flat_res_plain(x, spatial, w, sc, sh, None,
-                                                             relu=relu, emit_stats=True,
-                                                             residual=res)
-        part = conv3d.conv3x3_fused_flat_plain(x, spatial, w, sc, sh, None, relu=False)
-    torch.cuda.synchronize()
-    assert conv3d.conv3x3_fused_flat_res.launches == n0 + 1
-    _sum_close(k_out, p_out, part)
-    _stats_close(k_out, k_stats, p_out, p_stats)
+      * the input gradient, one tensor or the two halves of a two-source
+        conv's, within one bf16 ulp (:func:`_conv_close`): cotangents of 3
+        channels (padded to one 16-channel chunk) to 256, gradients of 1
+        channel to 200, Z = 1;
+      * ``conv3x3_fused_flat_res``, relu(bf16(bf16(conv) + residual)) with
+        the folded GroupNorm (:func:`_sum_close`);
+      * ``conv_transpose3x3s2_flat``, whose plain version is
+        ``F.conv_transpose3d`` (stride 2, padding 1, output padding 1) in
+        fp32 on the bf16 operands, plus the bias, rounded, plus the skip,
+        rounded (:func:`_conv_close` without the skip, :func:`_sum_close`
+        with it);
 
-
-@pytest.mark.parametrize("low,cin,cout,offset,skip", [
-    ((3, 5, 7), 64, 32, 0, True),      # odd Y*X at half resolution: the scalar staging
-    ((2, 4, 16), 64, 32, 0, True),     # 16-byte loads of the half-resolution source
-    ((2, 3, 16), 128, 64, 1, True),    # an unaligned source
-    ((2, 2, 8), 256, 128, 0, False),   # without the skip
-    ((1, 3, 5), 40, 72, 0, True),      # channels off every block
-])
-def test_transposed_conv_matches_conv_transpose3d(rng, dev, low, cin, cout, offset, skip):
-    """``conv_transpose3x3s2_flat`` against ``F.conv_transpose3d`` (stride 2,
-    padding 1, output padding 1) in fp32 on the bf16 operands, plus the
-    bias, rounded, plus the skip, rounded (:func:`_conv_close` without the
-    skip, :func:`_sum_close` with it); its stats as :func:`_stats_close`."""
+    the stats of the last two as :func:`_stats_close` says."""
     import torch.nn.functional as F
 
     from keymorph_tpu_torch.ops.cuda import conv3d
 
-    Zl, Yl, Xl = low
-    spatial = (2 * Zl, 2 * Yl, 2 * Xl)
-    x = _offset_copy(_bf16(rng, Zl, cin, Yl * Xl).to(dev), offset)
-    wt = torch.tensor(rng.normal(size=(cin, cout, 3, 3, 3)).astype(np.float32)
-                      / np.sqrt(cin * 27 / 8), device=dev)
-    b = torch.tensor(rng.normal(size=cout).astype(np.float32) * 0.1, device=dev)
-    sk = _bf16(rng, spatial[0], cout, spatial[1] * spatial[2]).to(dev) if skip else None
-    n0 = conv3d.conv_transpose3x3s2_flat.launches
+    def weights(*shape, scale):
+        return torch.tensor(rng.normal(size=shape).astype(np.float32) * scale, device=dev)
+
+    if form == "igrad":
+        Z, Y, X = spatial
+        kern, plain = conv3d.conv3x3_input_grad, conv3d.conv3x3_input_grad_plain
+        g_v = _bf16(rng, Z, cin, Y * X).to(dev)
+        args = (g_v, spatial, weights(3, 3, 3, cout, cin, scale=0.2), cout - opt if opt else None)
+        kw = {}
+    elif form == "res":
+        Z, Y, X = spatial
+        kern, plain = conv3d.conv3x3_fused_flat_res, conv3d.conv3x3_fused_flat_res_plain
+        x = _offset_copy(_bf16(rng, Z, cin, Y * X).to(dev), offset)
+        res = _offset_copy(_bf16(rng, Z, cout, Y * X).to(dev), offset)
+        w = weights(3, 3, 3, cin, cout, scale=1 / np.sqrt(cin))
+        sc = torch.tensor(rng.uniform(0.5, 1.5, cin).astype(np.float32), device=dev)
+        args = (x, spatial, w, sc, weights(cin, scale=0.3), None)
+        kw = dict(relu=opt, emit_stats=True, residual=res)
+    else:
+        Zl, Yl, Xl = spatial
+        kern, plain = conv3d.conv_transpose3x3s2_flat, conv3d.conv_transpose3x3s2_flat_plain
+        full = (2 * Zl, 2 * Yl, 2 * Xl)
+        x = _offset_copy(_bf16(rng, Zl, cin, Yl * Xl).to(dev), offset)
+        wt = weights(cin, cout, 3, 3, 3, scale=1 / np.sqrt(cin * 27 / 8))
+        b = weights(cout, scale=0.1)
+        sk = _bf16(rng, full[0], cout, full[1] * full[2]).to(dev) if opt else None
+        args, kw = (x, full, wt, b), dict(skip=sk, emit_stats=True)
+    n0 = kern.launches
     with torch.no_grad():
-        k_out, k_stats = conv3d.conv_transpose3x3s2_flat(x, spatial, wt, b, skip=sk,
-                                                         emit_stats=True)
+        got, want = kern(*args, **kw), plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert kern.launches == n0 + 1
+    if form == "igrad":
+        assert (got[1] is None) == (opt == 0)
+        for k, p in zip(got, want):
+            if k is not None:
+                assert k.shape == p.shape and k.dtype == torch.bfloat16
+                _conv_close(k, p)
+        return
+    (k_out, k_stats), (p_out, p_stats) = got, want
+    if form == "res":
+        with torch.no_grad():
+            part = conv3d.conv3x3_fused_flat_plain(*args, relu=False)
+    else:
         lhs = x.float().reshape(Zl, cin, Yl, Xl).permute(1, 0, 2, 3)[None]
         ref = F.conv_transpose3d(lhs, wt.to(torch.bfloat16).float(), b, stride=2, padding=1,
                                  output_padding=1)[0]
-        part = ref.permute(1, 0, 2, 3).to(torch.bfloat16).reshape(spatial[0], cout, -1)
-        want = part if sk is None else (part.float() + sk.float()).to(torch.bfloat16)
-        p_out, p_stats = conv3d.conv_transpose3x3s2_flat_plain(x, spatial, wt, b, skip=sk,
-                                                               emit_stats=True)
-    torch.cuda.synchronize()
-    assert conv3d.conv_transpose3x3s2_flat.launches == n0 + 1
-    assert torch.equal(p_out, want)
-    if sk is None:
-        _conv_close(k_out, want)
+        part = ref.permute(1, 0, 2, 3).to(torch.bfloat16).reshape(full[0], cout, -1)
+        assert torch.equal(p_out, part if sk is None
+                           else (part.float() + sk.float()).to(torch.bfloat16))
+    if form == "tconv" and sk is None:
+        _conv_close(k_out, p_out)
     else:
-        _sum_close(k_out, want, part)
+        _sum_close(k_out, p_out, part)
     _stats_close(k_out, k_stats, p_out, p_stats)
+
+
+@pytest.mark.parametrize("form,nblk", [("RES", 16), ("TCONV", 8), ("PLAIN", 48), ("FMA", 8)])
+def test_conv_entry_refuses_a_form_it_does_not_build(dev, form, nblk):
+    """``km_conv3x3`` refuses a (form, Cout block) it has no instantiation
+    of with cudaErrorInvalidValue and launches nothing: the residual and
+    transposed forms below 32, the plain form off 8/16/32/64, the FMA kernel
+    with its padded Cout off its 16-channel blocks."""
+    from keymorph_tpu_torch import _build
+    from keymorph_tpu_torch.ops.cuda import conv3d
+
+    (Z, Y, X), C = (2, 8, 64), 32
+    f = getattr(conv3d, f"FORM_{form}")
+    low = f == conv3d.FORM_TCONV
+    x = torch.zeros((Z // 2, C, Y // 2 * X // 2) if low else (Z, C, Y * X), dtype=torch.bfloat16,
+                    device=dev)
+    wk = conv3d.pack_weights(torch.zeros((3, 3, 3, C, 64), device=dev), 0 if low else C, 64)
+    out = torch.zeros((Z, C, Y * X), dtype=torch.bfloat16, device=dev)
+    geom, tiles = conv3d._plan((Z, Y, X), low, [x])
+    if f == conv3d.FORM_FMA:
+        geom, tiles = (0, 0, 0, 0), conv3d.n_tiles((Z, Y, X))
+    xa, xb = (None, x) if low else (x, None)
+    err = conv3d._fn().km_conv3x3(
+        conv3d._ptr(xa), conv3d._ptr(xb), None, None, wk.data_ptr(), None, None, out.data_ptr(),
+        None, None, Z, Y, X, 0 if low else C, C if low else 0, C, C, nblk, f, int(low), 0, *geom,
+        tiles, _build.stream_ptr(dev))
+    torch.cuda.synchronize()
+    assert err == 1  # cudaErrorInvalidValue
+    assert not out.any()
 
 
 @pytest.mark.parametrize("Z,cin,cout,YX,offset", [(3, 1, 32, 35, 0), (2, 32, 64, 4097, 1),

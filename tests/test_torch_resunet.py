@@ -18,11 +18,14 @@ import torch.nn.functional as F
 
 from keymorph_tpu_torch.models import fast_resunet
 from keymorph_tpu_torch.models.fast_resunet import fast_resunet_forward
+from keymorph_tpu_torch.models.fast_unet import _single_conv_operands
 from keymorph_tpu_torch.models.keymorph import KeyMorphNet
 from keymorph_tpu_torch.models.layers import center_of_mass
-from keymorph_tpu_torch.models.unet import (ResidualUNet3D, ResidualUNetSE3D, TruncatedUNet3D,
-                                            supports_fast_resunet)
+from keymorph_tpu_torch.models.unet import (ResidualUNet3D, ResidualUNetSE3D, ResNetBlock,
+                                            TransposeConvUpsampling, TruncatedUNet3D,
+                                            init_weights, supports_fast_resunet)
 from keymorph_tpu_torch.ops import cuda as kernels
+from keymorph_tpu_torch.ops.cuda import conv3d
 from kmbench import inputs
 from kmbench.reference import resunet_se
 from kmbench.reference.precision import REFERENCE, Precision, store
@@ -172,3 +175,88 @@ def test_odd_skips_are_refused_as_the_module_refuses():
         net(img)
     with torch.no_grad(), pytest.raises(ValueError, match="cannot join the skip"):
         fast_resunet_forward(net, img)
+
+
+def _flat(t):
+    """(1, C, Z, Y, X) -> the executor's flat (Z, C, Y*X)."""
+    return t[0].transpose(0, 1).reshape(t.shape[2], t.shape[1], -1).contiguous()
+
+
+def _module_pair(cls, *args):
+    """A bf16 module with random weights (biases and norm affines moved off
+    their init) and the same module in float64."""
+    gen = torch.Generator().manual_seed(1)
+    m = init_weights(cls(*args, dtype=torch.bfloat16), gen)
+    with torch.no_grad():
+        for p in m.parameters():
+            if p.dim() == 1:
+                p.add_(0.1 * torch.randn(p.shape, generator=gen))
+    m64 = cls(*args, dtype=torch.float64).double()
+    m64.load_state_dict(m.state_dict())
+    return m, m64
+
+
+@pytest.mark.parametrize("form", ["res", "tconv"])
+def test_form_plain_matches_its_module(form):
+    """Each serving form's plain version against the port's module on the
+    same bf16 operands: the residual form against a ``ResNetBlock``'s last
+    conv (``conv3``: GroupNorm, conv), the residual sum and the ReLU; the
+    transposed form against ``TransposeConvUpsampling`` (its
+    ``ConvTranspose3d``, the skip sum). Within the module's distance from
+    float64 (the yardstick of test_executor_module_and_reference_agree), and
+    counted as one plain call."""
+    C, spatial = 16, (6, 8, 10)
+    gen = torch.Generator().manual_seed(2)
+    kernels.reset_counters()
+    with torch.no_grad():
+        if form == "res":
+            block, b64 = _module_pair(ResNetBlock, C, C)
+            x = torch.randn((1, C, *spatial), generator=gen).to(torch.bfloat16)
+            y = block.conv2(x)  # the last conv's input, as the module computes it
+            mod = torch.relu(block.conv3(y) + x)
+            f64 = torch.relu(b64.conv3(y.double()) + x.double())
+            w, sc, sh, _ = _single_conv_operands(block.conv3, conv3d.channel_stats(_flat(y)), 8)
+            got = conv3d.conv3x3_fused_flat_res_plain(_flat(y), spatial, w, sc, sh, None,
+                                                      residual=_flat(x))
+            name = "conv3x3_fused_flat_res"
+        else:
+            up, u64 = _module_pair(TransposeConvUpsampling, C, C // 2)
+            x = torch.randn((1, C, *(s // 2 for s in spatial)), generator=gen).to(torch.bfloat16)
+            skip = torch.randn((1, C // 2, *spatial), generator=gen).to(torch.bfloat16)
+            mod, f64 = up(skip, x), u64(skip.double(), x.double())
+            t = up.upsample
+            got = conv3d.conv_transpose3x3s2_flat_plain(_flat(x), spatial, t.weight,
+                                                        t.bias.to(torch.bfloat16).float(),
+                                                        skip=_flat(skip))
+            name = "conv_transpose3x3s2_flat"
+    bar = _gap(mod, f64)
+    assert got.dtype == torch.bfloat16 and 0 < bar
+    assert _gap(got, _flat(mod)) <= bar
+    counts = kernels.counters()
+    assert counts[name] == {"launches": 0, "plain_calls": 1}
+    assert sum(c["plain_calls"] for c in counts.values()) == 1
+
+
+@pytest.mark.parametrize("form", ["res", "tconv"])
+def test_forms_refuse_grad_requiring_inputs(form):
+    """Both serving forms are forward-only: with grad enabled, a source that
+    requires grad raises the forward-only RuntimeError before any work (no
+    plain call is counted); under no_grad the same call runs."""
+    x = torch.zeros((2, 8, 16), dtype=torch.bfloat16, requires_grad=True)
+    if form == "res":
+        name = "conv3x3_fused_flat_res"
+        def call():
+            return conv3d.conv3x3_fused_flat_res(x, (2, 4, 4), torch.zeros((3, 3, 3, 8, 8)),
+                                                 residual=x.detach())
+    else:
+        name = "conv_transpose3x3s2_flat"
+        def call():
+            return conv3d.conv_transpose3x3s2_flat(x, (4, 8, 8), torch.zeros((8, 4, 3, 3, 3)))
+    kernels.reset_counters()
+    with pytest.raises(RuntimeError, match=f"{name} is forward-only"):
+        call()
+    assert all(c["plain_calls"] == 0 for c in kernels.counters().values())
+    with torch.no_grad():
+        call()
+    assert kernels.counters()[name]["plain_calls"] == 1
+
