@@ -39,7 +39,10 @@ Phases (each prints its lines; any failure raises, so the exit code is not 0):
      256^3 ResidualUNetSE3D (the residual-epilogue conv and the scSE gate at
      each of its four levels, three 2x max-pools, four lifts, three
      transposed convs against bf16 ``F.conv_transpose3d``;
-     ``_phase1_residual_net``); the three
+     ``_phase1_residual_net``); the keypoint head's one read of 256 bf16
+     heatmaps at 128^3 and 256^3 (``heatmap_com``; library: ``torch.relu``
+     and the three marginal ``torch.sum``s), kernel and plain version each
+     held against a float64 centre of mass (``_phase1_head``); the three
      TPS kernels and their plain versions are each held against the float64
      evaluation of the same formula, for splines fitted at lmbda 1, 1e-4 and
      1e-6 (the bottom of the range training draws from); the TPS backward
@@ -163,7 +166,8 @@ Phases (each prints its lines; any failure raises, so the exit code is not 0):
      float64 (d): within the larger of a stated floor and CARD_CPU_FACTOR x
      the CPU route's distance from the same call in float64; the brain mask
      equal but at voxels that near the threshold, and cleaned by keymorph_tpu's
-     rule; (a)-(d) may move no kernel and no plain-version counter. (e) the
+     rule; (a)-(d) may move no kernel and no plain-version counter but the
+     head kernel's (the 2D keypoints served on the card). (e) the
      flagship net's extraction of one IXI-like scan at its native 256 x 256
      x 150 through the kernel executor, where the decoders' skips are not
      twice the deeper tensor and the concat-free parts form runs (it must
@@ -308,6 +312,12 @@ SMALL_LMBDA = 1e-4
 MIN_LMBDA = 1e-6
 FLOAT64_FACTOR = 4.0
 WARP_GRAD_REL = 1e-5       # x max|ref|: the same fp32 terms, FMA-contracted in the kernel
+# The head kernel's and its plain version's fp32 sums are of nonnegative
+# addends (the ReLU's), each rounded once a step: a chain of n roundings stays
+# within n * 2^-24 of the sum, relatively; the kernel's chains are under 200
+# at the main shapes, so a keypoint (2 S_k / S0 - 1) lies within HEAT_F64 of
+# float64 (measured: ~5e-7 against the plain version; NVIDIA H100 80GB HBM3).
+HEAT_F64 = 5e-5
 # The conv weight gradient sums exact products of bf16 values in fp32, split
 # across blocks by voxels and the splits then summed in order; its plain
 # version sums the same products in cuBLAS's order. Each weight is held to
@@ -373,6 +383,8 @@ REPLACES = {
     "tconv": "none: flax nn.ConvTranspose, keymorph_tpu/models/unet.py:359",
     "scse": "none: flax ChannelSpatialSE, keymorph_tpu/models/unet.py:161",
     "pool": "none: flax nn.max_pool, keymorph_tpu/models/unet.py:261",
+    # no Pallas kernel: keymorph_tpu's centre of mass is plain XLA
+    "head": "none: XLA relu and sums, keymorph_tpu/models/layers.py:19",
 }
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense): the bounds
@@ -713,6 +725,7 @@ def phase1(torch, rng, dev):
     del skip, low, full, u, ref, ko, po
 
     _phase1_residual_net(torch, rng, dev, bf16, weights, gn, record)
+    _phase1_head(torch, dev, record)
 
     # conv input gradient at the training step's shapes (128^3 input): e0c2,
     # its largest conv (cotangent 32 channels -> gradient 16 channels); the
@@ -1069,6 +1082,64 @@ def _phase1_residual_net(torch, rng, dev, bf16, weights, gn, record):
             del x, err
 
 
+def _head64(torch, vol, slab=16):
+    """The centre of mass of channel-last ``vol`` (1, Z, Y, X, C) in float64
+    against the fp32 ``linspace`` weights both versions take, its marginal
+    masses taken over z-slabs of ``slab`` planes (a float64 copy of 256
+    channels at 256^3 would take 34 GB)."""
+    _, Z, Y, X, C = vol.shape
+    m = [torch.zeros((n, C), dtype=torch.float64, device=vol.device) for n in (Z, Y, X)]
+    for z0 in range(0, Z, slab):
+        v = torch.relu(vol[0, z0:z0 + slab].double())
+        m[0][z0:z0 + slab] = v.sum(dim=(1, 2))
+        m[1] += v.sum(dim=(0, 2))
+        m[2] += v.sum(dim=(0, 1))
+        del v
+    out = []
+    for mk, n in zip(m, (Z, Y, X)):
+        line = torch.linspace(0.0, 1.0, n, dtype=torch.float32, device=vol.device).double()
+        out.append((mk * line[:, None]).sum(dim=0) / (mk.sum(dim=0) + 1e-8))
+    return torch.stack(out, dim=-1)[None] * 2.0 - 1.0
+
+
+def _phase1_head(torch, dev, record):
+    """The keypoint head on 256 bf16 heatmaps at the DoubleConv net's 128^3
+    and the residual net's 256^3 (channel-last, as both executors write
+    them): ``heatmap_com`` (one read) against ``center_of_mass_plain`` (the
+    ReLU copy and three marginal sums), each held against float64; the
+    library time is ``torch.relu`` and the three ``torch.sum``s alone; the
+    bound, the heatmaps read once."""
+    from keymorph_tpu_torch.models.layers import center_of_mass_plain
+    from keymorph_tpu_torch.ops.cuda import heatmap
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    for side in (128, 256):
+        vol = torch.randn((1, side, side, side, 256), generator=gen, device=dev).to(torch.bfloat16)
+
+        def relu_sums():
+            v = torch.relu(vol)
+            return [torch.sum(v, dim=tuple(i + 1 for i in range(3) if i != k),
+                              dtype=torch.float32) for k in range(3)]
+
+        k, p = heatmap.heatmap_com(vol), center_of_mass_plain(vol)
+        ref = _head64(torch, vol)
+        dk, dp = ((a.double() - ref).abs().max().item() for a in (k, p))
+        err = (k - p).abs().max().item()
+        del k, p, ref
+        ms = _cuda_ms(lambda: heatmap.heatmap_com(vol), 10)
+        pms = _cuda_ms(lambda: center_of_mass_plain(vol), 3)
+        lms = _cuda_ms(relu_sums, 3)
+        rows, blocks = heatmap.plan((side,) * 3, 256, 2)
+        record("heatmap_com", err, ms, pms, lms, _bound(vol.numel() * 2, 0.0),
+               f"keypoint head 256@{side}^3 bf16 (ReLU, 4 moments; {blocks} blocks of "
+               f"{rows} rows)", f"each within HEAT_F64 {HEAT_F64} of float64",
+               dk <= HEAT_F64 and dp <= HEAT_F64,
+               extra={"kernel_vs_float64": dk, "plain_vs_float64": dp,
+                      "read_TB_per_s": vol.numel() * 2 / ms / 1e9})
+        del vol
+        torch.cuda.empty_cache()
+
+
 def _phase1_past_the_old_limits(torch, dev, record, flush):
     """Phase 1's TPS kernels at T = LIMIT_T (B4 on a 64^3 grid, B4p and B7
     on 32^3 points, from a real fit) and ``tps_flow`` and ``warp_planes`` at
@@ -1242,6 +1313,9 @@ def phase2(torch, net, pairs):
                  "tps_planes", "tps_flow", "warp_planes"):
         if counts[name]["launches"] <= 0:
             raise AssertionError(f"phase 2 never launched the {name} kernel")
+    if counts["heatmap_com"]["launches"] != 2 * len(pairs):
+        raise AssertionError(f"phase 2: the head kernel launched "
+                             f"{counts['heatmap_com']['launches']} times, not 2 a pair")
     if any(c["plain_calls"] for c in counts.values()):
         raise AssertionError(f"phase 2 ran a plain version: {counts}")
     for pf, pm, planes, warped in outs:
@@ -1267,11 +1341,11 @@ def phase3(torch, net, pairs, kernel_outs):
     half a bf16 ulp."""
     from keymorph_tpu_torch.models.fast_unet import fast_unet_forward
     from keymorph_tpu_torch.models.keymorph import align_pair
-    from keymorph_tpu_torch.models.layers import center_of_mass
+    from keymorph_tpu_torch.models.layers import center_of_mass_plain
     from keymorph_tpu_torch.ops.cuda import resample3d
 
     def keypoints(img):
-        return center_of_mass(fast_unet_forward(net.backbone, img, plain=True))
+        return center_of_mass_plain(fast_unet_forward(net.backbone, img, plain=True))
 
     def plain_planes(pf, pm):
         return align_pair(pf, pm, "tps", SPATIAL, lmbda=LMBDA, compute_grid="planes",
@@ -1326,7 +1400,7 @@ def phase3(torch, net, pairs, kernel_outs):
 # the port's __global__ functions (csrc/*.cu), as the profiler names them
 PORT_KERNELS = ("conv3x3_mma_kernel", "conv3x3_fma_kernel", "tps_planes_kernel",
                 "tps_flow_kernel", "tps_planes_bwd_kernel", "warp_planes_kernel",
-                "warp_planes_grad_kernel")
+                "warp_planes_grad_kernel", "heatmap_moments_kernel", "heatmap_finish_kernel")
 
 
 def _profile(torch, label, fn):
@@ -1848,10 +1922,10 @@ def phase9(torch, rng, dev, net, pairs):
     # groupwise: the batched extraction against the plain path (with phase
     # 3's yardstick), the TPS grids against the plain spline
     from keymorph_tpu_torch.models.fast_unet import fast_unet_forward
-    from keymorph_tpu_torch.models.layers import center_of_mass
+    from keymorph_tpu_torch.models.layers import center_of_mass_plain
 
     def keypoints(vols):
-        return center_of_mass(fast_unet_forward(net.backbone, vols, plain=True))
+        return center_of_mass_plain(fast_unet_forward(net.backbone, vols, plain=True))
 
     kp = gw["affine"]["grouppoints_m"]
     plain_kp = keypoints(group)
@@ -3091,13 +3165,16 @@ def phase13(torch, dev):
         torch.cuda.empty_cache()
         stages[label] = time.perf_counter() - t0
     counts = kernels.counters()
-    if any(c["launches"] or c["plain_calls"] for c in counts.values()):
-        raise AssertionError(f"phase 13 (a)-(d) moved a kernel or plain-version counter: {counts}")
+    head = counts.pop("heatmap_com")  # 2D keypoints served on the card take the head kernel
+    if head["plain_calls"] or any(c["launches"] or c["plain_calls"] for c in counts.values()):
+        raise AssertionError(f"phase 13 (a)-(d) moved a kernel or plain-version counter but "
+                             f"the head's: {counts}, head {head}")
     t0 = time.perf_counter()
     parts_counts = _phase13_parts(torch, dev, scan)
     stages["(e) parts"] = time.perf_counter() - t0
     print("phase13 stages (s): " + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
-          + "; (a)-(d) moved no kernel and no plain-version counter")
+          + f"; (a)-(d) moved no kernel and no plain-version counter but the head's "
+          f"({head['launches']} launches)")
     return parts_counts
 
 
@@ -4402,6 +4479,7 @@ def main():
         entry("lift1x1_flat", "resblock", "resblock.cu"),
         entry("scse_gate_flat", "scse", "resblock.cu"),
         entry("maxpool2_flat", "pool", "resblock.cu"),
+        entry("heatmap_com", "head", "heatmap.cu"),
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -37,7 +37,8 @@ from torch import nn
 from keymorph_tpu_torch import resolve_device
 from keymorph_tpu_torch.models.fast_resunet import fast_resunet_forward
 from keymorph_tpu_torch.models.fast_unet import fast_unet_forward
-from keymorph_tpu_torch.models.layers import LinearRegressor, center_of_mass
+from keymorph_tpu_torch.models.layers import (LinearRegressor, center_of_mass,
+                                              center_of_mass_plain)
 from keymorph_tpu_torch.models.unet import supports_fast_resunet, supports_fast_unet
 from keymorph_tpu_torch.ops import coords
 from keymorph_tpu_torch.ops.cuda import tpsflow
@@ -149,16 +150,20 @@ class KeyMorphNet(nn.Module):
                 return fast_resunet_forward(self.backbone, img, plain=plain)
             return self.backbone(img).movedim(1, -1)
 
-    def keypoints_from_features(self, feat: torch.Tensor) -> torch.Tensor:
+    def keypoints_from_features(self, feat: torch.Tensor, plain: bool = False) -> torch.Tensor:
+        """The keypoints (B, K, dim) of heatmaps (B, *spatial, K): their
+        centres of mass (``center_of_mass``, on the head kernel where no
+        gradient is needed; ``plain`` takes ``center_of_mass_plain``, the
+        oracle route) or the linear regressor's."""
         with span("head"):
             if self.keypoint_layer == "com":
-                return center_of_mass(feat)
+                return center_of_mass_plain(feat) if plain else center_of_mass(feat)
             return self.regressor(feat)
 
     def get_keypoints(self, img: torch.Tensor, return_feat: bool = False,
                       plain: bool = False):
         feat = self.features(img, plain=plain)
-        points = self.keypoints_from_features(feat)
+        points = self.keypoints_from_features(feat, plain=plain)
         return (points, feat) if return_feat else points
 
     def weight_by_variance(self, feat1, feat2):

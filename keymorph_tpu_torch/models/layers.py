@@ -30,6 +30,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from keymorph_tpu_torch.ops.cuda import heatmap
+
 
 def center_of_mass(vol: torch.Tensor, indexing: str = "ij") -> torch.Tensor:
     """Per-channel center of mass in normalized [-1, 1] coordinates.
@@ -43,9 +45,23 @@ def center_of_mass(vol: torch.Tensor, indexing: str = "ij") -> torch.Tensor:
         is taken against ``linspace(0, 1, N)`` and mapped by ``* 2 - 1``
         (align-corners style, the reference's convention).
 
-    The ReLU runs in the input dtype; each marginal mass is a reduction that
-    accumulates in fp32 without materializing an fp32 copy of the volume.
+    A CUDA tensor that needs no gradient (grad disabled, or an input that
+    does not require grad: serving) takes the hand-written one-read kernel,
+    ``ops/cuda/heatmap.py:heatmap_com``; a CPU tensor, or one through which a
+    gradient is needed (training), takes :func:`center_of_mass_plain`.
     """
+    if indexing not in ("ij", "xy"):
+        raise ValueError(f"indexing={indexing!r}: 'ij' or 'xy'")
+    if vol.device.type == "cpu" or (torch.is_grad_enabled() and vol.requires_grad):
+        return center_of_mass_plain(vol, indexing)
+    coords = heatmap.heatmap_com(vol)
+    return coords.flip(-1) if indexing == "xy" else coords
+
+
+def center_of_mass_plain(vol: torch.Tensor, indexing: str = "ij") -> torch.Tensor:
+    """:func:`center_of_mass` in plain PyTorch, differentiable. The ReLU
+    runs in the input dtype; each marginal mass is a reduction that
+    accumulates in fp32 without materializing an fp32 copy of the volume."""
     if indexing not in ("ij", "xy"):
         raise ValueError(f"indexing={indexing!r}: 'ij' or 'xy'")
     spatial = vol.shape[1:-1]

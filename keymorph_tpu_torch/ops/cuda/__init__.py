@@ -10,7 +10,7 @@ from __future__ import annotations
 
 
 def _functions():
-    from keymorph_tpu_torch.ops.cuda import conv3d, resample3d, resblock, tpsflow
+    from keymorph_tpu_torch.ops.cuda import conv3d, heatmap, resample3d, resblock, tpsflow
 
     kernels = {
         "conv3x3_fused_flat": conv3d.conv3x3_fused_flat,
@@ -23,6 +23,7 @@ def _functions():
         "scse_gate_flat": resblock.scse_gate_flat,
         "lift1x1_flat": resblock.lift1x1_flat,
         "maxpool2_flat": resblock.maxpool2_flat,
+        "heatmap_com": heatmap.heatmap_com,
         "tps_planes": tpsflow.tps_planes,
         "tps_planes_bwd": tpsflow.tps_planes_bwd,
         "tps_flow": tpsflow.tps_flow,
@@ -40,6 +41,7 @@ def _functions():
         "scse_gate_flat": resblock.scse_gate_flat_plain,
         "lift1x1_flat": resblock.lift1x1_flat_plain,
         "maxpool2_flat": resblock.maxpool2_flat_plain,
+        "heatmap_com": heatmap.heatmap_com_plain,
         "tps_planes": tpsflow.tps_planes_plain,
         "tps_planes_bwd": tpsflow.tps_planes_bwd_plain,
         "tps_flow": tpsflow.tps_flow_plain,

@@ -893,7 +893,8 @@ def test_2d_registration_on_the_card_matches_the_cpu(rng, dev):
     untrained net's cluster, which makes the affine fit ill-conditioned):
     grids and aligned points within 1e-5, the bilinear warp of the card's
     grid within 1e-5 and the nearest warp exactly. The 2D route moves no
-    kernel counter and no plain-version counter on either device."""
+    kernel counter and no plain-version counter on either device but the
+    head kernel's: two launches on the card (fixed and moving heatmaps)."""
     from keymorph_tpu_torch.models.keymorph import KeyMorph, align_pair
     from keymorph_tpu_torch.models.unet import UNet2D, init_weights
     from keymorph_tpu_torch.ops import cuda as kernels
@@ -929,7 +930,9 @@ def test_2d_registration_on_the_card_matches_the_cpu(rng, dev):
                 - align_img(grid, torch.tensor(img_m))).abs().max().item() <= 1e-5, t
         assert torch.equal(align_img(got["grid"], seg.to(dev), "nearest").cpu(),
                            align_img(grid, seg, "nearest")), t
-    assert not any(c["launches"] or c["plain_calls"] for c in kernels.counters().values())
+    counts = kernels.counters()
+    assert counts.pop("heatmap_com") == {"launches": 2, "plain_calls": 0}
+    assert not any(c["launches"] or c["plain_calls"] for c in counts.values())
 
 
 def test_cuda_wrappers_refuse_2d_tensors(dev):
@@ -1267,3 +1270,151 @@ def test_residual_executor_on_the_card_matches_its_plain_route(rng, dev):
         assert not any(counts[n]["plain_calls"] for n in counts)
         assert float((k.float() - p.float()).abs().max()) <= 0.1 * float(p.float().abs().max())
         assert float((center_of_mass(k) - center_of_mass(p)).abs().max()) <= 2e-3
+
+
+# The head kernel's fp32 sums are of nonnegative addends (the ReLU's), each
+# rounded once a step: a sum through a chain of n roundings lies within
+# n * 2^-24 of its value, relatively. The kernel's longest chain at these
+# shapes is under 200 (a row's voxels a thread, a block's rows, its lanes,
+# the partial rows), so a ratio S_k / S0 lies within ~2.4e-5 of float64's and
+# a coordinate (2 S_k / S0 - 1) within ~5e-5 (typically ~1e-7: the errors
+# are not all one way). The plain version's sums take yet another order.
+HEAT_F64 = 5e-5
+
+
+def _com64(vol):
+    """The centre of mass in float64 against the fp32 ``linspace`` weights
+    both versions take: (B, C, d)."""
+    v = torch.relu(vol.double())
+    spatial = v.shape[1:-1]
+    d = len(spatial)
+    out = []
+    for k, n in enumerate(spatial):
+        m = v.sum(dim=tuple(i + 1 for i in range(d) if i != k))
+        line = torch.linspace(0.0, 1.0, n, dtype=torch.float32, device=vol.device).double()
+        out.append((m * line[None, :, None]).sum(dim=1) / (m.sum(dim=1) + 1e-8))
+    return torch.stack(out, dim=-1) * 2.0 - 1.0
+
+
+def _heat(rng, shape, dtype, dev):
+    return torch.tensor(rng.normal(size=shape).astype(np.float32)).to(dtype).to(dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("spatial", [(7, 13, 19), (37, 29)], ids=["3d", "2d"])
+@pytest.mark.parametrize("C", [5, 6, 128, 256])
+def test_heatmap_com_kernel_matches_plain_and_float64(rng, dev, dtype, spatial, C):
+    """``heatmap_com`` (odd sizes; C of 5 and 6 on element loads, 128 and 256
+    on 16-byte loads) within HEAT_F64 of float64
+    and 2 HEAT_F64 of ``center_of_mass_plain``, one launch a call, no plain
+    call; ``center_of_mass`` under no_grad takes it, "xy" reversed."""
+    from keymorph_tpu_torch.models.layers import center_of_mass, center_of_mass_plain
+    from keymorph_tpu_torch.ops.cuda import heatmap
+
+    vol = _heat(rng, (2, *spatial, C), dtype, dev)
+    n0, p0 = heatmap.heatmap_com.launches, heatmap.heatmap_com_plain.calls
+    k = heatmap.heatmap_com(vol)
+    torch.cuda.synchronize()
+    assert heatmap.heatmap_com.launches == n0 + 1 and heatmap.heatmap_com_plain.calls == p0
+    assert k.dtype == torch.float32 and k.shape == (2, C, len(spatial))
+    want = _com64(vol)
+    assert float((k.double() - want).abs().max()) <= HEAT_F64
+    assert float((center_of_mass_plain(vol).double() - want).abs().max()) <= HEAT_F64
+    assert float((k - center_of_mass_plain(vol)).abs().max()) <= 2 * HEAT_F64
+    with torch.no_grad():
+        assert torch.equal(center_of_mass(vol), k)
+        assert torch.equal(center_of_mass(vol, "xy"), k.flip(-1))
+    assert heatmap.heatmap_com.launches == n0 + 3
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+def test_heatmap_com_empty_channel_and_nan(rng, dev, dtype):
+    """A channel with no positive value gives -1 on every axis, as the plain
+    version; a NaN makes its channel's coordinates NaN (``torch.relu``
+    propagates it) and leaves the others as they were."""
+    from keymorph_tpu_torch.models.layers import center_of_mass_plain
+    from keymorph_tpu_torch.ops.cuda import heatmap
+
+    vol = _heat(rng, (1, 6, 10, 9, 16), dtype, dev)
+    vol[..., 3] = -vol[..., 3].abs()
+    vol[..., 5] = 0.0
+    clean = heatmap.heatmap_com(vol)
+    vol[0, 2, 4, 7, 9] = float("nan")
+    k, p = heatmap.heatmap_com(vol), center_of_mass_plain(vol)
+    torch.cuda.synchronize()
+    assert bool((k[0, 3] == -1.0).all() and (k[0, 5] == -1.0).all())
+    assert torch.equal(k[0, 3], p[0, 3]) and torch.equal(k[0, 5], p[0, 5])
+    assert bool(k[0, 9].isnan().all() and p[0, 9].isnan().all())
+    others = [c for c in range(16) if c != 9]
+    assert torch.equal(k[:, others], clean[:, others])
+    assert float((k[:, others] - p[:, others]).abs().max()) <= 2 * HEAT_F64
+
+
+def test_heatmap_com_channel_first_view(rng, dev):
+    """The generic backbone path's ``backbone(img).movedim(1, -1)``, a
+    channel-first tensor viewed channel-last, is made contiguous first: the
+    same bits as the contiguous copy, and ``center_of_mass`` takes it."""
+    from keymorph_tpu_torch.models.layers import center_of_mass
+    from keymorph_tpu_torch.ops.cuda import heatmap
+
+    cf = _heat(rng, (2, 32, 9, 12, 17), torch.bfloat16, dev)
+    view = cf.movedim(1, -1)
+    assert not view.is_contiguous()
+    k = heatmap.heatmap_com(view)
+    assert torch.equal(k, heatmap.heatmap_com(view.contiguous()))
+    assert float((k.double() - _com64(view)).abs().max()) <= HEAT_F64
+    with torch.no_grad():
+        assert torch.equal(center_of_mass(view), k)
+
+
+@pytest.mark.parametrize("spatial", [(24, 256, 256), (40, 128, 128)], ids=["256sq", "128sq"])
+def test_heatmap_com_at_the_main_paths_shapes(rng, dev, spatial):
+    """256 bf16 channels at the serving cells' 256^2 and 128^2 planes, fewer
+    of them (the first pass then has hundreds of blocks): within HEAT_F64
+    of float64, as the plain version."""
+    from keymorph_tpu_torch.models.layers import center_of_mass_plain
+    from keymorph_tpu_torch.ops.cuda import heatmap
+
+    g = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 31)))
+    vol = torch.randn((1, *spatial, 256), generator=g, device=dev).to(torch.bfloat16)
+    assert heatmap.plan(spatial, 256, 2)[1] > 100
+    k = heatmap.heatmap_com(vol)
+    want = _com64(vol)
+    assert float((k.double() - want).abs().max()) <= HEAT_F64
+    assert float((center_of_mass_plain(vol).double() - want).abs().max()) <= HEAT_F64
+
+
+@pytest.mark.parametrize("dtype,shape", [(torch.bfloat16, (2, 20, 64, 64, 128)),
+                                         (torch.float32, (2, 12, 48, 40, 64)),
+                                         (torch.bfloat16, (2, 7, 13, 19, 6))],
+                         ids=["bf16", "fp32", "elements"])
+def test_heatmap_com_is_deterministic_and_batch_free(rng, dev, dtype, shape):
+    """Two calls give the same bits, and a batch of 2 gives each item the
+    bits it gets alone: the sums run in a fixed order, without atomics, over
+    runs of rows that depend on an item's shape alone."""
+    from keymorph_tpu_torch.ops.cuda import heatmap
+
+    vol = _heat(rng, shape, dtype, dev)
+    k = heatmap.heatmap_com(vol)
+    assert torch.equal(k, heatmap.heatmap_com(vol))
+    for b in range(shape[0]):
+        assert torch.equal(k[b:b + 1], heatmap.heatmap_com(vol[b:b + 1].clone()))
+
+
+def test_center_of_mass_keeps_its_gradient_on_the_card(rng, dev):
+    """With grad enabled and an input that requires grad, ``center_of_mass``
+    runs the plain version (no launch) and its gradient is the plain
+    version's; the same input without grad takes the kernel."""
+    from keymorph_tpu_torch.models.layers import center_of_mass, center_of_mass_plain
+    from keymorph_tpu_torch.ops.cuda import heatmap
+
+    vol = _heat(rng, (1, 6, 10, 9, 16), torch.float32, dev).requires_grad_()
+    w = _heat(rng, (1, 16, 3), torch.float32, dev)
+    n0 = heatmap.heatmap_com.launches
+    (g,) = torch.autograd.grad((center_of_mass(vol) * w).sum(), vol)
+    (gp,) = torch.autograd.grad((center_of_mass_plain(vol) * w).sum(), vol)
+    assert heatmap.heatmap_com.launches == n0 and torch.equal(g, gp)
+    with torch.no_grad():
+        center_of_mass(vol)
+    center_of_mass(vol.detach())
+    assert heatmap.heatmap_com.launches == n0 + 2
