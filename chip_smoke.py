@@ -39,7 +39,10 @@ Phases (each prints its lines; any failure raises, so the exit code is not 0):
      256^3 ResidualUNetSE3D (the residual-epilogue conv and the scSE gate at
      each of its four levels, three 2x max-pools, four lifts, three
      transposed convs against bf16 ``F.conv_transpose3d``;
-     ``_phase1_residual_net``); the keypoint head's one read of 256 bf16
+     ``_phase1_residual_net``) and their backward's kernels at every shape of
+     the 128^3 training net (the transposed convs' input and weight
+     gradients, the scSE gate's backward; ``_phase1_residual_backward``); the
+     keypoint head's one read of 256 bf16
      heatmaps at 128^3 and 256^3 (``heatmap_com``; library: ``torch.relu``
      and the three marginal ``torch.sum``s), kernel and plain version each
      held against a float64 centre of mass (``_phase1_head``); the three
@@ -146,8 +149,10 @@ Phases (each prints its lines; any failure raises, so the exit code is not 0):
      path as in phase 6, and the resize against float64; the bf16
      'cr' U-Net's heatmaps through the kernels against its plain route
      (phase 3's yardstick rule); one 128^3 training step each (after a
-     first) for the fp32 ConvNet, the fp32 ResidualUNetSE3D and the linear
-     keypoint head on the flagship net, on CUDA events, with peak memory.
+     first) for the fp32 ConvNet, the fp32 ResidualUNetSE3D (its module),
+     the bf16 ResidualUNetSE3D (on the kernels, its backward's kernels
+     included) and the linear keypoint head on the flagship net, on CUDA
+     events, with peak memory.
      Every kernel of these paths must launch and no plain version run.
 
  13. 2D registration, LC2, brain extraction and the parts form, at full
@@ -725,6 +730,7 @@ def phase1(torch, rng, dev):
     del skip, low, full, u, ref, ko, po
 
     _phase1_residual_net(torch, rng, dev, bf16, weights, gn, record)
+    _phase1_residual_backward(torch, rng, dev, bf16, record)
     _phase1_head(torch, dev, record)
 
     # conv input gradient at the training step's shapes (128^3 input): e0c2,
@@ -1080,6 +1086,116 @@ def _phase1_residual_net(torch, rng, dev, bf16, weights, gn, record):
                    f"scSE gate {c}@{side(sp)}", "tol 2 bf16 ulps", ok,
                    extra={"share_differing": differ})
             del x, err
+
+
+def _phase1_residual_backward(torch, rng, dev, bf16, record):
+    """The residual U-Nets' backward kernels at every shape of the 128^3
+    training net (ResidualUNetSE3D f_maps 32, 4 levels: 32@128^3, 64@64^3,
+    128@32^3, 256@16^3): the transposed conv's input gradient (d0: 128@32^3 ->
+    256@16^3; d1: 64@64^3 -> 128@32^3; d2: 32@128^3 -> 64@64^3; within one
+    bf16 ulp + CONV_FLOOR of its plain version; library: bf16 ``F.conv3d``,
+    stride 2) and weight gradient (within WGRAD_TOL of S = the plain weight
+    gradient of the magnitudes; library: bf16 ``torch.nn.grad.conv3d_weight``,
+    stride 2), and the scSE gate's backward at each level (the input
+    gradient within two bf16 ulps but for under 1% of its values, whose
+    spatial gate rounds to the neighbouring value in another summation order;
+    each per-channel sum, the channel gate's and the spatial gate's weights'
+    and bias's, within 1e-3 of its own terms' magnitudes, and each set of
+    sums within 1e-2 of its norm in relative L2). Bounds:
+    each gradient's useful operations (2 x 27 x Cin x Cout x V/8) or its
+    bytes, whichever is larger; the gate's bytes (x and the cotangent read,
+    the input gradient written once)."""
+    import torch.nn.functional as F
+
+    from keymorph_tpu_torch.ops.cuda import conv3d, resblock
+
+    T3 = TRAIN_SPATIAL
+    levels = [(32 << i, tuple(d >> i for d in T3)) for i in range(4)]
+
+    def side(sp):
+        return f"{sp[0]}^3" if sp[0] == sp[1] == sp[2] else "x".join(map(str, sp))
+
+    with torch.no_grad():
+        for name, (cin, low), (cout, out) in (("d0", levels[3], levels[2]),
+                                              ("d1", levels[2], levels[1]),
+                                              ("d2", levels[1], levels[0])):
+            x = torch.relu(bf16(low[0], cin, low[1] * low[2]))
+            g = bf16(out[0], cout, out[1] * out[2])
+            wt = torch.tensor(rng.normal(size=(cin, cout, 3, 3, 3)).astype(np.float32)
+                              / np.sqrt(cout * 27), device=dev)
+            n = out[0] * out[1] * out[2]
+            flops = 2.0 * 27 * cin * cout * n / 8
+            k = conv3d.conv_transpose3x3s2_input_grad(g, out, wt)
+            p = conv3d.conv_transpose3x3s2_input_grad_plain(g, out, wt)
+            err, ok = _ulp_ok(k, p)
+            del k, p
+            ms = _cuda_ms(lambda: conv3d.conv_transpose3x3s2_input_grad(g, out, wt), 5)
+            pms = _cuda_ms(lambda: conv3d.conv_transpose3x3s2_input_grad_plain(g, out, wt), 3)
+            gl, wb = _ncdhw(g, out), wt.to(torch.bfloat16)
+            lms = _cuda_ms(lambda: F.conv3d(gl, wb, stride=2, padding=1), 3)
+            record("conv_transpose3x3s2_input_grad", err, ms, pms, lms,
+                   _bound(2 * (cout * n + 27 * cin * cout + cin * n / 8), flops / PEAK_BF16),
+                   f"transposed conv input gradient {name} {cout}@{side(out)} -> "
+                   f"{cin}@{side(low)}", "tol 1 bf16 ulp + floor", ok, flops=flops)
+
+            k = conv3d.conv_transpose3x3s2_weight_grad(x, out, g)
+            p = conv3d._tconv_weight_grad_plain(x, out, g)
+            mag = conv3d._tconv_weight_grad_plain(x.abs(), out, g.abs())
+            ratio = ((k - p).abs() / mag.clamp_min(1e-30)).max().item()
+            ok = bool(((k - p).abs() <= WGRAD_TOL * mag).all())
+            err = (k - p).abs().max().item()
+            del k, p, mag
+            ms = _cuda_ms(lambda: conv3d.conv_transpose3x3s2_weight_grad(x, out, g), 5)
+            pms = _cuda_ms(lambda: conv3d._tconv_weight_grad_plain(x, out, g), 1)
+            xl = _ncdhw(x, low)
+            lms = _cuda_ms(lambda: torch.nn.grad.conv3d_weight(gl, (cin, cout, 3, 3, 3), xl,
+                                                               stride=2, padding=1), 3)
+            record("conv_transpose3x3s2_weight_grad", err, ms, pms, lms,
+                   _bound(2 * (cin * n / 8 + cout * n) + 4 * 27 * cin * cout,
+                          flops / PEAK_BF16),
+                   f"transposed conv weight gradient {name} {cin}@{side(low)} x "
+                   f"{cout}@{side(out)}", f"tol {WGRAD_TOL} x S", ok, flops=flops,
+                   extra={"err_over_S": ratio})
+            del x, g, gl, xl
+
+        for c, sp in levels:
+            n = sp[0] * sp[1] * sp[2]
+            x = torch.relu(bf16(sp[0], c, sp[1] * sp[2]))
+            g = bf16(sp[0], c, sp[1] * sp[2])
+            gc = torch.sigmoid(torch.tensor(rng.normal(size=c).astype(np.float32))).to(
+                torch.bfloat16).float().to(dev)
+            ws = (torch.tensor(rng.normal(size=c + 1).astype(np.float32)) / np.sqrt(c)).to(
+                torch.bfloat16).float().to(dev)
+            k = resblock.scse_gate_bwd(x, gc, ws, g)
+            p = resblock.scse_gate_bwd_plain(x, gc, ws, g)
+            kx, px = k[0].float(), p[0].float()
+            err = (kx - px).abs()
+            off = float((err > 2 * CONV_REL_ULP * torch.maximum(kx.abs(), px.abs())
+                         + 1e-6 * px.abs().max()).float().mean())
+            xf, ga = x.float(), g.float().abs()
+            mag_c = (ga * xf).sum(dim=(0, 2))
+            mag_w = torch.cat([((ga * xf).sum(dim=1, keepdim=True) * xf).sum(dim=(0, 2)),
+                               ga.sum(dim=1).sum().reshape(1)]) * float(ws.abs().max() + 1)
+            # each channel's sum (the channel gate's, then the spatial gate's
+            # weights and bias) against the magnitude of its own terms, and
+            # the C (C + 1) sums together against their own norm: a signed sum
+            # over 10^4-10^6 voxels is ~1/sqrt(V) of its terms' magnitude, so
+            # the first alone would pass a sum that is zeroed or doubled
+            sums, rel, ok = 0.0, 0.0, off < 0.01
+            for got, want, mag in ((k[1], p[1], mag_c), (k[2], p[2], mag_w)):
+                e = (got - want).abs()
+                sums = max(sums, (e / mag.clamp_min(1e-30)).max().item())
+                rel = max(rel, (e.norm() / want.norm().clamp_min(1e-30)).item())
+                ok = ok and bool((e <= 1e-3 * mag + 1e-6).all())
+            ok = ok and rel <= 1e-2
+            del k, p, kx, px, xf, ga, mag_c, mag_w
+            ms = _cuda_ms(lambda: resblock.scse_gate_bwd(x, gc, ws, g), 5)
+            pms = _cuda_ms(lambda: resblock.scse_gate_bwd_plain(x, gc, ws, g), 3)
+            record("scse_gate_bwd", err.max().item(), ms, pms, None, _bound(3 * c * n * 2, 0.0),
+                   f"scSE gate backward {c}@{side(sp)}",
+                   "tol 2 bf16 ulps (99%), sums 1e-3 S each and 1e-2 of their norm", ok,
+                   extra={"share_off": off, "sums_over_S": sums, "sums_rel_l2": rel})
+            del x, g, err
 
 
 def _head64(torch, vol, slab=16):
@@ -2339,7 +2455,13 @@ RUN_LOG_KEYS = {"train": {"epoch", "mse", "loss", "grad_norm", "epoch_time", "st
                 "pretrain": {"epoch", "mse", "loss", "epoch_time"}}
 OTHER_BACKBONES = (("conv", dict(backbone="conv", use_amp=False)),
                    ("residualunetse", dict(backbone="residualunetse", use_amp=False)),
+                   ("residualunetse on the kernels", dict(backbone="residualunetse", use_amp=True)),
                    ("linear head", dict(kp_layer="linear")))
+# what the bf16 residual net's step launches besides the DoubleConv step's kernels
+RESIDUAL_TRAIN_KERNELS = ("conv3x3_fused_flat_res", "conv3x3_weight_grad",
+                          "conv_transpose3x3s2_flat", "conv_transpose3x3s2_input_grad",
+                          "conv_transpose3x3s2_weight_grad", "scse_gate_flat", "scse_gate_bwd",
+                          "lift1x1_flat")
 
 
 def _add_counts(total, counts):
@@ -2597,9 +2719,10 @@ def _phase12_steps(torch, rng, dev, img):
 def _phase12_backbones(torch, rng, dev, subject):
     """(d): the bf16 'cr' U-Net's heatmaps through the kernels against its
     plain route (phase 3's yardstick rule); one 128^3 training step each for
-    the fp32 ConvNet (the CLI's default), the fp32 ResidualUNetSE3D and the
-    linear keypoint head on the flagship net, timed on CUDA events after a
-    first step. Returns the kernel routes' launch counts."""
+    the fp32 ConvNet (the CLI's default), the fp32 ResidualUNetSE3D (its
+    module), the bf16 ResidualUNetSE3D (on the kernels, forward and backward)
+    and the linear keypoint head on the flagship net, timed on CUDA events
+    after a first step. Returns the kernel routes' launch counts."""
     import dataclasses
 
     from keymorph_tpu_torch.data import Preprocessor
@@ -2672,9 +2795,11 @@ def _phase12_backbones(torch, rng, dev, subject):
               f"{json.dumps({k: c['launches'] for k, c in counts.items()})}")
         if not (all(np.isfinite(losses)) and grads_ok):
             raise AssertionError(f"phase 12 {label}: a loss or gradient is not finite")
+        residual = config.use_amp and config.backbone.startswith("residual")
         _expect(f"phase 12 {label}", counts,
                 ("tps_planes", "tps_planes_bwd", "warp_planes", "warp_planes_grad")
-                + (("conv3x3_fused_flat", "conv3x3_input_grad") if config.use_amp else ()))
+                + (("conv3x3_fused_flat", "conv3x3_input_grad") if config.use_amp else ())
+                + (RESIDUAL_TRAIN_KERNELS if residual else ()))
         total = _add_counts(total, counts)
         del net, state, step
         torch.cuda.empty_cache()

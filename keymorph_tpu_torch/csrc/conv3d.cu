@@ -9,9 +9,12 @@
 // residual sum and the ReLU after it in the epilogue, and tconv3_mma_kernel<NB>,
 // the decoders' transposed 3x3x3 stride-2 conv over the zero-dilated
 // half-resolution input, its skip summed in the epilogue (both at NB 32 or
-// 64; see Mode). One entry, km_conv3x3, launches every one of these products
-// in the form its caller names; km_conv3x3_weight_grad launches the weight
-// gradient.
+// 64; see Mode). The transposed conv's backward takes two kernels of its own:
+// tconv3_dgrad_mma_kernel<NB> (its input gradient, a fourth mode of the
+// implicit GEMM) and tconv3_wgrad_mma_kernel<TX> (its weight gradient, the
+// weight-gradient kernel over the zero-dilated input). One entry, km_conv3x3,
+// launches every one of these products in the form its caller names;
+// km_conv3x3_weight_grad launches the weight gradients.
 //
 // Replaces keymorph_tpu/ops/pallas/conv3d.py:_kernel_flat + _cell_compute
 // (reached through _conv_pallas_group_flat <- _conv_pallas_flat /
@@ -140,11 +143,12 @@
 // <32> 128 registers with 60 bytes of spill, <16> 126, <8> 112 (NB <= 32 is
 // held to 128 registers so that two blocks fit an SM; the staging's 8 loads
 // in flight and 16 affine constants press on that); conv3x3_res_mma_kernel
-// <64> 224, no spill, <32> 128 with 4 bytes; tconv3_mma_kernel<64> 231, no
-// spill, <32> 128 with 12 bytes;
-// conv3x3_fma_kernel 128 registers with 28 bytes of spill;
+// <64> 224, no spill, <32> 128 with 4 bytes; tconv3_mma_kernel<64> 233, no
+// spill, <32> 128 with 12 bytes; tconv3_dgrad_mma_kernel<64> 248, <32> 128,
+// no spill; conv3x3_fma_kernel 128 registers with 28 bytes of spill;
 // wgrad3x3_mma_kernel<32>, <16> 128 registers (512 threads) with 36 bytes of
-// spill stores, 120 of loads; wgrad3x3_reduce_kernel 32. Shared memory of the
+// spill stores, 120 of loads (tconv3_wgrad_mma_kernel: 40 and 124);
+// wgrad3x3_reduce_kernel and tconv3_wgrad_reduce_kernel 32. Shared memory of the
 // weight gradient: 4 input planes x 16 channels x 340 voxels x 2 B (43,520)
 // and 2 cotangent planes x 8 channel groups x 288 units x 16 B (73,728).
 //
@@ -453,13 +457,16 @@ __device__ __forceinline__ void stage_residual(const MmaArgs& p, __nv_bfloat16* 
 // ReLU (RES: relu(bf16(bf16(conv + bias) + res)), a residual block's third
 // conv with the sum and the non-linearity after it); the transposed 3^3
 // stride-2 conv as that conv over the zero-dilated half-resolution source
-// (TCONV, below), its rounded output summed with the skip in the same way.
-enum Mode { PLAIN = 0, RES = 1, TCONV = 2 };
+// (TCONV, below), its rounded output summed with the skip in the same way;
+// the transposed conv's input gradient (TDGRAD, below): the conv kept at the
+// even voxels and stored at half resolution. (3 is the FMA kernel's form.)
+enum Mode { PLAIN = 0, RES = 1, TCONV = 2, TDGRAD = 4 };
 
 template <int NB, int MODE>
 __device__ __forceinline__ void mma_conv(const MmaArgs& p) {
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr bool DIL = MODE == TCONV;
+  constexpr bool SUM = MODE == RES || MODE == TCONV;  // the epilogue adds res
   constexpr int WBYTES = 2 * 27 * NB * 16;
   constexpr int NR = NB / 2;  // accumulator registers per 64-row block
   const int nst = p.nchunks > 1 ? 2 : 1;
@@ -503,6 +510,14 @@ __device__ __forceinline__ void mma_conv(const MmaArgs& p) {
   constexpr uint64_t B_HI = (static_cast<uint64_t>(27 * NB) << 16) | (8ull << 32);
   const uint32_t a_lo = (smem_u32(hbuf) >> 4) + wg * p.HY * p.HX;  // this warpgroup's slab
   const uint32_t b_lo = smem_u32(wbuf) >> 4;
+  // TDGRAD keeps the even voxels: the products of the odd z slab (warpgroup
+  // 1: z0 is even), and where a 64-row block is one x row (MSTRIDE == HX) of
+  // the odd rows, are not issued
+  bool live[MBZ];
+#pragma unroll
+  for (int i = 0; i < MBZ; ++i)
+    live[i] = MODE != TDGRAD ||
+              (((z0 + wg) & 1) == 0 && (p.MSTRIDE != p.HX || ((y0 + i) & 1) == 0));
 
   // RES, TCONV: the residual's tile goes to shared memory before the
   // epilogue (stage_residual): during the last chunk's products into the idle
@@ -514,7 +529,7 @@ __device__ __forceinline__ void mma_conv(const MmaArgs& p) {
   constexpr int RED_BYTES = MMA_THREADS / 32 * NB * 2 * 4;  // (8 warps, NB, 2) floats
   const int tvox = p.TY * p.TX;
   const int half = NB * tvox * 2;  // bytes of a half tile
-  const bool staged = MODE != PLAIN && p.res != nullptr && RED_BYTES + 2 * half <= nst * HBYTES;
+  const bool staged = SUM && p.res != nullptr && RED_BYTES + 2 * half <= nst * HBYTES;
   const bool early = staged && p.vec && nst == 2 && half <= WBYTES && RED_BYTES + half <= HBYTES;
   const int so = ((p.nchunks - 1) & 1) ^ 1;  // the stage idle during the last chunk
   __nv_bfloat16* const rt0 =
@@ -544,7 +559,7 @@ __device__ __forceinline__ void mma_conv(const MmaArgs& p) {
           const uint32_t a_t = a_s + (dz * p.HY + dy) * p.HX + dx;
 #pragma unroll
           for (int i = 0; i < MBZ; ++i)
-            wgmma<NB>(acc[i], A_HI | static_cast<uint64_t>(a_t + i * p.MSTRIDE), db);
+            if (live[i]) wgmma<NB>(acc[i], A_HI | static_cast<uint64_t>(a_t + i * p.MSTRIDE), db);
         }
       }
     }
@@ -582,8 +597,9 @@ __device__ __forceinline__ void mma_conv(const MmaArgs& p) {
       const int lin = i * p.MSTRIDE + 16 * (warp & 3) + (lane >> 2) + 8 * h;
       const int oy = lin / p.HX, ox = lin - oy * p.HX;
       const int y = y0 + oy, x = x0 + ox;
-      ok[i][h] = ox < p.TX && oy < p.TY && z < p.Z && y < p.Y && x < p.X;
-      yx[i][h] = y * p.X + x;
+      ok[i][h] = ox < p.TX && oy < p.TY && z < p.Z && y < p.Y && x < p.X &&
+                 (MODE != TDGRAD || ((z | y | x) & 1) == 0);
+      yx[i][h] = MODE == TDGRAD ? (y >> 1) * (p.X >> 1) + (x >> 1) : y * p.X + x;
       tl[i][h] = oy * p.TX + ox;
     }
   float* red = reinterpret_cast<float*>(hbuf);  // (8 warps, NB, 2); the halo is done with
@@ -605,14 +621,17 @@ __device__ __forceinline__ void mma_conv(const MmaArgs& p) {
       __nv_bfloat16* base = nullptr;
       const __nv_bfloat16* rbase = nullptr;  // RES, TCONV: Csplit == Cout
       if (cok) {
-        base = co < p.Csplit
-                   ? p.out + (static_cast<long long>(z) * p.Csplit + co) * YX
-                   : p.out_b + (static_cast<long long>(z) * (p.Cout - p.Csplit) + co - p.Csplit) * YX;
-        if (MODE != PLAIN && p.res != nullptr)
+        if (MODE == TDGRAD)  // (Z/2, Cout, Y/2*X/2)
+          base = p.out + (static_cast<long long>(z >> 1) * p.Cout + co) * (YX >> 2);
+        else
+          base = co < p.Csplit
+                     ? p.out + (static_cast<long long>(z) * p.Csplit + co) * YX
+                     : p.out_b + (static_cast<long long>(z) * (p.Cout - p.Csplit) + co - p.Csplit) * YX;
+        if (SUM && p.res != nullptr)
           rbase = p.res + (static_cast<long long>(z) * p.Cout + co) * YX;
       }
       float rv[MBZ][2];  // the residual's values of this column
-      if constexpr (MODE != PLAIN) {
+      if constexpr (SUM) {
         const __nv_bfloat16* rcol =
             (col < NB / 2 ? rt0 : rt1) + (wg * (NB / 2) + col % (NB / 2)) * tvox;
 #pragma unroll
@@ -630,7 +649,7 @@ __device__ __forceinline__ void mma_conv(const MmaArgs& p) {
         for (int h = 0; h < 2; ++h) {
           if (!(cok && ok[i][h])) continue;
           float v = acc[i][4 * j + 2 * h + e] + bias;
-          if (MODE != PLAIN && rbase != nullptr)
+          if (SUM && rbase != nullptr)
             v = __bfloat162float(__float2bfloat16_rn(v)) + rv[i][h];
           if (p.relu) v = fmaxf(v, 0.0f);
           const __nv_bfloat16 hv = __float2bfloat16_rn(v);
@@ -692,6 +711,20 @@ __global__ void __launch_bounds__(MMA_THREADS, NB <= 32 ? 2 : 1)
   mma_conv<NB, TCONV>(p);
 }
 
+// The transposed conv's input gradient, g_x[ci, i] = sum_{k, co} Wt[ci, co, k]
+// g_y[co, 2i + k - 1] per axis: the SAME 3^3 conv of g_y (taps as they are,
+// Cin/Cout swapped: the wrapper's pack) at full resolution, kept at the even
+// voxels (2i) and stored at half resolution. Only a warpgroup whose z slab is
+// even issues products, and with a block a row (X > 32) only for even rows:
+// a quarter of the products are issued there (half for X <= 32, where blocks
+// straddle rows), twice or four times the useful ones. Its own name keeps its
+// time apart in a profile.
+template <int NB>
+__global__ void __launch_bounds__(MMA_THREADS, NB <= 32 ? 2 : 1)
+    tconv3_dgrad_mma_kernel(const MmaArgs p) {
+  mma_conv<NB, TDGRAD>(p);
+}
+
 // the kernel of (NB, MODE), instantiating no other
 template <int NB, int MODE>
 auto mma_kernel() {
@@ -699,8 +732,10 @@ auto mma_kernel() {
     return conv3x3_mma_kernel<NB>;
   else if constexpr (MODE == RES)
     return conv3x3_res_mma_kernel<NB>;
-  else
+  else if constexpr (MODE == TCONV)
     return tconv3_mma_kernel<NB>;
+  else
+    return tconv3_dgrad_mma_kernel<NB>;
 }
 
 template <int NB, int MODE>
@@ -729,8 +764,8 @@ int launch_mma(const MmaArgs& p, int tiles, cudaStream_t stream) {
 // against what this file fixes at compile time: refuses a geometry the
 // kernel's buffers and its eight 64-row blocks do not cover, or a tile count
 // that is not the caller's (its stats buffer has one row per tile).
-// RES and TCONV take NB 32 or 64 only (n_block in ops/cuda/conv3d.py pads a
-// smaller Cout).
+// RES, TCONV and TDGRAD take NB 32 or 64 only (n_block in ops/cuda/conv3d.py
+// pads a smaller Cout).
 int run_mma(MmaArgs p, int nblk, int tx, int ty, int mstride, int n_tiles, cudaStream_t stream,
             int mode) {
   p.TX = tx;
@@ -759,6 +794,11 @@ int run_mma(MmaArgs p, int nblk, int tx, int ty, int mstride, int n_tiles, cudaS
   if (mode == TCONV) {
     if (nblk == 32) return launch_mma<32, TCONV>(p, tiles, stream);
     if (nblk == 64) return launch_mma<64, TCONV>(p, tiles, stream);
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (mode == TDGRAD) {
+    if (nblk == 32) return launch_mma<32, TDGRAD>(p, tiles, stream);
+    if (nblk == 64) return launch_mma<64, TDGRAD>(p, tiles, stream);
     return static_cast<int>(cudaErrorInvalidValue);
   }
   switch (nblk) {
@@ -1086,9 +1126,12 @@ __device__ __forceinline__ void stage_cotangent(const WgradArgs& w, int z, int y
 // (ly + dy) * HX + lx + dx halo voxels. Per 16 voxels it loads the
 // cotangent's 64 x 16 fragment once (ldmatrix.trans from the staged plane)
 // for its 9 products, two fragments in flight. Partial sums go to the
-// block's own slice of part: no atomics.
-template <int TX>
-__global__ void __launch_bounds__(WG_THREADS, 1) wgrad3x3_mma_kernel(const WgradArgs w) {
+// block's own slice of part: no atomics. With DIL the input is the
+// zero-dilated half-resolution source (the transposed conv's, see
+// tconv3_wgrad_mma_kernel): a product whose input plane or halo row is odd,
+// all zeros, is not issued.
+template <int TX, bool DIL>
+__device__ __forceinline__ void wgrad_mma(const WgradArgs& w) {
   constexpr int TY = WVOX / TX, HX = TX + 2;
   extern __shared__ __align__(128) unsigned char smem[];
   unsigned char* ubuf = smem;               // a ring of 4 input planes: plane zz in slot (zz + 1) & 3
@@ -1109,12 +1152,13 @@ __global__ void __launch_bounds__(WG_THREADS, 1) wgrad3x3_mma_kernel(const Wgrad
       const int x0 = (tile % p.ntx) * TX, y0 = (tile / p.ntx) * TY;
 #pragma unroll 1
       for (int zz = zb - 1; zz <= zb; ++zz)
-        stage_halo<128>(p, chunk, zz, 1, y0, x0, ubuf + ((zz + 1) & 3) * UBYTES, UPL * 16);
+        stage_halo<128, DIL>(p, chunk, zz, 1, y0, x0, ubuf + ((zz + 1) & 3) * UBYTES, UPL * 16);
 #pragma unroll 1
       for (int z = zb; z < ze; ++z) {
         const int par = (z - zb) & 1;
         if (z >= zb + 2) bar_sync(BAR_EMPTY + par);  // step z - 2 is done with these buffers
-        stage_halo<128>(p, chunk, z + 1, 1, y0, x0, ubuf + ((z + 2) & 3) * UBYTES, UPL * 16);
+        stage_halo<128, DIL>(p, chunk, z + 1, 1, y0, x0, ubuf + ((z + 2) & 3) * UBYTES,
+                             UPL * 16);
         stage_cotangent<TX, 128>(w, z, y0, x0, cob * WCO, gbuf + par * GBYTES);
         asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
         bar_arrive(BAR_FULL + par);
@@ -1148,9 +1192,11 @@ __global__ void __launch_bounds__(WG_THREADS, 1) wgrad3x3_mma_kernel(const Wgrad
   for (int idx = start; idx < end;) {
     const int tile = idx / p.Z, zb = idx - tile * p.Z;
     const int ze = min(p.Z, zb + (end - idx));
+    const int y0 = (tile / p.ntx) * TY;
 #pragma unroll 1
     for (int z = zb; z < ze; ++z) {
       const int par = (z - zb) & 1;
+      const bool zlive = !DIL || ((z - 1 + wg) & 1) == 0;  // input plane z - 1 + dz is even
       bar_sync(BAR_FULL + par);
       const uint32_t g_z = g_lane + par * GBYTES;
       const uint32_t b_z = u_lo + ((z + wg) & 3) * (UBYTES >> 4);  // input plane z - 1 + dz
@@ -1173,11 +1219,13 @@ __global__ void __launch_bounds__(WG_THREADS, 1) wgrad3x3_mma_kernel(const Wgrad
         asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
         const int ly = ks * 16 / TX, lx = ks * 16 % TX;
 #pragma unroll
-        for (int dy = 0; dy < 3; ++dy)
+        for (int dy = 0; dy < 3; ++dy) {
+          if (!zlive || (DIL && ((y0 + ly + dy - 1) & 1))) continue;  // an all-zero row
 #pragma unroll
           for (int dx = 0; dx < 3; ++dx)
             wgmma_rs16(acc[dy * 3 + dx], a,
                        B_HI | static_cast<uint64_t>(b_z + (ly + dy) * HX + lx + dx));
+        }
         asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
       }
       asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
@@ -1214,12 +1262,29 @@ __global__ void __launch_bounds__(WG_THREADS, 1) wgrad3x3_mma_kernel(const Wgrad
         }
 }
 
+template <int TX>
+__global__ void __launch_bounds__(WG_THREADS, 1) wgrad3x3_mma_kernel(const WgradArgs w) {
+  wgrad_mma<TX, false>(w);
+}
+
+// The transposed conv's weight gradient: its forward is the SAME conv of the
+// zero-dilated input D with flipped taps (tconv3_mma_kernel), so dW'[tap] =
+// sum_o D[o + tap - 1] g_y[o] is this kernel over D (the wrapper flips the
+// taps back). 7 of 8 staged values are zeros; of the 27 products a step, those
+// whose input plane or row is odd are not issued, which leaves a quarter of
+// them: twice the useful operations (the odd columns remain). Its own name
+// keeps its time apart in a profile.
+template <int TX>
+__global__ void __launch_bounds__(WG_THREADS, 1) tconv3_wgrad_mma_kernel(const WgradArgs w) {
+  wgrad_mma<TX, true>(w);
+}
+
 // dW[tap, ci, co]: the splits' partial sums added in split order (the same
 // inputs give the same bits). Input channel ci is packed channel ci below
 // Ca, else CaP + ci - Ca.
-__global__ void wgrad3x3_reduce_kernel(const float* __restrict__ part, float* __restrict__ out,
-                                       int nsplit, int Ca, int CaP, int Cin, int CiP, int Cout,
-                                       int CoP) {
+__device__ __forceinline__ void wgrad_reduce(const float* __restrict__ part,
+                                             float* __restrict__ out, int nsplit, int Ca, int CaP,
+                                             int Cin, int CiP, int Cout, int CoP) {
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= 27LL * Cin * Cout) return;
   const int co = static_cast<int>(i % Cout);
@@ -1233,32 +1298,49 @@ __global__ void wgrad3x3_reduce_kernel(const float* __restrict__ part, float* __
   out[i] = s;
 }
 
-template <int TX>
+__global__ void wgrad3x3_reduce_kernel(const float* __restrict__ part, float* __restrict__ out,
+                                       int nsplit, int Ca, int CaP, int Cin, int CiP, int Cout,
+                                       int CoP) {
+  wgrad_reduce(part, out, nsplit, Ca, CaP, Cin, CiP, Cout, CoP);
+}
+
+__global__ void tconv3_wgrad_reduce_kernel(const float* __restrict__ part,
+                                           float* __restrict__ out, int nsplit, int Ca, int CaP,
+                                           int Cin, int CiP, int Cout, int CoP) {
+  wgrad_reduce(part, out, nsplit, Ca, CaP, Cin, CiP, Cout, CoP);
+}
+
+template <int TX, bool DIL>
 int launch_wgrad(const WgradArgs& w, cudaStream_t stream) {
+  const auto kernel = DIL ? tconv3_wgrad_mma_kernel<TX> : wgrad3x3_mma_kernel<TX>;
   static bool allowed[64] = {};
   int dev = 0;
   cudaGetDevice(&dev);
   if (dev < 0 || dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
   if (!allowed[dev]) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        wgrad3x3_mma_kernel<TX>, cudaFuncAttributeMaxDynamicSharedMemorySize, WG_SMEM);
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, WG_SMEM);
     if (e != cudaSuccess) return static_cast<int>(e);
     allowed[dev] = true;
   }
-  wgrad3x3_mma_kernel<TX><<<w.nco * w.in.nchunks * w.nsplit, WG_THREADS, WG_SMEM, stream>>>(w);
+  kernel<<<w.nco * w.in.nchunks * w.nsplit, WG_THREADS, WG_SMEM, stream>>>(w);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Every product of the conv family but the weight gradient, in the form the
+// Every product of the conv family but the weight gradients, in the form the
 // caller chooses (ops/cuda/conv3d.py: FMA_BELOW picks FMA or PLAIN for a
 // forward conv): FMA and PLAIN are the fused conv over the sources [xa, xb]
 // (xb absent, at full resolution, or at half resolution with b_lowres); RES
 // adds res (Z, Cout, Y*X), laid out as out, to the rounded conv before the
 // ReLU; TCONV is the transposed 3^3 stride-2 conv of the half-resolution xb
 // alone (Ca = 0, b_lowres; w the pack of the flipped taps, W'[dz, dy, dx,
-// ci, co] = Wt[ci, co, 2 - dz, 2 - dy, 2 - dx]), res its skip or null. The
+// ci, co] = Wt[ci, co, 2 - dz, 2 - dy, 2 - dx]), res its skip or null;
+// TDGRAD is the transposed conv's input gradient, the conv of the cotangent
+// xa alone (w the pack of W'[dz, dy, dx, co, ci] = Wt[ci, co, dz, dy, dx])
+// at the even sizes (Z, Y, X), out (Z/2, Cout, Y/2*X/2), with no affine,
+// bias, ReLU or stats. The
 // input gradient is PLAIN over the cotangent xa with the flipped,
 // channel-swapped pack w'[tap, co, ci] = W[26 - tap, ci, co], its output
 // channels [0, Csplit) in out (Z, Csplit, Y*X) and the rest in out_b (null
@@ -1269,7 +1351,8 @@ int launch_wgrad(const WgradArgs& w, cudaStream_t stream) {
 // says that 16-byte loads along x are aligned (res's too). stats, if given,
 // is (n_tiles, Cout, 2). Refuses what no instantiation computes: another
 // form, a residual outside RES and TCONV, a split outside PLAIN, TCONV over
-// another source, a half-resolution source of odd sizes, and (run_mma,
+// another source, TDGRAD with more than its one source or an epilogue
+// operand, a half-resolution source or TDGRAD at odd sizes, and (run_mma,
 // run_fma) an nblk the form does not build.
 KM_EXPORT int km_conv3x3(const void* xa, const void* xb, const void* scale, const void* shift,
                          const void* w, const void* bias, const void* res, void* out, void* out_b,
@@ -1278,9 +1361,12 @@ KM_EXPORT int km_conv3x3(const void* xa, const void* xb, const void* scale, cons
                          int vec, int n_tiles, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool split = Csplit != Cout || out_b != nullptr;
-  if (form < PLAIN || form > FMA || (res != nullptr && form != RES && form != TCONV) ||
+  if (form < PLAIN || form > TDGRAD || (res != nullptr && form != RES && form != TCONV) ||
       (split && (form != PLAIN || Csplit < 1 || Csplit >= Cout || out_b == nullptr)) ||
-      (form == TCONV && (Ca != 0 || !b_lowres)) || (b_lowres && ((Z | Y | X) & 1)))
+      (form == TCONV && (Ca != 0 || !b_lowres)) ||
+      (form == TDGRAD && (Ca < 1 || Cb != 0 || xb != nullptr || b_lowres || scale != nullptr ||
+                          shift != nullptr || bias != nullptr || relu || stats != nullptr)) ||
+      ((b_lowres || form == TDGRAD) && ((Z | Y | X) & 1)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (form == FMA) {
     FmaArgs p;
@@ -1315,15 +1401,17 @@ KM_EXPORT int km_conv3x3(const void* xa, const void* xb, const void* scale, cons
 // The weight gradient dW[tap, ci, co] of the conv km_conv3x3 computes, into
 // out (27, Ca + Cb, Cout) fp32: its inputs as km_conv3x3 takes them (the
 // affine, pad0, the half-resolution source) against the bf16 cotangent gv
-// (Z, Cout, Y*X) of its pre-ReLU output. tx is the plane tile's width (16 or
-// 32; 256 / tx rows), vec as for km_conv3x3 (and gv aligned alike), nsplit
-// the runs of tile planes the voxels are cut into, and part their (nsplit,
-// 27, CiP, CoP) fp32 partial sums (CiP the packed channels, CoP Cout
-// rounded up to 64), summed in order by a second kernel.
+// (Z, Cout, Y*X) of its pre-ReLU output. With dil, the form TCONV's: the
+// half-resolution xb alone (Ca = 0, b_lowres, no affine), zero-dilated, with
+// tconv3_wgrad_mma_kernel and tconv3_wgrad_reduce_kernel. tx is the plane
+// tile's width (16 or 32; 256 / tx rows), vec as for km_conv3x3 (and gv
+// aligned alike), nsplit the runs of tile planes the voxels are cut into, and
+// part their (nsplit, 27, CiP, CoP) fp32 partial sums (CiP the packed
+// channels, CoP Cout rounded up to 64), summed in order by a second kernel.
 KM_EXPORT int km_conv3x3_weight_grad(const void* xa, const void* xb, const void* scale,
                                      const void* shift, const void* gv, void* part, void* out,
                                      int Z, int Y, int X, int Ca, int Cb, int Cout, int b_lowres,
-                                     int tx, int vec, int nsplit, void* stream) {
+                                     int dil, int tx, int vec, int nsplit, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   WgradArgs w{};
   MmaArgs& p = w.in;
@@ -1343,15 +1431,17 @@ KM_EXPORT int km_conv3x3_weight_grad(const void* xa, const void* xb, const void*
   w.nco = km::ceil_div(Cout, WCO);
   w.nsplit = nsplit;
   const long long planes = static_cast<long long>(p.ntx) * p.nty * Z;
-  if ((tx != 16 && tx != 32) || p.HY * p.HX > UPL || Ca < 1 || Cb < 0 || Cout < 1 ||
-      nsplit < 1 || nsplit > planes || planes > 0x7fffffffLL)
+  if ((tx != 16 && tx != 32) || p.HY * p.HX > UPL || Cb < 0 || Cout < 1 || nsplit < 1 ||
+      nsplit > planes || planes > 0x7fffffffLL || (b_lowres && ((Z | Y | X) & 1)) ||
+      (dil ? Ca != 0 || Cb < 1 || !b_lowres || scale != nullptr || shift != nullptr : Ca < 1))
     return static_cast<int>(cudaErrorInvalidValue);
   w.planes = static_cast<int>(planes);
-  const int err = tx == 16 ? launch_wgrad<16>(w, st) : launch_wgrad<32>(w, st);
+  const int err = dil ? (tx == 16 ? launch_wgrad<16, true>(w, st) : launch_wgrad<32, true>(w, st))
+                      : (tx == 16 ? launch_wgrad<16, false>(w, st) : launch_wgrad<32, false>(w, st));
   if (err != 0) return err;
   const long long n = 27LL * (Ca + Cb) * Cout;
-  wgrad3x3_reduce_kernel<<<km::ceil_div(n, 256), 256, 0, st>>>(
-      w.part, static_cast<float*>(out), nsplit, Ca, p.CaP, Ca + Cb, 16 * p.nchunks, Cout,
-      WCO * w.nco);
+  const auto reduce = dil ? tconv3_wgrad_reduce_kernel : wgrad3x3_reduce_kernel;
+  reduce<<<km::ceil_div(n, 256), 256, 0, st>>>(w.part, static_cast<float*>(out), nsplit, Ca, p.CaP,
+                                               Ca + Cb, 16 * p.nchunks, Cout, WCO * w.nco);
   return static_cast<int>(cudaGetLastError());
 }

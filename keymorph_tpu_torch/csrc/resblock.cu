@@ -1,6 +1,6 @@
 // The residual U-Nets' one-pass kernels on the flat (Z, C, Y*X) bf16 layout
 // (models/fast_resunet.py), beside the convs of conv3d.cu: the block's lift,
-// its scSE gate, and the encoders' 2x max-pool.
+// its scSE gate and the gate's backward, and the encoders' 2x max-pool.
 //
 // lift1x1_kernel: the block's 1x1 lift where the widths change, with its bias,
 //
@@ -37,8 +37,26 @@
 // are contiguous), forms g_s, then reads them again (from L1/L2: a block's
 // 256 voxels x C channels were just read) and writes the gated values once.
 //
-// The lift and the gate are bound by bytes: their input read once from
-// device memory and their output written once.
+// scse_gate_bwd_kernel: the gate's backward for the output's cotangent G,
+// every rounding passed straight through, ties of the two gated values split
+// evenly (torch.maximum's autograd): with w = [a > b] + [a == b] / 2,
+//
+//   dg_s[v]   = sum_c G (1 - w) x;   dss[v] = dg_s g_s (1 - g_s)
+//   g_x[c, v] = bf16(G w g_c[c] + G (1 - w) g_s[v] + w_s[c] dss[v])
+//   dg_c[c]   = sum_v G w x,  dw_s[c] = sum_v dss x,  db_s = sum_v dss
+//
+// One pass, a thread a voxel as in the forward: it forms g_s again from its
+// voxel's C values, then reads x and G to form dg_s and its terms of dg_c,
+// then again to write g_x and its terms of dw_s (the repeated reads come from
+// L1/L2: a block's 256 voxels x C channels were just read). The per-channel
+// sums go over a warp by shuffles and over a block's warps in order, one row
+// of (dg_c, dw_s, db_s) partials a block, which the wrapper adds in block
+// order: no atomics. The squeeze's cotangent (the MLP's backward on (C,))
+// reaches x through the conv stats it came from, so no second pass is needed.
+//
+// The lift, the gate and its backward are bound by bytes: their inputs read
+// once from device memory and their output written once (the backward: 32
+// registers, no spill; nvcc -Xptxas -v, sm_90a, CUDA 12.8).
 #include <cuda_bf16.h>
 
 #include "common.cuh"
@@ -158,6 +176,64 @@ __global__ void __launch_bounds__(RB_THREADS)
   }
 }
 
+__device__ __forceinline__ float bf16r(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int m = 16; m > 0; m >>= 1) v += __shfl_xor_sync(0xffffffffu, v, m);
+  return v;
+}
+
+__global__ void __launch_bounds__(RB_THREADS)
+    scse_gate_bwd_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ g,
+                         const float* __restrict__ gc, const float* __restrict__ ws,
+                         __nv_bfloat16* __restrict__ gx, float* __restrict__ part, int C,
+                         long long YX) {
+  extern __shared__ float red[];  // (RB_WARPS, 2C + 1)
+  const int W = 2 * C + 1;
+  const long long v = static_cast<long long>(blockIdx.x) * RB_THREADS + threadIdx.x;
+  const bool in = v < YX;
+  const long long base = static_cast<long long>(blockIdx.y) * C * YX + (in ? v : 0);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float s = 0.0f;
+#pragma unroll 8
+  for (int c = 0; c < C; ++c) s = fmaf(ws[c], __bfloat162float(x[base + c * YX]), s);
+  const float gs = bf16r(1.0f / (1.0f + expf(-bf16r(s + ws[C]))));
+  float dgs = 0.0f;
+#pragma unroll 4
+  for (int c = 0; c < C; ++c) {
+    const float xv = in ? __bfloat162float(x[base + c * YX]) : 0.0f;
+    const float gv = in ? __bfloat162float(g[base + c * YX]) : 0.0f;
+    const float a = bf16r(xv * gc[c]), b = bf16r(xv * gs);
+    const float w = a > b ? 1.0f : (a == b ? 0.5f : 0.0f);
+    dgs = fmaf(gv * (1.0f - w), xv, dgs);
+    const float t = warp_sum(gv * w * xv);
+    if (lane == 0) red[warp * W + c] = t;
+  }
+  const float dss = dgs * gs * (1.0f - gs);
+#pragma unroll 4
+  for (int c = 0; c < C; ++c) {
+    const float xv = in ? __bfloat162float(x[base + c * YX]) : 0.0f;
+    const float gv = in ? __bfloat162float(g[base + c * YX]) : 0.0f;
+    const float a = bf16r(xv * gc[c]), b = bf16r(xv * gs);
+    const float w = a > b ? 1.0f : (a == b ? 0.5f : 0.0f);
+    if (in) gx[base + c * YX] = __float2bfloat16_rn(gv * w * gc[c] + gv * (1.0f - w) * gs + ws[c] * dss);
+    const float t = warp_sum(dss * xv);
+    if (lane == 0) red[warp * W + C + c] = t;
+  }
+  const float tb = warp_sum(dss);
+  if (lane == 0) red[warp * W + 2 * C] = tb;
+  __syncthreads();
+  float* row = part + (static_cast<long long>(blockIdx.y) * gridDim.x + blockIdx.x) * W;
+  for (int i = threadIdx.x; i < W; i += RB_THREADS) {
+    float sum = 0.0f;
+    for (int k = 0; k < RB_WARPS; ++k) sum += red[k * W + i];
+    row[i] = sum;
+  }
+}
+
 bool grid_ok(int Z, int C, long long YX) {
   return Z >= 1 && Z <= km::kMaxGridY && C >= 1 && YX >= 1;
 }
@@ -202,5 +278,23 @@ KM_EXPORT int km_scse_gate(const void* x, const void* gc, const void* ws, void* 
   scse_gate_kernel<<<grid, RB_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(gc),
       static_cast<const float*>(ws), static_cast<__nv_bfloat16*>(out), C, YX);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The gate's backward: x, g, gx (Z, C, Y*X) bf16 (gx may not alias them); gc
+// (C,) and ws (C + 1,) as km_scse_gate takes them; part (Z * blocks, 2C + 1)
+// fp32, blocks = ceil(Y*X / 256): each block's partial (dg_c, dw_s, db_s),
+// blocks in (z, voxel block) order.
+KM_EXPORT int km_scse_gate_bwd(const void* x, const void* g, const void* gc, const void* ws,
+                               void* gx, void* part, int Z, int C, int blocks, long long YX,
+                               void* stream) {
+  if (!grid_ok(Z, C, YX) || C > 512 || blocks != km::ceil_div(YX, RB_THREADS))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(blocks, Z);
+  const size_t smem = static_cast<size_t>(RB_WARPS) * (2 * C + 1) * sizeof(float);
+  scse_gate_bwd_kernel<<<grid, RB_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(g),
+      static_cast<const float*>(gc), static_cast<const float*>(ws),
+      static_cast<__nv_bfloat16*>(gx), static_cast<float*>(part), C, YX);
   return static_cast<int>(cudaGetLastError());
 }

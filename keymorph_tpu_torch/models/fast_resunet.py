@@ -1,5 +1,6 @@
 """Kernel-layout executor of the bf16 'gcr' residual U-Nets
-(``ResidualUNet3D`` and ``ResidualUNetSE3D``): serving on the conv kernels.
+(``ResidualUNet3D`` and ``ResidualUNetSE3D``): serving and training on the
+conv kernels.
 
 It re-runs the network of an :class:`~keymorph_tpu_torch.models.unet.
 AbstractUNet` with residual blocks from its parameters on flat (Z, C, Y*X)
@@ -37,9 +38,20 @@ on columns of ones (hi + mid + lo = the fp32 bias to 2^-27), on the CPU or
 the plain route as an fp32 matmul (seven times slower at 256^3 on the
 card). The heatmaps come back channel-last (B, Z, Y, X, K) in bf16.
 
-Forward only: ``KeyMorphNet.features`` takes this executor with grad
-disabled (serving: ``KeyMorph``, the register CLI, ``run_eval``) and the
-module's forward with grad enabled (training).
+The walk is differentiable, and with grad enabled it computes what serving
+computes, kernel for kernel: ``KeyMorphNet.features`` takes it for training
+(``make_train_step`` and the other steps) as for serving. Each form carries
+its backward: the convs and the residual sum ``_FusedConv`` (the residual's
+cotangent is the last conv's), the transposed conv ``_TConv`` (its own input-
+and weight-gradient kernels, span ``km.unet.tconv.bwd``), the gate
+``_ScseGate`` (``scse_gate_bwd_kernel``, span ``km.unet.se.bwd``; the MLP
+on (C,) is autograd's), the lift ``_Lift`` (fp32 products of bf16 values, span
+``km.unet.residual.bwd``); the GroupNorm folds are autograd's. Under
+autograd the pool is ``resblock.maxpool2_amax`` (ties split evenly, as
+keymorph_tpu's ``_maxpool2_rw_bwd``), and the final conv is ``_FinalConv``:
+the same slabs into a tensor of its own (no ``out=``), with
+``g_x = bf16(g W)`` and fp32 ``g_W``, ``g_b`` from fp32 products of the bf16
+values. With ``unet.use_checkpoint`` each block is replayed in the backward.
 """
 
 from __future__ import annotations
@@ -48,14 +60,15 @@ from types import SimpleNamespace
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from keymorph_tpu_torch.models.fast_unet import _single_conv_operands
+from keymorph_tpu_torch.models.fast_unet import _maxpool2_flat, _single_conv_operands
 from keymorph_tpu_torch.models.unet import AbstractUNet, supports_fast_resunet
 from keymorph_tpu_torch.ops.cuda import conv3d, resblock
 from keymorph_tpu_torch.tracing import span
 
 _KERNELS = SimpleNamespace(
-    pool=resblock.maxpool2_flat, lift=resblock.lift1x1_flat, flat=conv3d.conv3x3_fused_flat,
+    pool=_maxpool2_flat, lift=resblock.lift1x1_flat, flat=conv3d.conv3x3_fused_flat,
     res=conv3d.conv3x3_fused_flat_res, tconv=conv3d.conv_transpose3x3s2_flat,
     gate=resblock.scse_gate_flat, final_mma=True)
 _PLAINS = SimpleNamespace(
@@ -130,35 +143,71 @@ def _final_conv(xf, spatial, conv: nn.Conv3d, out, mma: bool):
         torch.matmul(a[:m].reshape(m * N, kp), b, out=out[z0:z1].view(m * N, K))
 
 
+class _FinalConv(torch.autograd.Function):
+    """:func:`_final_conv` into a tensor of its own, under autograd; the
+    backward takes the heatmaps' bf16 cotangent slab by slab: ``g_x =
+    bf16(g W)`` and the fp32 ``g_W``, ``g_b``, all fp32 products of bf16
+    values (TF32 off)."""
+
+    @staticmethod
+    def forward(ctx, xf, weight, bias, spatial, mma):
+        out = torch.empty((*spatial, weight.shape[0]), dtype=torch.bfloat16, device=xf.device)
+        _final_conv(xf, spatial, SimpleNamespace(weight=weight, bias=bias), out, mma)
+        ctx.save_for_backward(xf, weight)
+        return out
+
+    @staticmethod
+    def backward(ctx, g_out):
+        xf, weight = ctx.saved_tensors
+        Z, cin, N = xf.shape
+        K = weight.shape[0]
+        wf = weight[:, :, 0, 0, 0].to(torch.bfloat16).float()  # (K, Cin)
+        g_x = torch.empty_like(xf)
+        g_w = torch.zeros((K, cin), dtype=torch.float32, device=xf.device)
+        g_b = torch.zeros(K, dtype=torch.float32, device=xf.device)
+        g = g_out.reshape(Z, N, K)
+        for z0, z1 in _slabs(Z, K * N):
+            gs = g[z0:z1].float()  # (m, N, K)
+            g_x[z0:z1] = torch.matmul(wf.t(), gs.transpose(1, 2)).to(torch.bfloat16)
+            g_w += torch.bmm(gs.transpose(1, 2), xf[z0:z1].float().transpose(1, 2)).sum(dim=0)
+            g_b += gs.sum(dim=(0, 1))
+        return g_x, g_w.reshape(weight.shape).to(weight.dtype), g_b, None, None
+
+
 def fast_resunet_forward(unet: AbstractUNet, img: torch.Tensor, plain: bool = False):
-    """Serve ``unet`` on the conv kernels.
+    """Run ``unet`` on the conv kernels, differentiably.
 
     Args:
         unet: a bf16 'gcr' residual :class:`AbstractUNet` (see
             ``unet.supports_fast_resunet``).
         img: (B, 1, Z, Y, X) channel-first volume.
-        plain: run every conv, the transposed convs, the gates and the final
-            conv through their plain PyTorch versions (the oracle route; CPU
-            tensors take the plain versions either way).
+        plain: run every conv, the transposed convs, the lifts, the gates
+            and the final conv through their plain PyTorch versions, forward
+            and backward (the oracle route; CPU tensors take the plain
+            versions either way).
     Returns:
         (B, Z', Y', X', K) bf16 channel-last heatmaps.
     Raises:
         ValueError: for a backbone ``supports_fast_resunet`` refuses, or a
             skip the transposed conv cannot join (as the module).
-        RuntimeError: with grad enabled on parameters that require it.
     """
     if not supports_fast_resunet(unet):
         raise ValueError(f"the residual executor runs bf16 'gcr' residual U-Nets, not "
                          f"{type(unet).__name__} (blocks {getattr(unet, 'basic_module', None)!r}, "
                          f"dtype {getattr(unet, 'dtype', None)}, layer order "
                          f"{getattr(unet, 'layer_order', None)!r})")
-    if torch.is_grad_enabled() and any(p.requires_grad for p in unet.parameters()):
-        raise RuntimeError("the residual executor is forward-only (serving): call it under "
-                           "torch.no_grad(); the residual U-Nets train through their modules")
     ops = _PLAINS if plain else _KERNELS
     g = unet.num_groups
     B = img.shape[0]
-    heat = None
+    grad = torch.is_grad_enabled()
+
+    def block(module, xf, spatial, stats=None):
+        if unet.use_checkpoint and grad:
+            return checkpoint(_resnet_block, module, xf, spatial, g, ops, stats,
+                              use_reentrant=False)
+        return _resnet_block(module, xf, spatial, g, ops, stats)
+
+    heat, outs = None, []
     for bi in range(B):
         x = img[bi].transpose(0, 1).to(torch.bfloat16)  # (Z, 1, Y, X)
         spatial = (int(x.shape[0]), int(x.shape[2]), int(x.shape[3]))
@@ -168,7 +217,7 @@ def fast_resunet_forward(unet: AbstractUNet, img: torch.Tensor, plain: bool = Fa
             if i > 0:
                 with span("unet.pool"):
                     xf, spatial = ops.pool(xf, spatial)
-            xf = _resnet_block(enc.basic_module, xf, spatial, g, ops)
+            xf = block(enc.basic_module, xf, spatial)
             skips.append((xf, spatial))
         for dec, (skip, sk_sp) in zip(unet.decoders, skips[:-1][::-1]):
             if tuple(sk_sp) != tuple(2 * s for s in spatial):
@@ -181,12 +230,16 @@ def fast_resunet_forward(unet: AbstractUNet, img: torch.Tensor, plain: bool = Fa
                 xf, stats = ops.tconv(xf, sk_sp, up.weight, up.bias.to(torch.bfloat16).float(),
                                       skip=skip, emit_stats=True)
             spatial = sk_sp
-            xf = _resnet_block(dec.basic_module, xf, spatial, g, ops, stats)
+            xf = block(dec.basic_module, xf, spatial, stats)
         del skips
-        K = unet.final_conv.weight.shape[0]
-        if heat is None:
-            heat = torch.empty((B, *spatial, K), dtype=torch.bfloat16, device=img.device)
+        final = unet.final_conv
+        mma = ops.final_mma and xf.device.type == "cuda"
         with span("unet.final"):
-            _final_conv(xf, spatial, unet.final_conv, heat[bi],
-                        ops.final_mma and xf.device.type == "cuda")
-    return heat
+            if grad:
+                outs.append(_FinalConv.apply(xf, final.weight, final.bias, spatial, mma))
+                continue
+            if heat is None:
+                heat = torch.empty((B, *spatial, final.weight.shape[0]), dtype=torch.bfloat16,
+                                   device=img.device)
+            _final_conv(xf, spatial, final, heat[bi], mma)
+    return torch.stack(outs) if grad else heat

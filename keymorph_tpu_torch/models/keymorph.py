@@ -135,18 +135,17 @@ class KeyMorphNet(nn.Module):
         (``fast_unet_forward``, its pool on a kernel where no gradient is
         needed; ``plain`` runs the convs' and the pool's plain versions, the
         oracle route). A bf16 'gcr' residual U-Net (``ResidualUNet3D``,
-        ``ResidualUNetSE3D``) is served on them with grad disabled
-        (``fast_resunet_forward``, forward only; ``plain`` likewise); with
-        grad enabled (training) it is its module's forward: the residual
-        nets' backward is not on the kernels. Every other backbone is its
-        module's forward, as keymorph_tpu's ``features`` applies the flax
-        module (XLA convs, no Pallas kernel) where its executor does not
-        apply.
+        ``ResidualUNetSE3D``) runs on them too, with grad enabled (training,
+        each form with its backward) or disabled (serving)
+        (``fast_resunet_forward``; ``plain`` likewise). Every other backbone
+        (fp32, 'cr' residual nets among them) is its module's forward, as
+        keymorph_tpu's ``features`` applies the flax module (XLA convs, no
+        Pallas kernel) where its executor does not apply.
         """
         with span("backbone"):
             if supports_fast_unet(self.backbone):
                 return fast_unet_forward(self.backbone, img, plain=plain)
-            if supports_fast_resunet(self.backbone) and not torch.is_grad_enabled():
+            if supports_fast_resunet(self.backbone):
                 return fast_resunet_forward(self.backbone, img, plain=plain)
             return self.backbone(img).movedim(1, -1)
 

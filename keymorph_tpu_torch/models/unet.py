@@ -41,10 +41,10 @@ With ``dtype=torch.bfloat16`` the modules compute as the flax bf16
 backbones do (``models/layers.py:conv_nd``): normalization statistics in
 fp32, conv operands rounded to bf16 with fp32 sums, activations stored in
 bf16. The bf16 'gcr' and 'cr' DoubleConv U-Nets also run on the conv
-kernels (:func:`supports_fast_unet`), and the bf16 'gcr' residual U-Nets
-serve on them (:func:`supports_fast_resunet`, forward only); every other
-backbone, and the residual U-Nets' training, is computed by these modules,
-as keymorph_tpu computes it with flax ``nn.Conv`` (XLA, no Pallas kernel).
+kernels (:func:`supports_fast_unet`), and so do the bf16 'gcr' residual
+U-Nets, serving and training (:func:`supports_fast_resunet`); every other
+backbone is computed by these modules, as keymorph_tpu computes it with flax
+``nn.Conv`` (XLA, no Pallas kernel).
 With ``dtype=torch.float64`` they evaluate in float64.
 """
 
@@ -458,11 +458,11 @@ def supports_fast_unet(backbone: Optional[nn.Module]) -> bool:
 
 
 def supports_fast_resunet(backbone: Optional[nn.Module]) -> bool:
-    """Can the residual executor (``models/fast_resunet.py``) serve this
+    """Can the residual executor (``models/fast_resunet.py``) run this
     backbone? A 3D residual U-Net (``ResidualUNet3D`` or ``ResidualUNetSE3D``)
     in layer order 'gcr', in bf16, whose every encoder widens (lifts), as
-    an int ``f_maps`` makes it. It runs forward only: with grad enabled
-    ``KeyMorphNet.features`` takes the module's forward."""
+    an int ``f_maps`` makes it. ``KeyMorphNet.features`` then takes the
+    executor with grad enabled (training) and disabled (serving)."""
     return (isinstance(backbone, AbstractUNet) and backbone.basic_module in ("resnet", "resnetse")
             and backbone.dim == 3 and backbone.layer_order == "gcr"
             and backbone.dtype == torch.bfloat16

@@ -20,7 +20,10 @@ def _functions():
         "conv3x3_weight_grad": conv3d.conv3x3_weight_grad,
         "conv3x3_fused_flat_res": conv3d.conv3x3_fused_flat_res,
         "conv_transpose3x3s2_flat": conv3d.conv_transpose3x3s2_flat,
+        "conv_transpose3x3s2_input_grad": conv3d.conv_transpose3x3s2_input_grad,
+        "conv_transpose3x3s2_weight_grad": conv3d.conv_transpose3x3s2_weight_grad,
         "scse_gate_flat": resblock.scse_gate_flat,
+        "scse_gate_bwd": resblock.scse_gate_bwd,
         "lift1x1_flat": resblock.lift1x1_flat,
         "maxpool2_flat": resblock.maxpool2_flat,
         "heatmap_com": heatmap.heatmap_com,
@@ -38,7 +41,10 @@ def _functions():
         "conv3x3_weight_grad": conv3d._weight_grad_plain,
         "conv3x3_fused_flat_res": conv3d.conv3x3_fused_flat_res_plain,
         "conv_transpose3x3s2_flat": conv3d.conv_transpose3x3s2_flat_plain,
+        "conv_transpose3x3s2_input_grad": conv3d.conv_transpose3x3s2_input_grad_plain,
+        "conv_transpose3x3s2_weight_grad": conv3d._tconv_weight_grad_plain,
         "scse_gate_flat": resblock.scse_gate_flat_plain,
+        "scse_gate_bwd": resblock.scse_gate_bwd_plain,
         "lift1x1_flat": resblock.lift1x1_flat_plain,
         "maxpool2_flat": resblock.maxpool2_flat_plain,
         "heatmap_com": heatmap.heatmap_com_plain,

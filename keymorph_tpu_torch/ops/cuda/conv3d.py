@@ -64,11 +64,18 @@ v = conv_W(pad0(bf16(u))) + bias, y = relu(v),
 For the upconv form the half-resolution source's gradient is the 2x2x2
 block sum of the full-resolution ``g_u`` (the transpose of nearest x2).
 
-The residual U-Nets serve (forward only) through two more forms of the same
-kernel: ``conv3x3_fused_flat_res`` (a block's last conv, the residual sum and
-the ReLU in its epilogue) and ``conv_transpose3x3s2_flat`` (the decoders'
-transposed 3x3x3 stride-2 conv as the conv of the zero-dilated input, the
-skip summed in its epilogue), each with its plain version.
+The residual U-Nets run through two more forms of the same kernel:
+``conv3x3_fused_flat_res`` (a block's last conv, the residual sum and the
+ReLU in its epilogue; the residual is one more operand of the same autograd
+Function, whose cotangent is ``g_v`` itself: the sum's rounding passes
+straight through) and ``conv_transpose3x3s2_flat`` (the decoders' transposed
+3x3x3 stride-2 conv as the conv of the zero-dilated input, the skip summed in
+its epilogue), each with its plain version. The transposed conv's backward
+(``_TConv``) takes two kernels of its own: the input gradient
+(:func:`conv_transpose3x3s2_input_grad`, the full-resolution conv of the
+cotangent kept at the even voxels: form TDGRAD of ``km_conv3x3``) and the
+weight gradient (:func:`conv_transpose3x3s2_weight_grad`, the weight
+gradient's kernel over the zero-dilated input).
 
 Every form but the weight gradient is one mode of one path: the public
 functions and their plain versions call :func:`_forward`, which counts the
@@ -76,7 +83,8 @@ plain version's calls or the kernel's launches and runs :func:`_plain` or
 :func:`_launch`. ``_launch`` checks the operands, packs the weights as the
 mode's :class:`_Form` says, chooses the Cout block (:func:`n_block`) and calls
 the library's one entry for these products, ``km_conv3x3``, naming the form
-(FMA, PLAIN, RES, TCONV; the input gradient is PLAIN with its output split).
+(FMA, PLAIN, RES, TCONV, TDGRAD; the input gradient is PLAIN with its output
+split).
 The weight gradient is another kernel behind ``km_conv3x3_weight_grad``.
 """
 
@@ -111,9 +119,15 @@ class _ChannelStats(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_m, g_m2):
         (xf,) = ctx.saved_tensors
-        n = float(xf.shape[0] * xf.shape[2])
-        g = (g_m[None, :, None] + 2.0 * xf.float() * g_m2[None, :, None]) / n
-        return g.to(xf.dtype)
+        return stats_cotangent(xf, g_m, g_m2).to(xf.dtype)
+
+
+def stats_cotangent(y, g_m, g_m2):
+    """The cotangent that a flat (Z, C, N) tensor ``y``'s per-channel (mean,
+    mean-square) pass back to it: ``(g_m + 2 y g_m2) / n`` in fp32, ``n``
+    the voxels of a channel."""
+    n = float(y.shape[0] * y.shape[2])
+    return (g_m.float()[None, :, None] + 2.0 * y.float() * g_m2.float()[None, :, None]) / n
 
 
 def channel_stats(xf: torch.Tensor):
@@ -194,17 +208,24 @@ def conv3x3_input_grad_plain(g_v, spatial, w, ca=None):
 
 def conv3x3_fused_flat_res_plain(xf, spatial, w, scale=None, shift=None, bias=None,
                                  relu=True, emit_stats=False, *, residual):
-    """Plain PyTorch :func:`conv3x3_fused_flat_res`."""
-    return _forward("res", True, xf, None, spatial, w, scale, shift, bias, relu, emit_stats,
-                    res=residual)
+    """Plain PyTorch :func:`conv3x3_fused_flat_res` (differentiable, with the
+    plain input gradient)."""
+    return _apply("res", True, xf, None, spatial, w, scale, shift, bias, relu, emit_stats,
+                  res=residual)
 
 
 def conv_transpose3x3s2_flat_plain(x_lo, spatial, wt, bias=None, skip=None, emit_stats=False):
     """Plain PyTorch :func:`conv_transpose3x3s2_flat`: an fp32
     ``conv_transpose3d`` of the bf16 operands, rounded to bf16, plus the skip,
-    rounded again."""
-    return _forward("tconv", True, None, x_lo, spatial, wt, bias=bias, emit_stats=emit_stats,
-                    res=skip)
+    rounded again (differentiable, with the plain gradients)."""
+    return _tconv_apply(True, x_lo, spatial, wt, bias, skip, emit_stats)
+
+
+def conv_transpose3x3s2_input_grad_plain(g_v, spatial, wt):
+    """Plain PyTorch :func:`conv_transpose3x3s2_input_grad`: the fp32 stride-2
+    ``conv3d`` of the bf16 cotangent with the bf16-rounded weights (the
+    adjoint of ``conv_transpose3d``), rounded to bf16."""
+    return _forward("tdgrad", True, g_v, None, spatial, wt)
 
 
 def _plain(mode, xa, xb, spatial, w, scale, shift, bias, relu, emit_stats, res, ca):
@@ -217,6 +238,8 @@ def _plain(mode, xa, xb, spatial, w, scale, shift, bias, relu, emit_stats, res, 
         return _input_grad_plain(xa, spatial, w, ca)
     if mode == "tconv":
         return _tconv_plain(xb, spatial, w, bias, res, emit_stats)
+    if mode == "tdgrad":
+        return _tconv_input_grad_plain(xa, spatial, w)
     if mode != "res":
         return _conv_plain(_full_input(xa, xb, mode == "upconv", spatial), spatial, w, scale,
                            shift, bias, relu, emit_stats)
@@ -238,6 +261,36 @@ def _tconv_plain(x_lo, spatial, wt, bias, skip, emit_stats):
     if skip is not None:
         out = (out.float() + skip.float()).to(torch.bfloat16)
     return (out, channel_stats(out)) if emit_stats else out
+
+
+def _tconv_input_grad_plain(g_v, spatial, wt):
+    Z, Y, X = (int(s) for s in spatial)
+    cout = int(wt.shape[1])
+    lhs = g_v.float().reshape(Z, cout, Y, X).permute(1, 0, 2, 3)[None]
+    out = F.conv3d(lhs, wt.to(torch.bfloat16).float(), stride=2, padding=1)[0]
+    return out.permute(1, 0, 2, 3).to(torch.bfloat16).reshape(Z // 2, -1, (Y // 2) * (X // 2))
+
+
+def _tconv_weight_grad_plain(x_lo, spatial, g_v):
+    """Plain PyTorch :func:`conv_transpose3x3s2_weight_grad`:
+    dWt[ci, co, kz, ky, kx] = sum_i x[ci, i] * g_v[co, 2i + k - 1] per axis
+    (zero outside), 27 z-batched fp32 products of bf16-valued operands over
+    stride-2 views of one padded copy of ``g_v``. Returns (Cin, Cout, 3, 3, 3)
+    fp32."""
+    _tconv_weight_grad_plain.calls += 1
+    Z, Y, X = (int(s) for s in spatial)
+    Zh, Yh, Xh = Z // 2, Y // 2, X // 2
+    cout = int(g_v.shape[1])
+    gp = F.pad(g_v.reshape(Z, cout, Y, X), (1, 1, 1, 1, 0, 0, 1, 1))
+    xs = x_lo.float()  # (Zh, Cin, Yh*Xh)
+    taps = []
+    for kz in range(3):
+        for ky in range(3):
+            for kx in range(3):
+                gs = gp[kz:kz + 2 * Zh:2, :, ky:ky + 2 * Yh:2, kx:kx + 2 * Xh:2]
+                gs = gs.float().reshape(Zh, cout, Yh * Xh).transpose(1, 2)
+                taps.append(torch.bmm(xs, gs).sum(dim=0))
+    return torch.stack(taps).reshape(3, 3, 3, xs.shape[1], cout).permute(3, 4, 0, 1, 2)
 
 
 def _input_grad_plain(g_v, spatial, w, ca):
@@ -285,7 +338,8 @@ def _weight_grad_plain(xa, xb, spatial, g_v, scale=None, shift=None, lowres=Fals
 
 for _f in (conv3x3_fused_flat_plain, conv3x3_fused_flat_parts_plain,
            conv3x3_fused_flat_upconv_plain, conv3x3_input_grad_plain,
-           conv3x3_fused_flat_res_plain, conv_transpose3x3s2_flat_plain, _weight_grad_plain):
+           conv3x3_fused_flat_res_plain, conv_transpose3x3s2_flat_plain, _weight_grad_plain,
+           conv_transpose3x3s2_input_grad_plain, _tconv_weight_grad_plain):
     _f.calls = 0
 
 
@@ -295,8 +349,8 @@ for _f in (conv3x3_fused_flat_plain, conv3x3_fused_flat_parts_plain,
 
 # km_conv3x3's forms (csrc/conv3d.cu: Mode, FMA): the tensor-core conv, with
 # the residual summed in its epilogue, over the zero-dilated half-resolution
-# source; the fp32-FMA conv
-FORM_PLAIN, FORM_RES, FORM_TCONV, FORM_FMA = 0, 1, 2, 3
+# source; the fp32-FMA conv; the tensor-core conv kept at the even voxels
+FORM_PLAIN, FORM_RES, FORM_TCONV, FORM_FMA, FORM_TDGRAD = 0, 1, 2, 3, 4
 FMA_BELOW = 8        # a forward conv of fewer input channels: the FMA kernel
 FMA_TILE = (4, 8, 32)    # its output tile (z, y, x) ...
 FMA_COUT_BLOCK = 16      # ... and output channels per block
@@ -307,7 +361,8 @@ NVOX_ALLOC = 1600    # halo voxels one shared-memory stage holds
 def n_block(cout: int, form: int = FORM_PLAIN) -> int:
     """Output channels one block of the tensor-core kernel takes (the wgmma
     N): the smallest of 8, 16, 32, 64 that holds ``cout``, else 64; the
-    residual and transposed forms build 32 and 64 only."""
+    residual and transposed forms and the transposed conv's input gradient
+    build 32 and 64 only."""
     sizes = (8, 16, 32) if form == FORM_PLAIN else (32,)
     return next((n for n in sizes if cout <= n), 64)
 
@@ -406,7 +461,7 @@ def pack_weights_fma(w: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 # csrc/conv3d.cu's entries: their pointers and ints, then the stream
-_ARGTYPES = {"km_conv3x3": (10, 16), "km_conv3x3_weight_grad": (7, 10)}
+_ARGTYPES = {"km_conv3x3": (10, 16), "km_conv3x3_weight_grad": (7, 11)}
 
 
 def _fn():
@@ -489,6 +544,12 @@ def _pack_tconv(wt, ca, nblk):
     return pack_weights(wt.flip(2, 3, 4).permute(2, 3, 4, 0, 1), 0, nblk)
 
 
+def _pack_tdgrad(wt, ca, nblk):
+    # the SAME conv of the cotangent onto the transposed conv's input
+    # channels: taps as they are, (Cout, Cin) last
+    return pack_weights(wt.permute(2, 3, 4, 1, 0), ca, nblk)
+
+
 class _Form(NamedTuple):
     """How :func:`_launch` runs one mode of the conv."""
     form: int | None  # km_conv3x3's form; None: FORM_FMA below FMA_BELOW input channels, else PLAIN
@@ -503,7 +564,9 @@ _FORMS = {"flat": _CONV, "parts": _CONV, "upconv": _CONV._replace(lowres=True),
           "res": _CONV._replace(form=FORM_RES),
           "tconv": _Form(FORM_TCONV, True, ((2, 3, 4), 0, 1), "({}, Cout, 3, 3, 3)", _pack_tconv),
           "igrad": _Form(FORM_PLAIN, False, ((0, 1, 2), 4, 3), "(3, 3, 3, Cin, {})",
-                         lambda w, ca, nblk: pack_weights_grad(w, nblk))}
+                         lambda w, ca, nblk: pack_weights_grad(w, nblk)),
+          "tdgrad": _Form(FORM_TDGRAD, False, ((2, 3, 4), 1, 0), "(Cin, {}, 3, 3, 3)",
+                          _pack_tdgrad)}
 
 
 def _launch(mode, xa, xb, spatial, w, scale, shift, bias, relu, emit_stats, res, ca):
@@ -541,7 +604,10 @@ def _launch(mode, xa, xb, spatial, w, scale, shift, bias, relu, emit_stats, res,
         wk = f.pack(w, Ca, nblk)
     scale_t, shift_t = _affine(scale, shift, Cin, dev)
     bias_t = None if bias is None else _vec(bias, Cout, dev, "bias")
-    out = torch.empty((Z, split, Y * X), dtype=torch.bfloat16, device=dev)
+    # TDGRAD keeps the even voxels: its output is at half resolution
+    out = (torch.empty((Z // 2, Cout, (Y // 2) * (X // 2)), dtype=torch.bfloat16, device=dev)
+           if form == FORM_TDGRAD else
+           torch.empty((Z, split, Y * X), dtype=torch.bfloat16, device=dev))
     out_b = (torch.empty((Z, Cout - split, Y * X), dtype=torch.bfloat16, device=dev)
              if split < Cout else None)
     stats = (torch.empty((tiles, Cout, 2), dtype=torch.float32, device=dev)
@@ -566,8 +632,10 @@ def _forward(mode, plain, xa, xb, spatial, w, scale=None, shift=None, bias=None,
     or a CPU tensor), else the kernel. Modes: the forward convs ``flat``,
     ``parts`` and ``upconv`` (sources ``xa``, ``xb``), ``res`` (a block's
     last conv, ``res`` its residual), ``tconv`` (the transposed conv of
-    ``xb``, ``res`` its skip, ``w`` in ``ConvTranspose3d``'s layout) and
-    ``igrad`` (the input gradient of the cotangent ``xa``, split at ``ca``)."""
+    ``xb``, ``res`` its skip, ``w`` in ``ConvTranspose3d``'s layout),
+    ``igrad`` (the input gradient of the cotangent ``xa``, split at ``ca``)
+    and ``tdgrad`` (the transposed conv's input gradient of the cotangent
+    ``xa`` at ``spatial``, ``w`` in ``ConvTranspose3d``'s layout)."""
     if plain or (xb if xa is None else xa).device.type == "cpu":
         _PLAINS[mode].calls += 1
         return _plain(mode, xa, xb, spatial, w, scale, shift, bias, relu, emit_stats, res, ca)
@@ -672,28 +740,61 @@ def conv3x3_weight_grad(xa, xb, spatial, g_v, scale=None, shift=None, lowres=Fal
     """
     if g_v.device.type == "cpu":
         return _weight_grad_plain(xa, xb, spatial, g_v, scale, shift, lowres)
-    Z, Y, X, Ca, Cb = _sources("conv3x3_weight_grad", xa, xb, lowres, spatial, extra=(g_v,))
+    out = _launch_weight_grad("conv3x3_weight_grad", xa, xb, spatial, g_v, scale, shift, lowres,
+                              False)
+    conv3x3_weight_grad.launches += 1
+    return out
+
+
+def conv_transpose3x3s2_weight_grad(x_lo, spatial, g_v):
+    """Weight gradient of :func:`conv_transpose3x3s2_flat`:
+    dWt[ci, co, kz, ky, kx] = sum_i x[ci, i] * g_v[co, 2i + k - 1] per axis,
+    bf16 operands, fp32 sums.
+
+    Args:
+        x_lo: flat (Z/2, Cin, Y/2*X/2) bf16, the transposed conv's input.
+        g_v: flat (Z, Cout, Y*X) bf16 cotangent of its output at ``spatial``.
+    Returns:
+        (Cin, Cout, 3, 3, 3) fp32, ``ConvTranspose3d``'s layout.
+
+    CPU tensors run :func:`_tconv_weight_grad_plain`; CUDA tensors launch
+    ``tconv3_wgrad_mma_kernel``: the weight gradient's kernel over the
+    zero-dilated input (the forward's SAME conv of it with flipped taps), whose
+    products with an all-zero input plane or row are not issued, and
+    ``tconv3_wgrad_reduce_kernel``, which sums its splits in order.
+    """
+    if g_v.device.type == "cpu":
+        return _tconv_weight_grad_plain(x_lo, spatial, g_v)
+    dw = _launch_weight_grad("conv_transpose3x3s2_weight_grad", None, x_lo, spatial, g_v, None,
+                             None, True, True)
+    conv_transpose3x3s2_weight_grad.launches += 1
+    return dw.flip(0, 1, 2).permute(3, 4, 0, 1, 2)
+
+
+def _launch_weight_grad(name, xa, xb, spatial, g_v, scale, shift, lowres, dil):
+    """``km_conv3x3_weight_grad`` over the sources [xa, xb] (``dil``: ``xa``
+    None and ``xb`` at half resolution, zero-dilated). Returns (3, 3, 3, Cin,
+    Cout) fp32."""
+    Z, Y, X, Ca, Cb = _sources(name, xa, xb, lowres, spatial, extra=(g_v,))
     Cout = int(g_v.shape[1])
     dev = g_v.device
     Cin = Ca + Cb
     scale_t, shift_t = _affine(scale, shift, Cin, dev)
     plan = weight_grad_plan((Z, Y, X), Ca, Cb, Cout, _sm_count(
         dev.index if dev.index is not None else torch.cuda.current_device()))
-    srcs = [xa] if xb is None else [xa, xb]
-    vec = _aligned(X, lowres, srcs + [g_v])
+    vec = _aligned(X, lowres, [t for t in (xa, xb, g_v) if t is not None])
     part = torch.empty((plan["nsplit"], 27, plan["cip"], plan["cop"]), dtype=torch.float32,
                        device=dev)
     out = torch.empty((3, 3, 3, Cin, Cout), dtype=torch.float32, device=dev)
     err = _fn().km_conv3x3_weight_grad(
-        xa.data_ptr(), _ptr(xb), _ptr(scale_t), _ptr(shift_t), g_v.data_ptr(), part.data_ptr(),
-        out.data_ptr(), Z, Y, X, Ca, Cb, Cout, int(bool(lowres)), plan["tx"], int(vec),
-        plan["nsplit"], _build.stream_ptr(dev))
+        _ptr(xa), _ptr(xb), _ptr(scale_t), _ptr(shift_t), g_v.data_ptr(), part.data_ptr(),
+        out.data_ptr(), Z, Y, X, Ca, Cb, Cout, int(bool(lowres)), int(bool(dil)), plan["tx"],
+        int(vec), plan["nsplit"], _build.stream_ptr(dev))
     _build.check(err, "km_conv3x3_weight_grad")
-    conv3x3_weight_grad.launches += 1
     return out
 
 
-conv3x3_weight_grad.launches = 0
+conv3x3_weight_grad.launches = conv_transpose3x3s2_weight_grad.launches = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -717,16 +818,17 @@ def _block_sum2(x, spatial):
 
 class _FusedConv(torch.autograd.Function):
     """relu?(conv(pad0(bf16(a*x + b))) + bias) with optional output stats,
-    over one or two sources; see the module docstring for the backward."""
+    over one or two sources, or with a residual summed before the ReLU (mode
+    ``res``); see the module docstring for the backward."""
 
     @staticmethod
     def forward(ctx, mode, plain, spatial, relu, emit_stats, xa, xb, w, scale,
-                shift, bias):
+                shift, bias, res=None):
         spatial = tuple(int(s) for s in spatial)
         ctx.cfg = (mode, plain, spatial, bool(relu), bool(emit_stats))
-        ctx.save_for_backward(xa, xb, w, scale, shift, bias)
+        ctx.save_for_backward(xa, xb, w, scale, shift, bias, res)
         r = _forward(mode, plain, xa, xb, spatial, w, scale, shift, bias, relu,
-                     emit_stats)
+                     emit_stats, res=res)
         if emit_stats:
             return r[0], r[1][0], r[1][1]
         return r
@@ -734,7 +836,7 @@ class _FusedConv(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_y, g_m=None, g_m2=None):
         mode, plain, spatial, relu, emit_stats = ctx.cfg
-        xa, xb, w, scale, shift, bias = ctx.saved_tensors
+        xa, xb, w, scale, shift, bias, res = ctx.saved_tensors
         Z, Y, X = spatial
         ca = int(xa.shape[1])
         lowres = mode == "upconv"
@@ -743,12 +845,10 @@ class _FusedConv(torch.autograd.Function):
         if relu or emit_stats:
             with span("conv.recompute"):
                 y = _forward(mode, plain, xa, xb, spatial, w, scale, shift, bias, relu,
-                             False)
+                             False, res=res)
         g = g_y.float()
         if emit_stats:
-            n = float(Z * Y * X)
-            g = g + (g_m.float()[None, :, None]
-                     + 2.0 * y.float() * g_m2.float()[None, :, None]) / n
+            g = g + stats_cotangent(y, g_m, g_m2)
         if relu:
             g = torch.where(y > 0, g, torch.zeros((), dtype=g.dtype, device=g.device))
         g_v = g.to(torch.bfloat16).contiguous()
@@ -764,7 +864,10 @@ class _FusedConv(torch.autograd.Function):
             gb = _block_sum2(g_ub, spatial) if lowres else g_ub.float()
         ga = g_ua.float()
 
-        need = ctx.needs_input_grad  # mode, plain, spatial, relu, stats, xa, xb, w, a, b, bias
+        # mode, plain, spatial, relu, stats, xa, xb, w, a, b, bias, res
+        need = ctx.needs_input_grad
+        # the residual's cotangent is g_v: the sum's rounding passes straight through
+        g_res = g_v.to(res.dtype) if res is not None and need[11] else None
         sa = scale.float() if scale is not None else None
         g_xa = g_xb = None
         if need[5]:
@@ -791,12 +894,62 @@ class _FusedConv(torch.autograd.Function):
                 wgrad = _weight_grad_plain if plain else conv3x3_weight_grad
                 g_w = wgrad(xa, xb, spatial, g_v, scale, shift, lowres).to(w.dtype)
         return (None, None, None, None, None, g_xa, g_xb, g_w, g_scale, g_shift,
-                g_bias)
+                g_bias, g_res)
 
 
-def _apply(mode, plain, xa, xb, spatial, w, scale, shift, bias, relu, emit_stats):
+def _apply(mode, plain, xa, xb, spatial, w, scale, shift, bias, relu, emit_stats, res=None):
     r = _FusedConv.apply(mode, plain, spatial, relu, emit_stats, xa, xb, w, scale,
-                         shift, bias)
+                         shift, bias, res)
+    return (r[0], (r[1], r[2])) if emit_stats else r
+
+
+class _TConv(torch.autograd.Function):
+    """The transposed 3^3 stride-2 conv of ``x_lo`` with its bias, summed
+    with the skip, with optional output stats. Backward (span
+    ``km.unet.tconv.bwd``): the stats cotangents fold into the output's as
+    ``(g_mean + 2 y g_msq) / n`` (``y``, the stored output, is saved: the
+    decoder block keeps it alive as its residual anyway), rounded to bf16
+    (``g_v``); the skip's cotangent is ``g_v`` and the bias's its sum; the
+    input gradient and the weight gradient are
+    :func:`conv_transpose3x3s2_input_grad` and
+    :func:`conv_transpose3x3s2_weight_grad` (or their plain versions)."""
+
+    @staticmethod
+    def forward(ctx, plain, spatial, emit_stats, x_lo, wt, bias, skip):
+        spatial = tuple(int(s) for s in spatial)
+        r = _forward("tconv", plain, None, x_lo, spatial, wt, bias=bias, emit_stats=emit_stats,
+                     res=skip)
+        y = r[0] if emit_stats else r
+        ctx.cfg = (plain, spatial, bool(emit_stats))
+        ctx.save_for_backward(x_lo, wt, y if emit_stats else None)
+        return (y, r[1][0], r[1][1]) if emit_stats else y
+
+    @staticmethod
+    def backward(ctx, g_y, g_m=None, g_m2=None):
+        plain, spatial, emit_stats = ctx.cfg
+        x_lo, wt, y = ctx.saved_tensors
+        need = ctx.needs_input_grad  # plain, spatial, stats, x_lo, wt, bias, skip
+        with span("unet.tconv.bwd"):
+            g = g_y.float()
+            if emit_stats:
+                g = g + stats_cotangent(y, g_m, g_m2)
+            g_v = g.to(torch.bfloat16).contiguous()
+            del g
+            g_x = g_w = g_bias = None
+            if need[3]:
+                g_x = (conv_transpose3x3s2_input_grad_plain if plain
+                       else conv_transpose3x3s2_input_grad)(g_v, spatial, wt).to(x_lo.dtype)
+            if need[4]:
+                g_w = (_tconv_weight_grad_plain if plain
+                       else conv_transpose3x3s2_weight_grad)(x_lo, spatial, g_v).to(wt.dtype)
+            if need[5]:
+                g_bias = g_v.sum(dim=(0, 2), dtype=torch.float32)
+            g_skip = g_v if need[6] else None
+        return None, None, None, g_x, g_w, g_bias, g_skip
+
+
+def _tconv_apply(plain, x_lo, spatial, wt, bias, skip, emit_stats):
+    r = _TConv.apply(plain, spatial, emit_stats, x_lo, wt, bias, skip)
     return (r[0], (r[1], r[2])) if emit_stats else r
 
 
@@ -847,14 +1000,15 @@ def conv3x3_fused(x, w, scale=None, shift=None, bias=None, relu=True,
 
 
 # ---------------------------------------------------------------------------
-# forward-only forms of the residual U-Nets (models/fast_resunet.py)
+# the residual U-Nets' forms (models/fast_resunet.py)
 # ---------------------------------------------------------------------------
 
 
 def _forward_only(name, *tensors):
+    """Refuse a serving kernel without a backward an input that needs a
+    gradient (with grad enabled)."""
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
-        raise RuntimeError(f"{name} is forward-only (serving); the residual U-Nets train "
-                           "through their modules")
+        raise RuntimeError(f"{name} is forward-only (serving): call it under torch.no_grad()")
 
 
 def conv3x3_fused_flat_res(xf, spatial, w, scale=None, shift=None, bias=None, relu=True,
@@ -864,15 +1018,15 @@ def conv3x3_fused_flat_res(xf, spatial, w, scale=None, shift=None, bias=None, re
     on flat (Z, Cin, Y*X) bf16 ``xf``, ``residual`` flat (Z, Cout, Y*X) bf16
     (required: a conv without one is :func:`conv3x3_fused_flat`'s); with
     ``emit_stats`` also the per-Cout (mean, msq) of the stored output.
-    Forward only. CPU tensors run the plain version; CUDA tensors launch
+    Differentiable (``_FusedConv``: the residual's cotangent is the conv's
+    ``g_v``). CPU tensors run the plain version; CUDA tensors launch
     ``conv3x3_res_mma_kernel`` (the tensor-core conv, its epilogue reading
     the residual)."""
     if residual is None:
         raise ValueError("conv3x3_fused_flat_res: a residual is required; a conv without one "
                          "is conv3x3_fused_flat's")
-    _forward_only("conv3x3_fused_flat_res", xf, w, scale, shift, bias, residual)
-    return _forward("res", False, xf, None, spatial, w, scale, shift, bias, relu, emit_stats,
-                    res=residual)
+    return _apply("res", False, xf, None, spatial, w, scale, shift, bias, relu, emit_stats,
+                  res=residual)
 
 
 def conv_transpose3x3s2_flat(x_lo, spatial, wt, bias=None, skip=None, emit_stats=False):
@@ -882,23 +1036,44 @@ def conv_transpose3x3s2_flat(x_lo, spatial, wt, bias=None, skip=None, emit_stats
     ``spatial`` (Z, Y, X), bf16 operands, fp32 sums, plus the fp32 ``bias``,
     rounded to bf16; with ``skip`` (flat (Z, Cout, Y*X) bf16) the rounded
     sum with it, rounded again (the decoder's join); with ``emit_stats`` also
-    the per-Cout (mean, msq) of the stored output. Forward only. CPU tensors
-    run the plain version; CUDA tensors launch ``tconv3_mma_kernel`` (the
-    tensor-core conv over the zero-dilated input, ``csrc/conv3d.cu``)."""
-    _forward_only("conv_transpose3x3s2_flat", x_lo, wt, bias, skip)
-    return _forward("tconv", False, None, x_lo, spatial, wt, bias=bias, emit_stats=emit_stats,
-                    res=skip)
+    the per-Cout (mean, msq) of the stored output. Differentiable
+    (``_TConv``). CPU tensors run the plain version; CUDA tensors launch
+    ``tconv3_mma_kernel`` (the tensor-core conv over the zero-dilated input,
+    ``csrc/conv3d.cu``)."""
+    return _tconv_apply(False, x_lo, spatial, wt, bias, skip, emit_stats)
+
+
+def conv_transpose3x3s2_input_grad(g_v, spatial, wt):
+    """Input gradient of :func:`conv_transpose3x3s2_flat`:
+    ``g_x[ci, i] = sum_{k, co} wt[ci, co, k] * g_v[co, 2i + k - 1]`` per axis,
+    bf16 operands, fp32 sums, bf16 result.
+
+    Args:
+        g_v: flat (Z, Cout, Y*X) bf16 cotangent of the output at ``spatial``.
+        wt: (Cin, Cout, 3, 3, 3), ``ConvTranspose3d``'s layout.
+    Returns:
+        flat (Z/2, Cin, Y/2*X/2) bf16.
+
+    CPU tensors run the plain version; CUDA tensors launch
+    ``tconv3_dgrad_mma_kernel``: the tensor-core SAME conv of ``g_v`` onto
+    the Cin channels (taps as they are) whose epilogue stores the even
+    voxels only; the products of odd output planes, and in tiles a row per
+    64-row block (X > 32) of odd rows, are not issued.
+    """
+    return _forward("tdgrad", False, g_v, None, spatial, wt)
 
 
 for _f in (conv3x3_fused_flat, conv3x3_fused_flat_parts, conv3x3_fused_flat_upconv,
-           conv3x3_fused_flat_res, conv_transpose3x3s2_flat):
+           conv3x3_fused_flat_res, conv_transpose3x3s2_flat, conv_transpose3x3s2_input_grad):
     _f.launches = 0
 del _f
 
 # each mode's kernel wrapper and plain version, which count its launches and calls
 _KERNELS = {"flat": conv3x3_fused_flat, "parts": conv3x3_fused_flat_parts,
             "upconv": conv3x3_fused_flat_upconv, "res": conv3x3_fused_flat_res,
-            "tconv": conv_transpose3x3s2_flat, "igrad": conv3x3_input_grad}
+            "tconv": conv_transpose3x3s2_flat, "igrad": conv3x3_input_grad,
+            "tdgrad": conv_transpose3x3s2_input_grad}
 _PLAINS = {"flat": conv3x3_fused_flat_plain, "parts": conv3x3_fused_flat_parts_plain,
            "upconv": conv3x3_fused_flat_upconv_plain, "res": conv3x3_fused_flat_res_plain,
-           "tconv": conv_transpose3x3s2_flat_plain, "igrad": conv3x3_input_grad_plain}
+           "tconv": conv_transpose3x3s2_flat_plain, "igrad": conv3x3_input_grad_plain,
+           "tdgrad": conv_transpose3x3s2_input_grad_plain}

@@ -22,7 +22,10 @@ costs ~15 us on the host). Span names start with ``km.``:
     ``km.train.backward``, ``km.train.optimizer``: the training step's
     phases;
   * ``km.conv.recompute``, ``km.conv.input_grad``, ``km.conv.weight_grad``:
-    the conv's autograd backward (on autograd's device thread on the card).
+    the conv's autograd backward (on autograd's device thread on the card);
+  * ``km.unet.tconv.bwd``, ``km.unet.se.bwd``, ``km.unet.residual.bwd``: the
+    residual executor's backward of a transposed conv (its input and weight
+    gradients), of a gate's pass and of a lift.
 """
 
 from __future__ import annotations

@@ -309,6 +309,58 @@ def test_bf16_residual_executor_within_jax_spread(case, rng):
             assert d <= bar, (port_name, other_name)
 
 
+def test_bf16_residual_executor_gradient_within_jax_spread(rng):
+    """The gradient of the heatmaps' inner product with a fixed projection,
+    over every parameter of a bf16 'gcr' ResidualUNetSE3D: the port's executor
+    under autograd (``KeyMorphNet.features`` with grad enabled; its plain
+    route on the CPU) against ``jax.grad`` of keymorph_tpu's bf16 flax module
+    on the same weights. keymorph_tpu's own spread is its bf16 gradient's
+    distance from the float64 module's (the port's module in float64): the
+    executor's lies within twice that of keymorph_tpu's and of float64's
+    (relative L2 over all leaves; bf16 rounding flips of an untrained net
+    move a gradient by tens of percent in either package)."""
+    cfg = dict(out_channels=K, f_maps=4, num_levels=3)
+    jm = junet.ResidualUNetSE3D(dtype=jnp.bfloat16, **cfg)
+    img = rng.uniform(0, 1, size=(1, 1, 16, 16, 16)).astype(np.float32)
+    x_cl = jnp.moveaxis(jnp.asarray(img), 1, -1).astype(jnp.bfloat16)
+    variables = _perturbed(jax.jit(jm.init)(jax.random.PRNGKey(5), x_cl), rng)
+    proj = rng.normal(size=(1, 16, 16, 16, K)).astype(np.float32)
+
+    def inner(params):
+        out = jm.apply({**variables, "params": params}, x_cl)
+        return jnp.sum(out.astype(jnp.float32) * proj)
+
+    g_jax = backbone_state_dict_from_flax(_np(jax.jit(jax.grad(inner))(variables["params"])))
+    sd = backbone_state_dict_from_flax(_np(variables["params"]))
+
+    def port(dtype, executor):
+        u = tunet.ResidualUNetSE3D(dtype=dtype, **cfg)
+        u.load_state_dict(sd)
+        if dtype == torch.float64:
+            u = u.double()
+        x = torch.tensor(img, dtype=dtype if dtype == torch.float64 else torch.float32)
+        f = KeyMorphNet(u, K).features(x) if executor else u(x).movedim(1, -1)
+        (f.double() * torch.tensor(proj, dtype=torch.float64)).sum().backward()
+        return {n: p.grad.double() for n, p in u.named_parameters()}
+
+    kernels.reset_counters()
+    g_exec = port(torch.bfloat16, True)
+    assert kernels.counters()["conv_transpose3x3s2_input_grad"]["plain_calls"] == 2
+    g64 = port(torch.float64, False)
+
+    def flat(g):
+        return torch.cat([g[n].double().ravel() for n in sorted(g64)])
+
+    def d(a, b):
+        return float((flat(a) - flat(b)).norm() / flat(b).norm())
+
+    spread = d(g_jax, g64)
+    print(f"residual_se gradient: executor vs keymorph_tpu {d(g_exec, g_jax):.3g}, vs float64 "
+          f"{d(g_exec, g64):.3g}; keymorph_tpu vs float64 {spread:.3g}")
+    assert 0 < spread
+    assert d(g_exec, g_jax) <= 2 * spread and d(g_exec, g64) <= 2 * spread
+
+
 @pytest.mark.parametrize("src,dst", [((14, 12, 10), (8, 8, 8)), ((6, 5, 7), (12, 16, 9)),
                                      ((20, 8, 9), (10, 8, 16))],
                          ids=["downsample", "upsample", "mixed"])

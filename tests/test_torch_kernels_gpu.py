@@ -1418,3 +1418,172 @@ def test_center_of_mass_keeps_its_gradient_on_the_card(rng, dev):
         center_of_mass(vol)
     center_of_mass(vol.detach())
     assert heatmap.heatmap_com.launches == n0 + 2
+
+
+# ---------------------------------------------------------------------------
+# the residual U-Nets' backward: the transposed conv's input and weight
+# gradients, the scSE gate's backward, a whole training step
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("spatial,cin,cout,offset", [
+    ((3, 5, 7), 64, 32, 0),    # odd Y*X at half resolution, X = 14: the scalar stagings
+    ((2, 4, 16), 64, 32, 0),   # X = 32: 16-byte loads, blocks every 64 rows
+    ((2, 3, 35), 128, 64, 1),  # X = 70: a block a row; unaligned operands
+    ((2, 2, 8), 256, 128, 0),
+    ((4, 8, 32), 32, 32, 0),   # a block a row at 32 channels (the 128^3 net's d2 at its narrowest)
+    ((1, 3, 5), 40, 72, 0),    # channels off every block
+])
+def test_tconv_backward_kernels_match_plain(rng, dev, spatial, cin, cout, offset):
+    """The transposed conv's input gradient (``tconv3_dgrad_mma_kernel``)
+    within one bf16 ulp of its plain version, the stride-2 fp32 ``conv3d``
+    (:func:`_conv_close`), and its weight gradient (``tconv3_wgrad_mma_kernel``
+    and its reduce) within WGRAD_TOL of S = the plain weight gradient of the
+    operands' magnitudes (an fp32 sum's error scales with S), bit for bit the
+    same across two calls; one launch each a call."""
+    from keymorph_tpu_torch.ops.cuda import conv3d
+
+    Zl, Yl, Xl = spatial
+    full = (2 * Zl, 2 * Yl, 2 * Xl)
+    x = _offset_copy(_bf16(rng, Zl, cin, Yl * Xl).to(dev), offset)
+    g = _offset_copy(_bf16(rng, full[0], cout, full[1] * full[2]).to(dev), offset)
+    wt = torch.tensor(rng.normal(size=(cin, cout, 3, 3, 3)).astype(np.float32) / np.sqrt(cout),
+                      device=dev)
+    dgrad, wgrad = conv3d.conv_transpose3x3s2_input_grad, conv3d.conv_transpose3x3s2_weight_grad
+    n0, m0 = dgrad.launches, wgrad.launches
+    k, p = dgrad(g, full, wt), conv3d.conv_transpose3x3s2_input_grad_plain(g, full, wt)
+    kw, kw2 = wgrad(x, full, g), wgrad(x, full, g)
+    pw = conv3d._tconv_weight_grad_plain(x, full, g)
+    mag = conv3d._tconv_weight_grad_plain(x.abs(), full, g.abs())
+    torch.cuda.synchronize()
+    assert dgrad.launches == n0 + 1 and wgrad.launches == m0 + 2
+    assert k.shape == p.shape == (Zl, cin, Yl * Xl) and k.dtype == torch.bfloat16
+    _conv_close(k, p)
+    assert kw.shape == pw.shape == (cin, cout, 3, 3, 3) and kw.dtype == torch.float32
+    assert torch.equal(kw, kw2)
+    ratio = ((kw - pw).abs() / mag.clamp_min(1e-30)).max().item()
+    print(f"tconv weight grad {spatial} {cin}->{cout}: |kernel - plain| / S = {ratio:.3g}")
+    assert bool(((kw - pw).abs() <= WGRAD_TOL * mag).all()), ratio
+
+
+def test_tconv_input_grad_is_the_adjoint_of_the_forward(rng, dev):
+    """<tconv(x), g> = <x, dgrad(g)> in float64 on the bf16 operands (no
+    bias, no skip): the plain input gradient is the transposed conv's
+    adjoint, and the kernel lies within its bf16 rounding of it."""
+    from keymorph_tpu_torch.ops.cuda import conv3d
+
+    full, cin, cout = (8, 8, 64), 64, 32
+    x = _bf16(rng, 4, cin, 4 * 32).to(dev)
+    g = _bf16(rng, full[0], cout, full[1] * full[2]).to(dev)
+    wt = torch.tensor(rng.normal(size=(cin, cout, 3, 3, 3)).astype(np.float32) / 8, device=dev)
+    lhs = x.double().reshape(4, cin, 4, 32).permute(1, 0, 2, 3)[None]
+    y = torch.nn.functional.conv_transpose3d(lhs, wt.to(torch.bfloat16).double(), stride=2,
+                                             padding=1, output_padding=1)[0]
+    a = float((y.permute(1, 0, 2, 3).reshape(full[0], cout, -1) * g.double()).sum())
+    for got in (conv3d.conv_transpose3x3s2_input_grad_plain(g, full, wt),
+                conv3d.conv_transpose3x3s2_input_grad(g, full, wt)):
+        b = float((x.double() * got.double()).sum())
+        s = float((x.double().abs() * got.double().abs()).sum())
+        assert abs(a - b) <= 2 ** -8 * s, (a, b, s)
+
+
+@pytest.mark.parametrize("Z,C,YX,offset", [(3, 32, 35, 0), (2, 64, 4097, 1), (4, 256, 130, 0),
+                                           (1, 48, 1, 0), (2, 128, 4096, 0)])
+def test_scse_gate_backward_kernel_matches_plain(rng, dev, Z, C, YX, offset):
+    """``scse_gate_bwd_kernel`` against its plain version on a block output
+    with zeros (a ReLU's: ties of the two gated values, whose gradient splits
+    evenly). The kernel forms the spatial gate from an fp32 sum taken in
+    another order, which may round to the neighbouring bf16 value and so move
+    a voxel's winner and its terms: the input gradient lies within two ulps
+    of the plain version's but for under 1% of its values, and each
+    per-channel sum within 1e-3 of the sum of its terms' magnitudes. Two
+    calls give the same bits (the partials are added in block order)."""
+    from keymorph_tpu_torch.ops.cuda import resblock
+
+    x = _offset_copy(torch.relu(_bf16(rng, Z, C, YX)).to(dev), offset)
+    g = _offset_copy(_bf16(rng, Z, C, YX).to(dev), offset)
+    gc = torch.sigmoid(torch.tensor(rng.normal(size=C).astype(np.float32))).to(
+        torch.bfloat16).float().to(dev)
+    ws = (torch.tensor(rng.normal(size=C + 1).astype(np.float32)) / np.sqrt(C)).to(
+        torch.bfloat16).float().to(dev)
+    n0 = resblock.scse_gate_bwd.launches
+    k, k2 = resblock.scse_gate_bwd(x, gc, ws, g), resblock.scse_gate_bwd(x, gc, ws, g)
+    p = resblock.scse_gate_bwd_plain(x, gc, ws, g)
+    torch.cuda.synchronize()
+    assert resblock.scse_gate_bwd.launches == n0 + 2
+    assert all(torch.equal(a, b) for a, b in zip(k, k2))
+    kx, px = k[0].float(), p[0].float()
+    assert k[0].shape == x.shape and k[0].dtype == torch.bfloat16
+    off = (kx - px).abs() > 2 * torch.maximum(_ulp(kx), _ulp(px)) + 1e-6 * px.abs().max()
+    assert float(off.float().mean()) < 0.01, float(off.float().mean())
+    xf, gf = x.float(), g.float()
+    mag_c = (gf.abs() * xf).sum(dim=(0, 2))
+    mag_w = torch.cat([((gf.abs() * xf).sum(dim=1, keepdim=True) * xf).sum(dim=(0, 2)),
+                       gf.abs().sum(dim=1).sum().reshape(1)]) * float(ws.abs().max() + 1)
+    for got, want, mag in ((k[1], p[1], mag_c), (k[2], p[2], mag_w)):
+        err = (got - want).abs()
+        print(f"gate backward {Z}x{C}x{YX}: |kernel - plain| / S = "
+              f"{(err / mag.clamp_min(1e-30)).max().item():.3g}")
+        assert bool((err <= 1e-3 * mag + 1e-6).all())
+
+
+def test_residual_training_step_on_the_card_matches_its_plain_route(dev):
+    """One ``make_train_step`` step of a bf16 ResidualUNetSE3D at 64^3
+    (f_maps 16, 4 levels, 32 keypoints, 16 a step, TPS) on the kernels and on
+    ``plain=True`` from the same weights, pair and draws: every form's kernel
+    and both backward kernels launch, no plain version is called; the loss
+    and the first gradient (Adam's first moment over 1 - beta1) lie within
+    three times the plain route's own distance from the plain route on the
+    moving volume nudged by half a bf16 ulp (the yardstick of rounding: an
+    untrained bf16 net's gradient moves by tens of percent on rounding
+    flips), plus 1e-3 of the loss."""
+    from keymorph_tpu_torch.models.keymorph import KeyMorphNet
+    from keymorph_tpu_torch.models.unet import ResidualUNetSE3D, init_weights
+    from keymorph_tpu_torch.ops import cuda as kernels
+    from keymorph_tpu_torch.training import train
+    from keymorph_tpu_torch.training.config import Config
+
+    K, size = 32, 64
+    gen = torch.Generator().manual_seed(5)
+    cfg = Config(num_keypoints=K, backbone="residualunetse", transform_type="tps_loguniform",
+                 max_train_keypoints=16, img_size=(size,) * 3, lr=3e-6, use_amp=True)
+    base = init_weights(ResidualUNetSE3D(K, f_maps=16, num_levels=4, dtype=torch.bfloat16), gen)
+    imgs = torch.nn.functional.interpolate(torch.rand((2, 1, 6, 6, 6), generator=gen),
+                                           size=(size,) * 3, mode="trilinear").to(dev)
+    ulp = _ulp(imgs[1:].to(torch.bfloat16).float())
+    nudged = imgs[1:] + (torch.rand(imgs[1:].shape, generator=gen).to(dev) - 0.5) * ulp
+    draw = dict(lmbda=torch.tensor([0.1], device=dev),
+                keypoint_idx=torch.randperm(K, generator=gen)[:16].to(dev),
+                aug_params=tuple(torch.tensor(v, device=dev) for v in
+                                 ([[1.05, 0.97, 1.02]], [[0.01, 0.02, -0.01]],
+                                  [[0.1, -0.2, 0.05]], [[0.02, 0.0, -0.03, 0.01, 0.0, 0.02]])))
+
+    def one(moving, plain):
+        import copy
+
+        net = KeyMorphNet(copy.deepcopy(base), K).to(dev)
+        state = train.TrainState.create(net, train.make_optimizer(cfg, net))
+        step = train.make_train_step(net, cfg, plain=plain)
+        kernels.reset_counters()
+        _, out = step(state, None, imgs[:1], moving, None, None, 1.0, **draw)
+        torch.cuda.synchronize()
+        b1 = state.optimizer.param_groups[0]["betas"][0]
+        g = torch.cat([(state.optimizer.state[p]["exp_avg"] / (1 - b1)).ravel()
+                       for p in net.parameters()])
+        return float(out["loss"]), g, kernels.counters()
+
+    loss_k, g_k, counts = one(imgs[1:], False)
+    loss_p, g_p, _ = one(imgs[1:], True)
+    loss_n, g_n, _ = one(nudged, True)
+    for name in ("conv3x3_fused_flat", "conv3x3_fused_flat_res", "conv3x3_input_grad",
+                 "conv3x3_weight_grad", "conv_transpose3x3s2_flat",
+                 "conv_transpose3x3s2_input_grad", "conv_transpose3x3s2_weight_grad",
+                 "scse_gate_flat", "scse_gate_bwd", "lift1x1_flat"):
+        assert counts[name]["launches"] > 0, name
+    assert not any(c["plain_calls"] for c in counts.values()), counts
+    d_k = float((g_k - g_p).norm() / g_p.norm())
+    d_n = float((g_n - g_p).norm() / g_p.norm())
+    print(f"64^3 step: loss kernel {loss_k:.6g} plain {loss_p:.6g} nudged {loss_n:.6g}; "
+          f"gradient kernel - plain {d_k:.3g}, nudged - plain {d_n:.3g}")
+    assert abs(loss_k - loss_p) <= 3 * abs(loss_n - loss_p) + 1e-3 * abs(loss_p)
+    assert d_k <= 3 * d_n + 1e-3

@@ -1,7 +1,8 @@
-"""The residual U-Nets' serving executor (``models/fast_resunet.py``) on the
-CPU: its plain route against the bf16 modules and the benchmark's plain
-reference (``kmbench/reference/resunet_se.py``), the route
-``KeyMorphNet.features`` takes, and the backbones the predicate refuses.
+"""The residual U-Nets' executor (``models/fast_resunet.py``) on the CPU: its
+plain route against the bf16 modules and the benchmark's plain references
+(``kmbench/reference/resunet_se.py``, ``train_resunet.py``), forward and
+backward, the route ``KeyMorphNet.features`` takes, the backward of each form
+against autograd of its equations, and the backbones the predicate refuses.
 
 A random-weight bf16 net is held to its own rounding: the bf16 module's
 distance from the same module in float64 is the yardstick, and every sound
@@ -10,6 +11,14 @@ within it of each other. They differ by bf16 rounding flips only (GroupNorm
 folded into the conv against normalize-then-affine, fp32 sums in other
 orders), which the scSE gate's global squeeze spreads over whole channels.
 The reference with fp8 conv operands lies several yardsticks away.
+
+Gradients likewise: every sound bf16 computation of the net's gradient (the
+executor, the module, the reference) lies within the bf16 module's distance
+from the float64 module's gradient of each other (relative L2 over all
+leaves: 0.22-0.30 at these sizes, each from the others 0.03-0.11), and the
+training step's within the reference's own distance from itself on weights
+nudged by half a bf16 ulp (0.15-0.25; the program 0.01-0.08 from it). fp8
+conv operands move the gradient by 0.44-1.06 of its norm.
 """
 
 import pytest
@@ -25,7 +34,7 @@ from keymorph_tpu_torch.models.unet import (ResidualUNet3D, ResidualUNetSE3D, Re
                                             TransposeConvUpsampling, TruncatedUNet3D,
                                             init_weights, supports_fast_resunet)
 from keymorph_tpu_torch.ops import cuda as kernels
-from keymorph_tpu_torch.ops.cuda import conv3d
+from keymorph_tpu_torch.ops.cuda import conv3d, resblock
 from kmbench import inputs
 from kmbench.reference import resunet_se
 from kmbench.reference.precision import REFERENCE, Precision, store
@@ -96,10 +105,13 @@ def test_fp8_convs_fail_the_yardstick(kind):
 
 
 def test_features_takes_the_executor_only_without_grad():
-    """``KeyMorphNet.features`` serves a bf16 'gcr' residual net through the
-    executor under ``torch.no_grad()`` (its plain versions count calls on
-    the CPU) and through the module's forward with grad enabled (training:
-    no executor call, a differentiable output)."""
+    """``KeyMorphNet.features`` runs a bf16 'gcr' residual net through the
+    executor under ``torch.no_grad()`` (serving; its plain versions count
+    calls on the CPU) and with grad enabled (training: the same calls and a
+    differentiable output, equal to the served heatmaps; its pool is then
+    the differentiable reshape-and-amax), and an fp32 or a
+    'cr' residual net through its module's forward with grad enabled (no
+    executor call)."""
     net, _, _, img = _nets("resnetse")
     km = KeyMorphNet(net, K)
     kernels.reset_counters()
@@ -113,8 +125,17 @@ def test_features_takes_the_executor_only_without_grad():
     kernels.reset_counters()
     trained = km.features(img)
     assert trained.requires_grad
-    assert all(c["plain_calls"] == 0 for c in kernels.counters().values())
-    assert torch.equal(trained.detach(), net(img).movedim(1, -1).detach())
+    # the pool under autograd is the uncounted reshape-and-amax
+    assert kernels.counters() == dict(counts, maxpool2_flat={"launches": 0, "plain_calls": 0})
+    assert torch.equal(trained.detach(), served)
+    for module in (ResidualUNetSE3D(K, f_maps=F_MAPS, num_levels=2, dtype=torch.float32),
+                   ResidualUNet3D(K, f_maps=F_MAPS, num_levels=2, layer_order="cr",
+                                  dtype=torch.bfloat16)):
+        kernels.reset_counters()
+        out = KeyMorphNet(module, K).features(img[..., :16, :16, :16])
+        assert out.requires_grad
+        assert all(c["plain_calls"] == 0 for c in kernels.counters().values())
+        assert torch.equal(out.detach(), module(img[..., :16, :16, :16]).movedim(1, -1).detach())
 
 
 def test_predicate_refuses_other_backbones():
@@ -239,24 +260,283 @@ def test_form_plain_matches_its_module(form):
 
 @pytest.mark.parametrize("form", ["res", "tconv"])
 def test_forms_refuse_grad_requiring_inputs(form):
-    """Both serving forms are forward-only: with grad enabled, a source that
-    requires grad raises the forward-only RuntimeError before any work (no
-    plain call is counted); under no_grad the same call runs."""
+    """With grad enabled and a source that requires grad, both forms run
+    (one plain call) and their output carries its backward, whose plain
+    versions are counted; only the pool kernel, which has no backward,
+    refuses such an input (the forward-only RuntimeError, before any
+    work)."""
     x = torch.zeros((2, 8, 16), dtype=torch.bfloat16, requires_grad=True)
     if form == "res":
-        name = "conv3x3_fused_flat_res"
+        name, grads = "conv3x3_fused_flat_res", ("conv3x3_input_grad", "conv3x3_weight_grad")
         def call():
-            return conv3d.conv3x3_fused_flat_res(x, (2, 4, 4), torch.zeros((3, 3, 3, 8, 8)),
-                                                 residual=x.detach())
+            return conv3d.conv3x3_fused_flat_res(x, (2, 4, 4), w, residual=x.detach())
+        w = torch.zeros((3, 3, 3, 8, 8), requires_grad=True)
     else:
         name = "conv_transpose3x3s2_flat"
+        grads = ("conv_transpose3x3s2_input_grad", "conv_transpose3x3s2_weight_grad")
         def call():
-            return conv3d.conv_transpose3x3s2_flat(x, (4, 8, 8), torch.zeros((8, 4, 3, 3, 3)))
+            return conv3d.conv_transpose3x3s2_flat(x, (4, 8, 8), w)
+        w = torch.zeros((8, 4, 3, 3, 3), requires_grad=True)
     kernels.reset_counters()
-    with pytest.raises(RuntimeError, match=f"{name} is forward-only"):
-        call()
-    assert all(c["plain_calls"] == 0 for c in kernels.counters().values())
-    with torch.no_grad():
-        call()
-    assert kernels.counters()[name]["plain_calls"] == 1
+    out = call()
+    assert out.requires_grad and kernels.counters()[name]["plain_calls"] == 1
+    out.float().sum().backward()
+    counts = kernels.counters()
+    assert all(counts[g]["plain_calls"] == 1 for g in grads), counts
+    assert x.grad is not None and x.grad.shape == x.shape and w.grad.shape == w.shape
+    with pytest.raises(RuntimeError, match="maxpool2_flat is forward-only"):
+        resblock.maxpool2_flat(x, (2, 4, 4))
+    assert kernels.counters()["maxpool2_flat"]["plain_calls"] == 0
 
+
+def _flat_grads(net, fn, proj):
+    """The gradient of <fn(), proj> over every parameter of ``net`` and the
+    input (``fn`` takes the input), flattened in float64."""
+    img = fn.img.clone().requires_grad_(True)
+    net.zero_grad()
+    (fn(img).double() * proj).sum().backward()
+    return torch.cat([p.grad.double().ravel() for p in net.parameters()]
+                     + [img.grad.double().ravel()])
+
+
+def _d(a, b):
+    return float((a - b).norm() / b.norm())
+
+
+@pytest.mark.parametrize("kind", sorted(KINDS))
+def test_executor_gradients_match_the_module_and_the_reference(kind):
+    """The gradient of the heatmaps' inner product with a fixed projection,
+    over every parameter and the input volume: the executor's (CPU default
+    and ``plain=True``, the same plain versions and backward here), the bf16
+    module's autograd and the reference's (``resunet_se.features`` and its
+    head, autograd in float32) lie within the bf16 module's distance from
+    float64 of each other (the module docstring's yardstick); the reference
+    with fp8 conv operands does not."""
+    net, n64, w, img = _nets(kind, seed=1)
+    proj = torch.randn((1, SIZE, SIZE, SIZE, K), generator=torch.Generator().manual_seed(5),
+                       dtype=torch.float64)
+
+    def route(f):
+        f.img = img
+        return f
+
+    exe = _flat_grads(net, route(lambda x: fast_resunet_forward(net, x)), proj)
+    plain = _flat_grads(net, route(lambda x: fast_resunet_forward(net, x, plain=True)), proj)
+    mod = _flat_grads(net, route(lambda x: net(x).movedim(1, -1)), proj)
+    f64 = _flat_grads(n64, route(lambda x: n64(x.double()).movedim(1, -1)), proj)
+
+    def reference(prec):
+        p = {k: v.clone().requires_grad_(True) for k, v in w.items()}
+        x = img.clone().requires_grad_(True)
+        heat = _reference_heatmaps(p, x, prec)
+        (heat.double() * proj).sum().backward()
+        return torch.cat([p[n].grad.double().ravel() for n, _ in net.named_parameters()]
+                         + [x.grad.double().ravel()])
+
+    ref, ref8 = reference(REFERENCE), reference(Precision("fp8", "fp32"))
+    bar = _d(mod, f64)
+    print(f"{kind}: executor-module {_d(exe, mod):.3g}, executor-reference {_d(exe, ref):.3g}, "
+          f"module-float64 {bar:.3g}, fp8-executor {_d(ref8, exe):.3g}")
+    assert torch.equal(exe, plain)
+    assert _d(exe, mod) <= bar and _d(exe, ref) <= bar and _d(ref, mod) <= bar
+    assert _d(ref8, exe) > bar
+
+
+@pytest.mark.parametrize("kind", sorted(KINDS))
+def test_checkpointed_executor_gives_the_same_gradients(kind):
+    """``use_checkpoint`` replays each residual block in the backward through
+    ``KeyMorphNet.features``: the same arithmetic, so the heatmaps and the
+    gradients of every parameter and of the input are bit-identical, and
+    the replay shows as extra forward calls of the residual conv."""
+    cls, _ = KINDS[kind]
+    _, _, w, img = _nets(kind, seed=2)
+    img = img[..., :16, :16, :16]
+    proj = torch.randn((1, 16, 16, 16, K), generator=torch.Generator().manual_seed(7))
+    heats, grads, calls = [], [], []
+    for ckpt in (False, True):
+        net = cls(K, f_maps=F_MAPS, num_levels=LEVELS, dtype=torch.bfloat16,
+                  use_checkpoint=ckpt)
+        net.load_state_dict(w, strict=True)
+        x = img.clone().requires_grad_(True)
+        kernels.reset_counters()
+        heat = KeyMorphNet(net, K).features(x)
+        (heat.float() * proj).sum().backward()
+        calls.append(kernels.counters()["conv3x3_fused_flat_res"]["plain_calls"])
+        heats.append(heat.detach())
+        grads.append({"img": x.grad, **{k: p.grad for k, p in net.named_parameters()}})
+    # without the replay: each block's forward and its backward's recomputation
+    assert calls[0] == 2 * (2 * LEVELS - 1) and calls[1] > calls[0], calls
+    assert torch.equal(heats[0], heats[1])
+    for k in grads[0]:
+        assert grads[0][k] is not None and torch.equal(grads[0][k], grads[1][k]), k
+
+
+@pytest.mark.parametrize("kind", sorted(KINDS))
+def test_training_step_gradient_matches_the_reference_step(kind):
+    """One ``make_train_step`` step of the port (the executor under autograd)
+    against ``kmbench/reference/train_resunet.py``'s first step following its
+    keypoints, from the same weights, pair and draws: the first gradient
+    (Adam's first moment over 1 - beta1) lies within the reference's own
+    distance from itself on weights nudged by half a bf16 ulp, and the
+    reference with fp8 conv operands lies beyond it; the loss agrees to
+    1e-5 of itself."""
+    from kmbench import judge
+    from kmbench.drivers.train import recipe
+    from kmbench.reference import train_resunet
+    from keymorph_tpu_torch.training import train
+
+    cfg = {"backbone": kind.replace("resnet", "residualunet"), "num_levels_for_unet": LEVELS,
+           "num_truncated_layers_for_truncatedunet": 0, "f_maps": F_MAPS, "layer_order": "gcr",
+           "num_groups": 8, "kp_layer": "com", "precision": {"backbone": "bf16"},
+           "num_keypoints": K, "img_size": [16] * 3, "transform_type": "tps_loguniform",
+           "loss_fn": "mse", "max_train_keypoints": 4, "max_train_tps_lmbda": 10.0, "lr": 3e-6,
+           "batch_size": 1}
+    _, se = KINDS[kind]
+    w = inputs.make_weights(2, resunet_se.param_specs(F_MAPS, LEVELS, K, se=se), "cpu")
+    net = KeyMorphNet(KINDS[kind][0](K, f_maps=F_MAPS, num_levels=LEVELS, dtype=torch.bfloat16),
+                      K)
+    net.backbone.load_state_dict(w, strict=True)
+    config = recipe(cfg)
+    state = train.TrainState.create(net, train.make_optimizer(config, net))
+    pool = inputs.make_pool(2, 2, 16, "cpu")
+    d = inputs.train_draws(2, 1, K, 4, 10.0, (0.2, 0.2, 3.1416, 0.1), "cpu")
+    points = []
+    hook = net.register_forward_hook(
+        lambda m, a, o: points.append((o[0].detach().clone(), o[1].detach().clone())))
+    out = train.make_train_step(net, config)(
+        state, None, pool[:1], pool[1:], None, None, 1.0, lmbda=d["lmbda"],
+        keypoint_idx=d["keypoint_idx"][0],
+        aug_params=tuple(d[k] for k in ("scale", "offset", "theta", "shear")))[1]
+    hook.remove()
+    names = {p: n.removeprefix("backbone.") for n, p in net.named_parameters()}
+    beta1 = state.optimizer.param_groups[0]["betas"][0]
+    prog = torch.cat([(state.optimizer.state[p]["exp_avg"] / (1 - beta1)).ravel()
+                      for p in net.parameters()])
+
+    def reference(weights, prec=REFERENCE):
+        losses, first, _, _ = train_resunet.run(weights, [(pool[:1], pool[1:])], d, 3e-6, 1,
+                                                LEVELS, prec, forced=points)
+        return losses[0], torch.cat([first[names[p]].ravel() for p in net.parameters()])
+
+    loss, ref = reference(w)
+    _, nudged = reference(judge.nudge(w, torch.Generator().manual_seed(9)))
+    _, fp8 = reference(w, Precision("fp8", "fp32"))
+    bar = _d(nudged, ref)
+    print(f"{kind}: step gradient program-reference {_d(prog, ref):.3g}, nudged-reference "
+          f"{bar:.3g}, fp8-program {_d(fp8, prog):.3g}")
+    assert abs(float(out["loss"]) - loss) <= 1e-5 * loss
+    assert _d(prog, ref) <= bar < _d(fp8, prog)
+
+
+def _through(x):
+    """bf16 rounding forward, the identity backward."""
+    return x + (x.to(torch.bfloat16).float() - x).detach()
+
+
+def test_gate_backward_splits_ties_as_torch_maximum():
+    """``scse_gate_bwd_plain`` (the arithmetic of ``scse_gate_bwd_kernel``)
+    against autograd of the gate's equations in float32 with straight-through
+    roundings and ``torch.maximum``, on a block output with zeros (both gated
+    values 0: a tie) and planted positive ties (g_c equal to a voxel's g_s, so
+    the two rounded products are equal): the input gradient to one bf16
+    rounding (2^-8 of its largest value), the sums for g_c and the spatial
+    gate's weights and bias to 1e-5 of their largest term sums."""
+    gen = torch.Generator().manual_seed(3)
+    Z, C, N = 3, 8, 40
+    x = torch.relu(torch.randn((Z, C, N), generator=gen)).to(torch.bfloat16)
+    ws = (torch.randn(C + 1, generator=gen) / 3).to(torch.bfloat16).float()
+    g = torch.randn((Z, C, N), generator=gen).to(torch.bfloat16)
+    xf = x.float()
+    gs = torch.sigmoid(_through(torch.einsum("c,zcn->zn", ws[:C], xf) + ws[C]))
+    gs = _through(gs)
+    g_c = torch.sigmoid(torch.randn(C, generator=gen)).to(torch.bfloat16).float()
+    g_c[:4] = gs[0, :4].detach()  # channel c of voxel c on plane 0: a positive tie
+    a = _through(xf * g_c[None, :, None])
+    b = _through(xf * gs[:, None, :])
+    ties = (a == b) & (xf > 0)
+    assert int(ties.sum()) >= 4 and int(((a == b) & (xf == 0)).sum()) > 0
+
+    xr = xf.clone().requires_grad_(True)
+    gcr = g_c.clone().requires_grad_(True)
+    wr = ws.clone().requires_grad_(True)
+    s = torch.sigmoid(_through(torch.einsum("c,zcn->zn", wr[:C], xr) + wr[C]))
+    out = torch.maximum(_through(xr * gcr[None, :, None]), _through(xr * _through(s)[:, None, :]))
+    want = torch.autograd.grad((out * g.float()).sum(), [xr, gcr, wr])
+    got = resblock.scse_gate_bwd_plain(x, g_c, ws, g)
+    assert got[0].dtype == torch.bfloat16
+    assert float((got[0].float() - want[0]).abs().max()) <= 2 ** -8 * float(want[0].abs().max())
+    mag_c = (g.float().abs() * xf).sum(dim=(0, 2))
+    assert bool(((got[1] - want[1]).abs() <= 1e-5 * mag_c.max()).all())
+    assert float((got[2] - want[2]).abs().max()) <= 1e-5 * float(
+        (g.float().abs() * xf).sum() * (xf.max() + 1))
+
+
+@pytest.mark.parametrize("form", ["lift", "tconv", "res"])
+def test_form_backward_matches_autograd_of_its_equations(form):
+    """Each form's backward (its plain route: ``_Lift``, ``_TConv`` and the
+    residual form of ``_FusedConv``) against autograd of the same equations
+    in float32 with straight-through roundings, through the output and its
+    stats (a scalar of both): every input's gradient within 2^-7 of its norm
+    (relative L2). The forms round the cotangent to bf16 once, as the kernels
+    take it, and a bf16 gradient once more: two roundings of 2^-9 an
+    element; a term left out or a tap flipped moves it by its own size."""
+    gen = torch.Generator().manual_seed(4)
+    spatial = (4, 6, 8)
+    Z, Y, X = spatial
+    N = Y * X
+    if form == "lift":
+        ins = [torch.randn((Z, 5, N), generator=gen).to(torch.bfloat16),
+               torch.randn((12, 5), generator=gen), torch.randn(12, generator=gen)]
+
+        def ours(x, w, b):
+            return resblock.lift1x1_flat_plain(x, w, b)
+
+        def eq(x, w, b):
+            y = _through(torch.einsum("oc,zcn->zon", _through(w), x.float())
+                         + _through(b)[None, :, None])
+            return y, (y.mean(dim=(0, 2)), (y * y).mean(dim=(0, 2)))
+    elif form == "tconv":
+        ins = [torch.randn((Z // 2, 6, N // 4), generator=gen).to(torch.bfloat16),
+               torch.randn((6, 4, 3, 3, 3), generator=gen) / 4, torch.randn(4, generator=gen),
+               torch.randn((Z, 4, N), generator=gen).to(torch.bfloat16)]
+
+        def ours(x, wt, b, skip):
+            return conv3d.conv_transpose3x3s2_flat_plain(x, spatial, wt, b, skip, True)
+
+        def eq(x, wt, b, skip):
+            lhs = x.float().reshape(Z // 2, 6, Y // 2, X // 2).permute(1, 0, 2, 3)[None]
+            t = torch.nn.functional.conv_transpose3d(lhs, _through(wt), b, stride=2, padding=1,
+                                                     output_padding=1)[0]
+            y = _through(_through(t.permute(1, 0, 2, 3).reshape(Z, 4, N)) + skip.float())
+            return y, (y.mean(dim=(0, 2)), (y * y).mean(dim=(0, 2)))
+    else:
+        ins = [torch.randn((Z, 6, N), generator=gen).to(torch.bfloat16),
+               torch.randn((3, 3, 3, 6, 6), generator=gen) / 8,
+               torch.rand(6, generator=gen) + 0.5, torch.randn(6, generator=gen) / 4,
+               torch.randn((Z, 6, N), generator=gen).to(torch.bfloat16)]
+
+        def ours(x, w, sc, sh, res):
+            return conv3d.conv3x3_fused_flat_res_plain(x, spatial, w, sc, sh, None, True, True,
+                                                       residual=res)
+
+        def eq(x, w, sc, sh, res):
+            u = _through(x.float() * sc[None, :, None] + sh[None, :, None])
+            lhs = u.reshape(Z, 6, Y, X).permute(1, 0, 2, 3)[None]
+            v = torch.nn.functional.conv3d(lhs, _through(w).permute(4, 3, 0, 1, 2), padding=1)[0]
+            y = _through(torch.relu(_through(v.permute(1, 0, 2, 3).reshape(Z, 6, N))
+                                    + res.float()))
+            return y, (y.mean(dim=(0, 2)), (y * y).mean(dim=(0, 2)))
+    proj = torch.randn(ins[-1].shape if form != "lift" else (Z, 12, N), generator=gen)
+    if form == "tconv":
+        proj = torch.randn((Z, 4, N), generator=gen)
+    pm, pq = torch.randn(proj.shape[1], generator=gen), torch.randn(proj.shape[1], generator=gen)
+
+    def grads(fn):
+        leaves = [t.clone().float().requires_grad_(True) if t.dtype == torch.float32
+                  else t.clone().requires_grad_(True) for t in ins]
+        y, (m, q) = fn(*leaves)
+        ((y.float() * proj).sum() + (m * pm).sum() + (q * pq).sum()).backward()
+        return [t.grad.float() for t in leaves]
+
+    for got, want in zip(grads(ours), grads(eq)):
+        assert float((got - want).norm()) <= 2 ** -7 * float(want.norm())
