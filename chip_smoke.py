@@ -45,7 +45,10 @@ Phases (each prints its lines; any failure raises, so the exit code is not 0):
      keypoint head's one read of 256 bf16
      heatmaps at 128^3 and 256^3 (``heatmap_com``; library: ``torch.relu``
      and the three marginal ``torch.sum``s), kernel and plain version each
-     held against a float64 centre of mass (``_phase1_head``); the three
+     held against a float64 centre of mass (``_phase1_head``); the U-Nets'
+     final 1x1 conv, 32 -> 256 channels at 128^3 and 256^3 and the training
+     net's 32 -> 128 at 128^3 (``final_conv1x1``; library: a bf16
+     ``torch.matmul`` plus the bias; ``_phase1_final_conv``); the three
      TPS kernels and their plain versions are each held against the float64
      evaluation of the same formula, for splines fitted at lmbda 1, 1e-4 and
      1e-6 (the bottom of the range training draws from); the TPS backward
@@ -390,6 +393,8 @@ REPLACES = {
     "pool": "none: flax nn.max_pool, keymorph_tpu/models/unet.py:261",
     # no Pallas kernel: keymorph_tpu's centre of mass is plain XLA
     "head": "none: XLA relu and sums, keymorph_tpu/models/layers.py:19",
+    # no Pallas kernel: keymorph_tpu's final 1x1 conv is an XLA einsum
+    "final": "none: XLA einsum, keymorph_tpu/models/fast_unet.py:504",
 }
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense): the bounds
@@ -732,6 +737,7 @@ def phase1(torch, rng, dev):
     _phase1_residual_net(torch, rng, dev, bf16, weights, gn, record)
     _phase1_residual_backward(torch, rng, dev, bf16, record)
     _phase1_head(torch, dev, record)
+    _phase1_final_conv(torch, dev, record)
 
     # conv input gradient at the training step's shapes (128^3 input): e0c2,
     # its largest conv (cotangent 32 channels -> gradient 16 channels); the
@@ -1256,6 +1262,52 @@ def _phase1_head(torch, dev, record):
         torch.cuda.empty_cache()
 
 
+def _phase1_final_conv(torch, dev, record):
+    """The U-Nets' final 1x1 conv, 32 -> 256 channels at the DoubleConv
+    net's 128^3 heatmaps and the residual net's 256^3, and the 128^3
+    training net's 32 -> 128: ``final_conv1x1`` against
+    ``final_conv1x1_plain``, one bf16 ulp of each output plus CONV_FLOOR of
+    the range (the fp32 sum in another order), held 16 planes at a time (an
+    fp32 copy of 256 channels at 256^3 would take 17 GB); the library
+    yardstick a bf16 ``torch.matmul`` plus the bias in bf16 (two writes of
+    the heatmaps); the bound, the features read and the heatmaps written
+    once (or the products at the bf16 peak)."""
+    from keymorph_tpu_torch.ops.cuda import heatmap
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 25)
+    for side, cin, k in ((128, 32, 256), (256, 32, 256), (128, 32, 128)):
+        spatial = (side,) * 3
+        xf = torch.randn((side, cin, side * side), generator=gen, device=dev).to(torch.bfloat16)
+        w = torch.randn((k, cin), generator=gen, device=dev) / cin ** 0.5
+        b = torch.randn(k, generator=gen, device=dev) * 0.1
+        out = torch.empty((*spatial, k), dtype=torch.bfloat16, device=dev)
+        ref = torch.empty_like(out)
+        heatmap.final_conv1x1(xf, spatial, w, b, out)
+        heatmap.final_conv1x1_plain(xf, spatial, w, b, ref)
+        top = max(ref[z:z + 16].float().abs().max().item() for z in range(0, side, 16))
+        err, ok = 0.0, bool(out.isfinite().all())
+        for z in range(0, side, 16):
+            kz, pz = out[z:z + 16].float(), ref[z:z + 16].float()
+            d = (kz - pz).abs()
+            err = max(err, d.max().item())
+            ok &= bool((d <= CONV_REL_ULP * pz.abs() + CONV_FLOOR * top).all())
+            del kz, pz, d
+        del ref
+        wb, bb = w.t().to(torch.bfloat16), b.to(torch.bfloat16)
+        ms = _cuda_ms(lambda: heatmap.final_conv1x1(xf, spatial, w, b, out), 20)
+        pms = _cuda_ms(lambda: heatmap.final_conv1x1_plain(xf, spatial, w, b, out), 3)
+        lms = _cuda_ms(lambda: torch.matmul(xf.transpose(1, 2), wb) + bb, 3)
+        nbytes = xf.numel() * 2 + out.numel() * 2
+        bound = _bound(nbytes, 2.0 * cin * out.numel() / PEAK_BF16)
+        warps, tpw, group = heatmap.final_conv_plan(cin, k)
+        record("final_conv1x1", err, ms, pms, lms, bound,
+               f"final 1x1 conv {cin}->{k} @{side}^3 ({warps} warps of {tpw} tiles a block, "
+               f"{-(-k // group)} launch)", f"tol 1 bf16 ulp + {CONV_FLOOR}*max", ok,
+               extra={"TB_per_s": nbytes / ms / 1e9, "bound_share": bound[0] / ms})
+        del xf, out
+        torch.cuda.empty_cache()
+
+
 def _phase1_past_the_old_limits(torch, dev, record, flush):
     """Phase 1's TPS kernels at T = LIMIT_T (B4 on a 64^3 grid, B4p and B7
     on 32^3 points, from a real fit) and ``tps_flow`` and ``warp_planes`` at
@@ -1432,6 +1484,9 @@ def phase2(torch, net, pairs):
     if counts["heatmap_com"]["launches"] != 2 * len(pairs):
         raise AssertionError(f"phase 2: the head kernel launched "
                              f"{counts['heatmap_com']['launches']} times, not 2 a pair")
+    if counts["final_conv1x1"]["launches"] != 2 * len(pairs):
+        raise AssertionError(f"phase 2: the final conv kernel launched "
+                             f"{counts['final_conv1x1']['launches']} times, not 2 a pair")
     if any(c["plain_calls"] for c in counts.values()):
         raise AssertionError(f"phase 2 ran a plain version: {counts}")
     for pf, pm, planes, warped in outs:
@@ -4353,7 +4408,7 @@ def phase18(torch, dev):
     keypoints) served through ``KeyMorphNet.features`` under no_grad, the
     counters set to 0 just before: each residual kernel launches as often as
     the net has its layers (7 block-first convs, 7 block ends, 4 lifts, 3
-    pools, 3 transposed convs, 7 gates) and no plain version runs. Its
+    pools, 3 transposed convs, 7 gates, 1 final conv) and no plain version runs. Its
     heatmaps and keypoints against its plain route (``plain=True``) under
     phase 3's yardstick rule. Weights from the seed, biases and norm affines
     moved off their init. Returns the launch counts."""
@@ -4371,7 +4426,8 @@ def phase18(torch, dev):
     net = KeyMorphNet(backbone, RESUNET["out_channels"]).to(dev).eval()
     img = _make_pairs(torch, np.random.default_rng([SEED, 18]), dev, n_pairs=1)[0][0]
     want = {"conv3x3_fused_flat": 7, "conv3x3_fused_flat_res": 7, "lift1x1_flat": 4,
-            "maxpool2_flat": 3, "conv_transpose3x3s2_flat": 3, "scse_gate_flat": 7}
+            "maxpool2_flat": 3, "conv_transpose3x3s2_flat": 3, "scse_gate_flat": 7,
+            "final_conv1x1": 1}
     with torch.no_grad():
         net.features(img)  # first call: the kernels' shapes warm
         torch.cuda.synchronize()
@@ -4605,6 +4661,7 @@ def main():
         entry("scse_gate_flat", "scse", "resblock.cu"),
         entry("maxpool2_flat", "pool", "resblock.cu"),
         entry("heatmap_com", "head", "heatmap.cu"),
+        entry("final_conv1x1", "final", "heatmap.cu"),
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,64 @@
-// The keypoint head in one read of the heatmaps (models/layers.py:center_of_mass,
-// ops/cuda/heatmap.py:heatmap_com). For each channel c of each batch item, the
+// The heatmaps' producer and their consumer: the U-Nets' final 1x1 conv
+// (final1x1_mma_kernel, ops/cuda/heatmap.py:final_conv1x1), which writes them,
+// and the keypoint head (heatmap_moments_kernel, heatmap_finish_kernel,
+// ops/cuda/heatmap.py:heatmap_com), which reads them once.
+//
+// final1x1_mma_kernel: for each voxel v of a volume's flat (Z, Cin, Y*X)
+// bf16 features x and each output channel k,
+//
+//   heat[v, k] = bf16(sum_c bf16(x[c, v]) * bf16(W[k, c]) + b[k])
+//
+// bf16 operands, fp32 products and sums, the fp32 bias, one rounding (what
+// both executors' plain route computes, but for the order of the fp32 sum),
+// written channel-last (Z, Y, X, K) straight into the heatmaps the executor
+// returns. It replaces no TPU kernel: keymorph_tpu leaves the final conv to
+// XLA (an einsum, keymorph_tpu/models/fast_unet.py:504). It exists because
+// the torch form of that einsum made an fp32 copy of the features, an fp32
+// product of the whole heatmaps (2.15 GB for 256 channels at 128^3), an fp32
+// bias pass over it and a bf16 cast, then stacked the volumes: five passes
+// over heatmaps that need one write.
+//
+// Bound: bytes. 32 -> 256 channels is 2 Cin K = 16,384 operations a voxel
+// for 2 Cin + 2 K = 576 bytes moved, ~28 a byte against the ~295 at which
+// the tensor cores would be the limit; at 128^3 the features are 134 MB, the
+// heatmaps 1.07 GB, 0.36 ms at 3.35 TB/s. So the design streams the output:
+//   * a persistent grid (the blocks that fit an SM, times the SMs); W
+//     (rounded to bf16) and the fp32 bias are staged once a block;
+//   * a block walks tiles of 1024 voxels of one plane (8 warps, 4 tiles of
+//     32 voxels each), one ahead: the next tile's Cin x 1024 features come
+//     in by cp.async (16-byte chunks, a warp's 32 a 512-byte run of one
+//     channel row; zero-filled past the plane) while this tile is computed;
+//   * mma.sync m16n8k16 (bf16 in, fp32 sums): A from the staged features by
+//     ldmatrix.trans (the features lie a channel row at a time, A's rows are
+//     voxels), B from the staged W by ldmatrix; 64 output channels a pass,
+//     64 fp32 sums a thread. wgmma would need a warpgroup and 64-voxel tiles
+//     for a product that takes a few percent of the time the writes do;
+//     with mma.sync each warp computes and stores its own tiles;
+//   * the epilogue adds the bias in fp32, rounds once, stages the 32 x 64
+//     block in shared memory (rows 144 bytes apart: the stores of a quad's
+//     eight rows fall on 32 distinct banks) and writes it back as 16-byte
+//     streaming stores (st.global.cs), eight lanes a 128-byte run of one
+//     voxel's channels: every heatmap byte is written once, by full,
+//     coalesced stores.
+// Measured on an NVIDIA H100 80GB HBM3 (700 W), 32 -> 256: the same kernel
+// without its feature loads writes at 2.85 TB/s, 97% of the write bound
+// (torch's zero_ of the heatmaps: 3.26 TB/s); with them it runs at 73-76% of
+// the whole bound: the 11% of the bytes that are read cost three times their
+// share. Reading each channel row in 2-KB runs (1024-voxel tiles) took 2% off
+// 32-voxel tiles at 256^3; a deeper ring of tiles (3 to 8) and TMA tensor
+// stores of 128-byte-swizzled boxes each measured within 2% of the 32-voxel
+// form; a 128-register cap (two blocks an SM) spilled and lost 13%, so a
+// block of 8 warps takes the SM.
+// Rows of staged features are 2 * (tile + 8) bytes apart and rows of staged
+// W Cin + 8 bf16 (odd numbers of 16-byte units), so the eight rows of an
+// ldmatrix fall on eight distinct bank groups. Cin is zero-padded to a
+// multiple of 16 in shared memory; a ragged plane tail and K that is not a
+// multiple of 8 take masked (element) stores, a plane whose Y*X is not a
+// multiple of 8 element loads. The caller's plan
+// (ops/cuda/heatmap.py:final_conv_plan) sets the warps a block, the warp
+// tiles a block tile and the output channels a launch, so that they fit.
+//
+// The keypoint head: for each channel c of each batch item, the
 // four fp32 moments of r = relu(v) (NaN propagating, as torch.relu),
 //
 //   S0 = sum r,   S_k = sum r * t_k(i_k)   (k each spatial axis),
@@ -226,6 +285,241 @@ void launch_moments(const void* x, const float* t, float* part, int B, int Z, in
       static_cast<const T*>(x), t, part, B, Z, Y, X, C, rows, P);
 }
 
+// ---------------------------------------------------------------------------
+// final1x1_mma_kernel
+
+constexpr int FC_VOX = 32;           // voxels a warp tile: two m16 row blocks
+constexpr int FC_NCH = 64;           // output channels a pass: eight n8 tiles
+constexpr int FC_SROW = FC_NCH + 8;  // bf16 a staged output row (144 bytes)
+constexpr int FC_MAX_WARPS = 8;
+constexpr int FC_MAX_TPW = 4;
+constexpr int FC_MAX_SMEM = 232448;  // shared bytes a block may opt in to
+
+__host__ __device__ inline int fc_cinp(int cin) { return (cin + 15) / 16 * 16; }
+__host__ __device__ inline int fc_nkp(int nk) { return (nk + FC_NCH - 1) / FC_NCH * FC_NCH; }
+// bf16 a staged feature row: the block tile's voxels and 8 more, an odd
+// number of 16-byte units (the tile is a multiple of 32 voxels)
+__host__ __device__ inline int fc_xrow(int warps, int tpw) { return warps * tpw * FC_VOX + 8; }
+
+// Shared bytes of a block of `warps` warps, `tpw` warp tiles each a block
+// tile, for Cin and a launch of nk output channels: the fp32 bias and bf16 W
+// of the launch's channels (padded to FC_NCH), two block tiles of features,
+// and a staged output block a warp (ops/cuda/heatmap.py:final_conv_smem
+// mirrors it).
+inline long long fc_smem_bytes(int cin, int nk, int warps, int tpw) {
+  const long long cinp = fc_cinp(cin), nkp = fc_nkp(nk);
+  return nkp * 4 + nkp * (cinp + 8) * 2 + 2 * cinp * fc_xrow(warps, tpw) * 2 +
+         static_cast<long long>(warps) * FC_VOX * FC_SROW * 2;
+}
+
+__device__ __forceinline__ uint32_t fc_smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void fc_ldmatrix_x4(uint32_t* r, uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void fc_ldmatrix_x4_trans(uint32_t* r, uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// d (16 x 8 fp32) += a (16 x 16 bf16, row) * b (16 x 8 bf16, col)
+__device__ __forceinline__ void fc_mma(float* d, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The block tile's Cin x bv features of plane z from voxel v0 into dst (rows
+// xrow apart), by all the block's threads: 16-byte cp.async chunks (VIN: the
+// volume 16-byte aligned and Y*X a multiple of 8, so a chunk lies wholly
+// inside the plane or wholly past it, and is then zero-filled), a warp's 32
+// a 512-byte run of one channel row, each asking L2 for its 256-byte line;
+// else element loads. Rows past Cin are left as they are (zero).
+template <bool VIN>
+__device__ __forceinline__ void fc_load_tile(__nv_bfloat16* dst, const __nv_bfloat16* x,
+                                             long long z, long long v0, int bv, int xrow, int Cin,
+                                             long long YX) {
+  const __nv_bfloat16* src = x + z * Cin * YX + v0;
+  if constexpr (VIN) {
+    const int chunks = bv / 8;
+    for (int i = threadIdx.x; i < Cin * chunks; i += blockDim.x) {
+      const int c = i / chunks, q = i - c * chunks;
+      const bool in = v0 + q * 8 < YX;
+      const __nv_bfloat16* s = in ? src + c * YX + q * 8 : x;
+      asm volatile("cp.async.cg.shared.global.L2::256B [%0], [%1], 16, %2;\n" ::"r"(
+                       fc_smem_u32(dst + c * xrow + q * 8)),
+                   "l"(s), "r"(in ? 16 : 0)
+                   : "memory");
+    }
+  } else {
+    for (int i = threadIdx.x; i < Cin * bv; i += blockDim.x) {
+      const int c = i / bv, v = i - c * bv;
+      dst[c * xrow + v] = v0 + v < YX ? src[c * YX + v] : __float2bfloat16_rn(0.0f);
+    }
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// heat (Z, Y*X, K) channels [n0, n0 + nk) <- x (Z, Cin, Y*X) and w (K, Cin)
+// fp32 (rounded to bf16 here), b (K,) fp32; blocks of blockDim.x / 32 warps,
+// tpw warp tiles each a block tile. VOUT: 16-byte stores (heat 16-byte
+// aligned, K, n0 and nk multiples of 8).
+template <bool VIN, bool VOUT>
+__global__ void __launch_bounds__(FC_MAX_WARPS * 32, 1)
+    final1x1_mma_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ w,
+                        const float* __restrict__ b, __nv_bfloat16* __restrict__ heat, int Z,
+                        int Cin, long long YX, int K, int n0, int nk, int tpw) {
+  extern __shared__ __align__(16) unsigned char fc_raw[];
+  const int cinp = fc_cinp(Cin), wrow = cinp + 8, nkp = fc_nkp(nk);
+  const int nwarps = blockDim.x >> 5, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int bv = nwarps * tpw * FC_VOX, xrow = fc_xrow(nwarps, tpw);
+  float* bs = reinterpret_cast<float*>(fc_raw);
+  __nv_bfloat16* ws = reinterpret_cast<__nv_bfloat16*>(bs + nkp);
+  __nv_bfloat16* xs = ws + nkp * wrow;                               // [2][cinp][xrow]
+  __nv_bfloat16* st = xs + 2 * cinp * xrow + warp * FC_VOX * FC_SROW;  // this warp's block
+
+  for (int i = threadIdx.x; i < nkp * wrow; i += blockDim.x) {
+    const int n = i / wrow, c = i - n * wrow;
+    ws[i] = __float2bfloat16_rn(n < nk && c < Cin ? w[static_cast<long long>(n0 + n) * Cin + c]
+                                                  : 0.0f);
+  }
+  for (int n = threadIdx.x; n < nkp; n += blockDim.x) bs[n] = n < nk ? b[n0 + n] : 0.0f;
+  for (int i = threadIdx.x; i < 2 * cinp * xrow; i += blockDim.x)
+    xs[i] = __float2bfloat16_rn(0.0f);
+  __syncthreads();
+
+  const long long per_plane = (YX + bv - 1) / bv;
+  const long long tiles = Z * per_plane;
+  long long t = blockIdx.x;
+  if (t < tiles) fc_load_tile<VIN>(xs, x, t / per_plane, t % per_plane * bv, bv, xrow, Cin, YX);
+  const int g = lane >> 2, tq = lane & 3;  // the mma fragments' row and column pair
+  const int mi = lane >> 3, mr = lane & 7;  // ldmatrix: the lane's matrix and row
+  int buf = 0;
+  for (; t < tiles; t += gridDim.x, buf ^= 1) {
+    if (t + gridDim.x < tiles) {
+      const long long tn = t + gridDim.x;
+      fc_load_tile<VIN>(xs + (buf ^ 1) * cinp * xrow, x, tn / per_plane, tn % per_plane * bv, bv,
+                        xrow, Cin, YX);
+    } else {
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
+    }
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    __syncthreads();
+    const long long z = t / per_plane;
+    for (int j = 0; j < tpw; ++j) {
+      // the block's warps take neighbouring 32-voxel tiles, then the next run
+      const int sub = (j * nwarps + warp) * FC_VOX;
+      const long long v0 = t % per_plane * bv + sub;
+      if (v0 >= YX) break;
+      const int rows = static_cast<int>(YX - v0 < FC_VOX ? YX - v0 : FC_VOX);
+      const __nv_bfloat16* xb = xs + buf * cinp * xrow + sub;
+      __nv_bfloat16* out = heat + (z * YX + v0) * K + n0;
+      for (int nc = 0; nc < nkp; nc += FC_NCH) {
+        float acc[2][8][4];
+#pragma unroll
+        for (int m = 0; m < 2; ++m)
+#pragma unroll
+          for (int jn = 0; jn < 8; ++jn)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[m][jn][e] = 0.0f;
+        for (int k0 = 0; k0 < cinp; k0 += 16) {
+          // A (voxels x channels): matrix mi holds voxels (mi & 1) * 8.. and
+          // channels k0 + (mi >> 1) * 8.., stored channel-major: transposed
+          uint32_t a[2][4];
+#pragma unroll
+          for (int m = 0; m < 2; ++m)
+            fc_ldmatrix_x4_trans(
+                a[m], fc_smem_u32(xb + (k0 + (mi >> 1) * 8 + mr) * xrow + m * 16 + (mi & 1) * 8));
+#pragma unroll
+          for (int jp = 0; jp < 4; ++jp) {
+            // B (channels x outputs) of two n8 tiles: matrix mi holds outputs
+            // nc + jp * 16 + (mi >> 1) * 8.. and channels k0 + (mi & 1) * 8..
+            uint32_t bb[4];
+            fc_ldmatrix_x4(bb, fc_smem_u32(ws + (nc + jp * 16 + (mi >> 1) * 8 + mr) * wrow + k0 +
+                                           (mi & 1) * 8));
+#pragma unroll
+            for (int m = 0; m < 2; ++m) {
+              fc_mma(acc[m][2 * jp], a[m], bb[0], bb[1]);
+              fc_mma(acc[m][2 * jp + 1], a[m], bb[2], bb[3]);
+            }
+          }
+        }
+        // the bias in fp32, one rounding, into the warp's staged block
+#pragma unroll
+        for (int jn = 0; jn < 8; ++jn) {
+          const int col = jn * 8 + 2 * tq;
+          const float b0 = bs[nc + col], b1 = bs[nc + col + 1];
+#pragma unroll
+          for (int m = 0; m < 2; ++m) {
+            *reinterpret_cast<__nv_bfloat162*>(st + (m * 16 + g) * FC_SROW + col) =
+                __floats2bfloat162_rn(acc[m][jn][0] + b0, acc[m][jn][1] + b1);
+            *reinterpret_cast<__nv_bfloat162*>(st + (m * 16 + g + 8) * FC_SROW + col) =
+                __floats2bfloat162_rn(acc[m][jn][2] + b0, acc[m][jn][3] + b1);
+          }
+        }
+        __syncwarp();
+        // 32 voxels x 64 channels out: eight lanes a voxel's 128 bytes
+        const int ch = (lane & 7) * 8, n = nc + ch;
+#pragma unroll
+        for (int i = 0; i < FC_VOX / 4; ++i) {
+          const int r = i * 4 + (lane >> 3);
+          if (r >= rows) break;
+          const __nv_bfloat16* s = st + r * FC_SROW + ch;
+          __nv_bfloat16* d = out + static_cast<long long>(r) * K + n;
+          if constexpr (VOUT) {
+            if (n < nk) __stcs(reinterpret_cast<uint4*>(d), *reinterpret_cast<const uint4*>(s));
+          } else {
+#pragma unroll
+            for (int e = 0; e < 8; ++e)
+              if (n + e < nk) d[e] = s[e];
+          }
+        }
+        __syncwarp();
+      }
+    }
+    __syncthreads();
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+template <bool VIN, bool VOUT>
+int launch_final1x1(const __nv_bfloat16* x, const float* w, const float* b, __nv_bfloat16* heat,
+                    int Z, int Cin, long long YX, int K, int n0, int nk, int warps, int tpw,
+                    cudaStream_t stream) {
+  const auto kernel = final1x1_mma_kernel<VIN, VOUT>;
+  static bool allowed[64] = {};
+  static int sms[64] = {};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 0 || dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!allowed[dev]) {
+    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         FC_MAX_SMEM);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    allowed[dev] = true;
+  }
+  const int smem = static_cast<int>(fc_smem_bytes(Cin, nk, warps, tpw));
+  int per_sm = 0;
+  const cudaError_t e =
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, warps * 32, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const int bv = warps * tpw * FC_VOX;
+  const long long tiles = static_cast<long long>(Z) * ((YX + bv - 1) / bv);
+  const int blocks = static_cast<int>(std::min<long long>(tiles, static_cast<long long>(per_sm) * sms[dev]));
+  kernel<<<blocks, warps * 32, smem, stream>>>(x, w, b, heat, Z, Cin, YX, K, n0, nk, tpw);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // x (B, Z, Y, X, C) contiguous, bf16 (fp32 = 0) or fp32 (fp32 = 1); vec = 1:
@@ -265,4 +559,33 @@ KM_EXPORT int km_heatmap_com(const void* x, int fp32, int vec, const void* t, vo
   heatmap_finish_kernel<<<grid, dim3(4 * FIN_CH, FIN_SLICES), 0, s>>>(pf, static_cast<float*>(out),
                                                                        B, C, P, d);
   return static_cast<int>(cudaGetLastError());
+}
+
+// heat (Z, Y, X, K) bf16, channels [n0, n0 + nk) <- the final 1x1 conv of x
+// (Z, Cin, Y*X) bf16 with w (K, Cin) fp32 (each rounded to bf16) and b (K,)
+// fp32, on a grid of blocks of `warps` warps, `tpw` warp tiles each a block
+// tile (final_conv_plan's). Refuses sizes out of range and a launch whose
+// shared memory a block cannot hold.
+KM_EXPORT int km_final_conv1x1(const void* x, const void* w, const void* b, void* heat, int Z,
+                               int Cin, long long YX, int K, int n0, int nk, int warps, int tpw,
+                               void* stream) {
+  if (Z < 1 || Cin < 1 || YX < 1 || K < 1 || n0 < 0 || nk < 1 ||
+      static_cast<long long>(n0) + nk > K || warps < 1 || warps > FC_MAX_WARPS || tpw < 1 ||
+      tpw > FC_MAX_TPW || fc_smem_bytes(Cin, nk, warps, tpw) > FC_MAX_SMEM)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool vin = reinterpret_cast<uintptr_t>(x) % 16 == 0 && YX % 8 == 0;
+  const bool vout = reinterpret_cast<uintptr_t>(heat) % 16 == 0 && K % 8 == 0 && n0 % 8 == 0 &&
+                    nk % 8 == 0;
+  const auto* xb = static_cast<const __nv_bfloat16*>(x);
+  const auto* wf = static_cast<const float*>(w);
+  const auto* bf = static_cast<const float*>(b);
+  auto* hb = static_cast<__nv_bfloat16*>(heat);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (vin && vout)
+    return launch_final1x1<true, true>(xb, wf, bf, hb, Z, Cin, YX, K, n0, nk, warps, tpw, s);
+  if (vin)
+    return launch_final1x1<true, false>(xb, wf, bf, hb, Z, Cin, YX, K, n0, nk, warps, tpw, s);
+  if (vout)
+    return launch_final1x1<false, true>(xb, wf, bf, hb, Z, Cin, YX, K, n0, nk, warps, tpw, s);
+  return launch_final1x1<false, false>(xb, wf, bf, hb, Z, Cin, YX, K, n0, nk, warps, tpw, s);
 }

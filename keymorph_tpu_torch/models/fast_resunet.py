@@ -31,12 +31,11 @@ the upsampled tensor to the skip and refuses a skip that is not exactly
 twice its input: with floor pooling the crop is then the identity, and this
 executor refuses the same sizes. The 2x max-pool is ``maxpool2_flat``, a
 kernel of one read (``km.unet.pool``). The final 1x1 conv (``km.unet.final``)
-takes bf16 operands and fp32 sums with the fp32 bias and one rounding, in
-Z-slabs, so that no fp32 tensor of the whole heatmaps exists: on the card as
-a bf16 tensor-core matmul whose K axis carries the bias as three bf16 terms
-on columns of ones (hi + mid + lo = the fp32 bias to 2^-27), on the CPU or
-the plain route as an fp32 matmul (seven times slower at 256^3 on the
-card). The heatmaps come back channel-last (B, Z, Y, X, K) in bf16.
+takes bf16 operands and fp32 sums with the fp32 bias and one rounding:
+``heatmap.final_conv1x1``, which writes each volume's heatmaps once into the
+tensor returned (its plain version, on the CPU or the plain route, an fp32
+matmul in Z-slabs). The heatmaps come back channel-last (B, Z, Y, X, K) in
+bf16.
 
 The walk is differentiable, and with grad enabled it computes what serving
 computes, kernel for kernel: ``KeyMorphNet.features`` takes it for training
@@ -49,9 +48,9 @@ on (C,) is autograd's), the lift ``_Lift`` (fp32 products of bf16 values, span
 ``km.unet.residual.bwd``); the GroupNorm folds are autograd's. Under
 autograd the pool is ``resblock.maxpool2_amax`` (ties split evenly, as
 keymorph_tpu's ``_maxpool2_rw_bwd``), and the final conv is ``_FinalConv``:
-the same slabs into a tensor of its own (no ``out=``), with
-``g_x = bf16(g W)`` and fp32 ``g_W``, ``g_b`` from fp32 products of the bf16
-values. With ``unet.use_checkpoint`` each block is replayed in the backward.
+the same final conv into a tensor of its own, with ``g_x = bf16(g W)`` and
+fp32 ``g_W``, ``g_b`` from fp32 products of the bf16 values, in Z-slabs.
+With ``unet.use_checkpoint`` each block is replayed in the backward.
 """
 
 from __future__ import annotations
@@ -64,25 +63,18 @@ from torch.utils.checkpoint import checkpoint
 
 from keymorph_tpu_torch.models.fast_unet import _maxpool2_flat, _single_conv_operands
 from keymorph_tpu_torch.models.unet import AbstractUNet, supports_fast_resunet
-from keymorph_tpu_torch.ops.cuda import conv3d, resblock
+from keymorph_tpu_torch.ops.cuda import conv3d, heatmap, resblock
 from keymorph_tpu_torch.tracing import span
 
 _KERNELS = SimpleNamespace(
     pool=_maxpool2_flat, lift=resblock.lift1x1_flat, flat=conv3d.conv3x3_fused_flat,
     res=conv3d.conv3x3_fused_flat_res, tconv=conv3d.conv_transpose3x3s2_flat,
-    gate=resblock.scse_gate_flat, final_mma=True)
+    gate=resblock.scse_gate_flat, final=heatmap.final_conv1x1)
 _PLAINS = SimpleNamespace(
     pool=resblock.maxpool2_flat_plain, lift=resblock.lift1x1_flat_plain,
     flat=conv3d.conv3x3_fused_flat_plain,
     res=conv3d.conv3x3_fused_flat_res_plain, tconv=conv3d.conv_transpose3x3s2_flat_plain,
-    gate=resblock.scse_gate_flat_plain, final_mma=False)
-
-SLAB_ELEMS = 1 << 26  # elements a slab of the final conv's operand or products may hold
-
-
-def _slabs(Z, per_plane):
-    n = max(1, SLAB_ELEMS // max(1, per_plane))
-    return [(z, min(Z, z + n)) for z in range(0, Z, n)]
+    gate=resblock.scse_gate_flat_plain, final=heatmap.final_conv1x1_plain)
 
 
 def _resnet_block(block, xf, spatial, g, ops, stats=None):
@@ -111,48 +103,16 @@ def _resnet_block(block, xf, spatial, g, ops, stats=None):
         return ops.gate(out, se, s3[0])
 
 
-def _final_conv(xf, spatial, conv: nn.Conv3d, out, mma: bool):
-    """``out`` (Z, Y, X, K) bf16 <- the final 1x1 conv of flat ``xf``:
-    bf16 operands, fp32 sums, the fp32 bias, one rounding, in Z-slabs."""
-    Z, cin, N = xf.shape
-    K = conv.weight.shape[0]
-    w = conv.weight[:, :, 0, 0, 0].t().to(torch.bfloat16)  # (Cin, K)
-    hb = conv.bias.float()
-    if not mma:
-        wf = w.float()
-        for z0, z1 in _slabs(Z, K * N):  # the fp32 products' slab
-            y = torch.matmul(xf[z0:z1].float().transpose(1, 2), wf) + hb
-            out[z0:z1] = y.reshape(z1 - z0, *spatial[1:], K).to(torch.bfloat16)
-        return
-    # K axis: the channels, then three columns of ones against the bias's
-    # bf16 terms, padded to a multiple of 8
-    kp = -(-(cin + 3) // 8) * 8
-    hi = hb.to(torch.bfloat16)
-    mid = (hb - hi.float()).to(torch.bfloat16)
-    lo = (hb - hi.float() - mid.float()).to(torch.bfloat16)
-    b = torch.zeros((kp, K), dtype=torch.bfloat16, device=xf.device)
-    b[:cin] = w
-    b[cin], b[cin + 1], b[cin + 2] = hi, mid, lo
-    slabs = _slabs(Z, kp * N)  # the operand's slab (a slab of 4 planes at 256^3 took 12% more)
-    n = slabs[0][1]
-    a = torch.zeros((n, N, kp), dtype=torch.bfloat16, device=xf.device)
-    a[:, :, cin: cin + 3] = 1.0
-    for z0, z1 in slabs:
-        m = z1 - z0
-        a[:m, :, :cin] = xf[z0:z1].transpose(1, 2)
-        torch.matmul(a[:m].reshape(m * N, kp), b, out=out[z0:z1].view(m * N, K))
-
-
 class _FinalConv(torch.autograd.Function):
-    """:func:`_final_conv` into a tensor of its own, under autograd; the
-    backward takes the heatmaps' bf16 cotangent slab by slab: ``g_x =
-    bf16(g W)`` and the fp32 ``g_W``, ``g_b``, all fp32 products of bf16
-    values (TF32 off)."""
+    """The final conv ``final`` (``final_conv1x1`` or its plain version) into
+    a tensor of its own, under autograd; the backward takes the heatmaps'
+    bf16 cotangent slab by slab: ``g_x = bf16(g W)`` and the fp32 ``g_W``,
+    ``g_b``, all fp32 products of bf16 values (TF32 off)."""
 
     @staticmethod
-    def forward(ctx, xf, weight, bias, spatial, mma):
+    def forward(ctx, xf, weight, bias, spatial, final):
         out = torch.empty((*spatial, weight.shape[0]), dtype=torch.bfloat16, device=xf.device)
-        _final_conv(xf, spatial, SimpleNamespace(weight=weight, bias=bias), out, mma)
+        final(xf, spatial, weight[:, :, 0, 0, 0], bias, out)
         ctx.save_for_backward(xf, weight)
         return out
 
@@ -166,7 +126,7 @@ class _FinalConv(torch.autograd.Function):
         g_w = torch.zeros((K, cin), dtype=torch.float32, device=xf.device)
         g_b = torch.zeros(K, dtype=torch.float32, device=xf.device)
         g = g_out.reshape(Z, N, K)
-        for z0, z1 in _slabs(Z, K * N):
+        for z0, z1 in heatmap.z_slabs(Z, K * N):
             gs = g[z0:z1].float()  # (m, N, K)
             g_x[z0:z1] = torch.matmul(wf.t(), gs.transpose(1, 2)).to(torch.bfloat16)
             g_w += torch.bmm(gs.transpose(1, 2), xf[z0:z1].float().transpose(1, 2)).sum(dim=0)
@@ -233,13 +193,12 @@ def fast_resunet_forward(unet: AbstractUNet, img: torch.Tensor, plain: bool = Fa
             xf = block(dec.basic_module, xf, spatial, stats)
         del skips
         final = unet.final_conv
-        mma = ops.final_mma and xf.device.type == "cuda"
         with span("unet.final"):
             if grad:
-                outs.append(_FinalConv.apply(xf, final.weight, final.bias, spatial, mma))
+                outs.append(_FinalConv.apply(xf, final.weight, final.bias, spatial, ops.final))
                 continue
             if heat is None:
                 heat = torch.empty((B, *spatial, final.weight.shape[0]), dtype=torch.bfloat16,
                                    device=img.device)
-            _final_conv(xf, spatial, final, heat[bi], mma)
+            ops.final(xf, spatial, final.weight[:, :, 0, 0, 0], final.bias, heat[bi])
     return torch.stack(outs) if grad else heat

@@ -22,14 +22,18 @@ from its parameters on flat (Z, C, Y*X) bf16 tensors, one sample at a time:
   * the 2x max-pool is the hand-written ``maxpool2_flat`` where no
     gradient is needed (serving), and a reshape-and-``amax`` under autograd
     where one is; both give the same maxima, NaN included;
-  * the final 1x1 conv is a matmul of bf16 operands with fp32 accumulation.
+  * the final 1x1 conv (bf16 operands, fp32 sums, the fp32 bias, one
+    rounding) is the hand-written ``heatmap.final_conv1x1`` where no
+    gradient is needed, writing each volume's heatmaps once into the tensor
+    returned, and an fp32 matmul of the bf16 values under autograd where
+    one is.
 
 The heatmaps come back channel-last (B, Z', Y', X', K) in bf16, as
 keymorph_tpu's executor returns them.
 
 The executor is differentiable: the convs carry their own backward (the
 input-gradient kernel, ``ops/cuda/conv3d.py``); GroupNorm statistics, the
-affine fold, the max-pool and the final matmul are plain PyTorch under
+affine fold, the max-pool and the final conv are plain PyTorch under
 autograd. The pool kernel is forward only, so a pool whose input needs a
 gradient takes ``resblock.maxpool2_amax``, which splits the gradient evenly
 among tied maxima, as keymorph_tpu's ``_maxpool2_rw_bwd`` does (every
@@ -47,7 +51,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from keymorph_tpu_torch.models.unet import AbstractUNet, gn_groups, supports_fast_unet
-from keymorph_tpu_torch.ops.cuda import conv3d, resblock
+from keymorph_tpu_torch.ops.cuda import conv3d, heatmap, resblock
 from keymorph_tpu_torch.tracing import span
 from keymorph_tpu_torch.ops.cuda.conv3d import channel_stats, upsample_nearest_flat
 
@@ -66,13 +70,23 @@ _KERNEL_CONVS = SimpleNamespace(
     parts=conv3d.conv3x3_fused_flat_parts,
     upconv=conv3d.conv3x3_fused_flat_upconv,
     pool=_maxpool2_flat,
+    final=heatmap.final_conv1x1,
 )
 _PLAIN_CONVS = SimpleNamespace(
     flat=conv3d.conv3x3_fused_flat_plain,
     parts=conv3d.conv3x3_fused_flat_parts_plain,
     upconv=conv3d.conv3x3_fused_flat_upconv_plain,
     pool=resblock.maxpool2_flat_plain,
+    final=heatmap.final_conv1x1_plain,
 )
+
+
+def _final_conv_autograd(xf, spatial, conv):
+    """The final 1x1 conv under autograd: an fp32 matmul of the bf16 values
+    plus the fp32 bias, rounded once to (Z, Y, X, K) bf16."""
+    hw = conv.weight[:, :, 0, 0, 0].t().to(torch.bfloat16).float()
+    out = torch.matmul(xf.float().transpose(1, 2), hw) + conv.bias.float()  # (Z, Y*X, K)
+    return out.reshape(*spatial, -1).to(torch.bfloat16)
 
 
 def gn_affine_from_stats(stats, gamma, beta, groups: int):
@@ -137,9 +151,9 @@ def fast_unet_forward(unet: AbstractUNet, img: torch.Tensor, plain: bool = False
         unet: a bf16 'gcr' or 'cr' DoubleConv :class:`AbstractUNet`
             (parameters are read from it; see ``unet.supports_fast_unet``).
         img: (B, 1, Z, Y, X) channel-first volume.
-        plain: run every conv and the pool through their plain PyTorch
-            versions instead of the kernel wrappers (the oracle route on a
-            GPU; CPU tensors take the plain versions either way).
+        plain: run every conv, the pool and the final conv through their
+            plain PyTorch versions instead of the kernel wrappers (the oracle
+            route on a GPU; CPU tensors take the plain versions either way).
     Returns:
         (B, Z', Y', X', K) bf16 channel-last heatmaps.
     Raises:
@@ -160,7 +174,8 @@ def fast_unet_forward(unet: AbstractUNet, img: torch.Tensor, plain: bool = False
                               use_reentrant=False, **kw)
         return _double_conv_flat(module, xf, spatial, g, convs, **kw)
 
-    outs = []
+    final = unet.final_conv
+    heat, outs = None, []
     for b in range(img.shape[0]):
         x = img[b].transpose(0, 1).to(torch.bfloat16)  # (Z, 1, Y, X)
         spatial = (int(x.shape[0]), int(x.shape[2]), int(x.shape[3]))
@@ -186,8 +201,12 @@ def fast_unet_forward(unet: AbstractUNet, img: torch.Tensor, plain: bool = False
             spatial = sk_sp
         # final 1x1 conv: bf16 operands, fp32 products and sums, fp32 bias
         with span("unet.final"):
-            hw = unet.final_conv.weight[:, :, 0, 0, 0].t().to(torch.bfloat16).float()
-            hb = unet.final_conv.bias.float()
-            out = torch.matmul(xf.float().transpose(1, 2), hw) + hb  # (Z, Y*X, K)
-            outs.append(out.reshape(*spatial, -1).to(torch.bfloat16))
-    return torch.stack(outs, dim=0)
+            if torch.is_grad_enabled() and any(
+                    t.requires_grad for t in (xf, final.weight, final.bias)):
+                outs.append(_final_conv_autograd(xf, spatial, final))
+                continue
+            if heat is None:
+                heat = torch.empty((img.shape[0], *spatial, final.weight.shape[0]),
+                                   dtype=torch.bfloat16, device=img.device)
+            convs.final(xf, spatial, final.weight[:, :, 0, 0, 0], final.bias, heat[b])
+    return torch.stack(outs, dim=0) if outs else heat

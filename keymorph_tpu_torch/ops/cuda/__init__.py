@@ -27,6 +27,7 @@ def _functions():
         "lift1x1_flat": resblock.lift1x1_flat,
         "maxpool2_flat": resblock.maxpool2_flat,
         "heatmap_com": heatmap.heatmap_com,
+        "final_conv1x1": heatmap.final_conv1x1,
         "tps_planes": tpsflow.tps_planes,
         "tps_planes_bwd": tpsflow.tps_planes_bwd,
         "tps_flow": tpsflow.tps_flow,
@@ -48,6 +49,7 @@ def _functions():
         "lift1x1_flat": resblock.lift1x1_flat_plain,
         "maxpool2_flat": resblock.maxpool2_flat_plain,
         "heatmap_com": heatmap.heatmap_com_plain,
+        "final_conv1x1": heatmap.final_conv1x1_plain,
         "tps_planes": tpsflow.tps_planes_plain,
         "tps_planes_bwd": tpsflow.tps_planes_bwd_plain,
         "tps_flow": tpsflow.tps_flow_plain,

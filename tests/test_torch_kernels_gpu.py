@@ -1272,6 +1272,115 @@ def test_residual_executor_on_the_card_matches_its_plain_route(rng, dev):
         assert float((center_of_mass(k) - center_of_mass(p)).abs().max()) <= 2e-3
 
 
+@pytest.mark.parametrize("cin,k,spatial,offset", [
+    (1, 5, (3, 5, 7), 0), (16, 128, (4, 6, 11), 1), (32, 256, (2, 9, 13), 0),
+    (40, 300, (5, 3, 11), 0), (32, 256, (3, 16, 16), 1), (32, 128, (2, 24, 40), 0),
+    (300, 200, (2, 5, 9), 0)])
+def test_final_conv1x1_kernel_matches_plain(rng, dev, cin, k, spatial, offset):
+    """``final_conv1x1`` (``final1x1_mma_kernel``) against its plain version
+    (an fp32 matmul of the same bf16 values, the fp32 bias, one rounding):
+    one bf16 ulp of each output plus CONV_FLOOR of the range (the fp32 sum in
+    another order), every output written (the tensor starts as NaN) and
+    nothing outside it (an odd offset: the features and the heatmaps off
+    16-byte alignment, element loads and stores). Planes of 33 to 960
+    voxels, ragged against the 32-voxel tiles; K 5 and 300 off the 64-channel
+    passes; 300 -> 200 in four launches of 4 warps (``final_conv_plan``);
+    40 -> 300 in block tiles of 512 voxels, the rest of 1024."""
+    from keymorph_tpu_torch.ops.cuda import heatmap
+
+    Z, Y, X = spatial
+    x = _offset_copy(_bf16(rng, Z, cin, Y * X).to(dev), offset)
+    w = torch.tensor(rng.normal(size=(k, cin)).astype(np.float32) / np.sqrt(cin), device=dev)
+    b = torch.tensor(rng.normal(size=k).astype(np.float32) * 3.0, device=dev)
+    buf = torch.full((Z * Y * X * k + offset + 8,), float("nan"), dtype=torch.bfloat16,
+                     device=dev)
+    out = buf[offset:offset + Z * Y * X * k].view(Z, Y, X, k)
+    p_out = torch.empty((Z, Y, X, k), dtype=torch.bfloat16, device=dev)
+    group = heatmap.final_conv_plan(cin, k)[2]
+    n0 = heatmap.final_conv1x1.launches
+    with torch.no_grad():
+        assert heatmap.final_conv1x1(x, spatial, w, b, out) is out
+        heatmap.final_conv1x1_plain(x, spatial, w, b, p_out)
+    torch.cuda.synchronize()
+    assert heatmap.final_conv1x1.launches == n0 + -(-k // group)
+    assert bool(out.isfinite().all())
+    assert bool(buf[:offset].isnan().all()) and bool(buf[offset + out.numel():].isnan().all())
+    _conv_close(out, p_out)
+
+
+def test_final_conv1x1_kernel_keeps_nan_and_refuses_bad_operands(rng, dev):
+    """A NaN feature gives NaN in every channel of its voxel and nowhere
+    else; a 2-D weight of the wrong width, an fp32 feature tensor and a
+    heatmap tensor of the wrong shape raise before a launch."""
+    from keymorph_tpu_torch.ops.cuda import heatmap
+
+    x = _bf16(rng, 2, 32, 40).to(dev)
+    x[1, 7, 33] = float("nan")
+    w = torch.tensor(rng.normal(size=(16, 32)).astype(np.float32), device=dev)
+    b = torch.zeros(16, device=dev)
+    out = torch.empty((2, 5, 8, 16), dtype=torch.bfloat16, device=dev)
+    with torch.no_grad():
+        heatmap.final_conv1x1(x, (2, 5, 8), w, b, out)
+    nan = out.isnan().reshape(2, 40, 16)
+    assert bool(nan[1, 33].all()) and int(nan.sum()) == 16
+    n0 = heatmap.final_conv1x1.launches
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="weight"):
+            heatmap.final_conv1x1(x, (2, 5, 8), w[:, :31], b, out)
+        with pytest.raises(ValueError, match="CUDA bf16"):
+            heatmap.final_conv1x1(x.float(), (2, 5, 8), w, b, out)
+        with pytest.raises(ValueError, match="want out"):
+            heatmap.final_conv1x1(x, (2, 5, 8), w, b, out[:, :4])
+    assert heatmap.final_conv1x1.launches == n0
+
+
+def test_final_conv_kernel_serves_both_executors(rng, dev):
+    """Both executors take ``final1x1_mma_kernel`` once a volume (a batch of
+    2) where no gradient is kept, and their heatmaps equal their plain
+    route's final conv on the same features within one bf16 ulp; under
+    autograd the DoubleConv executor launches none (its fp32 autograd
+    matmul), the residual one one a volume (``_FinalConv``'s forward)."""
+    from keymorph_tpu_torch.models import fast_resunet, fast_unet
+    from keymorph_tpu_torch.models.unet import ResidualUNet3D, TruncatedUNet3D, init_weights
+    from keymorph_tpu_torch.ops import cuda as kernels
+    from keymorph_tpu_torch.ops.cuda import heatmap
+
+    img = torch.tensor(rng.uniform(0, 1, size=(2, 1, 32, 32, 32)).astype(np.float32),
+                       device=dev)
+    nets = ((fast_unet.fast_unet_forward, fast_unet._KERNEL_CONVS,
+             TruncatedUNet3D(out_channels=24, f_maps=8, num_levels=4, num_truncated_layers=1,
+                             dtype=torch.bfloat16), 0),
+            (fast_resunet.fast_resunet_forward, fast_resunet._KERNELS,
+             ResidualUNet3D(24, f_maps=8, num_levels=4, dtype=torch.bfloat16), 2))
+    for forward, ops, net, trained_launches in nets:
+        net = init_weights(net, torch.Generator().manual_seed(5)).to(dev)
+        feats = []
+
+        def keep(xf, spatial, weight, bias, out):
+            feats.append((xf.clone(), spatial))
+            return heatmap.final_conv1x1(xf, spatial, weight, bias, out)
+
+        kernels.reset_counters()
+        with pytest.MonkeyPatch.context() as mp, torch.no_grad():
+            mp.setattr(ops, "final", keep)
+            heat = forward(net, img)
+        torch.cuda.synchronize()
+        counts = kernels.counters()
+        assert counts["final_conv1x1"] == {"launches": 2, "plain_calls": 0}
+        assert not any(c["plain_calls"] for c in counts.values()), counts
+        w = net.final_conv.weight[:, :, 0, 0, 0].detach()
+        for i, (xf, spatial) in enumerate(feats):
+            want = torch.empty_like(heat[i])
+            heatmap.final_conv1x1_plain(xf, spatial, w, net.final_conv.bias.detach(), want)
+            _conv_close(heat[i], want)
+        kernels.reset_counters()
+        out = forward(net, img)
+        out.float().square().mean().backward()
+        torch.cuda.synchronize()
+        assert kernels.counters()["final_conv1x1"]["launches"] == trained_launches
+        assert float(net.final_conv.weight.grad.abs().sum()) > 0
+
+
 # The head kernel's fp32 sums are of nonnegative addends (the ReLU's), each
 # rounded once a step: a sum through a chain of n roundings lies within
 # n * 2^-24 of its value, relatively. The kernel's longest chain at these

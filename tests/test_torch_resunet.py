@@ -34,7 +34,7 @@ from keymorph_tpu_torch.models.unet import (ResidualUNet3D, ResidualUNetSE3D, Re
                                             TransposeConvUpsampling, TruncatedUNet3D,
                                             init_weights, supports_fast_resunet)
 from keymorph_tpu_torch.ops import cuda as kernels
-from keymorph_tpu_torch.ops.cuda import conv3d, resblock
+from keymorph_tpu_torch.ops.cuda import conv3d, heatmap, resblock
 from kmbench import inputs
 from kmbench.reference import resunet_se
 from kmbench.reference.precision import REFERENCE, Precision, store
@@ -162,29 +162,130 @@ def test_predicate_refuses_other_backbones():
                for c in kernels.counters().values())
 
 
-def test_final_conv_bias_on_the_k_axis():
-    """The card's final conv carries the fp32 bias as three bf16 terms on
-    columns of ones of a bf16 matmul; on the CPU (bf16 operands, fp32 sums,
-    one rounding) it lands within one bf16 ulp of the fp32 matmul route, and
-    the three terms sum to the bias within 2^-24 of it."""
-    torch.manual_seed(0)
-    conv = torch.nn.Conv3d(12, 40, 1)
+def _old_doubleconv_final(xf, spatial, conv):
+    """The DoubleConv executor's serving final conv before the kernel: one
+    fp32 matmul of the whole volume, the fp32 bias, one rounding."""
+    hw = conv.weight[:, :, 0, 0, 0].t().to(torch.bfloat16).float()
+    hb = conv.bias.float()
+    out = torch.matmul(xf.float().transpose(1, 2), hw) + hb
+    return out.reshape(*spatial, -1).to(torch.bfloat16)
+
+
+def _old_residual_final(xf, spatial, conv, slab_elems):
+    """The residual executor's plain final conv before the kernel: the same
+    in Z-slabs of at most ``slab_elems`` fp32 products."""
+    Z, _, N = xf.shape
+    K = conv.weight.shape[0]
+    wf = conv.weight[:, :, 0, 0, 0].t().to(torch.bfloat16).float()
+    hb = conv.bias.float()
+    out = torch.empty((*spatial, K), dtype=torch.bfloat16)
+    n = max(1, slab_elems // (K * N))
+    for z0 in range(0, Z, n):
+        y = torch.matmul(xf[z0:z0 + n].float().transpose(1, 2), wf) + hb
+        out[z0:z0 + n] = y.reshape(-1, *spatial[1:], K).to(torch.bfloat16)
+    return out
+
+
+@pytest.mark.parametrize("cin,k,spatial", [(1, 5, (3, 5, 7)), (16, 128, (4, 6, 11)),
+                                           (32, 256, (2, 9, 13)), (40, 300, (5, 3, 11))])
+def test_final_conv1x1_plain_is_both_executors_old_form(monkeypatch, cin, k, spatial):
+    """``heatmap.final_conv1x1_plain``, the final conv's plain version for
+    both executors, equals bit for bit the DoubleConv executor's former
+    whole-volume fp32 form and the residual executor's former slab form
+    (fp32 weights rounded to bf16, the fp32 bias, one rounding), in one slab
+    and in slabs of one plane; planes of 33 to 117 voxels, ragged against the
+    kernel's 32-voxel tiles. On the CPU the wrapper runs it, counted."""
+    gen = torch.Generator().manual_seed(cin * 1000 + k)
+    conv = torch.nn.Conv3d(cin, k, 1)
     with torch.no_grad():
-        conv.bias.copy_(torch.randn(40) * 3.0)
-    xf = torch.randn((5, 12, 6 * 7)).to(torch.bfloat16)
-    a = torch.empty((5, 6, 7, 40), dtype=torch.bfloat16)
-    b = torch.empty_like(a)
+        conv.weight.copy_(torch.randn(conv.weight.shape, generator=gen) / cin ** 0.5)
+        conv.bias.copy_(torch.randn(k, generator=gen) * 3.0)
+    Z, Y, X = spatial
+    xf = torch.randn((Z, cin, Y * X), generator=gen).to(torch.bfloat16)
+    w2, b = conv.weight.detach()[:, :, 0, 0, 0], conv.bias.detach()
+    whole = _old_doubleconv_final(xf, spatial, conv).detach()
+    for slab_elems in (heatmap.SLAB_ELEMS, k * Y * X):
+        monkeypatch.setattr(heatmap, "SLAB_ELEMS", slab_elems)
+        out = torch.full((*spatial, k), float("nan"), dtype=torch.bfloat16)
+        assert heatmap.final_conv1x1_plain(xf, spatial, w2, b, out) is out
+        assert torch.equal(out, whole)
+        assert torch.equal(out, _old_residual_final(xf, spatial, conv, slab_elems).detach())
+    calls, launches = heatmap.final_conv1x1_plain.calls, heatmap.final_conv1x1.launches
+    out = torch.empty((*spatial, k), dtype=torch.bfloat16)
     with torch.no_grad():
-        fast_resunet._final_conv(xf, (5, 6, 7), conv, a, mma=True)
-        fast_resunet._final_conv(xf, (5, 6, 7), conv, b, mma=False)
-    af, bf = a.float(), b.float()
-    _, e = torch.frexp(torch.maximum(af.abs(), bf.abs()))
-    assert bool(((af - bf).abs() <= torch.ldexp(torch.ones_like(af), e - 8)).all())
-    hb = conv.bias.detach().float()
-    hi = hb.to(torch.bfloat16).float()
-    mid = (hb - hi).to(torch.bfloat16).float()
-    lo = (hb - hi - mid).to(torch.bfloat16).float()
-    assert bool(((hi + mid + lo - hb).abs() <= 2 ** -24 * hb.abs()).all())
+        heatmap.final_conv1x1(xf, spatial, conv.weight[:, :, 0, 0, 0], conv.bias, out)
+    assert torch.equal(out, whole)
+    assert heatmap.final_conv1x1_plain.calls == calls + 1
+    assert heatmap.final_conv1x1.launches == launches
+
+
+def test_final_conv_wrapper_is_forward_only():
+    """``final_conv1x1`` writes into a tensor of its own and has no backward:
+    with grad enabled it refuses an operand that requires a gradient before
+    anything runs (the executors take it only without one, or inside
+    ``_FinalConv``'s forward)."""
+    conv = torch.nn.Conv3d(4, 6, 1)
+    xf = torch.randn((2, 4, 15)).to(torch.bfloat16)
+    out = torch.empty((2, 3, 5, 6), dtype=torch.bfloat16)
+    calls = heatmap.final_conv1x1_plain.calls
+    with pytest.raises(RuntimeError, match="final_conv1x1 is forward-only"):
+        heatmap.final_conv1x1(xf, (2, 3, 5), conv.weight[:, :, 0, 0, 0], conv.bias, out)
+    assert heatmap.final_conv1x1_plain.calls == calls
+    with torch.no_grad():
+        heatmap.final_conv1x1(xf, (2, 3, 5), conv.weight[:, :, 0, 0, 0], conv.bias, out)
+    assert heatmap.final_conv1x1_plain.calls == calls + 1
+
+
+@pytest.mark.parametrize("cin,k,want", [(32, 256, (8, 4, 256)), (32, 128, (8, 4, 128)),
+                                        (1, 5, (8, 4, 5)), (40, 300, (8, 2, 300)),
+                                        (256, 256, (4, 1, 128)), (300, 200, (4, 1, 64)),
+                                        (780, 16, (1, 1, 16))])
+def test_final_conv_plan_fits_a_block(cin, k, want):
+    """The final conv's plan (warps a block, warp tiles a block tile, output
+    channels a launch): the first of FC_SHAPES whose block holds W of at
+    least 64 channels, as many channels a launch as then fit; every launch's
+    shared memory within the block's limit, each launch but the last a
+    multiple of 64 channels (the kernel's 16-byte stores need launches that
+    start on a multiple of 8). 32 -> 256, both executors' serving shape, is
+    one launch of 8 warps of 4 tiles (1024 voxels) in 190,464 bytes."""
+    warps, tpw, group = heatmap.final_conv_plan(cin, k)
+    assert (warps, tpw, group) == want
+    assert group == k or group % heatmap.FC_NCH == 0
+    for n0 in range(0, k, group):
+        assert heatmap.final_conv_smem(cin, min(group, k - n0), warps, tpw) <= heatmap.FC_MAX_SMEM
+    assert heatmap.final_conv_smem(32, 256, 8, 4) == 190464
+
+
+def test_final_conv_plan_refuses_what_no_block_holds():
+    with pytest.raises(ValueError, match="input channels leave no room"):
+        heatmap.final_conv_plan(800, 5)
+
+
+def test_residual_executor_final_conv_takes_the_wrapper():
+    """The residual executor's final conv goes through ``final_conv1x1``
+    once a volume, serving and under autograd (``_FinalConv``'s forward), and
+    through ``final_conv1x1_plain`` on its plain route; the three give the
+    same heatmaps, the trained ones with a gradient for the final conv."""
+    net, _, _, img = _nets("resnet")
+    img = torch.cat([img, img.flip(2)])
+    kernels.reset_counters()
+    with torch.no_grad():
+        served = fast_resunet_forward(net, img)
+    assert kernels.counters()["final_conv1x1"] == {"launches": 0, "plain_calls": 2}
+    n0 = heatmap.final_conv1x1_plain.calls
+    with pytest.MonkeyPatch.context() as mp:
+        seen = []
+        mp.setattr(fast_resunet._PLAINS, "final",
+                   lambda *a: seen.append(a) or heatmap.final_conv1x1_plain(*a))
+        with torch.no_grad():
+            plain = fast_resunet_forward(net, img, plain=True)
+    assert len(seen) == 2 and heatmap.final_conv1x1_plain.calls == n0 + 2
+    kernels.reset_counters()
+    trained = fast_resunet_forward(net, img)
+    assert kernels.counters()["final_conv1x1"] == {"launches": 0, "plain_calls": 2}
+    assert torch.equal(served, plain) and torch.equal(trained.detach(), served)
+    trained.float().square().mean().backward()
+    assert float(net.final_conv.weight.grad.abs().sum()) > 0
 
 
 def test_odd_skips_are_refused_as_the_module_refuses():

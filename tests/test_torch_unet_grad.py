@@ -236,6 +236,61 @@ def test_executor_pool_keeps_the_graph_only_where_a_gradient_is_needed(rng):
     assert grad is not None and float(grad.abs().sum()) > 0
 
 
+@pytest.mark.parametrize("route", ["no_grad", "frozen", "grad", "plain"])
+def test_executor_final_conv_routes_by_whether_a_gradient_is_needed(rng, route):
+    """The DoubleConv executor's final conv: without a gradient to keep
+    (under no_grad, or a frozen net under autograd) one ``final_conv1x1`` a
+    volume writes into the heatmaps returned (its counted plain version on
+    the CPU); ``plain=True`` under no_grad calls ``final_conv1x1_plain``
+    itself; where a gradient is needed the autograd matmul runs, uncounted,
+    and the first conv gets a gradient. All four give the same heatmaps."""
+    from keymorph_tpu_torch.ops import cuda as kernels
+
+    unet = init_weights(TruncatedUNet3D(out_channels=5, f_maps=4, num_levels=3,
+                                        num_truncated_layers=1, dtype=torch.bfloat16),
+                        torch.Generator().manual_seed(1))
+    img = torch.tensor(rng.uniform(0, 1, size=(2, 1, 12, 10, 14)).astype(np.float32))
+    with torch.no_grad():
+        want = fast_unet_forward(unet, img)
+    unet.requires_grad_(route != "frozen")
+    kernels.reset_counters()
+    with torch.set_grad_enabled(route in ("frozen", "grad")):
+        got = fast_unet_forward(unet, img, plain=route == "plain")
+    count = kernels.counters()["final_conv1x1"]
+    assert got.shape == (2, 6, 5, 7, 5) and torch.equal(got.detach(), want)
+    assert count == {"launches": 0, "plain_calls": 0 if route == "grad" else 2}
+    assert (got.grad_fn is not None) == (route == "grad")
+    if route == "grad":
+        got.float().square().sum().backward()
+        grad = unet.encoders[0].basic_module.SingleConv1.conv.weight.grad
+        assert grad is not None and float(grad.abs().sum()) > 0
+
+
+def test_executor_final_conv_gradient_is_the_former_forms(rng):
+    """Under autograd the executor's final conv is the form it had before the
+    kernel (an fp32 matmul of the bf16 values, the fp32 bias, one rounding,
+    over the whole volume): the same heatmaps and the same gradients to the
+    features, the weight and the bias, bit for bit."""
+    conv = torch.nn.Conv3d(6, 9, 1)
+    xf0 = torch.tensor(rng.normal(size=(4, 6, 35)).astype(np.float32)).to(torch.bfloat16)
+    g = torch.tensor(rng.normal(size=(4, 5, 7, 9)).astype(np.float32))
+    got = []
+    for form in ("now", "former"):
+        conv.zero_grad()
+        xf = xf0.clone().requires_grad_(True)
+        if form == "now":
+            out = fast_unet._final_conv_autograd(xf, (4, 5, 7), conv)
+        else:
+            hw = conv.weight[:, :, 0, 0, 0].t().to(torch.bfloat16).float()
+            hb = conv.bias.float()
+            out = (torch.matmul(xf.float().transpose(1, 2), hw) + hb).reshape(4, 5, 7, -1)
+            out = out.to(torch.bfloat16)
+        (out.float() * g).sum().backward()
+        got.append((out.detach(), xf.grad, conv.weight.grad.clone(), conv.bias.grad.clone()))
+    for a, b in zip(*got):
+        assert torch.equal(a, b)
+
+
 def test_pool_kernel_wrapper_refuses_an_input_that_needs_a_gradient():
     """``resblock.maxpool2_flat`` is forward only: with grad enabled it
     raises on an input that requires a grad (it would return a tensor cut
